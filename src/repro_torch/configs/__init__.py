@@ -1,0 +1,13 @@
+"""Architecture configs of the port (the slice's model only).
+Importing ``load_all()`` populates the registry."""
+import importlib
+
+_MODULES = ("qwen2_5_3b",)
+
+
+def load_all():
+    for m in _MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+
+
+from repro_torch.configs.base import ModelConfig, get_config  # noqa: E402,F401

@@ -1,0 +1,89 @@
+"""Model configuration for the port: the fields of ``repro.configs.base``
+that the serving slice reads, with the same names, defaults and
+``reduced()`` so a test can build the same model in both packages."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | hybrid | ssm | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None
+    mlp_gated: bool = True      # SwiGLU vs plain (GELU) MLP
+    qkv_bias: bool = False
+    pos: str = "rope"           # rope | learned | sinusoidal
+    rope_theta: float = 10000.0
+    norm: str = "rmsnorm"       # rmsnorm | layernorm
+    act: str = "silu"           # silu | gelu
+    tie_embeddings: bool = False
+    sliding_window: int = 0
+    enc_layers: int = 0
+    frontend: str = "none"      # none | audio_stub | vision_stub
+    # coded-memory integration (the paper's technique)
+    coded_embedding: bool = False
+    embed_banks: int = 8        # data banks for the coded vocab table
+    kv_banks: int = 0           # >0: banked+parity KV cache in serving path
+    kv_page: int = 64
+    # dtypes
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // max(self.n_heads, 1))
+        assert self.n_heads == 0 or self.n_heads % max(self.n_kv, 1) == 0
+
+    @property
+    def vocab_pad(self) -> int:
+        """Vocab rounded up to a multiple of 256; logits of the padded ids
+        are masked, tokens never reference them."""
+        return -(-self.vocab // 256) * 256
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.enc_layers > 0
+
+    def reduced(self) -> "ModelConfig":
+        """Tiny same-family variant for CPU tests (same cuts as the JAX
+        package's ``reduced()``)."""
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            n_layers=min(self.n_layers, 2),
+            d_model=128,
+            n_heads=4,
+            n_kv=2 if 0 < self.n_kv < self.n_heads else 4,
+            head_dim=32,
+            d_ff=256,
+            vocab=512,
+            sliding_window=min(self.sliding_window, 16)
+            if self.sliding_window else 0,
+            enc_layers=min(self.enc_layers, 2),
+        )
+
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    if not _REGISTRY:
+        from repro_torch import configs
+        configs.load_all()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]

@@ -1,0 +1,117 @@
+"""Transformer layers of the serving slice (``repro.models.layers``
+counterparts): RMS norm, half-split RoPE, GQA attention with QKV bias,
+SwiGLU MLP. Plain functions over parameter dicts in the JAX package's
+``(d_in, d_out)`` layout, so ``x @ W`` needs no transpose."""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32).mul_(scale).to(dtype)
+
+
+# ----------------------------------------------------------------- norms
+def norm_init(cfg: ModelConfig, dtype, device, lead=()) -> Params:
+    return {"scale": torch.ones(*lead, cfg.d_model, dtype=dtype,
+                                device=device)}
+
+
+def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """RMS norm in f32 (eps 1e-6), result in ``x``'s dtype."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + 1e-6) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ------------------------------------------------------------------ RoPE
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x (..., T, H, Dh), positions (..., T) -> rotated x (half-split
+    halves, not interleaved pairs), computed in f32."""
+    half = x.shape[-1] // 2
+    idx = torch.arange(half, dtype=torch.float32, device=x.device)
+    freqs = 1.0 / (theta ** (idx / half))
+    ang = positions[..., None].float() * freqs            # (..., T, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------- attention
+def attn_init(cfg: ModelConfig, gen: torch.Generator, dtype,
+              lead=()) -> Params:
+    """Attention weights; ``lead`` prefixes every shape (a layer axis)."""
+    d, hd, nh, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv
+    s = d ** -0.5
+    p = {
+        "wq": _normal(gen, (*lead, d, nh * hd), s, dtype),
+        "wk": _normal(gen, (*lead, d, nkv * hd), s, dtype),
+        "wv": _normal(gen, (*lead, d, nkv * hd), s, dtype),
+        "wo": _normal(gen, (*lead, nh * hd, d), (nh * hd) ** -0.5, dtype),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd)):
+            p[name] = torch.zeros(*lead, n, dtype=dtype, device=gen.device)
+    return p
+
+
+def qkv_proj(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """x (B,T,D) -> q (B,T,H,dh), k/v (B,T,Hkv,dh)."""
+    b, t, _ = x.shape
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(b, t, cfg.n_heads, cfg.head_dim),
+            k.reshape(b, t, cfg.n_kv, cfg.head_dim),
+            v.reshape(b, t, cfg.n_kv, cfg.head_dim))
+
+
+def mha(q: torch.Tensor,            # (B, Tq, H, dh)
+        k: torch.Tensor,            # (B, Tk, Hkv, dh)
+        v: torch.Tensor,            # (B, Tk, Hkv, dh)
+        mask: Optional[torch.Tensor],  # broadcastable to (B,Hkv,G,Tq,Tk)
+        ) -> torch.Tensor:
+    """GQA attention with f32 logits and softmax; masked logits are -1e30.
+    Head ``h`` reads kv head ``h % Hkv`` (the JAX package's grouping)."""
+    b, tq, h, dh = q.shape
+    hkv = k.shape[2]
+    qf = q.float().reshape(b, tq, h // hkv, hkv, dh)
+    logits = torch.einsum("bqgkd,btkd->bkgqt", qf, k.float()) * (dh ** -0.5)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqt,btkd->bqgkd", w, v.float())
+    return out.reshape(b, tq, h, dh).to(q.dtype)
+
+
+def causal_mask(tq: int, tk: int, device) -> torch.Tensor:
+    """(1,1,1,Tq,Tk) causal mask, query 0 at key position 0."""
+    qi = torch.arange(tq, device=device)[:, None]
+    ki = torch.arange(tk, device=device)[None, :]
+    return (ki <= qi)[None, None, None]
+
+
+# ------------------------------------------------------------------- MLP
+def mlp_init(cfg: ModelConfig, gen: torch.Generator, dtype,
+             lead=()) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_up": _normal(gen, (*lead, d, f), d ** -0.5, dtype),
+            "w_down": _normal(gen, (*lead, f, d), f ** -0.5, dtype),
+            "w_gate": _normal(gen, (*lead, d, f), d ** -0.5, dtype)}
+
+
+def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: silu(x @ W_gate) * (x @ W_up) @ W_down."""
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

@@ -1,0 +1,192 @@
+"""Language model of the serving slice (``repro.models.lm`` counterpart):
+the dense decoder family, prompt prefill and the decode step over the coded
+KV page pool.
+
+Params are nested dicts in the JAX package's layout: per-layer leaves
+stacked on axis 0 under ``"blocks"``, matrices ``(d_in, d_out)``. The JAX
+package casts the f32 params to the compute dtype inside every step; here
+``cast_params`` does it once at load (serving never changes them), and
+``prefill``/``decode_step_pooled`` take the cast params.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.coded_kv_decode import ops as ckd_ops
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import layers as ly
+from repro_torch.models.embedding import (coded_parity, embed_init,
+                                          embed_lookup, tied_logits)
+from repro_torch.runtime import kvbank as kb
+
+Params = Dict[str, Any]
+
+
+def check_slice(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config outside the ported
+    slice (dense RoPE/RMSNorm/SwiGLU decoder with a tied head)."""
+    if cfg.family != "dense" or cfg.is_encdec or cfg.frontend != "none" \
+            or cfg.sliding_window:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense global-attention decoder is ported "
+            "(ROADMAP.md, queue 1: 'Other model families and training')")
+    if (cfg.pos, cfg.norm, cfg.act, cfg.mlp_gated, cfg.tie_embeddings) != \
+            ("rope", "rmsnorm", "silu", True, True):
+        raise NotImplementedError(
+            f"{cfg.name}: only RoPE + RMSNorm + SwiGLU with a tied head is "
+            "ported (ROADMAP.md, queue 1: 'Serving remainder')")
+
+
+def _map(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def layer_params(blocks: Params, i: int) -> Params:
+    """Layer ``i``'s slice (views) of the stacked block params."""
+    return _map(lambda a: a[i], blocks)
+
+
+# ======================================================================
+# init / load
+# ======================================================================
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
+    """Random params in ``cfg.param_dtype`` from a seeded
+    ``torch.Generator`` on ``device`` (the card unless named). The port's
+    own init: the JAX package's ``jax.random`` bits are not reproduced;
+    ``convert.params_from_jax`` carries a JAX tree across instead."""
+    check_slice(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    pd = getattr(torch, cfg.param_dtype)
+    lead = (cfg.n_layers,)
+    return {
+        "embed": embed_init(cfg, gen, pd),
+        "final_norm": ly.norm_init(cfg, pd, device),
+        "blocks": {"norm1": ly.norm_init(cfg, pd, device, lead),
+                   "norm2": ly.norm_init(cfg, pd, device, lead),
+                   "attn": ly.attn_init(cfg, gen, pd, lead),
+                   "mlp": ly.mlp_init(cfg, gen, pd, lead)},
+    }
+
+
+def cast_params(cfg: ModelConfig, params: Params, device) -> Params:
+    """Serving params: float leaves in the compute dtype on ``device``,
+    cast once here instead of in every step. The coded embedding's parity
+    is computed once too, on the cast (compute-dtype) bits, exactly the
+    bits the JAX package encodes in every lookup."""
+    cd = getattr(torch, cfg.compute_dtype)
+    out = _map(lambda a: a.to(device=device, dtype=cd)
+               if a.is_floating_point() else a.to(device), params)
+    if cfg.coded_embedding:
+        out["embed"]["par"] = coded_parity(out["embed"]["banks"])
+    return out
+
+
+# ======================================================================
+# shared pieces
+# ======================================================================
+def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor):
+    """f32 logits over the padded vocab; padding ids masked to -1e30."""
+    logits = tied_logits(cfg, params["embed"], x).float()
+    logits[..., cfg.vocab:] = -1e30
+    return logits
+
+
+def _block_tail(cfg, bp, x, o):
+    """Attention output projection + residual, then the MLP half."""
+    b, t = o.shape[:2]
+    x = x + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ bp["attn"]["wo"]
+    h = ly.apply_norm(cfg, bp["norm2"], x)
+    return x + ly.mlp_block(cfg, bp["mlp"], h)
+
+
+# ======================================================================
+# serving: prefill + pooled decode
+# ======================================================================
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Process the prompt (B, S); return (last-token logits (B, V) f32,
+    {"k", "v": (L, B, S, Hkv, Dh)}). Causal attention over every position,
+    pads included, as in the JAX package."""
+    cd = getattr(torch, cfg.compute_dtype)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    mask = ly.causal_mask(s, s, tokens.device)
+    x = embed_lookup(cfg, params["embed"], tokens, cd)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        h = ly.apply_norm(cfg, bp["norm1"], x)
+        q, k, v = ly.qkv_proj(cfg, bp["attn"], h)
+        q = ly.rope(q, positions, cfg.rope_theta)
+        k = ly.rope(k, positions, cfg.rope_theta)
+        x = _block_tail(cfg, bp, x, ly.mha(q, k, v, mask))
+        ks.append(k)
+        vs.append(v)
+    x = ly.apply_norm(cfg, params["final_norm"], x)
+    return _logits(cfg, params, x[:, -1:])[:, 0], {"k": torch.stack(ks),
+                                                  "v": torch.stack(vs)}
+
+
+def decode_step_pooled(cfg: ModelConfig, kvcfg: kb.KVBankConfig,
+                       params: Params, token: torch.Tensor, pool: kb.PooledKV,
+                       *, recode_budget: Optional[int] = None):
+    """One decode step over the coded KV page pool (the serving path).
+
+    token (B,) -> (logits (B, V) f32, pool), the pool updated in place.
+    Appends mark the code-status table; every layer writes its new K/V
+    into its banks and then gathers its logical K/V through the shared
+    read plan (``gather_pool_layer``: the CUDA kernel on the card); the
+    ReCoding unit refreshes parity after the layers. With no recode budget
+    on a coded pool the encode is fused into the write (bit-identical to
+    write-then-full-recode). Slots without a page-table row write nothing
+    and keep length 0."""
+    cd = getattr(torch, cfg.compute_dtype)
+    pos = pool.length.clone()
+    active = (pool.page_table[:, 0] >= 0) & (pos > 0)
+    x = embed_lookup(cfg, params["embed"], token[:, None], cd)
+
+    widx = kb.pool_write_index(kvcfg, pool, active)
+    kb.pool_mark_stale(kvcfg, pool, widx)
+    len_eff = pos + active.to(pos.dtype)
+    plan = kb.pool_plan(kvcfg, pool, length=len_eff)
+    lanes = kb.write_lanes(kvcfg, widx)
+    fused = recode_budget is None and kb.pool_coded(pool)
+    n_keys = kvcfg.max_pages * kvcfg.page
+    mask = (torch.arange(n_keys, device=token.device)[None, :]
+            < len_eff[:, None])[:, None, None, None, :]
+    qpos = pos[:, None]
+
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        h = ly.apply_norm(cfg, bp["norm1"], x)
+        q, k, v = ly.qkv_proj(cfg, bp["attn"], h)
+        q = ly.rope(q, qpos, cfg.rope_theta)
+        k = ly.rope(k, qpos, cfg.rope_theta)
+        kbank, vbank = pool.k_banks[i], pool.v_banks[i]
+        kpar, vpar = pool.k_par[i], pool.v_par[i]
+        # write before read, on one stream: the gather sees this token
+        if fused:
+            kb.pool_write_layer_fused(kvcfg, kbank, vbank, kpar, vpar, lanes,
+                                      k[:, 0], v[:, 0])
+        else:
+            kb.pool_write_layer(kvcfg, kbank, vbank, lanes, k[:, 0], v[:, 0])
+        k_log, v_log = ckd_ops.gather_pool_layer(
+            kbank, vbank, kpar, vpar, pool.page_table, plan.use_parity, cd)
+        x = _block_tail(cfg, bp, x, ly.mha(q, k_log, v_log, mask))
+
+    pool.length.copy_(len_eff)
+    if fused:
+        # parity was delta-maintained per layer: refreshing the status
+        # table IS the recode
+        pool.parity_fresh.fill_(True)
+    else:
+        kb.pool_recode(kvcfg, pool, budget=recode_budget)
+    x = ly.apply_norm(cfg, params["final_norm"], x)
+    return _logits(cfg, params, x)[:, 0], pool

@@ -1,0 +1,206 @@
+"""Serving runtime: continuous batching over the coded KV page pool
+(``repro.runtime.server`` counterpart, pooled path).
+
+Request lifecycle: queued -> prefill (one call per admitted request, the
+prompt left-padded with token 0 to ``max_prompt``) -> decode slot (joins the
+batched decode step) -> finished (EOS / ``max_new_tokens``). Slots are
+fixed (``n_slots``); free slots decode garbage that is ignored.
+
+Admission assigns physical pages from a FIFO free list (freed pages recycle
+at the tail, so a long-running server churns placement), appends mark the
+code-status table, reads follow the planner's degraded-read plan through the
+pool gather, and the ReCoding unit refreshes parity between steps.
+``ServeConfig.coded=False`` serves from the uncoded pool (no parity).
+
+Not ported yet (``NotImplementedError``, see ROADMAP.md queue 1, 'Serving
+remainder'): the ring cache and every config it serves, the device metric
+planes (``telemetry=True``), and snapshot/restore.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import lm
+from repro_torch.obs.serve import ServeLog
+from repro_torch.runtime import kvbank as kb
+from repro_torch.runtime import steps as steps_mod
+
+_REMAINDER = "(ROADMAP.md, queue 1: 'Serving remainder')"
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    n_slots: int = 4
+    max_prompt: int = 64
+    max_seq: int = 256
+    max_new_tokens: int = 32
+    eos_id: int = -1            # -1: never stop early
+    # ---- coded KV page pool ----
+    coded: bool = True          # False: uncoded pool (no parity arrays)
+    telemetry: bool = False     # device serve metric planes (not ported)
+    recode_budget: Optional[int] = None  # None: full recode; -1: never
+    page: int = 0               # tokens per page; 0 -> cfg.kv_page
+    pool_pages: int = 0         # physical pool size; 0 -> 2x working set
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def _wants_pool(cfg: ModelConfig) -> bool:
+    return (cfg.kv_banks > 0 and cfg.family in ("dense", "moe")
+            and not cfg.is_encdec and cfg.sliding_window == 0
+            and cfg.frontend == "none")
+
+
+class Server:
+    """Continuous-batching server on ``device`` (the CUDA card unless the
+    caller names another; no card raises). ``params`` is a tree from
+    ``lm.init_params`` or ``convert.params_from_jax`` on any device; it is
+    cast to the compute dtype and moved to ``device`` once, here."""
+
+    def __init__(self, cfg: ModelConfig, sc: ServeConfig, params, *,
+                 device=None, clock=None):
+        self.device = resolve_device(device)
+        if not _wants_pool(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: only the coded KV page pool is ported; the "
+                f"ring cache is not {_REMAINDER}")
+        lm.check_slice(cfg)
+        if sc.telemetry:
+            raise NotImplementedError(
+                f"ServeConfig.telemetry: serve metric planes {_REMAINDER}")
+        self.cfg, self.sc = cfg, sc
+        self.params = lm.cast_params(cfg, params, self.device)
+        self.prefill = steps_mod.make_prefill_step(cfg)
+        self.queue: List[Request] = []
+        self.slots: List[Optional[Request]] = [None] * sc.n_slots
+        self.log = ServeLog(clock=clock)
+        b = sc.n_slots
+        page = sc.page or cfg.kv_page
+        mp = -(-sc.max_seq // page)
+        need = b * mp
+        pool_pages = sc.pool_pages or -(-2 * need // cfg.kv_banks) \
+            * cfg.kv_banks
+        if pool_pages % cfg.kv_banks or pool_pages < need:
+            raise ValueError(f"pool of {pool_pages} pages: needs a multiple "
+                             f"of {cfg.kv_banks} banks and >= {need} pages")
+        self.kvcfg = kb.KVBankConfig(n_banks=cfg.kv_banks, page=page,
+                                     pool_pages=pool_pages, max_pages=mp)
+        pool = kb.pool_init(self.kvcfg, cfg.n_layers, b, cfg.n_kv,
+                            cfg.head_dim, getattr(torch, cfg.compute_dtype),
+                            device=self.device, coded=sc.coded)
+        self.cache = {"pool": pool}
+        self.free_pages: List[int] = list(range(pool_pages))
+        self.slot_pages: List[List[int]] = [[] for _ in range(b)]
+        self.decode = steps_mod.make_pooled_serve_step(
+            cfg, self.kvcfg, recode_budget=sc.recode_budget)
+        # encode-on-write at install matches the fused decode path (the
+        # status table still goes stale-then-fresh identically)
+        self._fuse = sc.coded and sc.recode_budget is None
+        self.tokens = torch.zeros(b, dtype=torch.int64, device=self.device)
+        self.steps_run = 0
+
+    # ------------------------------------------------------------- admission
+    def submit(self, req: Request):
+        self.log.submit(req.rid)
+        self.queue.append(req)
+
+    def _admit(self):
+        for i, slot in enumerate(self.slots):
+            if slot is not None or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            prompt = req.prompt[-self.sc.max_prompt:]
+            self.log.admit(req.rid, i, len(prompt))
+            pad = self.sc.max_prompt - len(prompt)
+            toks = torch.tensor([[0] * pad + prompt], dtype=torch.int64,
+                                device=self.device)
+            tok, cache1 = self.prefill(self.params, toks)
+            self._install(i, tok, cache1)
+            req.out.append(int(tok[0]))
+            self.log.prefill_done(req.rid)
+            self.slots[i] = req
+
+    @torch.no_grad()
+    def _install(self, i: int, tok, cache1):
+        """Assign pool pages to slot i and install the prefilled KV."""
+        need = self.kvcfg.max_pages
+        if len(self.free_pages) < need:
+            raise RuntimeError("pool sized below the working set")
+        phys = [self.free_pages.pop(0) for _ in range(need)]
+        pool = self.cache["pool"]
+        pool.page_table[i] = torch.tensor(phys, dtype=torch.int32)
+        kb.pool_install(self.kvcfg, pool, i, cache1["k"][:, 0],
+                        cache1["v"][:, 0], fuse_encode=self._fuse)
+        self.slot_pages[i] = phys
+        self.tokens[i] = tok[0]
+
+    def _retire(self, i: int):
+        self.free_pages.extend(self.slot_pages[i])
+        self.slot_pages[i] = []
+        pool = self.cache["pool"]
+        pool.page_table[i] = -1
+        pool.length[i] = 0
+
+    # ----------------------------------------------------------------- step
+    def step(self):
+        self._admit()
+        self.step_decode()
+
+    def step_decode(self):
+        """One batched decode step (no admission)."""
+        if not any(s is not None for s in self.slots):
+            return
+        self.tokens, self.cache = self.decode(self.params, self.tokens,
+                                              self.cache)
+        self.steps_run += 1
+        toks = self.tokens.tolist()
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            t = toks[i]
+            req.out.append(t)
+            self.log.token(req.rid)
+            if (self.sc.eos_id >= 0 and t == self.sc.eos_id) or \
+               len(req.out) >= self.sc.max_new_tokens:
+                req.done = True
+                self.log.finish(req.rid)
+                self.slots[i] = None
+                self._retire(i)
+
+    def run_until_drained(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            self.step()
+            if not self.queue and all(s is None for s in self.slots):
+                break
+
+    # ------------------------------------------------------------ placement
+    @torch.no_grad()
+    def permute_pool(self, perm):
+        """Relocate physical pages (placement churn / defrag model): page p
+        moves to ``perm[p]``; tables, free list and parity follow, so decode
+        output is invariant."""
+        perm = np.asarray(perm)
+        kb.pool_permute(self.kvcfg, self.cache["pool"],
+                        torch.as_tensor(perm, dtype=torch.int64,
+                                        device=self.device))
+        self.free_pages = [int(perm[p]) for p in self.free_pages]
+        self.slot_pages = [[int(perm[p]) for p in pp]
+                           for pp in self.slot_pages]
+
+    def snapshot(self):
+        raise NotImplementedError(f"Server.snapshot {_REMAINDER}")
+
+    def restore_snapshot(self, snap):
+        raise NotImplementedError(f"Server.restore_snapshot {_REMAINDER}")
