@@ -27,7 +27,23 @@ Phases, each of which fails the run (nonzero exit, no result line):
    decode steps then reports the device's busy and idle share;
 4. cross-device: the reduced config at f32 (TF32 off) serves identical
    tokens on the card and on the CPU from the same params, and the prefill
-   and decode logits agree to rtol = atol = 1e-4.
+   and decode logits agree to rtol = atol = 1e-4;
+5. simulator kernels: ``gather_decode_cuda`` and ``encode_parities_cuda``
+   against their plain versions on the card, bit for bit, at three shapes
+   each (the simulator's; ``bench_kernels``'; one of at least 256 MB), with
+   their time per launch, byte bound, plain time and, where one PyTorch call
+   computes the same function, that call's time;
+6. simulate: the coded-memory simulator at the paper figures' geometry (8
+   banks x 320 rows, queue depth 10, 8 cores x 96 requests of a seeded
+   banded trace, r = 0.05, select period 32) for uncoded, scheme_i,
+   scheme_iii at alpha 1 and scheme_i, scheme_ii at alpha 0.25, on the card
+   and on the CPU. Every SimResult field and final state leaf must agree;
+   every read the scheme_i alpha 0.25 run serves must return the value
+   committed before its cycle; scheme_i at alpha 1 must take fewer cycles
+   than uncoded; each kernel's launches must equal its wrapper's calls on
+   the card (one region encode per switch, at least one per alpha < 1
+   run). It reports ms per simulated cycle, cycles/s, and a profiled window's
+   kernel launches per cycle and device idle share.
 
 The third-to-last line is the card's name and power limit, the
 second-to-last the kernel table as JSON, the last
@@ -55,6 +71,14 @@ SERVE = dict(n_slots=8, max_prompt=128, max_seq=2048, max_new_tokens=32,
 N_REQUESTS = 16
 CHURN_SEED = 5                   # the placement permutation of every run
 LOGITS_TOL = 1e-4                # card vs CPU at f32: summation order
+# the simulator at the geometry of benchmarks/fig18_dedup.py (select period
+# 32; fig19/fig20 use 64): 8 banks x 320 rows, 8 cores x 96 requests
+SIM_TRACE = dict(n_cores=8, length=96, n_banks=8, n_rows=320, seed=0,
+                 write_frac=0.3)
+SIM_KW = dict(r=0.05, select_period=32)
+SIM_RUNS = (("uncoded", 1.0), ("scheme_i", 1.0), ("scheme_i", 0.25),
+            ("scheme_ii", 0.25), ("scheme_iii", 1.0))
+GOLDEN_RUN = ("scheme_i", 0.25)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -432,6 +456,338 @@ def cross_device_phase(torch):
           f"{n_degraded} degraded page reads on the card")
 
 
+# ---------------------------------------------------------------- phase 5
+def _gather_columns(torch, gen, n, n_data, rows, n_par, prows, mix=True):
+    """int32 request columns on the card. ``mix``: every mode (-1 .. 6),
+    sibling -1 included, as degraded reads of real options would have
+    them; otherwise all direct reads."""
+    def rint(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    bank, row = rint(0, n_data), rint(0, rows)
+    if not mix:
+        zero, neg = torch.zeros_like(bank), torch.full_like(bank, -1)
+        return [bank, row, torch.ones_like(bank), zero, zero, neg, neg]
+    sib0 = rint(-1, n_data)
+    return [bank, row, rint(-1, 7), rint(0, n_par), rint(0, prows), sib0,
+            torch.where(sib0 < 0, -1, rint(-1, n_data))]
+
+
+def _gather_bytes(torch, cols, banks, pars) -> int:
+    """Bytes the gather must move: each needed row once (direct: its bank
+    row; degraded: parity row and live siblings; redirect: parity row),
+    the output and the seven columns."""
+    bank, row, mode, par, prow, sib0, sib1 = (c.long() for c in cols)
+    nd, rows, w = banks.shape
+    npar, prows = pars.shape[:2]
+    row = row.clamp(0, rows - 1)
+    opt = (mode >= 2) & (mode < 6)
+    direct = (mode >= 0) & ~opt & (mode != 6)
+    bank_ids = [(bank.clamp(0, nd - 1) * rows + row)[direct]]
+    for s in (sib0, sib1):
+        bank_ids.append((s.clamp(0, nd - 1) * rows + row)[opt & (s >= 0)])
+    par_ids = (par.clamp(0, npar - 1) * prows
+               + prow.clamp(0, prows - 1))[opt | (mode == 6)]
+    n_rows = (int(torch.unique(torch.cat(bank_ids)).numel())
+              + int(torch.unique(par_ids).numel()))
+    row_bytes = w * banks.element_size()
+    return (n_rows + mode.numel()) * row_bytes + 7 * 4 * mode.numel()
+
+
+def sim_kernel_phase(torch):
+    from repro_torch.core.codes import get_tables
+    from repro_torch.kernels.xor_encode import kernel as ek
+    from repro_torch.kernels.xor_encode.ref import encode_parities_plain
+    from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.kernels.xor_gather.ref import gather_decode_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    i32 = torch.int32
+
+    def bits(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                             device="cuda", dtype=i32)
+
+    sch = get_tables("scheme_i")
+    pairs = torch.tensor([[2 * g, 2 * g + 1, -1] for g in range(4)],
+                         dtype=i32, device="cuda")
+    results = {}
+    # name: (n_data, rows, n_par, prows, W, N, mixed modes, launches timed)
+    gather_shapes = {"sim": (8, 320, 12, 320, 1, 80, True, 400),
+                     "bench": (8, 256, 4, 256, 256, 64, False, 400),
+                     "large": (8, 8192, 12, 2048, 1024, 16384, True, 40)}
+    for shape, (nd, rows, npar, prows, w, n, mix, reps) in \
+            gather_shapes.items():
+        banks, pars = bits(nd, rows, w), bits(npar, prows, w)
+        cols = _gather_columns(torch, gen, n, nd, rows, npar, prows, mix)
+        out = gk.gather_decode_cuda(banks, pars, *cols)
+        torch.cuda.synchronize()
+        ref = gather_decode_plain(banks, pars, *cols)
+        check(torch.equal(out, ref),
+              f"xor_gather {shape}: kernel differs from the plain version")
+        err = int((out.long() - ref.long()).abs().max())
+        ms = time_on_card(torch, lambda: gk.gather_decode_cuda(
+            banks, pars, *cols), reps)
+        plain_ms = time_on_card(torch, lambda: gather_decode_plain(
+            banks, pars, *cols), max(reps // 10, 5))
+        n_bytes = _gather_bytes(torch, cols, banks, pars)
+        lib_ms = None
+        if not mix:        # direct reads only: one index_select of the rows
+            flat = banks.view(nd * rows, w)
+            idx = cols[0].long() * rows + cols[1].long()
+            check(torch.equal(torch.index_select(flat, 0, idx), out),
+                  "xor_gather bench: index_select differs")
+            lib_ms = time_on_card(torch, lambda: torch.index_select(
+                flat, 0, idx), reps)
+        results[("xor_gather", shape)] = _kernel_row(
+            "xor_gather", shape, ms, plain_ms, n_bytes, lib_ms, err,
+            f"banks ({nd},{rows},{w}) + parities ({npar},{prows},{w}) "
+            f"int32 = {(nd * rows + npar * prows) * w * 4 / 1e6:.1f} MB, "
+            f"N={n}{' mixed modes' if mix else ' direct'}")
+    # name: (n_data, rows, W, members, launches timed)
+    encode_shapes = {"sim": (8, 16, 1, "scheme_i", 400),
+                     "bench": (8, 512, 256, "pairs", 400),
+                     "large": (8, 8192, 1024, "pairs", 40)}
+    for shape, (nd, rows, w, mem, reps) in encode_shapes.items():
+        banks = bits(nd, rows, w)
+        members = pairs if mem == "pairs" else torch.from_numpy(
+            sch.par_members).to("cuda")
+        out = ek.encode_parities_cuda(banks, members)
+        torch.cuda.synchronize()
+        ref = encode_parities_plain(banks, members)
+        check(torch.equal(out, ref),
+              f"xor_encode {shape}: kernel differs from the plain version")
+        err = int((out.long() - ref.long()).abs().max())
+        ms = time_on_card(torch, lambda: ek.encode_parities_cuda(
+            banks, members), reps)
+        plain_ms = time_on_card(torch, lambda: encode_parities_plain(
+            banks, members), max(reps // 10, 5))
+        npar = members.shape[0]
+        n_bytes = (nd + npar) * rows * w * 4 + members.numel() * 4
+        lib_ms = None
+        if mem == "pairs":       # pairwise members: one strided XOR
+            check(torch.equal(banks[0::2] ^ banks[1::2], out),
+                  f"xor_encode {shape}: banks[0::2] ^ banks[1::2] differs")
+            lib_ms = time_on_card(torch, lambda: banks[0::2] ^ banks[1::2],
+                                  reps)
+        results[("xor_encode", shape)] = _kernel_row(
+            "xor_encode", shape, ms, plain_ms, n_bytes, lib_ms, err,
+            f"banks ({nd},{rows},{w}) int32 = {nd * rows * w * 4 / 1e6:.1f} "
+            f"MB, {npar} parities ({mem})")
+        del banks, out, ref
+    torch.cuda.empty_cache()
+    return results
+
+
+def _kernel_row(name, shape, ms, plain_ms, n_bytes, lib_ms, err, what):
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    lib = "n/a" if lib_ms is None else f"{lib_ms * 1e3:.2f} us"
+    print(f"kernel {name} {shape}: bit-exact vs plain; {ms * 1e3:.2f} "
+          f"us/launch, bound {bound_ms * 1e3:.3f} us ({n_bytes / 1e6:.4f} MB "
+          f"at 3.35 TB/s, {bound_ms / ms:.1%} of it), plain "
+          f"{plain_ms:.3f} ms, library {lib}; {what}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                library_ms=lib_ms, max_abs_err=err, bytes=n_bytes)
+
+
+# ---------------------------------------------------------------- phase 6
+class GoldenCheck:
+    """``on_cycle`` hook: every read a cycle serves must return the golden
+    (memory-order) value committed before that cycle. Counts on the
+    device; ``result()`` reads them once."""
+
+    def __init__(self):
+        self.bad = self.served = 0      # device tensors after the first cycle
+
+    def __call__(self, before, after, out):
+        want = before.mem.golden[out.r_bank.long(),
+                                 out.r_row.long().clamp(min=0)]
+        self.bad = self.bad + ((out.r_value != want) & out.r_served).sum()
+        self.served = self.served + out.r_served.sum()
+
+    def result(self):
+        return int(self.bad), int(self.served)
+
+
+def _same_state(torch, a, b) -> bool:
+    leaves = list(zip(a.mem, b.mem)) + [(a.core_ptr, b.core_ptr),
+                                        (a.done_cycle, b.done_cycle)]
+    return all((x is None and y is None) or (
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()))
+        for x, y in leaves)
+
+
+def simulate_phase(torch):
+    from repro_torch.kernels.xor_encode import kernel as ek
+    from repro_torch.kernels.xor_encode import ops as eops
+    from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.kernels.xor_gather import ops as gops
+    from repro_torch.sim import ramulator, trace
+
+    spec = trace.TraceSpec(**SIM_TRACE)
+    traces = {dev: trace.banded_trace(spec, device=dev)
+              for dev in ("cuda", "cpu")}
+    n_cycles = ramulator.default_n_cycles(traces["cpu"])
+    n_rows = SIM_TRACE["n_rows"]
+    results = {}
+    card_s = 0.0
+    gk.launches = ek.launches = 0                   # main path starts here
+    for scheme, alpha in SIM_RUNS:
+        name = f"{scheme} alpha={alpha}"
+        golden = GoldenCheck() if (scheme, alpha) == GOLDEN_RUN \
+            else None
+        calls = {}
+        out = {}
+        for dev in ("cuda", "cpu"):
+            g0, e0, gc0, ec0 = gk.launches, ek.launches, gops.calls, \
+                eops.calls
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, st = ramulator.simulate(
+                scheme, traces[dev], n_rows, alpha=alpha, device=dev,
+                return_state=True, on_cycle=golden if dev == "cuda" else None,
+                **SIM_KW)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            calls[dev] = (gops.calls - gc0, eops.calls - ec0)
+            launched = (gk.launches - g0, ek.launches - e0)
+            if dev == "cuda":
+                card_s += secs
+                check(launched == calls[dev],
+                      f"simulate {name}: launches {launched} != wrapper "
+                      f"calls {calls[dev]} on the card")
+            else:
+                check(launched == (0, 0),
+                      f"simulate {name}: CPU run launched {launched}")
+            out[dev] = (res, st, secs)
+        (res, st, secs), (res_c, st_c, secs_c) = out["cuda"], out["cpu"]
+        check(calls["cuda"] == calls["cpu"],
+              f"simulate {name}: card calls {calls['cuda']} vs CPU "
+              f"{calls['cpu']}")
+        check(res == res_c, f"simulate {name}: card {res} vs CPU {res_c}")
+        check(_same_state(torch, st, st_c),
+              f"simulate {name}: final state leaves differ card vs CPU")
+        check(res.completed, f"simulate {name}: the workload did not drain")
+        check(calls["cuda"][1] == res.switches,
+              f"simulate {name}: {calls['cuda'][1]} region encodes for "
+              f"{res.switches} switches")
+        if alpha < 1:
+            check(calls["cuda"][1] >= 1,
+                  f"simulate {name}: xor_encode never launched")
+        extra = ""
+        if golden is not None:
+            bad, served = golden.result()
+            check(bad == 0 and served == res.served_reads,
+                  f"simulate {name}: {bad} of {served} served reads did "
+                  "not return the committed value")
+            extra = f"; all {served} served reads returned committed values"
+        results[(scheme, alpha)] = res
+        print(f"simulate {name}: {res.cycles} cycles to drain, "
+              f"{res.served_reads} reads ({res.degraded_reads} degraded) + "
+              f"{res.served_writes} writes ({res.parked_writes} parked), "
+              f"{res.switches} switches, stalls {res.stall_cycles}, avg read "
+              f"latency {res.avg_read_latency:.3f}; {n_cycles} cycles run: "
+              f"card {secs:.2f} s = {secs / n_cycles * 1e3:.3f} ms/cycle "
+              f"({n_cycles / secs:.0f} cycles/s), CPU {secs_c:.2f} s = "
+              f"{secs_c / n_cycles * 1e3:.3f} ms/cycle; launches xor_gather "
+              f"{calls['cuda'][0]}, xor_encode {calls['cuda'][1]}; card = CPU "
+              f"in every field and leaf{extra}")
+    launches = {"xor_gather": gk.launches, "xor_encode": ek.launches}
+    # main path ends here
+    check(results[("scheme_i", 1.0)].cycles < results[("uncoded", 1.0)].cycles,
+          "scheme_i at alpha 1 did not beat uncoded")
+    check(all(v > 0 for v in launches.values()),
+          f"simulate: a kernel of the path never launched: {launches}")
+    total = n_cycles * len(SIM_RUNS)
+    print(f"simulate: {len(SIM_RUNS)} card runs, {total} cycles in "
+          f"{card_s:.1f} s = {card_s / total * 1e3:.3f} ms/cycle, "
+          f"{total / card_s:.0f} simulated cycles/s; launches {launches}")
+    profile_sim(torch, traces["cuda"])
+    return launches
+
+
+def profile_sim(torch, tr, n: int = 40) -> None:
+    """Where a simulated cycle's time goes, in two windows of ``n`` cycles
+    of scheme_i at alpha 0.25: a busy one (from cycle 20, queues loaded)
+    and a drained one (from cycle 600; ~90% of a run's 1216 cycles come
+    after the workload drains). Each is timed on the host clock without
+    the profiler, then under torch.profiler for device busy time, kernel
+    launches and copies per cycle. Then the cost of the off-duty branch,
+    which running both branches every cycle would add."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.codes import get_tables
+    from repro_torch.core.state import make_params, make_tunables
+    from repro_torch.core.system import CodedMemorySystem
+
+    tables = get_tables(GOLDEN_RUN[0])
+    p = make_params(tables, SIM_TRACE["n_rows"], GOLDEN_RUN[1],
+                    SIM_KW["r"])
+    sys_ = CodedMemorySystem(tables, p, n_cores=SIM_TRACE["n_cores"],
+                             tunables=make_tunables(
+                                 select_period=SIM_KW["select_period"]),
+                             device="cuda")
+    st, done = sys_.init(), 0
+    for window, start in (("busy", 20), ("drained", 600)):
+        st, _ = sys_._run(st, tr, start - done)
+        done = start + n
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sys_._run(st, tr, n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            st, _ = sys_._run(st, tr, n)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3 / n
+        path = ROOT / "build" / f"chip_smoke_sim_{window}_trace.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        busy = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+                ("kernel", "gpu_memcpy", "gpu_memset")]
+        if not busy:
+            print(f"profile simulate {window}: the trace holds no device "
+                  "activity; device busy share not measured")
+            continue
+        busy_ms = sum(e["dur"] for e in busy) / 1e3 / n
+        kernels = [e for e in busy if e["cat"] == "kernel"]
+        copies = sum(e["cat"] == "gpu_memcpy" for e in busy) / n
+        ours = {k: sum(e["dur"] for e in kernels if k in e["name"]) / 1e3 / n
+                for k in ("xor_gather", "xor_encode")}
+        print(f"profile simulate {window} cycles {start}..{start + n} of "
+              f"{GOLDEN_RUN[0]} alpha={GOLDEN_RUN[1]}: wall {wall_ms:.3f} "
+              f"ms/cycle ({prof_ms:.3f} under the profiler), device busy "
+              f"{busy_ms:.3f} ms/cycle (idle {1 - busy_ms / wall_ms:.1%} of "
+              f"the unprofiled wall), {len(kernels) / n:.0f} kernel launches "
+              f"and {copies:.1f} copies per cycle; xor_gather "
+              f"{ours['xor_gather']:.4f} ms/cycle, xor_encode "
+              f"{ours['xor_encode']:.4f} ms/cycle")
+    # what running both branches every cycle (the JAX program's choice,
+    # for vmap) would add: the off-duty branch on masked-invalid candidates
+    m = st.mem
+    off = {"read": m._replace(rq_valid=torch.zeros_like(m.rq_valid)),
+           "write": m._replace(wq_valid=torch.zeros_like(m.wq_valid))}
+    off_ms = {}
+    for side, fn in (("read", sys_._do_reads), ("write", sys_._do_writes)):
+        fn(off[side], sys_.p.region_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(off[side], sys_.p.region_size)
+        torch.cuda.synchronize()
+        off_ms[side] = (time.perf_counter() - t0) * 1e3 / n
+    print(f"profile simulate: an off-duty branch on masked candidates costs "
+          f"{off_ms['read']:.3f} ms (read side) / {off_ms['write']:.3f} ms "
+          f"(write side) per call on the host clock; running both branches "
+          f"every cycle would add that to each cycle")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -444,15 +800,22 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    res = build.build("gather_pool")
-    print(f"build: {res.name}.cu, nvcc {res.seconds:.1f} s -> {res.path.name}")
-    for line in res.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    {line.strip()}")
+    t0 = time.perf_counter()
+    built = build.build_all(sorted(f.stem for f in build.CSRC.glob("*.cu")))
+    print(f"build: {len(built)} sources with parallel nvcc in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for res in built:
+        print(f"build: {res.name}.cu, nvcc {res.seconds:.1f} s -> "
+              f"{res.path.name}")
+        for line in res.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {line.strip()}")
 
     kern = kernel_phase(torch)
     launches = serve_phase(torch)
     cross_device_phase(torch)
+    sim_kern = sim_kernel_phase(torch)
+    sim_launches = simulate_phase(torch)
 
     main_case = kern["bf16_coded"]
     table = {"kernels": [{
@@ -468,6 +831,25 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": main_case["library_ms"],
     }]}
+    # the simulator's kernels, at the shape its main path gives them
+    for name, replaces in (
+            ("xor_gather", "src/repro/kernels/xor_gather/kernel.py:108"),
+            ("xor_encode", "src/repro/kernels/xor_encode/kernel.py:37")):
+        case = sim_kern[(name, "sim")]
+        table["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": sim_launches[name],
+            "max_abs_err": max(v["max_abs_err"] for (k, _), v in
+                               sim_kern.items() if k == name),
+            "ms": case["ms"],
+            "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": case["library_ms"],
+        })
     print(card)
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,14 @@
-"""Carry params from the JAX package to the port.
+"""Carry params and simulator states between the JAX package and the port.
 
 ``params_from_jax(cfg, tree, device)`` takes the JAX param tree as numpy
 arrays (``jax.tree.map(np.asarray, params)``) and returns the port's tree:
 the same nesting, the same ``(d_in, d_out)`` layout (the port computes
 ``x @ W`` as JAX does, so nothing is transposed), the same dtypes.
+
+``sim_state_from_numpy(host, device)`` takes a JAX ``SimState`` with numpy
+leaves (``jax.device_get(st)``) and returns the port's ``SimState``;
+``sim_state_to_numpy(st)`` goes back. The field order is the same on both
+sides; the wide (lo, hi) uint32 counter pairs of JAX are int64 in the port.
 """
 from __future__ import annotations
 
@@ -13,6 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.state import WIDE_FIELDS, MemState
+from repro_torch.core.system import SimState
 from repro_torch.models import lm
 
 
@@ -35,3 +42,40 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
         return _tensor(np.asarray(node), device)
 
     return conv(tree)
+
+
+def sim_state_from_numpy(host, device) -> SimState:
+    """A JAX ``SimState`` with numpy leaves as the port's state on
+    ``device``. Telemetry and fault leaves must be absent (not ported)."""
+    m = host.mem
+    leaves = {}
+    for name in MemState._fields:
+        a = getattr(m, name)
+        if name in ("tele", "fault"):
+            if a is not None:
+                raise NotImplementedError(f"the {name} leaf is not ported")
+            continue
+        a = np.asarray(a)
+        if name in WIDE_FIELDS:
+            lo, hi = (int(x) for x in a.astype(np.uint64))
+            a = np.int64(lo + (hi << 32))
+        leaves[name] = torch.from_numpy(np.array(a)).to(device)
+    return SimState(MemState(**leaves), _tensor(host.core_ptr, device),
+                    _tensor(host.done_cycle, device))
+
+
+def sim_state_to_numpy(st: SimState) -> SimState:
+    """The port's state with numpy leaves in JAX's layout: int64 counters
+    back to (lo, hi) uint32 pairs, everything else its own dtype."""
+    leaves = {}
+    for name in MemState._fields:
+        a = getattr(st.mem, name)
+        if a is None:
+            continue
+        a = a.cpu().numpy()
+        if name in WIDE_FIELDS:
+            v = int(a)
+            a = np.array([v & 0xFFFFFFFF, v >> 32], np.uint32)
+        leaves[name] = a
+    return SimState(MemState(**leaves), st.core_ptr.cpu().numpy(),
+                    st.done_cycle.cpu().numpy())

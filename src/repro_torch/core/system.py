@@ -1,0 +1,448 @@
+"""The coded memory system: core arbiter + bank queues + access scheduler.
+Port of ``repro/core/system.py``.
+
+One ``cycle_fn`` call is one memory clock cycle (paper Fig 2 / §IV):
+
+  1. core arbiter — each core's pending request enters its bank's read or
+     write queue; a full queue stalls the core;
+  2. access scheduler — the write-drain hysteresis picks read or write
+     mode and that side's pattern builder schedules the cycle;
+  3. datapath — served reads return values (direct / XOR decode /
+     redirect) through the ``xor_gather`` kernel; served writes commit to
+     data banks or park in parity rows; ``golden`` tracks memory order;
+  4. ReCoding unit; 5. dynamic coding unit (region encodes through the
+     ``xor_encode`` kernel).
+
+``run`` executes exactly ``n_cycles`` cycles, as JAX's ``lax.scan`` does,
+so final states compare leaf for leaf.
+
+Eager execution, and how it stays bit-identical to JAX: JAX runs both
+builders every cycle (the off-duty one on masked-invalid candidates) and
+selects, for ``vmap``'s sake; here one host read of ``serve_writes`` picks
+the branch and only that one runs — the selected branch sees exactly the
+candidates JAX's would, so the results are the same. Scatters that JAX
+does with ``mode="drop"`` go through flat buffers with one trailing sink
+entry that is sliced off (``_set_flat``); scatters with duplicate indices
+only ever write one value per cell apart from the sink.
+
+Not ported in this slice: ``run_chunk`` (streaming replay), telemetry,
+faults, traced geometry and region priors (they raise).
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import controller as ctl
+from repro_torch.core.codes import MAX_OPTS, CodeTables
+from repro_torch.core.dynamic import dynamic_step
+from repro_torch.core.recoding import recode_step
+from repro_torch.core.state import (INT32_MAX, MemParams, MemState,
+                                    TunableParams, active_geometry,
+                                    init_state, make_tunables)
+from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.xor_gather.ops import gather_decode, plan_columns
+
+
+class Trace(NamedTuple):
+    """Per-core request streams. Invalid entries are idle cycles."""
+
+    bank: torch.Tensor      # (n_cores, T) int32
+    row: torch.Tensor       # (n_cores, T) int32
+    is_write: torch.Tensor  # (n_cores, T) bool
+    data: torch.Tensor      # (n_cores, T) int32 write payloads
+    valid: torch.Tensor     # (n_cores, T) bool
+
+
+def drain_bound(n_cores: int, length: int, backlog: int = 0) -> int:
+    """Worst-case cycle budget to drain ``length`` requests per core (the
+    JAX package's single shared bound; see its docstring for the
+    derivation)."""
+    return int((n_cores * length + backlog) * 1.5) + 64
+
+
+class SimState(NamedTuple):
+    mem: MemState
+    core_ptr: torch.Tensor    # (n_cores,) int32
+    done_cycle: torch.Tensor  # () int32, -1 until the workload drains
+
+
+def quiescent(st: SimState) -> torch.Tensor:
+    """Workload drained, encoder idle, recode ring empty."""
+    m = st.mem
+    return ((st.done_cycle >= 0) & (m.enc_region < 0)
+            & ~m.rc_valid.any(-1))
+
+
+class CycleOut(NamedTuple):
+    """Per-cycle introspection (read datapath results)."""
+
+    r_served: torch.Tensor  # (N,) bool
+    r_bank: torch.Tensor    # (N,) int32
+    r_row: torch.Tensor     # (N,) int32
+    r_value: torch.Tensor   # (N,) int32
+    n_served: torch.Tensor  # () int32 (reads+writes)
+
+
+class SimResult(NamedTuple):
+    cycles: int
+    completed: bool
+    served_reads: int
+    served_writes: int
+    degraded_reads: int
+    parked_writes: int
+    switches: int
+    recode_backlog: int
+    stall_cycles: int
+    avg_read_latency: float
+    avg_write_latency: float
+    rc_dropped: int = 0
+    window_read_latency: tuple = ()
+    window_write_latency: tuple = ()
+    unserved_reads: int = 0
+    lost_writes: int = 0
+    fault_degraded_reads: int = 0
+    dead_bank_cycles: int = 0
+
+
+def result_from_host(m: MemState, done_cycle) -> SimResult:
+    """One point's SimResult from a MemState (host or device leaves)."""
+    dc = int(done_cycle)
+    sr = int(m.served_reads)
+    sw = int(m.served_writes)
+    return SimResult(
+        cycles=dc if dc >= 0 else int(m.cycle),
+        completed=dc >= 0,
+        served_reads=sr,
+        served_writes=sw,
+        degraded_reads=int(m.degraded_reads),
+        parked_writes=int(m.parked_writes),
+        switches=int(m.switches),
+        recode_backlog=int(m.rc_valid.sum()),
+        stall_cycles=int(m.stall_cycles),
+        avg_read_latency=int(m.read_latency_sum) / max(sr, 1),
+        avg_write_latency=int(m.write_latency_sum) / max(sw, 1),
+        rc_dropped=int(m.rc_dropped),
+    )
+
+
+def _set_flat(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
+    """``x`` with ``x.flatten()[idx] = val`` (a new tensor), where an index
+    equal to ``x.numel()`` is dropped (JAX's ``mode="drop"`` sink)."""
+    buf = torch.cat([x.flatten(), x.new_zeros(1)])
+    buf.index_put_((idx,), torch.as_tensor(val, dtype=x.dtype,
+                                           device=x.device))
+    return buf[:-1].view_as(x)
+
+
+class CodedMemorySystem:
+    """Facade owning the static tables/params and the device."""
+
+    def __init__(self, tables: CodeTables, params: MemParams,
+                 n_cores: int = 8, tunables: Optional[TunableParams] = None,
+                 device=None):
+        self.tables = tables
+        self.p = params
+        self.device = resolve_device(device)
+        self.t = ctl.jtables(tables, self.device)
+        self.n_cores = n_cores
+        self.tunables = (tunables if tunables is not None
+                         else make_tunables(queue_depth=params.queue_depth))
+        dev = self.device
+        p = params
+        self._bank_ids = torch.arange(p.n_data, dtype=torch.int32,
+                                      device=dev).repeat_interleave(
+                                          p.queue_depth)
+        self._port_busy0 = torch.zeros((p.n_ports + 1,), dtype=torch.bool,
+                                       device=dev)
+        self._cores = torch.arange(n_cores, device=dev)
+        self._older = torch.ones((n_cores, n_cores), dtype=torch.bool,
+                                 device=dev).tril(-1)
+
+    # ------------------------------------------------------------------ init
+    def init(self, tn: Optional[TunableParams] = None, region_priors=None,
+             fault_plan=None) -> SimState:
+        dev = self.device
+        return SimState(
+            mem=init_state(self.p, tn, region_priors=region_priors,
+                           n_cores=self.n_cores, fault_plan=fault_plan,
+                           device=dev),
+            core_ptr=torch.zeros((self.n_cores,), dtype=torch.int32,
+                                 device=dev),
+            done_cycle=torch.full((), -1, dtype=torch.int32, device=dev),
+        )
+
+    # --------------------------------------------------------------- arbiter
+    def _arbiter(self, st: SimState, trace: Trace, rs_a: int) -> SimState:
+        """Push each core's pending request into its destination queue;
+        cores rank within their destination queue by core index, and the
+        first ``rank`` free slots of a queue go to the first ``rank``
+        ranked cores (the JAX arbiter's vectorized rule)."""
+        p = self.p
+        m = st.mem
+        tlen = trace.bank.shape[1]
+        pos = st.core_ptr
+        in_range = pos < tlen
+        pc = pos.clamp(max=tlen - 1)
+        v = trace.valid[self._cores, pc] & in_range
+        b = trace.bank[self._cores, pc].long().clamp(min=0)
+        i = trace.row[self._cores, pc].clamp(min=0)
+        isw = trace.is_write[self._cores, pc]
+        payload = trace.data[self._cores, pc]
+
+        same_bank = b[:, None] == b[None, :]
+        want_r = v & ~isw
+        want_w = v & isw
+        rank_r = (same_bank & self._older & want_r[None, :]).sum(1)
+        rank_w = (same_bank & self._older & want_w[None, :]).sum(1)
+        free_r = (~m.rq_valid).sum(1)
+        free_w = (~m.wq_valid).sum(1)
+        full = torch.where(isw, rank_w >= free_w[b], rank_r >= free_r[b])
+        push = v & ~full
+
+        dq = p.queue_depth
+        sink = p.n_data * dq
+
+        def target(valid, rank, mask):
+            """Flat queue cell of each pushing core (the rank-th free slot of
+            its bank's queue), the sink for the others."""
+            fr = ~valid
+            free_rank = fr.cumsum(1) - 1
+            slot_of = torch.full((p.n_data, dq + 1), dq, dtype=torch.int64,
+                                 device=valid.device)
+            slot_of.scatter_(1, torch.where(fr, free_rank, dq),
+                             torch.arange(dq, device=valid.device).expand(
+                                 p.n_data, dq))
+            slot = slot_of[b, rank.clamp(max=dq - 1)]
+            return torch.where(mask, b * dq + slot, sink)
+
+        fr_ = target(m.rq_valid, rank_r, push & ~isw)
+        fw_ = target(m.wq_valid, rank_w, push & isw)
+        cyc = m.cycle.expand(self.n_cores)
+        true = torch.ones((), dtype=torch.bool, device=b.device)
+        access = torch.cat([m.access_count, m.access_count.new_zeros(1)])
+        access.index_put_(
+            (torch.where(push, i.long() // rs_a, p.n_regions),),
+            torch.ones((), dtype=torch.int32, device=b.device),
+            accumulate=True)
+        mem = m._replace(
+            rq_row=_set_flat(m.rq_row, fr_, i),
+            rq_age=_set_flat(m.rq_age, fr_, cyc),
+            rq_valid=_set_flat(m.rq_valid, fr_, true),
+            wq_row=_set_flat(m.wq_row, fw_, i),
+            wq_age=_set_flat(m.wq_age, fw_, cyc),
+            wq_valid=_set_flat(m.wq_valid, fw_, true),
+            wq_data=_set_flat(m.wq_data, fw_, payload),
+            access_count=access[:-1],
+            stall_cycles=m.stall_cycles + (v & full).sum(),
+        )
+        ptr = pos + (in_range & (push | ~v)).int()
+        return st._replace(mem=mem, core_ptr=ptr)
+
+    # ----------------------------------------------------------- read values
+    def _read_values(self, m: MemState, plan: ctl.ReadPlan, cb, ci,
+                     rs_a: int) -> torch.Tensor:
+        """The served reads' values: the plan's columns through the coded
+        row gather (the CUDA ``xor_gather`` kernel on the card), on the
+        banks viewed as (…, L, 1) int32 rows."""
+        cols = plan_columns(self.t, plan, cb, ci, m.region_slot,
+                            self.p.region_size, m.fresh_loc, rs_active=rs_a)
+        return gather_decode(m.banks_data[..., None],
+                             m.parity_data[..., None], cols)[:, 0]
+
+    # ------------------------------------------------------- write datapath
+    def _commit_writes(self, m: MemState, plan: ctl.WritePlan, cb, ci_, ca,
+                       cv, cd, rs_a: int):
+        """Commit served write payloads in age order (last write wins): the
+        age position of each candidate is scatter-maxed into its target
+        cell and only the latest served write per cell lands."""
+        p, t = self.p, self.t
+        rs = p.region_size
+        b = cb.long().clamp(min=0)
+        i = ci_.long().clamp(min=0)
+        n = cb.shape[0]
+        order = torch.argsort(torch.where(cv, ca, INT32_MAX), stable=True)
+        pos = torch.empty((n,), dtype=torch.int32, device=cb.device)
+        pos[order] = torch.arange(n, dtype=torch.int32, device=cb.device)
+        slot = m.region_slot[i // rs_a].long()
+        pr = slot.clamp(min=0) * rs + i % rs_a
+        kk = (plan.mode.long() - ctl.WMODE_PARK0).clamp(0, MAX_OPTS - 1)
+        j = t.opt_parity[b, kk].clamp(min=0)
+        is_dir = plan.served & (plan.mode == ctl.WMODE_DIRECT)
+        is_park = plan.served & (plan.mode >= ctl.WMODE_PARK0)
+
+        def commit(x, mask, flat):
+            sink = x.numel()
+            best = torch.full((sink + 1,), -1, dtype=torch.int32,
+                              device=x.device)
+            best.scatter_reduce_(0, torch.where(mask, flat, sink), pos,
+                                 reduce="amax")
+            win = mask & (best[flat] == pos)
+            return _set_flat(x, torch.where(win, flat, sink), cd)
+
+        cell = b * p.n_rows + i
+        banks_data = commit(m.banks_data, is_dir, cell)
+        parity_data = commit(m.parity_data, is_park,
+                             j * m.parity_data.shape[1] + pr)
+        golden = commit(m.golden, plan.served, cell)
+        return banks_data, parity_data, golden
+
+    # ------------------------------------------------------------ branches
+    def _do_reads(self, m: MemState, rs_a: int):
+        p, t = self.p, self.t
+        cb = self._bank_ids
+        ci_ = m.rq_row.flatten()
+        ca = m.rq_age.flatten()
+        plan = ctl.build_read_pattern(
+            p, t, cb, ci_, ca, m.rq_valid.flatten(), self._port_busy0,
+            m.fresh_loc, m.parity_valid, m.region_slot, rs_a)
+        vals = self._read_values(m, plan, cb, ci_, rs_a)
+        lat = torch.where(plan.served, m.cycle - ca, 0).sum()
+        m = m._replace(
+            rq_valid=m.rq_valid & ~plan.served.view_as(m.rq_valid),
+            served_reads=m.served_reads + plan.n_served,
+            degraded_reads=m.degraded_reads + plan.n_degraded,
+            read_latency_sum=m.read_latency_sum + lat,
+        )
+        return m, plan.port_busy, CycleOut(plan.served, cb, ci_, vals,
+                                           plan.n_served)
+
+    def _do_writes(self, m: MemState, rs_a: int):
+        p, t = self.p, self.t
+        cb = self._bank_ids
+        ci_ = m.wq_row.flatten()
+        ca = m.wq_age.flatten()
+        cv = m.wq_valid.flatten()
+        plan = ctl.build_write_pattern(
+            p, t, cb, ci_, ca, cv, self._port_busy0, m.fresh_loc,
+            m.parity_valid, m.region_slot, m.parked_count, m.rc_bank,
+            m.rc_row, m.rc_valid, rs_a)
+        banks_data, parity_data, golden = self._commit_writes(
+            m, plan, cb, ci_, ca, cv, m.wq_data.flatten(), rs_a)
+        lat = torch.where(plan.served, m.cycle - ca, 0).sum()
+        m = m._replace(
+            wq_valid=m.wq_valid & ~plan.served.view_as(m.wq_valid),
+            fresh_loc=plan.fresh_loc,
+            parity_valid=plan.parity_valid,
+            parked_count=plan.parked_count,
+            rc_bank=plan.rc_bank, rc_row=plan.rc_row, rc_valid=plan.rc_valid,
+            served_writes=m.served_writes + plan.n_served,
+            parked_writes=m.parked_writes + plan.n_parked,
+            rc_dropped=m.rc_dropped + plan.n_rc_dropped,
+            write_latency_sum=m.write_latency_sum + lat,
+            banks_data=banks_data, parity_data=parity_data, golden=golden,
+        )
+        n_cand = cb.shape[0]
+        out = CycleOut(torch.zeros((n_cand,), dtype=torch.bool,
+                                   device=cb.device), cb, ci_,
+                       torch.zeros((n_cand,), dtype=torch.int32,
+                                   device=cb.device), plan.n_served)
+        return m, plan.port_busy, out
+
+    # ------------------------------------------------------------- one cycle
+    def cycle_fn(self, st: SimState, trace: Trace,
+                 tn: Optional[TunableParams] = None,
+                 stream_end=None):
+        if stream_end is not None:
+            raise NotImplementedError("chunked replay (stream_end) is not "
+                                      "ported yet")
+        p, t = self.p, self.t
+        if tn is None:
+            tn = self.tunables
+        rs_a, _ = active_geometry(p, tn)
+        was_done = st.done_cycle >= 0
+        st = self._arbiter(st, trace, rs_a)
+        m = st.mem
+
+        # write-drain hysteresis; one host read picks the branch
+        wq_occ = m.wq_valid.sum(1).max()
+        any_r = m.rq_valid.any()
+        any_w = m.wq_valid.any()
+        wm = torch.where(m.write_mode, wq_occ > tn.wq_lo, wq_occ >= tn.wq_hi)
+        serve_writes = (wm | (~any_r & any_w)) & any_w
+        if bool(serve_writes):
+            m, port_busy, out = self._do_writes(m, rs_a)
+        else:
+            m, port_busy, out = self._do_reads(m, rs_a)
+        m = m._replace(write_mode=wm)
+
+        # recoding unit uses leftover ports
+        rc = recode_step(
+            p, t, port_busy, m.fresh_loc, m.parity_valid, m.parked_count,
+            m.rc_bank, m.rc_row, m.rc_valid, m.region_slot, m.banks_data,
+            m.parity_data, rs_a)
+        m = m._replace(
+            fresh_loc=rc.fresh_loc, parity_valid=rc.parity_valid,
+            parked_count=rc.parked_count, rc_valid=rc.rc_valid,
+            banks_data=rc.banks_data, parity_data=rc.parity_data)
+        # dynamic coding unit; it starts nothing new once the workload drained
+        dy = dynamic_step(
+            p, t, tn, m.cycle, m.region_slot, m.slot_region, m.access_count,
+            m.parked_count, m.parity_valid, m.parity_data, m.banks_data,
+            m.enc_region, m.enc_remaining, m.enc_slot, m.switches,
+            quiesce=was_done)
+        m = m._replace(
+            region_slot=dy.region_slot, slot_region=dy.slot_region,
+            access_count=dy.access_count, parity_valid=dy.parity_valid,
+            parity_data=dy.parity_data, enc_region=dy.enc_region,
+            enc_remaining=dy.enc_remaining, enc_slot=dy.enc_slot,
+            switches=dy.switches)
+        tlen = trace.bank.shape[1]
+        consumed = (st.core_ptr >= tlen).all()
+        drained = ~m.rq_valid.any() & ~m.wq_valid.any()
+        done_cycle = torch.where((st.done_cycle < 0) & consumed & drained,
+                                 m.cycle, st.done_cycle)
+        m = m._replace(cycle=m.cycle + 1)
+        return SimState(m, st.core_ptr, done_cycle), out
+
+    # ------------------------------------------------------------------- run
+    def check_trace(self, trace: Trace) -> None:
+        """Raise unless every bank and row of ``trace`` is below the
+        geometry's bounds (negative values read as 0, as in JAX). JAX clamps
+        or drops an index past the end where torch would raise, or assert
+        on the card, so a run checks its trace once, up front."""
+        if trace.bank.numel() == 0:
+            return
+        bank, row = torch.stack([trace.bank.max(), trace.row.max()]).tolist()
+        if bank >= self.p.n_data or row >= self.p.n_rows:
+            raise ValueError(
+                f"trace reaches bank {bank} / row {row}; the system has "
+                f"{self.p.n_data} banks of {self.p.n_rows} rows")
+
+    def _run(self, st: SimState, trace: Trace, n_cycles: int,
+             tn: Optional[TunableParams] = None,
+             on_cycle: Optional[Callable] = None):
+        """``n_cycles`` cycles from ``st``: the final state and the (n_cycles,)
+        int32 accesses served per cycle. ``on_cycle(before, after, out)`` is
+        called after every cycle when given."""
+        self.check_trace(trace)
+        served = []
+        for _ in range(n_cycles):
+            nxt, out = self.cycle_fn(st, trace, tn)
+            if on_cycle is not None:
+                on_cycle(st, nxt, out)
+            st = nxt
+            served.append(out.n_served)
+        n_served = (torch.stack(served) if served else
+                    torch.zeros((0,), dtype=torch.int32, device=self.device))
+        return st, n_served
+
+    def run(self, trace: Trace, n_cycles: int,
+            tn: Optional[TunableParams] = None,
+            st: Optional[SimState] = None, fault_plan=None,
+            on_cycle: Optional[Callable] = None) -> SimResult:
+        """Single-shot replay of all ``n_cycles`` cycles; ``st`` carries in
+        an explicit initial state."""
+        tn = tn if tn is not None else self.tunables
+        st, _ = self._run(
+            st if st is not None else self.init(tn, fault_plan=fault_plan),
+            trace, n_cycles, tn, on_cycle)
+        return self.summarize(st)
+
+    def run_chunk(self, *args, **kw):
+        raise NotImplementedError("run_chunk (streaming replay) is not "
+                                  "ported yet")
+
+    def summarize(self, st: SimState) -> SimResult:
+        return result_from_host(st.mem, st.done_cycle)

@@ -9,6 +9,7 @@ kernel builds it (or ``build(name)`` builds it ahead).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import hashlib
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -80,6 +81,12 @@ def build(name: str) -> BuildResult:
     log.write_text(text)
     os.replace(tmp, out)
     return BuildResult(name, out, secs, text)
+
+
+def build_all(names: Sequence[str]) -> List[BuildResult]:
+    """Build several sources at once, one ``nvcc`` process each."""
+    with concurrent.futures.ThreadPoolExecutor(len(names) or 1) as pool:
+        return list(pool.map(build, names))
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

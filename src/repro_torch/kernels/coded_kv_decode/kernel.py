@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.common import check_cuda_operand
 
 launches = 0
 
@@ -30,20 +31,6 @@ def _lib() -> ctypes.CDLL:
         lib.gather_pool_error_string.argtypes = [ctypes.c_int]
         lib.gather_pool_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"gather_pool_cuda: {name} is on {t.device}, "
-                         "not on the CUDA card")
-    if t.dtype != dtype:
-        raise TypeError(f"gather_pool_cuda: {name} has dtype {t.dtype}, "
-                        f"expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"gather_pool_cuda: {name} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"gather_pool_cuda: {name} is not contiguous")
 
 
 def gather_pool_cuda(
@@ -69,12 +56,15 @@ def gather_pool_cuda(
         raise ValueError(f"gather_pool_cuda: {ng} parity groups for {nb} "
                          "banks (need NB/2 for an even NB, or 0)")
     b, mp = page_table.shape
-    _check("k_banks", k_banks, lanes, k_banks.shape)
-    _check("v_banks", v_banks, lanes, k_banks.shape)
-    _check("k_par", k_par, lanes, (ng,) + tuple(k_banks.shape[1:]))
-    _check("v_par", v_par, lanes, (ng,) + tuple(k_banks.shape[1:]))
-    _check("page_table", page_table, torch.int32, (b, mp))
-    _check("use_parity", use_parity, torch.bool, (b, mp))
+    fn = "gather_pool_cuda"
+    check_cuda_operand(fn, "k_banks", k_banks, lanes, k_banks.shape)
+    check_cuda_operand(fn, "v_banks", v_banks, lanes, k_banks.shape)
+    check_cuda_operand(fn, "k_par", k_par, lanes,
+                       (ng,) + tuple(k_banks.shape[1:]))
+    check_cuda_operand(fn, "v_par", v_par, lanes,
+                       (ng,) + tuple(k_banks.shape[1:]))
+    check_cuda_operand(fn, "page_table", page_table, torch.int32, (b, mp))
+    check_cuda_operand(fn, "use_parity", use_parity, torch.bool, (b, mp))
     if len({t.device for t in (k_banks, v_banks, k_par, v_par, page_table,
                                use_parity)}) != 1:
         raise ValueError("gather_pool_cuda: operands on different cards")

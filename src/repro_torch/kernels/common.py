@@ -51,3 +51,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device: the port runs on the card; pass device='cpu' "
             "to run the plain PyTorch versions on the CPU")
     return torch.device("cuda")
+
+
+def check_cuda_operand(fn: str, name: str, t: torch.Tensor,
+                       dtype: torch.dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape``: what a hand-written kernel's wrapper accepts."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{fn}: {name} is on {t.device}, not on the CUDA "
+                         "card")
+    if t.dtype != dtype:
+        raise TypeError(f"{fn}: {name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} is not contiguous")

@@ -1,0 +1,93 @@
+"""Public wrapper of the coded row gather and the controller-plan → kernel
+columns bridge (``repro`` counterpart: ``kernels/xor_gather/ops.py``).
+
+Dispatch is by the tensors' device, with no switch and no fallback: CUDA
+tensors go through the hand-written kernel (which launches or raises), CPU
+tensors through the plain PyTorch version. ``calls`` counts the calls of
+``gather_decode`` on any device; on the card it must equal the kernel's
+``launches`` (less the empty plans, which launch nothing).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core.codes import MAX_OPTS
+from repro_torch.core.controller import MODE_OPT0, MODE_REDIRECT, ReadPlan
+from repro_torch.kernels.common import as_lanes
+from repro_torch.kernels.xor_gather.kernel import gather_decode_cuda
+from repro_torch.kernels.xor_gather.ref import gather_decode_plain
+
+calls = 0
+
+
+class PlanColumns(NamedTuple):
+    bank: torch.Tensor
+    row: torch.Tensor
+    mode: torch.Tensor
+    par: torch.Tensor
+    prow: torch.Tensor
+    sib0: torch.Tensor
+    sib1: torch.Tensor
+
+
+def plan_columns(
+    tables,
+    plan: ReadPlan,
+    cand_bank: torch.Tensor,
+    cand_row: torch.Tensor,
+    region_slot: torch.Tensor,
+    region_size: int,
+    fresh_loc: torch.Tensor,
+    rs_active: Optional[int] = None,
+) -> PlanColumns:
+    """Expand a controller ReadPlan into the kernel's per-request int32
+    columns. ``tables`` is the port's ``JTables`` on the plan's device.
+    Parity rows use the allocated stride ``region_size`` and the offset
+    ``row % rs_active`` (``rs_active`` defaults to ``region_size``, the
+    only geometry this slice runs)."""
+    rs_a = region_size if rs_active is None else int(rs_active)
+    b = cand_bank.long().clamp(min=0)
+    i = cand_row.long().clamp(min=0)
+    k = (plan.mode.long() - MODE_OPT0).clamp(0, MAX_OPTS - 1)
+    is_opt = (plan.mode >= MODE_OPT0) & (plan.mode < MODE_REDIRECT)
+    is_rd = plan.mode == MODE_REDIRECT
+    j_opt = tables.opt_parity[b, k]
+    j_rd = (fresh_loc[b, i].long() - 1).clamp(min=0)
+    par = torch.where(is_opt, j_opt, torch.where(is_rd, j_rd, 0))
+    slot = region_slot[i // rs_a].long()
+    prow = slot.clamp(min=0) * region_size + i % rs_a
+    sibs = torch.where(is_opt[:, None], tables.opt_sibs[b, k], -1)
+    mode = torch.where(plan.served, plan.mode, -1)
+    # one int32 block, each column a contiguous row of it
+    cols = torch.stack([b, i, mode.long(), par, prow, sibs[:, 0],
+                        sibs[:, 1]]).int()
+    return PlanColumns(*cols.unbind(0))
+
+
+def gather_decode(banks: torch.Tensor, parities: torch.Tensor,
+                  cols: PlanColumns,
+                  value_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Serve one cycle's read pattern: (N, W) rows in ``value_dtype``
+    (default ``banks.dtype``); unserved entries read zero. Any N, including
+    an empty plan."""
+    global calls
+    calls += 1
+    if value_dtype is None:
+        value_dtype = banks.dtype
+    if banks.dtype.is_floating_point:
+        banks = as_lanes(banks)
+    if parities.dtype.is_floating_point:
+        parities = as_lanes(parities)
+    if parities.dtype != banks.dtype:
+        raise TypeError(f"lane dtype mismatch: {banks.dtype} vs "
+                        f"{parities.dtype}")
+    dev = banks.device.type
+    if dev == "cuda":
+        out = gather_decode_cuda(banks, parities, *cols)
+    elif dev == "cpu":
+        out = gather_decode_plain(banks, parities, *cols)
+    else:
+        raise ValueError(f"gather_decode: no datapath for device {dev}")
+    return out if out.dtype == value_dtype else out.view(value_dtype)

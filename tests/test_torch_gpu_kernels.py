@@ -108,3 +108,93 @@ def test_gather_pool_cuda_rejects_wrong_dtype(cuda):
     args[1] = args[1].view(torch.bfloat16)
     with pytest.raises(TypeError, match="dtype"):
         gather_pool_cuda(*args)
+
+
+# ------------------------------------------------------- simulator kernels
+from repro_torch.kernels.xor_encode import kernel as enc_kernel  # noqa: E402
+from repro_torch.kernels.xor_encode.ref import (  # noqa: E402
+    encode_parities_plain)
+from repro_torch.kernels.xor_gather import kernel as gat_kernel  # noqa: E402
+from repro_torch.kernels.xor_gather.ref import (  # noqa: E402
+    gather_decode_plain)
+
+_LANE_NP = {"int8": np.int8, "int16": np.int16, "int32": np.int32}
+
+
+def _gather_inputs(seed, lanes, n, w, n_data=8, rows=12, n_par=5, prows=6):
+    """Random lane bits and columns covering every mode (-1 .. 7), siblings
+    of -1 and indices past either end of their arrays."""
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(lanes)
+
+    def bits(shape):
+        return rng.integers(info.min, info.max, size=shape, endpoint=True,
+                            dtype=lanes)
+
+    cols = [rng.integers(lo, hi, n).astype(np.int32) for lo, hi in (
+        (-2, n_data + 2), (-2, rows + 2), (-1, 8), (-1, n_par + 2),
+        (-1, prows + 2), (-1, n_data + 1), (-1, n_data + 1))]
+    return [bits((n_data, rows, w)), bits((n_par, prows, w))] + cols
+
+
+@pytest.mark.parametrize("w", [1, 3, 5, 256])
+@pytest.mark.parametrize("n", [0, 1, 7, 80, 1001])
+@pytest.mark.parametrize("lanes", sorted(_LANE_NP))
+def test_gather_decode_cuda_equals_plain(cuda, lanes, n, w):
+    arrays = _gather_inputs(n * 7 + w, _LANE_NP[lanes], n, w)
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    before = gat_kernel.launches
+    out = gat_kernel.gather_decode_cuda(*args)
+    torch.cuda.synchronize()
+    assert gat_kernel.launches == before + (1 if n else 0)
+    assert out.shape == (n, w) and out.dtype == args[0].dtype
+    assert torch.equal(out, gather_decode_plain(*args))
+    assert torch.equal(out.cpu(), gather_decode_plain(
+        *[torch.from_numpy(a) for a in arrays]))
+
+
+@pytest.mark.parametrize("rows,w", [(16, 1), (7, 3), (5, 5), (64, 256)])
+@pytest.mark.parametrize("lanes", sorted(_LANE_NP))
+@pytest.mark.parametrize("members", ["scheme_i", "scheme_iii", "pairs"])
+def test_encode_parities_cuda_equals_plain(cuda, members, lanes, rows, w):
+    from repro_torch.core.codes import get_tables
+    if members == "pairs":
+        table = np.array([[2 * g, 2 * g + 1, -1] for g in range(4)],
+                         np.int32)
+        n_data = 8
+    else:
+        t = get_tables(members, n_data=9 if members == "scheme_iii" else 8)
+        table, n_data = t.par_members, t.n_data
+    info = np.iinfo(_LANE_NP[lanes])
+    banks = np.random.default_rng(rows * w).integers(
+        info.min, info.max, size=(n_data, rows, w), endpoint=True,
+        dtype=_LANE_NP[lanes])
+    b, m = torch.from_numpy(banks).to(cuda), torch.from_numpy(table).to(cuda)
+    before = enc_kernel.launches
+    out = enc_kernel.encode_parities_cuda(b, m)
+    torch.cuda.synchronize()
+    assert enc_kernel.launches == before + 1
+    assert torch.equal(out, encode_parities_plain(b, m))
+    assert torch.equal(out.cpu(), encode_parities_plain(
+        torch.from_numpy(banks), torch.from_numpy(table)))
+
+
+def test_sim_kernel_wrappers_reject_bad_operands(cuda):
+    args = [torch.from_numpy(a).to(cuda) for a in
+            _gather_inputs(0, np.int32, 4, 2)]
+    bad = list(args)
+    bad[2] = bad[2].long()
+    with pytest.raises(TypeError, match="dtype"):
+        gat_kernel.gather_decode_cuda(*bad)
+    bad = list(args)
+    bad[0] = bad[0].cpu()
+    with pytest.raises(ValueError, match="not on the CUDA card"):
+        gat_kernel.gather_decode_cuda(*bad)
+    banks = args[0]
+    with pytest.raises(ValueError, match="shape"):
+        enc_kernel.encode_parities_cuda(
+            banks, torch.full((4, 2), -1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="not contiguous"):
+        enc_kernel.encode_parities_cuda(
+            banks, torch.full((3, 4), -1, dtype=torch.int32,
+                              device=cuda).T)
