@@ -6,8 +6,8 @@
 Phases, each of which fails the run (nonzero exit, no result line):
 
 1. card and build: the card's name and power limit, torch and CUDA
-   versions; every ``csrc/*.cu`` built with nvcc, with its registers and
-   spills as ptxas reports them;
+   versions; every ``csrc/*.cu`` built with nvcc, one process each, all at
+   once, with its registers and spills as ptxas reports them;
 2. kernel: ``gather_pool_cuda`` against ``gather_pool_plain`` on the card,
    bit for bit, at the serving shape (NB=8, S=64, P=64, Hkv=2, D=128, B=8,
    MP=32; bf16 lanes coded and uncoded, f32 lanes coded; -1 holes, ~40%
@@ -15,25 +15,46 @@ Phases, each of which fails the run (nonzero exit, no result line):
    plain version's time and ``torch.index_select`` as the library yardstick;
 3. serve: full-width qwen2.5-3b (36 layers, bf16, random params from a
    seeded generator on the card) serving 16 requests through the coded KV
-   pool three times (coded with fused encode, uncoded, coded with
-   recode_budget=2). Every request must finish, the three runs must serve
-   identical tokens, and the kernel's launch count must rise by exactly
-   decode steps x 36 in each run. Every run churns placement once (the
-   same seeded ``permute_pool``) before its requests, so pages spread
-   unevenly over the banks and the coded runs serve degraded reads, which
-   are counted. After each run the K/V banks must equal the first run's
-   bit for bit, and on a coded pool every parity row marked fresh must be
-   the XOR of its two banks. A torch.profiler window over four full-batch
-   decode steps then reports the device's busy and idle share;
-4. cross-device: the reduced config at f32 (TF32 off) serves identical
-   tokens on the card and on the CPU from the same params, and the prefill
-   and decode logits agree to rtol = atol = 1e-4;
-5. simulator kernels: ``gather_decode_cuda`` and ``encode_parities_cuda``
+   pool four times (coded with fused encode, uncoded, coded with
+   recode_budget=2, coded with the serve planes on). Every request must
+   finish, the runs must serve identical tokens, and the kernel's launch
+   count must rise by exactly decode steps x 36 in each run. Every run
+   churns placement once (the same seeded ``permute_pool``) before its
+   requests, so pages spread unevenly over the banks and the coded runs
+   serve degraded reads, which are counted. After each run the K/V banks
+   must equal the first run's bit for bit, and on a coded pool every parity
+   row marked fresh must be the XOR of its two banks. The planes must agree
+   with the run's own counts (degraded reads, pages needed, steps; coded
+   port cycles <= uncoded); a snapshot taken mid-stream and restored into
+   a fresh card server must finish with the same tokens, pool and planes.
+   A torch.profiler window over four full-batch decode steps, with the
+   planes off and on, reports the device's busy and idle share, launches,
+   host syncs and copies per step and the heaviest host ops. Then
+   qwen2.5-3b with kv_banks=0 serves the same requests from the ring
+   cache, with the pool runs' tokens;
+4. decode attention: ``coded_kv_decode`` through ``ops.coded_kv_decode``
+   (after ``ops.pack_kv_banks``) at the serving width (K/V of the ring
+   run's layers 0 and 35, seq_len mixed with 0, a partial page and 2048),
+   at bench_kernels' shape (f32) and at one of at least 256 MB, ~40% of
+   pages degraded; held against ``coded_kv_decode_plain`` and, at the
+   serving width, against ``mha`` over the ring cache itself, in f32
+   within 1e-5 with TF32 off (a bf16 output must be the kernel's f32
+   result rounded, bit for bit); timed with the L2 flushed,
+   beside its bound from the actual plan and lengths, the plain version's
+   time and SDPA (``enable_gqa``) over the logical cache;
+5. cross-device: the reduced config at f32 (TF32 off) on bench_serve's
+   schedule (4 slots, page 4, 16 requests x 16 tokens, a placement churn
+   every 2 steps) serves identical tokens on the card and on the CPU, the
+   logits agree to rtol = atol = 1e-4, and every serve plane is equal; the
+   port cycles, degraded reads and critical-word p50/p99 (``read_latencies``
+   under the coded plan and an all-direct one) are printed; a card
+   snapshot restored on the CPU finishes with the card's tokens and planes;
+6. simulator kernels: ``gather_decode_cuda`` and ``encode_parities_cuda``
    against their plain versions on the card, bit for bit, at three shapes
    each (the simulator's; ``bench_kernels``'; one of at least 256 MB), with
    their time per launch, byte bound, plain time and, where one PyTorch call
    computes the same function, that call's time;
-6. simulate: the coded-memory simulator at the paper figures' geometry (8
+7. simulate: the coded-memory simulator at the paper figures' geometry (8
    banks x 320 rows, queue depth 10, 8 cores x 96 requests of a seeded
    banded trace, r = 0.05, select period 32) for uncoded, scheme_i,
    scheme_iii at alpha 1 and scheme_i, scheme_ii at alpha 0.25, on the card
@@ -45,6 +66,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    run). It reports ms per simulated cycle, cycles/s, and a profiled window's
    kernel launches per cycle and device idle share.
 
+Each kernel's launches are counted from 0 over its own main path (the
+serve runs for ``gather_pool``, the decode-attention calls for
+``coded_kv_decode``, the simulate runs for the simulator's kernels).
 The third-to-last line is the card's name and power limit, the
 second-to-last the kernel table as JSON, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -201,8 +225,9 @@ def kernel_phase(torch):
 def profile_decode(torch, srv, Request, n_steps: int = 4) -> None:
     """Where a full-batch decode step's time goes: host wall per step,
     device busy time (kernels, copies, sets from a torch.profiler trace)
-    and its idle share, kernel launches per step, and the heaviest
-    kernels by device time."""
+    and its idle share, kernel launches, host syncs and copies per step,
+    the heaviest kernels by device time and the heaviest host ops by
+    their own host time."""
     from torch.profiler import ProfilerActivity, profile
 
     for r in _requests(Request, srv.cfg.vocab, seed=11, n=srv.sc.n_slots):
@@ -217,7 +242,7 @@ def profile_decode(torch, srv, Request, n_steps: int = 4) -> None:
             srv.step_decode()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    path = ROOT / "build" / "chip_smoke_decode_trace.json"
+    path = ROOT / "build" / f"chip_smoke_decode_{srv.sc.telemetry}.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
@@ -234,13 +259,22 @@ def profile_decode(torch, srv, Request, n_steps: int = 4) -> None:
     n_kernels = sum(e["cat"] == "kernel" for e in busy) / n_steps
     gather = sum(v for k, v in by_name.items() if "gather_pool" in k) \
         / 1e3 / n_steps
-    print(f"profile {srv.sc.n_slots}-slot decode step ({n_steps} steps): "
-          f"wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
-          f"(idle {1 - busy_ms / wall_ms:.1%}), {n_kernels:.0f} kernel "
-          f"launches/step, gather_pool {gather:.3f} ms/step "
+    runtime = [e["name"] for e in events if e.get("cat") == "cuda_runtime"]
+    syncs = sum("Synchronize" in n for n in runtime) / n_steps
+    copies = sum("Memcpy" in n for n in runtime) / n_steps
+    planes = "on" if srv.sc.telemetry else "off"
+    print(f"profile {srv.sc.n_slots}-slot decode step ({n_steps} steps, "
+          f"planes {planes}): wall {wall_ms:.2f} ms/step, device busy "
+          f"{busy_ms:.2f} ms/step (idle {1 - busy_ms / wall_ms:.1%}), "
+          f"{n_kernels:.0f} kernel launches/step, {syncs:.1f} host syncs "
+          f"and {copies:.1f} copies/step, gather_pool {gather:.3f} ms/step "
           f"({gather / busy_ms:.1%} of busy)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    {us / 1e3 / n_steps:7.3f} ms/step  {name[:90]}")
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    for a in host[:6]:
+        print(f"    host {a.self_cpu_time_total / 1e3 / n_steps:7.3f} ms/step "
+              f"{a.key[:60]} x {a.count / n_steps:.0f}")
 
 
 def _requests(Request, vocab: int, seed: int, n: int):
@@ -253,16 +287,21 @@ def _requests(Request, vocab: int, seed: int, n: int):
 
 
 @contextlib.contextmanager
-def counting_degraded_reads():
-    """Collect, per decode step, the read planner's degraded pages (one
-    device sum per plan, no host sync; every layer reads through it)."""
+def counting_reads():
+    """Collect, per decode step, the read planner's degraded pages and the
+    pages the step needs (ceil(length / page) per sequence with a page
+    table row); device sums, no host sync. Every layer reads through the
+    one plan."""
     from repro_torch.runtime import kvbank
     plan_fn = kvbank.pool_plan
-    sums = []
+    sums = {"degraded": [], "needed": []}
 
-    def counted(*args, **kw):
-        plan = plan_fn(*args, **kw)
-        sums.append(plan.use_parity.sum())
+    def counted(cfg, pool, length=None):
+        plan = plan_fn(cfg, pool, length=length)
+        length = pool.length if length is None else length
+        sums["degraded"].append(plan.use_parity.sum())
+        sums["needed"].append((((length + cfg.page - 1) // cfg.page)
+                               * (pool.page_table[:, 0] >= 0)).sum())
         return plan
 
     kvbank.pool_plan = counted
@@ -286,12 +325,12 @@ def keep_logits(torch, lm, srv, store: list) -> None:
 
     @torch.no_grad()
     def decode(params, token, cache):
-        logits, pool = lm.decode_step_pooled(cfg, kvcfg, params, token,
-                                             cache["pool"],
-                                             recode_budget=budget)
+        logits, pool, tele = lm.decode_step_pooled(
+            cfg, kvcfg, params, token, cache["pool"], cache["tele"],
+            recode_budget=budget)
         live = [i for i, s in enumerate(srv.slots) if s is not None]
         store.append(logits[live].float().cpu())
-        return torch.argmax(logits, -1), {"pool": pool}
+        return torch.argmax(logits, -1), {"pool": pool, "tele": tele}
 
     srv.prefill, srv.decode = prefill, decode
 
@@ -308,7 +347,63 @@ def check_parity(pool, name: str) -> int:
     return int(fresh.sum())
 
 
+def _same_pool(torch, a, b) -> bool:
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+def _drive(srv, reqs, on_admit=None):
+    """Serve ``reqs`` to the end: admit, then one decode step, until the
+    queue and the slots are empty. Returns each decode step's host time
+    (a step ends in a host read of the tokens). ``on_admit(step, srv)``
+    runs after each admission, off the clock."""
+    decode_s = []
+    for r in reqs:
+        srv.submit(r)
+    while srv.queue or any(s is not None for s in srv.slots):
+        srv._admit()
+        if on_admit is not None:
+            on_admit(len(decode_s), srv)
+        t1 = time.perf_counter()
+        srv.step_decode()
+        decode_s.append(time.perf_counter() - t1)
+    return decode_s
+
+
+def _check_planes(name, delta, reads, steps, n_layers) -> None:
+    """The planes of a run (``delta``: after minus before) against the
+    run's own counts: degraded reads, pages needed, decode steps."""
+    n_deg = int(sum(reads["degraded"]))
+    n_need = int(sum(reads["needed"]))
+    check(delta["degraded_reads"] == n_deg,
+          f"{name}: planes count {delta['degraded_reads']} degraded reads, "
+          f"the plans {n_deg}")
+    check(delta["direct_reads"] + delta["degraded_reads"] == n_need,
+          f"{name}: planes count {delta['direct_reads']} direct + "
+          f"{delta['degraded_reads']} degraded reads for {n_need} pages "
+          "needed")
+    check(delta["decode_steps"] == steps,
+          f"{name}: planes count {delta['decode_steps']} steps, ran {steps}")
+    check(delta["coded_cycles"] <= delta["uncoded_cycles"],
+          f"{name}: coded port cycles {delta['coded_cycles']} > uncoded "
+          f"{delta['uncoded_cycles']}")
+
+
+def _plane_delta(after, before):
+    keys = ("degraded_reads", "direct_reads", "decode_steps", "coded_cycles",
+            "uncoded_cycles")
+    return {k: getattr(after, k) - getattr(before, k) for k in keys}
+
+
+SERVE_RUNS = (("coded_fused", {}), ("uncoded", {"coded": False}),
+              ("coded_budget2", {"recode_budget": 2}),
+              ("coded_telemetry", {"telemetry": True}))
+SNAP_STEP = 12                   # decode steps before the mid-stream snapshot
+
+
 def serve_phase(torch):
+    """Returns the pool gather's launches over the pool runs and the ring
+    run's K/V of layers 0 and 35."""
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
@@ -326,8 +421,7 @@ def serve_phase(torch):
     runs = {}
     ref_banks = None
     total_launches = 0
-    for name, kw in (("coded_fused", {}), ("uncoded", {"coded": False}),
-                     ("coded_budget2", {"recode_budget": 2})):
+    for name, kw in SERVE_RUNS:
         torch.cuda.reset_peak_memory_stats()
         srv = Server(cfg, ServeConfig(**SERVE, **kw), params, device="cuda")
         pool = srv.cache["pool"]
@@ -339,25 +433,28 @@ def serve_phase(torch):
         srv.submit(warm)
         srv.run_until_drained()
         warm_steps = srv.steps_run
+        before = srv.serve_snapshot()
         srv.permute_pool(np.random.default_rng(CHURN_SEED).permutation(
             srv.kvcfg.pool_pages))
         reqs = _requests(Request, cfg.vocab, seed=7, n=N_REQUESTS)
-        decode_s = []
-        with counting_degraded_reads() as degraded:
+        snap = {}
+
+        def take_snapshot(step, s_):
+            if before is not None and step == SNAP_STEP:
+                snap["state"] = s_.snapshot()
+                snap["queue"] = [(r.rid, list(r.prompt), list(r.out))
+                                 for r in s_.queue]
+                snap["steps_run"] = s_.steps_run
+
+        with counting_reads() as reads:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for r in reqs:
-                srv.submit(r)
-            while srv.queue or any(s is not None for s in srv.slots):
-                srv._admit()
-                t1 = time.perf_counter()
-                srv.step_decode()      # ends in a host read of the tokens
-                decode_s.append(time.perf_counter() - t1)
+            decode_s = _drive(srv, reqs, take_snapshot)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
         launches = ckd_kernel.launches          # main path ends here
         total_launches += launches
-        n_degraded = int(sum(degraded)) * cfg.n_layers
+        n_degraded = int(sum(reads["degraded"])) * cfg.n_layers
         check(launches == srv.steps_run * cfg.n_layers,
               f"{name}: {launches} gather launches for {srv.steps_run} "
               f"decode steps x {cfg.n_layers} layers")
@@ -394,26 +491,176 @@ def serve_phase(torch):
               f"equal the first run's, {n_fresh} fresh parity rows checked; "
               f"pool {pool_mb:.0f} MB; peak allocated "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        if name == "coded_fused":
+        if before is not None:
+            total_launches += _telemetry_checks(torch, cfg, params, srv,
+                                                before, reads, steps, snap,
+                                                reqs, name)
+        if name in ("coded_fused", "coded_telemetry"):
             profile_decode(torch, srv, Request)
         del srv, pool
         torch.cuda.empty_cache()
     names = list(runs)
     check(all(runs[n] == runs[names[0]] for n in names),
-          "coded, uncoded and budgeted pools served different tokens")
+          "the pool runs served different tokens")
     print(f"serve: {', '.join(names)} served identical tokens "
           f"(first request: {runs[names[0]][0][:8]}...)")
+    ring_kv = _ring_run(torch, cfg, params, runs[names[0]])
     del params, ref_banks
     torch.cuda.empty_cache()
-    return total_launches
+    return total_launches, ring_kv
 
 
-# ---------------------------------------------------------------- phase 4
+def _telemetry_checks(torch, cfg, params, srv, before, reads, steps, snap,
+                      reqs, name) -> int:
+    """The telemetry run: its planes against its own counts, then node
+    replacement from the mid-stream snapshot into a fresh card server,
+    which must finish with the same tokens, pool and planes. Returns the
+    replacement's gather launches."""
+    from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
+    from repro_torch.obs.serve import format_summary
+    from repro_torch.runtime.server import Request, ServeConfig, Server
+
+    after = srv.serve_snapshot()
+    _check_planes(name, _plane_delta(after, before), reads, steps,
+                  cfg.n_layers)
+    print(f"serve {name} planes (whole run, warm-up included):\n"
+          + format_summary(after))
+    check("state" in snap, f"{name}: no snapshot was taken")
+    t0 = time.perf_counter()
+    node = Server(cfg, ServeConfig(**SERVE, telemetry=True), params,
+                  device="cuda")
+    node.restore_snapshot(snap["state"])
+    node.queue = [Request(rid=q[0], prompt=q[1], out=q[2])
+                  for q in snap["queue"]]
+    moved = [r for r in node.slots if r] + node.queue
+    ckd_kernel.launches = 0                     # main path starts here
+    node.run_until_drained()
+    launches = ckd_kernel.launches              # main path ends here
+    torch.cuda.synchronize()
+    n_steps = srv.steps_run - snap["steps_run"]
+    check(node.steps_run == n_steps and launches == n_steps * cfg.n_layers,
+          f"{name}: the replacement ran {node.steps_run} steps, "
+          f"{launches} launches; the original {n_steps} steps")
+    by_rid = {r.rid: r.out for r in reqs}
+    check(len(moved) > 0 and all(r.out == by_rid[r.rid] for r in moved),
+          f"{name}: the replacement node served other tokens")
+    check(_same_pool(torch, node.cache["pool"], srv.cache["pool"])
+          and torch.equal(node.tokens, srv.tokens),
+          f"{name}: the replacement node's pool differs")
+    check(node.serve_snapshot().as_dict() == after.as_dict(),
+          f"{name}: the replacement node's planes differ")
+    print(f"serve {name}: snapshot after {SNAP_STEP} decode steps restored "
+          f"into a fresh card server; {len(moved)} requests moved, "
+          f"{n_steps} steps finished on both nodes with identical tokens, "
+          f"pool and planes ({time.perf_counter() - t0:.1f} s)")
+    del node
+    return launches
+
+
+def _ring_run(torch, cfg, params, pool_tokens):
+    """qwen2.5-3b with kv_banks=0 serves from the ring cache: the same
+    requests must get the pool runs' tokens. Returns its K/V of layers 0
+    and 35 (B, max_seq, Hkv, D)."""
+    from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
+    from repro_torch.runtime.server import Request, ServeConfig, Server
+
+    ring_cfg = dataclasses.replace(cfg, kv_banks=0)
+    srv = Server(ring_cfg, ServeConfig(**SERVE), params, device="cuda")
+    check(not srv.pooled, "ring: kv_banks=0 did not select the ring cache")
+    before = ckd_kernel.launches
+    srv.submit(Request(rid=10_000, prompt=list(range(1, 17))))
+    srv.run_until_drained()
+    warm_steps = srv.steps_run
+    reqs = _requests(Request, cfg.vocab, seed=7, n=N_REQUESTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_s = _drive(srv, reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(ckd_kernel.launches == before, "ring: the pool gather launched")
+    check([r.out for r in reqs] == pool_tokens,
+          "ring: tokens differ from the pool runs'")
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"serve ring (kv_banks=0): {len(reqs)} requests, {n_tok} tokens in "
+          f"{dt:.3f} s = {n_tok / dt:.1f} tok/s; {srv.steps_run - warm_steps}"
+          f" decode steps, {1e3 * sum(decode_s) / len(decode_s):.2f} ms/step "
+          f"mean; tokens equal the pool runs' (MP x page = max_seq = "
+          f"{SERVE['max_seq']})")
+    kv = {layer: (srv.cache["k"][layer].clone(), srv.cache["v"][layer].clone())
+          for layer in (0, cfg.n_layers - 1)}
+    del srv
+    return kv
+
+
+# ---------------------------------------------------------------- phase 5
+BENCH_SERVE = dict(n_slots=4, max_prompt=16, max_seq=64, max_new_tokens=16)
+BENCH_CHURN_EVERY = 2            # benchmarks/bench_serve.py:41
+BENCH_SNAP_STEP = 20
+
+
+def _bench_requests(Request, vocab: int, n: int = 16, seed: int = 0):
+    """benchmarks/bench_serve.py::_requests."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=[int(x) for x in rng.integers(
+        1, max(vocab // 2, 2), size=4 + i % 9)]) for i in range(n)]
+
+
+def _step_latencies(torch, srv, store) -> None:
+    """This step's per-page critical-word latencies under its planned
+    (coded) read order and under an all-direct plan on the same placement,
+    from the port's ``read_latencies`` (the read plan replayed on a copy
+    of the code-status table)."""
+    from repro_torch.runtime import kvbank as kb
+    pool, kvcfg = srv.cache["pool"], srv.kvcfg
+    active = (pool.page_table[:, 0] >= 0) & (pool.length > 0)
+    widx = kb.pool_write_index(kvcfg, pool, active)
+    staled = dataclasses.replace(pool,
+                                 parity_fresh=pool.parity_fresh.clone())
+    kb.pool_mark_stale(kvcfg, staled, widx)
+    len_eff = pool.length + active.to(pool.length.dtype)
+    plan = kb.pool_plan(kvcfg, staled, length=len_eff)
+    for key, up in (("coded", plan.use_parity),
+                    ("uncoded", torch.zeros_like(plan.use_parity))):
+        lat = kb.read_latencies(kvcfg, pool.page_table, len_eff, up)
+        store[key].extend(lat[lat > 0].tolist())
+
+
+def _bench_drive(srv, reqs, perms, start=0, on_step=None):
+    """bench_serve's schedule from decode step ``start``: admit, a seeded
+    placement churn every 2 steps, one decode step. ``perms`` maps a step
+    to its permutation: filled by the first run, replayed by the others."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    for r in reqs:
+        srv.submit(r)
+    step = start
+    while True:
+        srv._admit()
+        if not any(s_ is not None for s_ in srv.slots):
+            break
+        if step and step % BENCH_CHURN_EVERY == 0:
+            if step not in perms:
+                perms[step] = rng.permutation(srv.kvcfg.pool_pages)
+            srv.permute_pool(perms[step])
+        if on_step is not None:
+            on_step(step, srv)
+        srv.step_decode()
+        step += 1
+    return step
+
+
 def cross_device_phase(torch):
+    """The reduced config at f32 (TF32 off) on bench_serve's schedule, on
+    the card and on the CPU: identical tokens, logits within 1e-4, the
+    serve planes equal exactly; critical-word latencies from the port's
+    ``read_latencies``; a card snapshot restored on the CPU finishes
+    identically."""
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
     from repro_torch.models import lm
+    from repro_torch.obs.serve import format_summary
     from repro_torch.runtime.server import Request, ServeConfig, Server
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -421,23 +668,32 @@ def cross_device_phase(torch):
     cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(), kv_page=4,
                               compute_dtype="float32")
     params = lm.init_params(cfg, seed=1, device="cpu")
-    sc = ServeConfig(n_slots=3, max_prompt=8, max_seq=24, max_new_tokens=5)
-    out, logits = {}, {}
+    sc = ServeConfig(**BENCH_SERVE, telemetry=True)
+    out, logits, planes, perms, lat = {}, {}, {}, {}, {"coded": [],
+                                                        "uncoded": []}
+    snap = {}
+
+    def on_card_step(step, srv):
+        _step_latencies(torch, srv, lat)
+        if step == BENCH_SNAP_STEP:
+            snap["state"] = srv.snapshot()
+            snap["queue"] = [(r.rid, list(r.prompt), list(r.out))
+                             for r in srv.queue]
+
     before = ckd_kernel.launches
     for dev in ("cuda", "cpu"):
         srv = Server(cfg, sc, params, device=dev)
-        srv.permute_pool(np.random.default_rng(CHURN_SEED).permutation(
-            srv.kvcfg.pool_pages))
         logits[dev] = []
         keep_logits(torch, lm, srv, logits[dev])
-        reqs = _requests(Request, 256, seed=3, n=5)
-        for r in reqs:
-            srv.submit(r)
-        with counting_degraded_reads() as degraded:
-            srv.run_until_drained()
+        reqs = _bench_requests(Request, cfg.vocab)
+        with counting_reads() as reads:
+            _bench_drive(srv, reqs, perms,
+                         on_step=on_card_step if dev == "cuda" else None)
         out[dev] = [r.out for r in reqs]
+        planes[dev] = srv.serve_snapshot()
         if dev == "cuda":
-            n_degraded = int(sum(degraded)) * cfg.n_layers
+            n_degraded = int(sum(reads["degraded"])) * cfg.n_layers
+            card_pool = srv.cache["pool"]
     check(ckd_kernel.launches > before, "cross-device: kernel not launched")
     check(n_degraded > 0, "cross-device: the plan served no degraded read")
     check(out["cuda"] == out["cpu"],
@@ -449,14 +705,253 @@ def cross_device_phase(torch):
         check(torch.allclose(a, b, rtol=LOGITS_TOL, atol=LOGITS_TOL),
               f"cross-device: logits differ by {float((a - b).abs().max())}")
         err = max(err, float((a - b).abs().max()))
-    print(f"cross-device: reduced {cfg.name} at f32 (TF32 off) served "
-          f"identical tokens on the card and the CPU ({out['cpu'][0]}...); "
-          f"{len(logits['cpu'])} prefill and decode logits within "
-          f"rtol=atol={LOGITS_TOL} (max abs diff {err:.3g}); "
+    card, cpu = planes["cuda"].as_dict(), planes["cpu"].as_dict()
+    check(card == cpu, f"cross-device: planes differ card {card} vs CPU "
+          f"{cpu}")
+    p50_c, p99_c = np.percentile(lat["coded"], [50, 99])
+    p50_u, p99_u = np.percentile(lat["uncoded"], [50, 99])
+    print(f"cross-device: reduced {cfg.name} at f32 (TF32 off) on "
+          f"bench_serve's schedule ({len(out['cpu'])} requests x "
+          f"{BENCH_SERVE['max_new_tokens']} tokens, {BENCH_SERVE['n_slots']} "
+          f"slots, page 4, churn every {BENCH_CHURN_EVERY}) served identical "
+          f"tokens on the card and the CPU; {len(logits['cpu'])} prefill and "
+          f"decode logits within rtol=atol={LOGITS_TOL} (max abs diff "
+          f"{err:.3g}); every serve plane equal card vs CPU; "
           f"{n_degraded} degraded page reads on the card")
+    print(f"cross-device planes on the card: port cycles coded "
+          f"{card['coded_cycles']} vs uncoded {card['uncoded_cycles']}, "
+          f"{card['degraded_reads']} degraded reads of "
+          f"{card['served_pages']}; critical-word latency (port cycles, "
+          f"read_latencies over {len(lat['coded'])} page reads) coded p50 "
+          f"{p50_c:g} p99 {p99_c:g} mean {np.mean(lat['coded']):.3f}, "
+          f"all-direct p50 {p50_u:g} p99 {p99_u:g} mean "
+          f"{np.mean(lat['uncoded']):.3f}\n" + format_summary(planes["cuda"]))
+
+    # a card snapshot restored on the CPU finishes identically
+    check("state" in snap, "cross-device: no snapshot was taken")
+    node = Server(cfg, sc, params, device="cpu")
+    node.restore_snapshot(snap["state"])
+    moved = [r for r in node.slots if r]
+    node.queue = [Request(rid=q[0], prompt=q[1], out=q[2])
+                  for q in snap["queue"]]
+    moved += node.queue
+    node.step_decode()                   # the snapshot's own step
+    _bench_drive(node, [], perms, start=BENCH_SNAP_STEP + 1)
+    by_rid = dict(zip(range(len(out["cuda"])), out["cuda"]))
+    check(len(moved) > 0 and all(r.out == by_rid[r.rid] for r in moved),
+          "cross-device: the CPU node restored from the card served other "
+          "tokens")
+    check(node.serve_snapshot().as_dict() == card,
+          "cross-device: the CPU node restored from the card has other "
+          "planes")
+    for f in ("page_table", "length", "parity_fresh"):
+        check(torch.equal(getattr(node.cache["pool"], f),
+                          getattr(card_pool, f).cpu()),
+              f"cross-device: restored {f} differs")
+    print(f"cross-device: card snapshot after {BENCH_SNAP_STEP} decode steps "
+          f"restored on the CPU; {len(moved)} requests finished there with "
+          f"the card's tokens, planes and tables")
 
 
-# ---------------------------------------------------------------- phase 5
+# ---------------------------------------------------------------- phase 4
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+F32_TOL = 1e-5                   # rtol = atol, TF32 off: summation order
+FLUSH_BYTES = 128 << 20          # > the H100's 50 MB L2
+
+
+def time_cold(torch, fn, n: int, flush) -> float:
+    """Mean ms of ``fn`` on the card with the L2 flushed before each call:
+    per call a short sleep kernel (so the host has queued what follows),
+    a write of ``flush``, then CUDA events around the call."""
+    fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(n):
+        torch.cuda._sleep(2_000_000)
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks) / n
+
+
+def _decode_work(up, seq, nb, page, hkv, d, h, lane_bytes, q_bytes):
+    """Bytes the decode must move and the operations it must do for this
+    plan and these lengths: of each page it needs, the rows (tokens)
+    below seq_len, read once from each distinct bank page (direct, or the
+    sibling of a degraded page) and parity page, K and V; q read and the
+    output written once; the plan and the lengths. 4 G D operations per
+    key and kv head (q.k and p.v)."""
+    import numpy as np
+    up = up.cpu().numpy().astype(bool)
+    seq = seq.cpu().numpy().astype(np.int64)
+    b, n_pages = up.shape
+    t = np.arange(n_pages)
+    rows = np.clip(seq[:, None] - t[None, :] * page, 0, page)   # (B, n)
+    direct = np.where(up, 0, rows)
+    sib = np.zeros_like(rows)
+    sib[:, t ^ 1] = np.where(up, rows, 0)        # page t's sibling is t ^ 1
+    bank_rows = np.maximum(direct, sib).sum()
+    deg = np.where(up, rows, 0)
+    par_rows = np.maximum(deg[:, 0::2], deg[:, 1::2]).sum()
+    row_bytes = hkv * d * lane_bytes
+    n_bytes = (2 * (bank_rows + par_rows) * row_bytes + 2 * q_bytes
+               + up.size * 4 + b * 4)
+    ops = 4 * (h // hkv) * d * hkv * int(np.minimum(
+        seq, n_pages * page).clip(min=0).sum())
+    return int(n_bytes), ops
+
+
+def decode_phase(torch, ring_kv):
+    """``coded_kv_decode`` at three shapes: the serving width (K/V of the
+    ring run's layers 0 and 35), bench_kernels' shape, and one of at least
+    256 MB. The main path is ``ops.coded_kv_decode`` after
+    ``ops.pack_kv_banks``; then the kernel is held against its plain
+    version, timed, and put beside its bound and SDPA."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
+    from repro_torch.kernels.coded_kv_decode import ops as ckd_ops
+    from repro_torch.kernels.coded_kv_decode.ref import coded_kv_decode_plain
+    from repro_torch.models import layers as ly
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    rng = np.random.default_rng(2468)
+
+    def normal(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    def plan(b, n_pages):
+        return torch.from_numpy(rng.random((b, n_pages)) < 0.4).to("cuda")
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = []          # (name, q, k, v, NB, page, plan, seq_len)
+    # 1. serving width: B=8, T=2048, H=16, Hkv=2, D=128, NB=8, P=64
+    for layer, (k, v) in ring_kv.items():
+        b, t, _, d = k.shape
+        seq = torch.tensor([t, 0, 37, 1000, 64, 1537, t - 1, 700],
+                           dtype=torch.int32, device="cuda")[:b]
+        cases.append((f"serving_layer{layer}", normal(b, 16, d, dtype=bf16),
+                      k, v, 8, 64, plan(b, t // 64), seq))
+    # 2. bench_kernels' shape (benchmarks/bench_kernels.py:122), f32
+    cases.append(("bench", normal(2, 4, 64, dtype=f32),
+                  normal(2, 128, 2, 64, dtype=f32),
+                  normal(2, 128, 2, 64, dtype=f32), 4, 8, plan(2, 16),
+                  torch.full((2,), 128, dtype=torch.int32, device="cuda")))
+    # 3. >= 256 MB: B=16, T=16384, H=16, Hkv=2, D=128, bf16
+    cases.append(("large", normal(16, 16, 128, dtype=bf16),
+                  normal(16, 16384, 2, 128, dtype=bf16),
+                  normal(16, 16384, 2, 128, dtype=bf16), 8, 64,
+                  plan(16, 256),
+                  torch.full((16,), 16384, dtype=torch.int32, device="cuda")))
+    packed = [ckd_ops.pack_kv_banks(k, v, nb, page)[:4]
+              for _, _, k, v, nb, page, _, _ in cases]
+    torch.cuda.synchronize()
+    ckd_kernel.decode_launches = 0              # main path starts here
+    outs = [ckd_ops.coded_kv_decode(q, *banks, up, seq)
+            for (_, q, _, _, _, _, up, seq), banks in zip(cases, packed)]
+    torch.cuda.synchronize()
+    launches = ckd_kernel.decode_launches       # main path ends here
+    check(launches == len(cases),
+          f"coded_kv_decode: {launches} launches for {len(cases)} calls")
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    results = {}
+    for (name, q, k, v, nb, page, up, seq), banks, out in zip(
+            cases, packed, outs):
+        vd = q.dtype
+        up32, seq32 = up.to(torch.int32), seq
+        # compared in f32: with q in f32 the kernel and the plain version
+        # return their f32 results (the q values are the same); a bf16
+        # output must be the kernel's f32 result rounded, bit for bit
+        q32 = q.float()
+        out32 = out if vd == f32 else ckd_kernel.coded_kv_decode_cuda(
+            q32, *banks, up32, seq32, vd)
+        ref32 = coded_kv_decode_plain(q32, *banks, up32, seq32, vd)
+        err = float((out32 - ref32).abs().max())
+        check(torch.allclose(out32, ref32, rtol=F32_TOL, atol=F32_TOL)
+              and bool(torch.isfinite(out32).all()),
+              f"coded_kv_decode {name}: kernel differs from the plain "
+              f"version by {err}")
+        check(torch.equal(out32.to(vd), out),
+              f"coded_kv_decode {name}: the {vd} output is not the f32 "
+              "result rounded")
+        check(not out[seq == 0].any(),
+              f"coded_kv_decode {name}: seq_len 0 did not read zeros")
+        extra = ""
+        if name.startswith("serving"):
+            # the coded read gives back the logical cache
+            mask = (torch.arange(k.shape[1], device="cuda")[None, :]
+                    < seq[:, None])[:, None, None, None, :]
+            logical = ly.mha(q32[:, None], k, v, mask)[:, 0]
+            live = seq > 0
+            check(torch.allclose(out32[live], logical[live], rtol=F32_TOL,
+                                 atol=F32_TOL),
+                  f"coded_kv_decode {name}: differs from mha over the ring "
+                  "cache")
+            extra = (f"; within rtol=atol={F32_TOL} of mha over the ring "
+                     "cache")
+
+        def run_kernel():
+            ckd_kernel.coded_kv_decode_cuda(q, *banks, up32, seq32, vd)
+
+        reps = 20 if name == "large" else 100
+        ms = time_cold(torch, run_kernel, reps, flush)
+        plain_ms = time_on_card(torch, lambda: coded_kv_decode_plain(
+            q, *banks, up32, seq32, vd), 5 if name == "large" else 20)
+        # like for like with the library call: no degraded page, full length
+        zero = torch.zeros_like(up32)
+        full = torch.full_like(seq32, k.shape[1])
+        ms_full = time_cold(torch, lambda: ckd_kernel.coded_kv_decode_cuda(
+            q, *banks, zero, full, vd), reps, flush)
+        b, h, d = q.shape
+        hkv = k.shape[2]
+        qk = q.view(b, h // hkv, hkv, d).transpose(1, 2).reshape(
+            b, h, 1, d)                      # head h % Hkv -> kv-major
+        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        lib_ms = time_cold(torch, lambda: F.scaled_dot_product_attention(
+            qk, kt, vt, enable_gqa=True), reps, flush)
+        lib = F.scaled_dot_product_attention(qk, kt, vt, enable_gqa=True)
+        mine = ckd_kernel.coded_kv_decode_cuda(q, *banks, zero, full, vd)
+        lib_err = float((lib.view(b, hkv, h // hkv, d).transpose(1, 2)
+                         .reshape(b, h, d).float() - mine.float()).abs().max())
+        n_bytes, ops = _decode_work(up32, seq32, nb, page, hkv, d, h,
+                                    k.element_size(),
+                                    q.numel() * q.element_size())
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_OPS[str(vd).split(".")[1]] * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        results[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=lib_ms,
+                             max_abs_err=err, bytes=n_bytes, ms_full=ms_full)
+        n_deg = int(up32.sum())
+        print(f"kernel coded_kv_decode {name}: B={b} T={k.shape[1]} H={h} "
+              f"Hkv={hkv} D={d} {str(vd).split('.')[1]} NB={nb} P={page}, "
+              f"{n_deg}/{up32.numel()} pages degraded, seq_len "
+              f"{seq32.tolist() if b <= 8 else 'full'}; within rtol=atol="
+              f"{F32_TOL} of plain in f32 (max abs {err:.3g}), the "
+              f"{str(vd).split('.')[1]} output that rounded{extra}; "
+              f"{ms * 1e3:.2f} us/launch "
+              f"(L2 flushed), bound {bound_ms * 1e3:.2f} us by {bound_by} "
+              f"({n_bytes / 1e6:.2f} MB at 3.35 TB/s = "
+              f"{bytes_ms * 1e3:.2f} us, {ops / 1e9:.3f} GFLOP = "
+              f"{ops_ms * 1e3:.2f} us; {bound_ms / ms:.1%} of it); plain "
+              f"{plain_ms:.3f} ms; at no degraded page and full length "
+              f"{ms_full * 1e3:.2f} us vs SDPA (enable_gqa) "
+              f"{lib_ms * 1e3:.2f} us (max abs diff {lib_err:.3g})")
+    del flush, packed, cases, outs
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+# ---------------------------------------------------------------- phase 6
 def _gather_columns(torch, gen, n, n_data, rows, n_par, prows, mix=True):
     """int32 request columns on the card. ``mix``: every mode (-1 .. 6),
     sibling -1 included, as degraded reads of real options would have
@@ -591,7 +1086,7 @@ def _kernel_row(name, shape, ms, plain_ms, n_bytes, lib_ms, err, what):
                 library_ms=lib_ms, max_abs_err=err, bytes=n_bytes)
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 7
 class GoldenCheck:
     """``on_cycle`` hook: every read a cycle serves must return the golden
     (memory-order) value committed before that cycle. Counts on the
@@ -812,7 +1307,9 @@ def main() -> int:
                 print(f"    {line.strip()}")
 
     kern = kernel_phase(torch)
-    launches = serve_phase(torch)
+    launches, ring_kv = serve_phase(torch)
+    decode, decode_launches = decode_phase(torch, ring_kv)
+    del ring_kv
     cross_device_phase(torch)
     sim_kern = sim_kernel_phase(torch)
     sim_launches = simulate_phase(torch)
@@ -850,6 +1347,21 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": case["library_ms"],
         })
+    # decode attention over coded banks, at the serving width (layer 0)
+    case = decode["serving_layer0"]
+    table["kernels"].append({
+        "name": "coded_kv_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/coded_kv_decode.cu",
+        "replaces": "src/repro/kernels/coded_kv_decode/kernel.py:102",
+        "launches": decode_launches,
+        "max_abs_err": max(v["max_abs_err"] for v in decode.values()),
+        "ms": case["ms"],
+        "plain_ms": case["plain_ms"],
+        "bound_ms": case["bound_ms"],
+        "bound_by": case["bound_by"],
+        "library_ms": case["library_ms"],
+    })
     print(card)
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,16 @@
-"""Wrapper of the CUDA pool-gather kernel (``csrc/gather_pool.cu``), the
-Hopper counterpart of ``gather_pool_pallas``
-(``repro/kernels/coded_kv_decode/kernel.py:182``).
+"""Wrappers of the CUDA kernels of the coded KV decode datapath:
 
-The wrapper takes CUDA tensors only: it checks device, dtype, contiguity
-and shape and raises on anything else, allocates the outputs, launches on
-PyTorch's current stream and raises if the launch was refused. It never
-falls back to the plain version. ``launches`` counts the launches made.
+* ``gather_pool_cuda`` (``csrc/gather_pool.cu``), the Hopper counterpart of
+  ``gather_pool_pallas`` (``repro/kernels/coded_kv_decode/kernel.py:182``);
+  ``launches`` counts its launches;
+* ``coded_kv_decode_cuda`` (``csrc/coded_kv_decode.cu``), the counterpart
+  of ``coded_kv_decode_pallas`` (``kernel.py:102``); ``decode_launches``
+  counts its launches.
+
+A wrapper takes CUDA tensors only: it checks device, dtype, contiguity
+and shape and raises on anything else, allocates the outputs and scratch,
+launches on PyTorch's current stream and raises if the launch was refused.
+It never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -18,6 +23,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import check_cuda_operand
 
 launches = 0
+decode_launches = 0
+# dtype codes of csrc/coded_kv_decode.cu, and the lanes of each value type
+_DT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_LANES_OF = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+             torch.float16: torch.int16}
+# flash-decoding splits: about one wave of blocks on the H100's 132 SMs,
+# two blocks an SM (the split kernel takes up to 253 registers a thread)
+TARGET_BLOCKS = 2 * 132
 
 
 def _lib() -> ctypes.CDLL:
@@ -90,3 +103,107 @@ def gather_pool_cuda(
                            + lib.gather_pool_error_string(err).decode())
     launches += 1
     return k_out, v_out
+
+
+def _decode_lib() -> ctypes.CDLL:
+    lib = build.library("coded_kv_decode")
+    if lib.coded_kv_decode.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.coded_kv_decode.argtypes = [p, i] + [p] * 10 + [i] * 11 + [
+            ctypes.c_float, p]
+        lib.coded_kv_decode.restype = ctypes.c_int
+        lib.coded_kv_decode_error_string.argtypes = [ctypes.c_int]
+        lib.coded_kv_decode_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def decode_splits(b: int, hkv: int, n_pages: int) -> int:
+    """Page ranges per (sequence, kv head): as many as fit one wave of
+    ``TARGET_BLOCKS`` blocks (at least one), at least one page each, no
+    empty range."""
+    if n_pages == 0:
+        return 1
+    ns = min(n_pages, max(1, TARGET_BLOCKS // max(b * hkv, 1)))
+    per = -(-n_pages // ns)
+    return -(-n_pages // per)
+
+
+def coded_kv_decode_cuda(
+    q: torch.Tensor,           # (B, H, D) f32 / bf16 / f16
+    k_banks: torch.Tensor,     # (B, NB, S, P, Hkv, D) int16/int32 lanes
+    v_banks: torch.Tensor,
+    k_par: torch.Tensor,       # (B, NB/2, S, P, Hkv, D)
+    v_par: torch.Tensor,
+    use_parity: torch.Tensor,  # (B, n_pages) int32, n_pages <= NB*S
+    seq_len: torch.Tensor,     # (B,) int32
+    value_dtype: torch.dtype,
+) -> torch.Tensor:
+    """Decode attention over per-sequence coded banks on the card: (B, H,
+    D) in q's dtype, the function of ``ref.coded_kv_decode_plain``."""
+    global decode_launches
+    fn = "coded_kv_decode_cuda"
+    if value_dtype not in _LANES_OF:
+        raise TypeError(f"{fn}: value_dtype must be float32, bfloat16 or "
+                        f"float16, got {value_dtype}")
+    if q.dtype not in _DT_CODE:
+        raise TypeError(f"{fn}: q must be float32, bfloat16 or float16, got "
+                        f"{q.dtype}")
+    if q.dim() != 3 or k_banks.dim() != 6 or use_parity.dim() != 2:
+        raise ValueError(f"{fn}: need q (B, H, D), banks (B, NB, S, P, Hkv, "
+                         "D) and use_parity (B, n_pages)")
+    lanes = _LANES_OF[value_dtype]
+    b, h, d = q.shape
+    nb, slots, page, hkv = k_banks.shape[1:5]
+    n_pages = use_parity.shape[1]
+    if nb % 2 or h % hkv or n_pages > nb * slots:
+        raise ValueError(f"{fn}: {nb} banks of {slots} slots, {h} heads on "
+                         f"{hkv} kv heads, {n_pages} pages planned (need an "
+                         "even NB, H % Hkv == 0, n_pages <= NB*S)")
+    row = d * torch.iinfo(lanes).bits // 8
+    vecs = row // 16
+    if row % 16 or vecs > 32 or vecs & (vecs - 1):
+        raise ValueError(f"{fn}: a row of {d} lanes is {row} bytes; the "
+                         "kernel takes 16, 32, ..., 512 bytes")
+    g_max = 16 if lanes == torch.int32 else 8
+    if h // hkv > g_max:
+        raise ValueError(f"{fn}: {h // hkv} query heads per kv head (at most "
+                         f"{g_max} for {value_dtype})")
+    bank_shape = (b, nb, slots, page, hkv, d)
+    par_shape = (b, nb // 2) + bank_shape[2:]
+    check_cuda_operand(fn, "q", q, q.dtype, (b, h, d))
+    check_cuda_operand(fn, "k_banks", k_banks, lanes, bank_shape)
+    check_cuda_operand(fn, "v_banks", v_banks, lanes, bank_shape)
+    check_cuda_operand(fn, "k_par", k_par, lanes, par_shape)
+    check_cuda_operand(fn, "v_par", v_par, lanes, par_shape)
+    check_cuda_operand(fn, "use_parity", use_parity, torch.int32,
+                       (b, n_pages))
+    check_cuda_operand(fn, "seq_len", seq_len, torch.int32, (b,))
+    operands = (q, k_banks, v_banks, k_par, v_par, use_parity, seq_len)
+    if len({t.device for t in operands}) != 1:
+        raise ValueError(f"{fn}: operands on different cards")
+    if any(t.data_ptr() % 16 for t in (k_banks, v_banks, k_par, v_par)):
+        raise ValueError(f"{fn}: banks and parity must be 16-byte aligned")
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    ns = decode_splits(b, hkv, n_pages)
+    g = h // hkv
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part_m = torch.empty((b, hkv, ns, g), **f32)
+    part_s = torch.empty((b, hkv, ns, g), **f32)
+    part_acc = torch.empty((b, hkv, ns, g, d), **f32)
+    with torch.cuda.device(q.device):
+        lib = _decode_lib()
+        err = lib.coded_kv_decode(
+            q.data_ptr(), _DT_CODE[q.dtype], k_banks.data_ptr(),
+            v_banks.data_ptr(), k_par.data_ptr(), v_par.data_ptr(),
+            use_parity.data_ptr(), seq_len.data_ptr(), part_m.data_ptr(),
+            part_s.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+            _DT_CODE[q.dtype], _DT_CODE[value_dtype], b, h, hkv, d, nb,
+            slots, page, n_pages, ns, d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("coded_kv_decode kernel launch failed: "
+                           + lib.coded_kv_decode_error_string(err).decode())
+    decode_launches += 1
+    return out

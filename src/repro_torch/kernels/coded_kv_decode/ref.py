@@ -1,6 +1,11 @@
-"""Plain PyTorch version of the pool gather: the CPU path of
-``ops.gather_pool_layer`` and the card-side yardstick of the CUDA kernel
-(same function as ``repro/kernels/coded_kv_decode/ops.py:83-100``)."""
+"""Plain PyTorch versions of the coded KV decode datapath: the CPU path of
+the ``ops`` wrappers and the card-side yardsticks of the CUDA kernels.
+
+* ``gather_pool_plain``: the serving pool gather (same function as
+  ``repro/kernels/coded_kv_decode/ops.py:83-100``);
+* ``decode_attention_plain``: decode attention over the logical K/V;
+* ``coded_kv_decode_plain``: decode attention over per-sequence coded
+  banks, the function of ``csrc/coded_kv_decode.cu``."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -35,3 +40,54 @@ def gather_pool_plain(
                                                    device=out.device))
 
     return one(k_banks, k_par), one(v_banks, v_par)
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, seq_len: torch.Tensor
+                           ) -> torch.Tensor:
+    """Masked GQA decode attention over the logical K/V (the port of
+    ``repro/kernels/coded_kv_decode/ref.py:11``): q (B, H, D), k/v
+    (B, T, Hkv, D), seq_len (B,) -> (B, H, D) in q's dtype. Computed in
+    f32; head ``h`` reads kv head ``h % Hkv``; keys at index >= seq_len
+    are masked, and a sequence with no key reads exact zeros."""
+    b, h, d = q.shape
+    hkv = k.shape[2]
+    qf = q.float().reshape(b, h // hkv, hkv, d)
+    logits = torch.einsum("bgkd,btkd->bgkt", qf, k.float()) * (d ** -0.5)
+    mask = (torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+            < seq_len.to(q.device)[:, None, None, None])
+    logits = torch.where(mask, logits, float("-inf"))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = torch.where(mask, p, 0.0)
+    p = p / p.sum(-1, keepdim=True).clamp(min=1e-30)
+    out = torch.einsum("bgkt,btkd->bgkd", p, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def coded_kv_decode_plain(q: torch.Tensor, k_banks: torch.Tensor,
+                          v_banks: torch.Tensor, k_par: torch.Tensor,
+                          v_par: torch.Tensor, use_parity: torch.Tensor,
+                          seq_len: torch.Tensor,
+                          value_dtype: torch.dtype) -> torch.Tensor:
+    """Decode attention read straight from per-sequence coded banks, as
+    ``_kv_decode_kernel`` (``repro/kernels/coded_kv_decode/kernel.py:40``)
+    computes it: page ``t < n_pages = use_parity.shape[1]`` is read from
+    bank ``t % NB``, slot ``t // NB``; where ``use_parity[b, t]`` is set it
+    is ``banks[bank ^ 1, slot] ^ par[bank // 2, slot]`` whether or not that
+    parity is right. The lanes are bit-cast to ``value_dtype``.
+
+    q (B, H, D); banks (B, NB, S, P, Hkv, D) integer lanes; parity
+    (B, NB/2, S, P, Hkv, D); use_parity (B, n_pages); seq_len (B,)."""
+    b, nb, _, page, hkv, d = k_banks.shape
+    n_pages = use_parity.shape[1]
+    t = torch.arange(n_pages, device=k_banks.device)
+    bank, slot = t % nb, t // nb
+    deg = use_parity.to(k_banks.device).bool()[..., None, None, None]
+
+    def logical(banks, par):
+        pages = torch.where(deg, banks[:, bank ^ 1, slot]
+                            ^ par[:, bank // 2, slot], banks[:, bank, slot])
+        return pages.reshape(b, n_pages * page, hkv, d).view(value_dtype)
+
+    return decode_attention_plain(q, logical(k_banks, k_par),
+                                  logical(v_banks, v_par), seq_len)

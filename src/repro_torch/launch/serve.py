@@ -2,15 +2,20 @@
 CUDA card unless ``--device`` names another.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
-      [--reduced] [--device cpu] --requests 8 --slots 4
+      [--reduced] [--device cpu] --requests 8 --slots 4 [--telemetry] \
+      [--kv-banks 0]
 
 Reports steady-state decode throughput (a warm-up request runs first, so
-the timed run excludes first-call set-up and the kernel build) and
-per-request TTFT/ITL from the host-side lifecycle log.
+the timed run excludes first-call set-up and the kernel build),
+per-request TTFT/ITL from the host-side lifecycle log and, with
+``--telemetry``, the device serve planes' summary (read provenance, port
+cycles saved, recode backlog) of the coded KV pool. ``--kv-banks 0``
+serves from the ring cache instead of the pool.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -18,6 +23,7 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import lm
+from repro_torch.obs import serve as obs_serve
 from repro_torch.runtime.server import Request, ServeConfig, Server
 
 
@@ -51,17 +57,23 @@ def main(argv=None):
                     help="pool page size in tokens (0: config default)")
     ap.add_argument("--recode-budget", type=int, default=None,
                     help="parity rows recoded per step (default: all)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="device serve metric planes + summary")
+    ap.add_argument("--kv-banks", type=int, default=None,
+                    help="KV banks (default: the config's; 0: ring cache)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.kv_banks is not None:
+        cfg = dataclasses.replace(cfg, kv_banks=args.kv_banks)
     params = lm.init_params(cfg, seed=args.seed, device=device)
     sc = ServeConfig(n_slots=args.slots, max_prompt=args.max_prompt,
                      max_seq=args.max_seq, max_new_tokens=args.max_new,
-                     coded=not args.uncoded, page=args.page,
-                     recode_budget=args.recode_budget)
+                     coded=not args.uncoded, telemetry=args.telemetry,
+                     page=args.page, recode_budget=args.recode_budget)
     srv = Server(cfg, sc, params, device=device)
     del params
 
@@ -81,7 +93,8 @@ def main(argv=None):
     n_tok = sum(len(r.out) for r in reqs)
     for r in reqs[:4]:
         print(f"req {r.rid}: {r.out}")
-    pool = "coded pool" if sc.coded else "uncoded pool"
+    pool = ("coded pool" if sc.coded else "uncoded pool") \
+        if srv.pooled else "ring cache"
     rate = f"{n_tok / dt:.1f} tok/s" if dt > 0 else "n/a tok/s"
     print(f"served {len(reqs)} requests / {n_tok} tokens in {dt:.2f}s "
           f"({rate} steady-state, {srv.steps_run - warm_steps} decode "
@@ -94,6 +107,9 @@ def main(argv=None):
         print(f"  req {s['rid']}: wait {1e3 * s['admission_wait_s']:.1f} ms"
               f" ttft {1e3 * s['ttft_s']:.1f} ms"
               f" mean-itl {mean_itl:.1f} ms ({s['n_tokens']} tokens)")
+    snap = srv.serve_snapshot()
+    if snap is not None:
+        print(obs_serve.format_summary(snap))
 
 
 if __name__ == "__main__":

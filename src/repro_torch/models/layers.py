@@ -1,7 +1,8 @@
 """Transformer layers of the serving slice (``repro.models.layers``
-counterparts): RMS norm, half-split RoPE, GQA attention with QKV bias,
-SwiGLU MLP. Plain functions over parameter dicts in the JAX package's
-``(d_in, d_out)`` layout, so ``x @ W`` needs no transpose."""
+counterparts): RMS norm, half-split RoPE, GQA attention with QKV bias
+(full-sequence, and one-token decode over a ring cache), SwiGLU MLP.
+Plain functions over parameter dicts in the JAX package's ``(d_in,
+d_out)`` layout, so ``x @ W`` needs no transpose."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -96,11 +97,48 @@ def mha(q: torch.Tensor,            # (B, Tq, H, dh)
     return out.reshape(b, tq, h, dh).to(q.dtype)
 
 
-def causal_mask(tq: int, tk: int, device) -> torch.Tensor:
-    """(1,1,1,Tq,Tk) causal mask, query 0 at key position 0."""
-    qi = torch.arange(tq, device=device)[:, None]
+def causal_mask(tq: int, tk: int, device, offset: int = 0,
+                window: int = 0) -> torch.Tensor:
+    """(1,1,1,Tq,Tk) causal (+ optional sliding window) mask. ``offset``
+    is the absolute position of query 0 minus that of key 0."""
+    qi = torch.arange(tq, device=device)[:, None] + offset
     ki = torch.arange(tk, device=device)[None, :]
-    return (ki <= qi)[None, None, None]
+    m = ki <= qi
+    if window > 0:
+        m = m & (ki > qi - window)
+    return m[None, None, None]
+
+
+def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     pos: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, window: int = 0):
+    """One-token decode over a ring cache (``repro`` layers.py:191).
+    x (B,1,D); pos (B,) absolute positions; k/v_cache (B, C, Hkv, dh)
+    with C = min(max_seq, window or max_seq): the token at position ``i``
+    lives in slot ``i % C``. Writes this token's K/V into the caches IN
+    PLACE and returns (out (B,1,D) after the output projection, k_cache,
+    v_cache)."""
+    b = x.shape[0]
+    c = k_cache.shape[1]
+    q, k, v = qkv_proj(cfg, p, x)
+    q = rope(q, pos[:, None], cfg.rope_theta)
+    k = rope(k, pos[:, None], cfg.rope_theta)
+    pos = pos.long()
+    slot = pos % c
+    bidx = torch.arange(b, device=x.device)
+    k_cache[bidx, slot] = k[:, 0]
+    v_cache[bidx, slot] = v[:, 0]
+    # valid keys: the absolute index of cache slot s, rebuilt from pos
+    sidx = torch.arange(c, device=x.device)[None, :]
+    abs_idx = torch.where(sidx <= slot[:, None],
+                          pos[:, None] - (slot[:, None] - sidx),
+                          pos[:, None] - (slot[:, None] + c - sidx))
+    valid = (abs_idx >= 0) & (abs_idx <= pos[:, None])
+    if window > 0:
+        valid &= abs_idx > pos[:, None] - window
+    out = mha(q, k_cache, v_cache, valid[:, None, None, None, :])
+    return (out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"],
+            k_cache, v_cache)
 
 
 # ------------------------------------------------------------------- MLP

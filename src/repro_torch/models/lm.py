@@ -1,6 +1,7 @@
 """Language model of the serving slice (``repro.models.lm`` counterpart):
-the dense decoder family, prompt prefill and the decode step over the coded
-KV page pool.
+the dense decoder family, prompt prefill, the decode step over a ring
+cache (``cache_spec``/``decode_step``) and the decode step over the coded
+KV page pool (``decode_step_pooled``).
 
 Params are nested dicts in the JAX package's layout: per-layer leaves
 stacked on axis 0 under ``"blocks"``, matrices ``(d_in, d_out)``. The JAX
@@ -20,6 +21,7 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as ly
 from repro_torch.models.embedding import (coded_parity, embed_init,
                                           embed_lookup, tied_logits)
+from repro_torch.obs import serve as obs_serve
 from repro_torch.runtime import kvbank as kb
 
 Params = Dict[str, Any]
@@ -27,17 +29,17 @@ Params = Dict[str, Any]
 
 def check_slice(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config outside the ported
-    slice (dense RoPE/RMSNorm/SwiGLU decoder with a tied head)."""
-    if cfg.family != "dense" or cfg.is_encdec or cfg.frontend != "none" \
-            or cfg.sliding_window:
+    slice: the dense RoPE/RMSNorm/SwiGLU decoder with a tied head, global
+    or sliding-window attention."""
+    if cfg.family != "dense" or cfg.is_encdec or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense global-attention decoder is ported "
-            "(ROADMAP.md, queue 1: 'Other model families and training')")
+            f"{cfg.name}: only the dense decoder is ported (ROADMAP.md, "
+            "queue 1: 'Other model families and training')")
     if (cfg.pos, cfg.norm, cfg.act, cfg.mlp_gated, cfg.tie_embeddings) != \
             ("rope", "rmsnorm", "silu", True, True):
         raise NotImplementedError(
             f"{cfg.name}: only RoPE + RMSNorm + SwiGLU with a tied head is "
-            "ported (ROADMAP.md, queue 1: 'Serving remainder')")
+            "ported (ROADMAP.md, queue 1: 'Other dense configs')")
 
 
 def _map(fn: Callable, tree):
@@ -107,17 +109,50 @@ def _block_tail(cfg, bp, x, o):
 
 
 # ======================================================================
-# serving: prefill + pooled decode
+# serving: prefill, ring decode, pooled decode
 # ======================================================================
-def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, device
+               ) -> Dict[str, torch.Tensor]:
+    """An empty ring cache (``repro`` lm.py:359, the dense part): ``pos``
+    (B,) int32 and ``k``/``v`` (L, B, C, Hkv, dh) in the compute dtype,
+    with C = min(seq_len, window) under a sliding window, else seq_len."""
+    cd = getattr(torch, cfg.compute_dtype)
+    w = cfg.sliding_window
+    clen = min(seq_len, w) if w else seq_len
+    shape = (cfg.n_layers, batch, clen, cfg.n_kv, cfg.head_dim)
+    return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
+            "k": torch.zeros(shape, dtype=cd, device=device),
+            "v": torch.zeros(shape, dtype=cd, device=device)}
+
+
+def _ring(kv: torch.Tensor, cap_full: int, window: int) -> torch.Tensor:
+    """(B, S, Hkv, dh) prompt K or V -> ring cache (B, C, Hkv, dh): the
+    last C tokens, token ``j`` in slot ``j % C`` (``repro`` lm.py:417)."""
+    b, s = kv.shape[:2]
+    cap = min(cap_full, window) if window else cap_full
+    c = min(s, cap)
+    last = kv[:, s - c:]
+    if c == s == cap:
+        return last
+    out = kv.new_zeros((b, cap) + tuple(kv.shape[2:]))
+    out[:, torch.arange(s - c, s, device=kv.device) % cap] = last
+    return out
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            max_seq: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the prompt (B, S); return (last-token logits (B, V) f32,
-    {"k", "v": (L, B, S, Hkv, Dh)}). Causal attention over every position,
-    pads included, as in the JAX package."""
+    cache {"pos": (B,) = S, "k", "v": (L, B, C, Hkv, Dh)}). Causal (and,
+    under a sliding window, windowed) attention over every position, pads
+    included, as in the JAX package. The K/V are placed as a ring of
+    capacity ``max(max_seq or S, S)``, cut to the window."""
     cd = getattr(torch, cfg.compute_dtype)
     b, s = tokens.shape
+    cap_full = max(max_seq or s, s)
+    window = cfg.sliding_window
     positions = torch.arange(s, device=tokens.device)[None, :]
-    mask = ly.causal_mask(s, s, tokens.device)
+    mask = ly.causal_mask(s, s, tokens.device, 0, window)
     x = embed_lookup(cfg, params["embed"], tokens, cd)
     ks, vs = [], []
     for i in range(cfg.n_layers):
@@ -127,19 +162,46 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor
         q = ly.rope(q, positions, cfg.rope_theta)
         k = ly.rope(k, positions, cfg.rope_theta)
         x = _block_tail(cfg, bp, x, ly.mha(q, k, v, mask))
-        ks.append(k)
-        vs.append(v)
+        ks.append(_ring(k, cap_full, window))
+        vs.append(_ring(v, cap_full, window))
     x = ly.apply_norm(cfg, params["final_norm"], x)
-    return _logits(cfg, params, x[:, -1:])[:, 0], {"k": torch.stack(ks),
-                                                  "v": torch.stack(vs)}
+    cache = {"pos": torch.full((b,), s, dtype=torch.int32,
+                               device=tokens.device),
+             "k": torch.stack(ks), "v": torch.stack(vs)}
+    return _logits(cfg, params, x[:, -1:])[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
+                cache: Dict[str, torch.Tensor]):
+    """One decode step over a ring cache (``repro`` lm.py:538, the dense
+    part): token (B,) -> (logits (B, V) f32, cache), the cache's K/V
+    updated IN PLACE and its ``pos`` advanced by one."""
+    cd = getattr(torch, cfg.compute_dtype)
+    pos = cache["pos"]
+    x = embed_lookup(cfg, params["embed"], token[:, None], cd)
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        h = ly.apply_norm(cfg, bp["norm1"], x)
+        o, _, _ = ly.attention_decode(cfg, bp["attn"], h, pos,
+                                      cache["k"][i], cache["v"][i],
+                                      cfg.sliding_window)
+        x = x + o
+        h = ly.apply_norm(cfg, bp["norm2"], x)
+        x = x + ly.mlp_block(cfg, bp["mlp"], h)
+    x = ly.apply_norm(cfg, params["final_norm"], x)
+    cache["pos"] = pos + 1
+    return _logits(cfg, params, x)[:, 0], cache
 
 
 def decode_step_pooled(cfg: ModelConfig, kvcfg: kb.KVBankConfig,
                        params: Params, token: torch.Tensor, pool: kb.PooledKV,
-                       *, recode_budget: Optional[int] = None):
+                       tele: Optional[obs_serve.ServeTelemetry] = None, *,
+                       recode_budget: Optional[int] = None):
     """One decode step over the coded KV page pool (the serving path).
 
-    token (B,) -> (logits (B, V) f32, pool), the pool updated in place.
+    token (B,) -> (logits (B, V) f32, pool, tele), the pool and the
+    planes updated in place; ``tele=None`` (telemetry off) does no extra
+    work.
     Appends mark the code-status table; every layer writes its new K/V
     into its banks and then gathers its logical K/V through the shared
     read plan (``gather_pool_layer``: the CUDA kernel on the card); the
@@ -147,6 +209,9 @@ def decode_step_pooled(cfg: ModelConfig, kvcfg: kb.KVBankConfig,
     on a coded pool the encode is fused into the write (bit-identical to
     write-then-full-recode). Slots without a page-table row write nothing
     and keep length 0."""
+    if cfg.sliding_window:
+        raise ValueError(f"{cfg.name}: the pooled decode step serves global "
+                         "attention only; a sliding window uses the ring")
     cd = getattr(torch, cfg.compute_dtype)
     pos = pool.length.clone()
     active = (pool.page_table[:, 0] >= 0) & (pos > 0)
@@ -182,11 +247,24 @@ def decode_step_pooled(cfg: ModelConfig, kvcfg: kb.KVBankConfig,
         x = _block_tail(cfg, bp, x, ly.mha(q, k_log, v_log, mask))
 
     pool.length.copy_(len_eff)
+    stale_before = None if tele is None else (~pool.parity_fresh).sum()
     if fused:
         # parity was delta-maintained per layer: refreshing the status
         # table IS the recode
         pool.parity_fresh.fill_(True)
+        recoded = stale_before
     else:
-        kb.pool_recode(kvcfg, pool, budget=recode_budget)
+        _, recoded = kb.pool_recode(kvcfg, pool, budget=recode_budget)
+    if tele is not None:
+        needed, bank = kb.pool_read_sets(kvcfg, pool.page_table, len_eff)
+        lat = kb.read_latencies(kvcfg, pool.page_table, len_eff,
+                                plan.use_parity)
+        obs_serve.update_serve_telemetry(
+            tele, load=plan.load, needed=needed, bank=bank,
+            use_parity=plan.use_parity, latencies=lat,
+            stale_before=stale_before, recoded=recoded,
+            appended=(widx[0] < kvcfg.n_banks).sum(),
+            uncoded_cycles=plan.uncoded_cycles,
+            coded_cycles=plan.coded_cycles)
     x = ly.apply_norm(cfg, params["final_norm"], x)
-    return _logits(cfg, params, x)[:, 0], pool
+    return _logits(cfg, params, x)[:, 0], pool, tele

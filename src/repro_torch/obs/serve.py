@@ -1,19 +1,205 @@
-"""Host-side request lifecycle spans of the serving path (``ServeLog``,
-the counterpart of ``repro/obs/serve.py:167-304``). The device metric
-planes (``ServeConfig.telemetry``) are not ported yet."""
+"""Observability of the serving path (``repro/obs/serve.py``
+counterpart), in two halves:
+
+* device planes (``ServeTelemetry``): counters updated inside the pooled
+  decode step: per-bank load histograms, direct vs degraded reads by home
+  bank, per-port critical-word latency log2 histograms, the stale-parity
+  backlog and the coded vs uncoded port cycles. Telemetry off is a
+  ``None`` leaf in the serve cache, and the step then does no extra work.
+  The JAX package's counters are uint32; here they are int64 tensors of
+  the same values. JAX's ``mode="drop"`` scatter-adds become flat buffers
+  with one sink entry that is sliced off.
+* host spans (``ServeLog``): per-request lifecycle events, recorded by the
+  server.
+"""
 from __future__ import annotations
 
 import json
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 # Chrome-trace thread ids of the serving rows
 TID_SERVE_QUEUE = 10       # admission waits
 TID_SERVE_SLOT0 = 11       # decode slots: TID_SERVE_SLOT0 + slot index
+HIST_BINS = 16             # repro/obs/planes.py:62
 
+
+def lat_bin(lat: torch.Tensor) -> torch.Tensor:
+    """log2 histogram bin of a latency (``repro/obs/planes.py:101``):
+    0 -> 0, 1 -> 1, [2, 3] -> 2, [4, 7] -> 3, ..., clamped into the
+    open-ended last bin; a threshold count, integer-exact."""
+    thresholds = 2 ** torch.arange(HIST_BINS - 1, dtype=lat.dtype,
+                                   device=lat.device)   # no host copy
+    return (lat[..., None] >= thresholds).sum(-1)
+
+
+class ServeTelemetry(NamedTuple):
+    """Device-side serving metric planes (int64 tensors)."""
+    bank_load_hist: torch.Tensor   # (NB, HIST_BINS) per-step load histogram
+    read_mode_bank: torch.Tensor   # (NB, 2) [direct, degraded] by home bank
+    port_lat_hist: torch.Tensor    # (NB, HIST_BINS) critical-word latency,
+    #                                attributed to the port that served it
+    stale_backlog: torch.Tensor    # () post-recode stale-row integral
+    stale_hwm: torch.Tensor        # () stale-row high-water mark
+    recoded_rows: torch.Tensor     # () rows the ReCoding unit refreshed
+    decode_steps: torch.Tensor     # ()
+    appended_tokens: torch.Tensor  # ()
+    uncoded_cycles: torch.Tensor   # () sum of per-step uncoded port cycles
+    coded_cycles: torch.Tensor     # () sum of per-step coded port cycles
+
+
+def init_serve_telemetry(n_banks: int, device) -> ServeTelemetry:
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int64, device=device)
+    return ServeTelemetry(
+        bank_load_hist=z(n_banks, HIST_BINS), read_mode_bank=z(n_banks, 2),
+        port_lat_hist=z(n_banks, HIST_BINS), stale_backlog=z(),
+        stale_hwm=z(), recoded_rows=z(), decode_steps=z(),
+        appended_tokens=z(), uncoded_cycles=z(), coded_cycles=z())
+
+
+def _add_counts(plane: torch.Tensor, flat_idx: torch.Tensor) -> None:
+    """``plane.view(-1)[i] += 1`` for every ``i`` in ``flat_idx``; the
+    index ``plane.numel()`` is the sink and is dropped."""
+    buf = torch.zeros(plane.numel() + 1, dtype=plane.dtype,
+                      device=plane.device)
+    idx = flat_idx.reshape(-1)
+    buf.scatter_add_(0, idx, torch.ones_like(idx, dtype=plane.dtype))
+    plane.view(-1).add_(buf[:-1])
+
+
+def update_serve_telemetry(tele: ServeTelemetry, *, load, needed, bank,
+                           use_parity, latencies, stale_before, recoded,
+                           appended, uncoded_cycles,
+                           coded_cycles) -> ServeTelemetry:
+    """Fold one pooled decode step's plan into the planes, in place
+    (``repro/obs/serve.py:70``). No host sync."""
+    nb = tele.bank_load_hist.shape[0]
+    sink = nb * HIST_BINS
+    use_parity = use_parity.bool()
+    bank = bank.long()
+    direct = needed & ~use_parity
+    deg = needed & use_parity
+    rows = torch.arange(nb, device=load.device)
+    _add_counts(tele.bank_load_hist, rows * HIST_BINS + lat_bin(load.long()))
+    _add_counts(tele.read_mode_bank,
+                torch.cat([torch.where(direct, bank * 2, 2 * nb).reshape(-1),
+                           torch.where(deg, bank * 2 + 1, 2 * nb)
+                           .reshape(-1)]))
+    port = torch.where(deg, bank ^ 1, bank)
+    _add_counts(tele.port_lat_hist,
+                torch.where(needed, port * HIST_BINS
+                            + lat_bin(latencies.long()), sink))
+    sb = stale_before.long()
+    rc = recoded.long()
+    tele.stale_backlog.add_(sb - rc)
+    torch.maximum(tele.stale_hwm, sb, out=tele.stale_hwm)
+    tele.recoded_rows.add_(rc)
+    tele.decode_steps.add_(1)
+    tele.appended_tokens.add_(appended.long())
+    tele.uncoded_cycles.add_(uncoded_cycles.long())
+    tele.coded_cycles.add_(coded_cycles.long())
+    return tele
+
+
+class ServeSnapshot:
+    """Host-side view of the serving planes with derived aggregates."""
+
+    def __init__(self, tele: ServeTelemetry):
+        def host(t):
+            return t.detach().cpu().numpy().astype(np.int64)
+        self.bank_load_hist = host(tele.bank_load_hist)
+        self.read_mode_bank = host(tele.read_mode_bank)
+        self.port_lat_hist = host(tele.port_lat_hist)
+        self.stale_backlog = int(tele.stale_backlog)
+        self.stale_hwm = int(tele.stale_hwm)
+        self.recoded_rows = int(tele.recoded_rows)
+        self.decode_steps = int(tele.decode_steps)
+        self.appended_tokens = int(tele.appended_tokens)
+        self.uncoded_cycles = int(tele.uncoded_cycles)
+        self.coded_cycles = int(tele.coded_cycles)
+
+    # ------------------------------------------------------------ derived
+    @property
+    def direct_reads(self) -> int:
+        return int(self.read_mode_bank[:, 0].sum())
+
+    @property
+    def degraded_reads(self) -> int:
+        return int(self.read_mode_bank[:, 1].sum())
+
+    @property
+    def served_pages(self) -> int:
+        return self.direct_reads + self.degraded_reads
+
+    @property
+    def cycles_saved(self) -> int:
+        return self.uncoded_cycles - self.coded_cycles
+
+    def as_dict(self) -> Dict:
+        return {
+            "bank_load_hist": self.bank_load_hist.tolist(),
+            "read_mode_bank": self.read_mode_bank.tolist(),
+            "port_lat_hist": self.port_lat_hist.tolist(),
+            "stale_backlog": self.stale_backlog,
+            "stale_hwm": self.stale_hwm,
+            "recoded_rows": self.recoded_rows,
+            "decode_steps": self.decode_steps,
+            "appended_tokens": self.appended_tokens,
+            "uncoded_cycles": self.uncoded_cycles,
+            "coded_cycles": self.coded_cycles,
+            "direct_reads": self.direct_reads,
+            "degraded_reads": self.degraded_reads,
+            "served_pages": self.served_pages,
+            "cycles_saved": self.cycles_saved,
+        }
+
+    def check_against(self, totals) -> None:
+        """Exact conformance against an independent recompute with the
+        same plane and counter names (the JAX package's
+        ``oracle.kvpool.PlaneTotals``); raises AssertionError on the first
+        disagreeing counter."""
+        for field in ("bank_load_hist", "read_mode_bank", "port_lat_hist"):
+            dev, exp = getattr(self, field), getattr(totals, field)
+            if not np.array_equal(dev, np.asarray(exp)):
+                raise AssertionError(
+                    f"serve plane {field!r} disagrees with the recompute:"
+                    f"\ndevice=\n{dev}\nrecompute=\n{exp}")
+        for field in ("stale_backlog", "stale_hwm", "recoded_rows",
+                      "decode_steps", "appended_tokens", "uncoded_cycles",
+                      "coded_cycles"):
+            dev, exp = getattr(self, field), int(getattr(totals, field))
+            if dev != exp:
+                raise AssertionError(
+                    f"serve counter {field!r}: device={dev} recompute={exp}")
+
+
+def snapshot(tele: ServeTelemetry) -> ServeSnapshot:
+    return ServeSnapshot(tele)
+
+
+def format_summary(snap: ServeSnapshot) -> str:
+    """One-paragraph console summary (used by launch/serve.py)."""
+    lines = [
+        f"serve planes: {snap.decode_steps} decode steps, "
+        f"{snap.appended_tokens} tokens appended, "
+        f"{snap.served_pages} page reads "
+        f"({snap.degraded_reads} degraded)",
+        f"  port cycles: coded {snap.coded_cycles} vs uncoded "
+        f"{snap.uncoded_cycles} (saved {snap.cycles_saved})",
+        f"  recode: {snap.recoded_rows} rows refreshed, backlog integral "
+        f"{snap.stale_backlog}, high-water {snap.stale_hwm} stale rows",
+    ]
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Host-side request lifecycle spans
+# ---------------------------------------------------------------------------
 
 class _Req:
     __slots__ = ("rid", "submit", "admit", "prefill_done", "slot",

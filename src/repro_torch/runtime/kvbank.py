@@ -221,6 +221,39 @@ def _plan_from_tables(cfg: KVBankConfig, page_table: torch.Tensor,
                     coded_cycles=coded, load=load)
 
 
+def read_latencies(cfg: KVBankConfig, page_table: torch.Tensor,
+                   length: torch.Tensor,
+                   use_parity: torch.Tensor) -> torch.Tensor:
+    """Per-page critical-word latency (port cycles) under the planned
+    serving order, (B, max_pages) int32, 0 for pages not read this step
+    (``repro`` kvbank.py:282). Each bank port serves its direct reads
+    first in request (batch-major) order, then lends cycles to its pair
+    sibling's degraded reads; each parity port serves its group's degraded
+    reads in request order; a degraded read completes when both its words
+    have arrived. The maximum over the step equals the plan's
+    ``coded_cycles`` (``uncoded_cycles`` when nothing is degraded)."""
+    b, mp = page_table.shape
+    nb = cfg.n_banks
+    needed, bank = pool_read_sets(cfg, page_table, length)
+    use_parity = use_parity.bool()
+    direct = needed & ~use_parity
+    deg = needed & use_parity
+
+    def rank_of(mask, idx, n):
+        oh = mask[..., None] * F.one_hot(idx, n)
+        flat = oh.reshape(b * mp, n)
+        r = (torch.cumsum(flat, 0) - flat).reshape(b, mp, n)
+        return torch.gather(r, -1, idx[..., None])[..., 0]
+
+    d_rank = rank_of(direct, bank, nb)
+    s_rank = rank_of(deg, bank, nb)          # degraded share a sibling port
+    p_rank = rank_of(deg, bank // 2, nb // 2)
+    d_bank = _count(torch.where(direct, bank, nb), nb)
+    lat_deg = 1 + torch.maximum(d_bank[bank ^ 1] + s_rank, p_rank)
+    lat = torch.where(deg, lat_deg, torch.where(direct, 1 + d_rank, 0))
+    return lat.to(torch.int32)
+
+
 def pool_plan(cfg: KVBankConfig, pool: PooledKV,
               length: Optional[torch.Tensor] = None) -> ReadPlan:
     """Shared read plan for every layer of a pooled decode step."""

@@ -6,20 +6,26 @@ prompt left-padded with token 0 to ``max_prompt``) -> decode slot (joins the
 batched decode step) -> finished (EOS / ``max_new_tokens``). Slots are
 fixed (``n_slots``); free slots decode garbage that is ignored.
 
-Admission assigns physical pages from a FIFO free list (freed pages recycle
-at the tail, so a long-running server churns placement), appends mark the
+Storage: when the config declares KV banks (``cfg.kv_banks > 0``) and
+uses global attention, decode runs over the coded KV page pool. Admission
+assigns physical pages from a FIFO free list (freed pages recycle at the
+tail, so a long-running server churns placement), appends mark the
 code-status table, reads follow the planner's degraded-read plan through the
 pool gather, and the ReCoding unit refreshes parity between steps.
-``ServeConfig.coded=False`` serves from the uncoded pool (no parity).
+``ServeConfig.coded=False`` serves from the uncoded pool (no parity), and
+``ServeConfig.telemetry=True`` keeps the device metric planes in the decode
+cache (``serve_snapshot()`` reads them). Otherwise (``kv_banks == 0`` or a
+sliding window) decode runs over a ring cache (``lm.cache_spec``).
 
-Not ported yet (``NotImplementedError``, see ROADMAP.md queue 1, 'Serving
-remainder'): the ring cache and every config it serves, the device metric
-planes (``telemetry=True``), and snapshot/restore.
+Fault tolerance: ``snapshot()`` copies the server state (cache, slot table,
+page accounting) to host numpy arrays and ``restore_snapshot()`` builds
+fresh tensors from them on the server's own device, so a serving node can
+be replaced mid-stream, also by one on another device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -27,11 +33,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import lm
-from repro_torch.obs.serve import ServeLog
+from repro_torch.obs import serve as obs_serve
 from repro_torch.runtime import kvbank as kb
 from repro_torch.runtime import steps as steps_mod
-
-_REMAINDER = "(ROADMAP.md, queue 1: 'Serving remainder')"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +47,7 @@ class ServeConfig:
     eos_id: int = -1            # -1: never stop early
     # ---- coded KV page pool ----
     coded: bool = True          # False: uncoded pool (no parity arrays)
-    telemetry: bool = False     # device serve metric planes (not ported)
+    telemetry: bool = False     # device serve metric planes (pool only)
     recode_budget: Optional[int] = None  # None: full recode; -1: never
     page: int = 0               # tokens per page; 0 -> cfg.kv_page
     pool_pages: int = 0         # physical pool size; 0 -> 2x working set
@@ -72,42 +76,48 @@ class Server:
     def __init__(self, cfg: ModelConfig, sc: ServeConfig, params, *,
                  device=None, clock=None):
         self.device = resolve_device(device)
-        if not _wants_pool(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: only the coded KV page pool is ported; the "
-                f"ring cache is not {_REMAINDER}")
         lm.check_slice(cfg)
-        if sc.telemetry:
-            raise NotImplementedError(
-                f"ServeConfig.telemetry: serve metric planes {_REMAINDER}")
+        if cfg.sliding_window > sc.max_prompt:
+            # prefill and decode caches must agree on the ring slots
+            raise ValueError(f"window {cfg.sliding_window} exceeds "
+                             f"max_prompt {sc.max_prompt}")
         self.cfg, self.sc = cfg, sc
         self.params = lm.cast_params(cfg, params, self.device)
         self.prefill = steps_mod.make_prefill_step(cfg)
         self.queue: List[Request] = []
         self.slots: List[Optional[Request]] = [None] * sc.n_slots
-        self.log = ServeLog(clock=clock)
+        self.log = obs_serve.ServeLog(clock=clock)
         b = sc.n_slots
-        page = sc.page or cfg.kv_page
-        mp = -(-sc.max_seq // page)
-        need = b * mp
-        pool_pages = sc.pool_pages or -(-2 * need // cfg.kv_banks) \
-            * cfg.kv_banks
-        if pool_pages % cfg.kv_banks or pool_pages < need:
-            raise ValueError(f"pool of {pool_pages} pages: needs a multiple "
-                             f"of {cfg.kv_banks} banks and >= {need} pages")
-        self.kvcfg = kb.KVBankConfig(n_banks=cfg.kv_banks, page=page,
-                                     pool_pages=pool_pages, max_pages=mp)
-        pool = kb.pool_init(self.kvcfg, cfg.n_layers, b, cfg.n_kv,
-                            cfg.head_dim, getattr(torch, cfg.compute_dtype),
-                            device=self.device, coded=sc.coded)
-        self.cache = {"pool": pool}
-        self.free_pages: List[int] = list(range(pool_pages))
-        self.slot_pages: List[List[int]] = [[] for _ in range(b)]
-        self.decode = steps_mod.make_pooled_serve_step(
-            cfg, self.kvcfg, recode_budget=sc.recode_budget)
-        # encode-on-write at install matches the fused decode path (the
-        # status table still goes stale-then-fresh identically)
-        self._fuse = sc.coded and sc.recode_budget is None
+        self.pooled = _wants_pool(cfg)
+        if self.pooled:
+            page = sc.page or cfg.kv_page
+            mp = -(-sc.max_seq // page)
+            need = b * mp
+            pool_pages = sc.pool_pages or -(-2 * need // cfg.kv_banks) \
+                * cfg.kv_banks
+            if pool_pages % cfg.kv_banks or pool_pages < need:
+                raise ValueError(f"pool of {pool_pages} pages: needs a "
+                                 f"multiple of {cfg.kv_banks} banks and >= "
+                                 f"{need} pages")
+            self.kvcfg = kb.KVBankConfig(n_banks=cfg.kv_banks, page=page,
+                                         pool_pages=pool_pages, max_pages=mp)
+            pool = kb.pool_init(self.kvcfg, cfg.n_layers, b, cfg.n_kv,
+                                cfg.head_dim,
+                                getattr(torch, cfg.compute_dtype),
+                                device=self.device, coded=sc.coded)
+            tele = (obs_serve.init_serve_telemetry(cfg.kv_banks, self.device)
+                    if sc.telemetry else None)
+            self.cache: Dict[str, Any] = {"pool": pool, "tele": tele}
+            self.free_pages: List[int] = list(range(pool_pages))
+            self.slot_pages: List[List[int]] = [[] for _ in range(b)]
+            self.decode = steps_mod.make_pooled_serve_step(
+                cfg, self.kvcfg, recode_budget=sc.recode_budget)
+            # encode-on-write at install matches the fused decode path (the
+            # status table still goes stale-then-fresh identically)
+            self._fuse = sc.coded and sc.recode_budget is None
+        else:
+            self.decode = steps_mod.make_serve_step(cfg)
+            self.cache = lm.cache_spec(cfg, b, sc.max_seq, self.device)
         self.tokens = torch.zeros(b, dtype=torch.int64, device=self.device)
         self.steps_run = 0
 
@@ -132,8 +142,26 @@ class Server:
             self.log.prefill_done(req.rid)
             self.slots[i] = req
 
-    @torch.no_grad()
     def _install(self, i: int, tok, cache1):
+        if self.pooled:
+            self._install_pooled(i, tok, cache1)
+        else:
+            self._install_ring(i, tok, cache1)
+
+    @torch.no_grad()
+    def _install_ring(self, i: int, tok, cache1):
+        """Copy a 1-batch prefill cache into slot i of the ring cache; the
+        rest of the slot's rows are zeroed."""
+        for f in ("k", "v"):
+            dst, src = self.cache[f], cache1[f]
+            c = src.shape[2]
+            dst[:, i, :c] = src[:, 0]
+            dst[:, i, c:] = 0
+        self.cache["pos"][i] = cache1["pos"][0]
+        self.tokens[i] = tok[0]
+
+    @torch.no_grad()
+    def _install_pooled(self, i: int, tok, cache1):
         """Assign pool pages to slot i and install the prefilled KV."""
         need = self.kvcfg.max_pages
         if len(self.free_pages) < need:
@@ -147,6 +175,8 @@ class Server:
         self.tokens[i] = tok[0]
 
     def _retire(self, i: int):
+        if not self.pooled:
+            return
         self.free_pages.extend(self.slot_pages[i])
         self.slot_pages[i] = []
         pool = self.cache["pool"]
@@ -185,12 +215,21 @@ class Server:
             if not self.queue and all(s is None for s in self.slots):
                 break
 
+    # ------------------------------------------------------------ telemetry
+    def serve_snapshot(self) -> Optional[obs_serve.ServeSnapshot]:
+        """Host view of the device serve planes (None when telemetry is
+        off or the server runs the ring cache)."""
+        tele = self.cache.get("tele") if self.pooled else None
+        return None if tele is None else obs_serve.snapshot(tele)
+
     # ------------------------------------------------------------ placement
     @torch.no_grad()
     def permute_pool(self, perm):
         """Relocate physical pages (placement churn / defrag model): page p
         moves to ``perm[p]``; tables, free list and parity follow, so decode
         output is invariant."""
+        if not self.pooled:
+            raise ValueError("permute_pool needs the paged pool backend")
         perm = np.asarray(perm)
         kb.pool_permute(self.kvcfg, self.cache["pool"],
                         torch.as_tensor(perm, dtype=torch.int64,
@@ -199,8 +238,65 @@ class Server:
         self.slot_pages = [[int(perm[p]) for p in pp]
                            for pp in self.slot_pages]
 
-    def snapshot(self):
-        raise NotImplementedError(f"Server.snapshot {_REMAINDER}")
+    # -------------------------------------------------------- fault recovery
+    def snapshot(self) -> Dict[str, Any]:
+        """The server state as host numpy arrays and lists: a copy, which
+        later steps (which update the pool in place) do not alter."""
+        snap = {
+            "cache": _to_host(self.cache),
+            "tokens": _to_host(self.tokens),
+            "slots": [(r.rid, list(r.prompt), list(r.out)) if r else None
+                      for r in self.slots],
+        }
+        if self.pooled:
+            snap["free_pages"] = list(self.free_pages)
+            snap["slot_pages"] = [list(p) for p in self.slot_pages]
+        return snap
 
-    def restore_snapshot(self, snap):
-        raise NotImplementedError(f"Server.restore_snapshot {_REMAINDER}")
+    def restore_snapshot(self, snap: Dict[str, Any]):
+        """Take over a snapshot (from this server or another, on any
+        device): fresh tensors on this server's device."""
+        self.cache = _from_host(self.cache, snap["cache"], self.device)
+        self.tokens = _from_host(self.tokens, snap["tokens"], self.device)
+        self.slots = [Request(rid=s[0], prompt=list(s[1]), out=list(s[2]))
+                      if s else None for s in snap["slots"]]
+        if self.pooled:
+            self.free_pages = list(snap["free_pages"])
+            self.slot_pages = [list(p) for p in snap["slot_pages"]]
+
+
+def _to_host(x):
+    """Tensors of a cache tree as numpy copies (bf16 as its int16 bits),
+    the pool and the planes as dicts of their fields."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.numpy().copy()
+    if isinstance(x, kb.PooledKV):
+        return {f.name: _to_host(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, obs_serve.ServeTelemetry):
+        return {k: _to_host(v) for k, v in x._asdict().items()}
+    return {k: _to_host(v) for k, v in x.items()}
+
+
+def _from_host(like, host, device):
+    """Rebuild a tree shaped like ``like`` from ``_to_host`` output, as
+    fresh tensors on ``device`` with ``like``'s dtypes."""
+    if like is None:
+        return None
+    if isinstance(like, torch.Tensor):
+        t = torch.from_numpy(np.array(host)).to(device)
+        return t.view(like.dtype) if t.dtype != like.dtype else t
+    if isinstance(like, kb.PooledKV):
+        return kb.PooledKV(**{f.name: _from_host(getattr(like, f.name),
+                                                 host[f.name], device)
+                              for f in dataclasses.fields(like)})
+    if isinstance(like, obs_serve.ServeTelemetry):
+        return obs_serve.ServeTelemetry(**{
+            k: _from_host(v, host[k], device)
+            for k, v in like._asdict().items()})
+    return {k: _from_host(v, host[k], device) for k, v in like.items()}

@@ -1,0 +1,211 @@
+"""Decode attention over per-sequence coded KV banks: the port's
+``pack_kv_banks``, ``coded_kv_decode`` (on the CPU: its plain version) and
+``coded_kv_decode_pool`` against the JAX package.
+
+The JAX Pallas kernel cannot trace in this container (no ``pl.load``), so
+the JAX anchor is ``ref.decode_attention_ref`` over the logical cache plus
+``ops.pack_kv_banks``, never interpret mode. Inputs are made with numpy
+from seeds. Tolerances: f32 rtol = atol = 1e-5 (the two frameworks sum in
+different orders); bf16 and f16 at most 1 ulp of the output type (the f32
+results differ in the last bits, which can move one rounding step)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.coded_kv_decode import ops as jops
+from repro.kernels.coded_kv_decode.ref import decode_attention_ref
+from repro_torch.kernels.coded_kv_decode import ops as tops
+from repro_torch.kernels.coded_kv_decode.ref import (coded_kv_decode_plain,
+                                                     decode_attention_plain)
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+DTYPES = {"float32": (jnp.float32, torch.float32, np.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, None),
+          "float16": (jnp.float16, torch.float16, np.float16)}
+
+
+def _jax(a, dtype):
+    return jnp.asarray(a, jnp.float32).astype(DTYPES[dtype][0])
+
+
+def _torch(x):
+    """A JAX array as a torch tensor of the same bits."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    if a.dtype.kind == "u":
+        return torch.from_numpy(a.view(f"i{a.dtype.itemsize}").copy())
+    return torch.from_numpy(a.copy())
+
+
+def _bits(t):
+    """A tensor's bits as unsigned numpy lanes (the JAX package's view)."""
+    if t.dtype.is_floating_point:
+        t = t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    a = t.numpy()
+    return a.view(f"u{a.dtype.itemsize}")
+
+
+def _ulps(a, b):
+    """Distance in units in the last place between two 16-bit float
+    tensors of the same type."""
+    def key(t):
+        u = t.view(torch.int16).numpy().astype(np.int32) & 0xFFFF
+        return np.where(u & 0x8000, -(u & 0x7FFF), u & 0x7FFF)
+    return np.abs(key(a) - key(b))
+
+
+def assert_close(got, want_jax, dtype):
+    want = _torch(want_jax)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
+    else:
+        assert _ulps(got, want).max() <= 1
+
+
+def _case(seed, b, t, h, hkv, d, dtype):
+    rng = np.random.default_rng(seed)
+    k = _jax(rng.normal(size=(b, t, hkv, d)), dtype)
+    v = _jax(rng.normal(size=(b, t, hkv, d)), dtype)
+    q = _jax(rng.normal(size=(b, h, d)), dtype)
+    return rng, q, k, v
+
+
+# ------------------------------------------------------------ pack_kv_banks
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("nb,page,t", [(4, 8, 64), (8, 4, 96), (2, 16, 32)])
+def test_pack_kv_banks_bit_exact(dtype, nb, page, t):
+    _, _, k, v = _case(1, 2, t, 4, 2, 16, dtype)
+    want = jops.pack_kv_banks(k, v, nb, page)
+    got = tops.pack_kv_banks(_torch(k), _torch(v), nb, page)
+    assert got[4] == want[4] == t // page
+    for g, w in zip(got[:4], want[:4]):
+        assert g.is_contiguous() and tuple(g.shape) == w.shape
+        np.testing.assert_array_equal(_bits(g), np.asarray(w))
+
+
+def test_pack_kv_banks_refuses_bad_geometry():
+    k = torch.zeros(1, 24, 1, 8)
+    with pytest.raises(ValueError, match="even"):
+        tops.pack_kv_banks(k, k, 3, 8)
+    with pytest.raises(ValueError, match="multiple"):
+        tops.pack_kv_banks(k, k, 4, 8)
+
+
+# ------------------------------------------------------- coded_kv_decode
+# name: (dtype, value_dtype given, b, t, h, hkv, d, nb, page, n_pages cut)
+CASES = {
+    "f32_g1": ("float32", False, 3, 64, 2, 2, 16, 4, 8, 0),
+    "f32_g2": ("float32", False, 3, 128, 4, 2, 32, 4, 8, 0),
+    "f32_g8": ("float32", False, 3, 64, 16, 2, 16, 4, 4, 0),
+    "bf16_g1": ("bfloat16", False, 3, 64, 4, 4, 32, 4, 8, 0),
+    "bf16_g2": ("bfloat16", False, 3, 128, 8, 4, 64, 4, 16, 0),
+    "bf16_g8": ("bfloat16", False, 3, 128, 16, 2, 32, 8, 8, 0),
+    "f16_value_dtype_g2": ("float16", True, 3, 64, 4, 2, 32, 4, 8, 0),
+    "f32_fewer_pages_than_slots": ("float32", False, 3, 128, 4, 2, 16, 4,
+                                   8, 5),
+    "bf16_fewer_pages_than_slots": ("bfloat16", False, 3, 128, 8, 2, 32, 8,
+                                    4, 11),
+}
+
+
+def _seq_lens(t, page):
+    # an empty sequence, a partial page, the full cache
+    return np.asarray([0, page + 3, t], np.int32)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_coded_kv_decode_matches_jax_ref(case):
+    dtype, give_vd, b, t, h, hkv, d, nb, page, cut = CASES[case]
+    rng, q, k, v = _case(2, b, t, h, hkv, d, dtype)
+    kb, vb, kp, vp, n_pages = jops.pack_kv_banks(k, v, nb, page)
+    n_plan = n_pages - cut                 # plan fewer pages than NB*S
+    use_par = rng.random((b, n_plan)) < 0.5
+    use_par[1] = True                      # one sequence all degraded
+    seq = _seq_lens(n_plan * page, page)
+    want = decode_attention_ref(q, k[:, :n_plan * page], v[:, :n_plan * page],
+                                jnp.asarray(seq))
+    kw = {"value_dtype": DTYPES[dtype][1]} if give_vd else {}
+    got = tops.coded_kv_decode(
+        _torch(q), _torch(kb), _torch(vb), _torch(kp), _torch(vp),
+        torch.from_numpy(use_par), torch.from_numpy(seq), **kw)
+    assert_close(got, want, dtype)
+    assert not got[0].any(), "seq_len 0 must read exact zeros"
+
+
+def test_coded_kv_decode_follows_the_plan_over_stale_parity():
+    """Parity built as ``sibling ^ other`` is not the XOR of its pair: a
+    degraded read of an even bank's page must return ``other``'s page, so
+    the result is attention over the mixed logical cache. A datapath that
+    ignored the plan (or the parity) would read the page's own bits."""
+    b, t, h, hkv, d, nb, page = 2, 64, 4, 2, 16, 4, 4
+    rng, q, k, v = _case(3, b, t, h, hkv, d, "float32")
+    _, _, k2, v2 = _case(4, b, t, h, hkv, d, "float32")
+    kb, vb, _, _, n_pages = tops.pack_kv_banks(_torch(k), _torch(v), nb, page)
+    kb2, vb2, _, _, _ = tops.pack_kv_banks(_torch(k2), _torch(v2), nb, page)
+    # parity group g: sibling (odd bank 2g+1, own) ^ other (even bank 2g)
+    kp = kb[:, 1::2] ^ kb2[:, 0::2]
+    vp = vb[:, 1::2] ^ vb2[:, 0::2]
+    pages = np.arange(n_pages)
+    even = (pages % nb) % 2 == 0
+    use_par = np.broadcast_to(even, (b, n_pages)).copy()
+    tok_even = np.repeat(even, page)[None, :, None, None]
+    k_mix = np.where(tok_even, np.asarray(k2), np.asarray(k))
+    v_mix = np.where(tok_even, np.asarray(v2), np.asarray(v))
+    seq = np.asarray([t, t - page // 2], np.int32)
+    want = decode_attention_ref(q, jnp.asarray(k_mix), jnp.asarray(v_mix),
+                                jnp.asarray(seq))
+    got = tops.coded_kv_decode(_torch(q), kb, vb, kp, vp,
+                               torch.from_numpy(use_par),
+                               torch.from_numpy(seq))
+    assert_close(got, want, "float32")
+    own = decode_attention_ref(q, k, v, jnp.asarray(seq))
+    assert not np.allclose(got.numpy(), np.asarray(own), **F32_TOL)
+
+
+def test_coded_kv_decode_plain_equals_logical_attention():
+    """The banked plain version over fresh parity equals the logical
+    plain version bit for bit, whatever the plan."""
+    rng, q, k, v = _case(5, 2, 64, 8, 2, 16, "bfloat16")
+    tq, tk, tv = _torch(q), _torch(k), _torch(v)
+    kb, vb, kp, vp, n_pages = tops.pack_kv_banks(tk, tv, 4, 8)
+    seq = torch.tensor([64, 29], dtype=torch.int32)
+    want = decode_attention_plain(tq, tk, tv, seq)
+    for up in (np.zeros((2, n_pages), bool), np.ones((2, n_pages), bool),
+               rng.random((2, n_pages)) < 0.5):
+        got = coded_kv_decode_plain(tq, kb, vb, kp, vp,
+                                    torch.from_numpy(up), seq, torch.bfloat16)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+# ------------------------------------------------- coded_kv_decode_pool
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("coded", [True, False])
+def test_coded_kv_decode_pool_matches_jax(dtype, coded):
+    nb, slots, page, hkv, d, b, mp, h = 8, 4, 4, 2, 16, 3, 6, 8
+    rng = np.random.default_rng(6 + coded)
+    shape = (nb, slots, page, hkv, d)
+    kvals = _jax(rng.normal(size=shape), dtype)
+    vvals = _jax(rng.normal(size=shape), dtype)
+    k_banks = jnp.asarray(np.asarray(kvals).view(
+        f"u{np.asarray(kvals).dtype.itemsize}"))
+    v_banks = jnp.asarray(np.asarray(vvals).view(
+        f"u{np.asarray(vvals).dtype.itemsize}"))
+    ng = nb // 2 if coded else 0
+    k_par = (k_banks[0::2] ^ k_banks[1::2])[:ng]
+    v_par = (v_banks[0::2] ^ v_banks[1::2])[:ng]
+    pt = rng.permutation(nb * slots)[: b * mp].reshape(b, mp).astype(np.int32)
+    pt[rng.random((b, mp)) < 0.2] = -1
+    up = (rng.random((b, mp)) < 0.5) & coded
+    seq = np.asarray([0, 7, mp * page], np.int32)
+    q = _jax(rng.normal(size=(b, h, d)), dtype)
+    want = jops.coded_kv_decode_pool(
+        q, k_banks, v_banks, k_par, v_par, jnp.asarray(pt), jnp.asarray(up),
+        jnp.asarray(seq))
+    got = tops.coded_kv_decode_pool(
+        _torch(q), _torch(k_banks), _torch(v_banks), _torch(k_par),
+        _torch(v_par), torch.from_numpy(pt), torch.from_numpy(up),
+        torch.from_numpy(seq))
+    assert_close(got, want, dtype)

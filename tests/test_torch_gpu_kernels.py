@@ -198,3 +198,187 @@ def test_sim_kernel_wrappers_reject_bad_operands(cuda):
         enc_kernel.encode_parities_cuda(
             banks, torch.full((3, 4), -1, dtype=torch.int32,
                               device=cuda).T)
+
+
+# ------------------------------------------------------- coded_kv_decode
+from repro_torch.kernels.coded_kv_decode import ops as ckd_ops  # noqa: E402
+from repro_torch.kernels.coded_kv_decode.ref import (  # noqa: E402
+    coded_kv_decode_plain)
+
+_FLOAT = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+
+
+def _ulps(a, b):
+    """Units in the last place between two 16-bit float tensors."""
+    def key(t):
+        u = t.view(torch.int16).long() & 0xFFFF
+        return torch.where(u >= 0x8000, -(u & 0x7FFF), u & 0x7FFF)
+    return (key(a) - key(b)).abs()
+
+
+def _decode_inputs(cuda, seed, *, value, q_dtype, b, t, h, hkv, d, nb, page,
+                   cut=0, p_deg=0.4, stale=False):
+    """Banks packed from seeded normals; parity fresh, or (``stale``) the
+    odd sibling XOR another cache's even-bank page, which is not the
+    pair's XOR, with degraded reads of even banks only; a plan of
+    ``n_pages - cut`` pages; seq_len 0, a partial page, the full plan and
+    past it."""
+    rng = np.random.default_rng(seed)
+    vd = _FLOAT[value]
+
+    def normal(*shape, dtype=vd):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(dtype).to(cuda)
+
+    k, v = normal(b, t, hkv, d), normal(b, t, hkv, d)
+    kb, vb, kp, vp, n_pages = ckd_ops.pack_kv_banks(k, v, nb, page)
+    if stale:
+        kb2, vb2, _, _, _ = ckd_ops.pack_kv_banks(
+            normal(b, t, hkv, d), normal(b, t, hkv, d), nb, page)
+        kp, vp = kb[:, 1::2] ^ kb2[:, 0::2], vb[:, 1::2] ^ vb2[:, 0::2]
+    n_plan = n_pages - cut
+    up = rng.random((b, n_plan)) < p_deg
+    if stale:       # a degraded odd-bank page would read garbage bits
+        up &= (np.arange(n_plan) % nb) % 2 == 0
+    up = torch.from_numpy(up.astype(np.int32))
+    lens = [0, page + 3, n_plan * page, n_plan * page + 5]
+    seq = torch.tensor([lens[i % 4] for i in range(b)], dtype=torch.int32)
+    return (normal(b, h, d, dtype=_FLOAT[q_dtype]), kb, vb, kp, vp,
+            up.to(cuda), seq.to(cuda), vd)
+
+
+DECODE_CASES = {
+    # name: (value, q dtype, b, t, h, hkv, d, nb, page, cut, p_deg, stale)
+    "bf16_serving_g8": ("bf16", "bf16", 4, 512, 16, 2, 128, 8, 64, 0, .4,
+                        False),
+    "f32_bench_shape_g2": ("f32", "f32", 2, 128, 4, 2, 64, 4, 8, 0, .4,
+                           False),
+    "f16_g1": ("f16", "f16", 4, 256, 4, 4, 64, 4, 16, 0, .5, False),
+    "bf16_d32_g4_fewer_pages": ("bf16", "bf16", 5, 256, 8, 2, 32, 8, 4, 13,
+                                .5, False),
+    "f32_d32_g16": ("f32", "f32", 4, 128, 32, 2, 32, 4, 8, 3, .5, False),
+    "f32_d128_g3": ("f32", "f32", 4, 128, 6, 2, 128, 4, 8, 0, .5, False),
+    "bf16_value_f32_q": ("bf16", "f32", 4, 256, 8, 2, 128, 8, 8, 0, .4,
+                         False),
+    "bf16_all_degraded_stale": ("bf16", "bf16", 4, 256, 8, 2, 64, 8, 8, 0,
+                                1.0, True),
+    "f32_stale_mixed": ("f32", "f32", 4, 128, 4, 2, 64, 4, 8, 0, .5, True),
+    "bf16_one_page_per_block": ("bf16", "bf16", 1, 64, 2, 1, 64, 2, 2, 0,
+                                .5, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_coded_kv_decode_cuda_equals_plain(cuda, case):
+    """f32 within rtol = atol = 1e-5 with TF32 off; bf16/f16 within one
+    ulp of the output type (the order of summation differs)."""
+    value, qd, b, t, h, hkv, d, nb, page, cut, p_deg, stale = \
+        DECODE_CASES[case]
+    q, kb, vb, kp, vp, up, seq, vd = _decode_inputs(
+        cuda, 11, value=value, q_dtype=qd, b=b, t=t, h=h, hkv=hkv, d=d,
+        nb=nb, page=page, cut=cut, p_deg=p_deg, stale=stale)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = ckd_kernel.decode_launches
+        out = ckd_kernel.coded_kv_decode_cuda(q, kb, vb, kp, vp, up, seq, vd)
+        torch.cuda.synchronize()
+        assert ckd_kernel.decode_launches == before + 1
+        ref = coded_kv_decode_plain(q, kb, vb, kp, vp, up, seq, vd)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert out.dtype == q.dtype and out.shape == (b, h, d)
+    assert torch.isfinite(out.float()).all()
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert int(_ulps(out, ref).max()) <= 1
+    assert not out[seq == 0].any(), "seq_len 0 must read exact zeros"
+    # the ops entry point dispatches CUDA tensors to the kernel
+    before = ckd_kernel.decode_launches
+    again = ckd_ops.coded_kv_decode(q, kb, vb, kp, vp, up.bool(), seq,
+                                    value_dtype=vd)
+    assert ckd_kernel.decode_launches == before + 1
+    assert torch.equal(again, out)
+
+
+def test_coded_kv_decode_cuda_rejects_what_it_does_not_take(cuda):
+    q, kb, vb, kp, vp, up, seq, vd = _decode_inputs(
+        cuda, 3, value="bf16", q_dtype="bf16", b=2, t=64, h=4, hkv=2, d=32,
+        nb=4, page=8)
+    fn = ckd_kernel.coded_kv_decode_cuda
+    with pytest.raises(ValueError, match="not on the CUDA card"):
+        fn(q, kb.cpu(), vb, kp, vp, up, seq, vd)
+    with pytest.raises(TypeError, match="dtype"):
+        fn(q, kb, vb, kp, vp, up.bool(), seq, vd)
+    with pytest.raises(TypeError, match="dtype"):
+        fn(q, kb, vb, kp, vp, up, seq, torch.float32)    # 16-bit lanes
+    with pytest.raises(ValueError, match="pages"):
+        fn(q, kb, vb, kp, vp, torch.zeros((2, 17), dtype=torch.int32,
+                                          device=cuda), seq, vd)
+    q16 = torch.zeros((2, 32, 32), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="query heads"):
+        fn(q16, kb, vb, kp, vp, up, seq, vd)             # G = 16 > 8
+    odd = torch.zeros((2, 4, 2, 8, 2, 24), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError, match="bytes"):
+        fn(torch.zeros((2, 4, 24), dtype=torch.bfloat16, device=cuda), odd,
+           odd, odd[:, :2].contiguous(), odd[:, :2].contiguous(), up, seq,
+           vd)
+
+
+def test_coded_kv_decode_cuda_empty_batch_and_plan(cuda):
+    q, kb, vb, kp, vp, up, seq, vd = _decode_inputs(
+        cuda, 4, value="f32", q_dtype="f32", b=2, t=64, h=4, hkv=2, d=32,
+        nb=4, page=8)
+    out = ckd_kernel.coded_kv_decode_cuda(q, kb, vb, kp, vp, up[:, :0],
+                                          seq, vd)
+    torch.cuda.synchronize()
+    assert not out.any(), "a plan of no page reads zeros"
+    before = ckd_kernel.decode_launches
+    out = ckd_kernel.coded_kv_decode_cuda(q[:0], kb[:0], vb[:0], kp[:0],
+                                          vp[:0], up[:0], seq[:0], vd)
+    assert out.shape == (0, 4, 32) and ckd_kernel.decode_launches == before
+
+
+# ----------------------------------------------- node replacement, devices
+@pytest.mark.parametrize("first,second", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_snapshot_restores_on_the_other_device(cuda, first, second):
+    """A snapshot taken mid-stream on one device restores on the other and
+    both nodes finish with the same tokens and the same planes (reduced
+    qwen2.5-3b at f32, TF32 off)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Request, ServeConfig, Server
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(), kv_page=4,
+                              compute_dtype="float32")
+    params = lm.init_params(cfg, seed=1, device="cpu")
+    sc = ServeConfig(n_slots=3, max_prompt=8, max_seq=24, max_new_tokens=5,
+                     telemetry=True)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=[int(x) for x in rng.integers(
+        1, 256, size=3 + i % 4)]) for i in range(5)]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        a = Server(cfg, sc, params, device=first)
+        for r in reqs:
+            a.submit(r)
+        for _ in range(3):
+            a.step()
+        snap = a.snapshot()
+        b = Server(cfg, sc, params, device=second)
+        b.restore_snapshot(snap)
+        b.queue = [Request(rid=r.rid, prompt=list(r.prompt),
+                           out=list(r.out)) for r in a.queue]
+        moved = [r for r in b.slots if r] + b.queue
+        for srv in (a, b):
+            srv.run_until_drained()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    by_rid = {r.rid: r.out for r in reqs}
+    assert moved and all(r.out == by_rid[r.rid] for r in moved)
+    assert a.serve_snapshot().as_dict() == b.serve_snapshot().as_dict()
+    assert b.cache["pool"].k_banks.device.type == second

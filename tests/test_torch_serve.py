@@ -117,8 +117,8 @@ def _port_first_logits(srv):
     pool = srv.cache["pool"]
     clone = tkb.PooledKV(**{f.name: getattr(pool, f.name).clone()
                             for f in dataclasses.fields(pool)})
-    logits, _ = tlm.decode_step_pooled(srv.cfg, srv.kvcfg, srv.params,
-                                       srv.tokens, clone)
+    logits, _, _ = tlm.decode_step_pooled(srv.cfg, srv.kvcfg, srv.params,
+                                          srv.tokens, clone)
     return logits.numpy()
 
 
@@ -214,18 +214,27 @@ def test_server_without_device_needs_a_card(params):
 
 
 def test_unported_paths_raise(params):
+    """What the port still leaves out raises: the other dense variants (an
+    untied head, LayerNorm, an ungated GELU MLP) and the other families;
+    the pooled step refuses a sliding window (that config takes the
+    ring)."""
     _, tp = params
     _, tc = _cfgs("bfloat16")
     sc = tserver.ServeConfig(**SC)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserver.Server(dataclasses.replace(tc, kv_banks=0), sc, tp,
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserver.Server(tc, dataclasses.replace(sc, telemetry=True), tp,
-                       device="cpu")
+    for variant in (dict(tie_embeddings=False), dict(norm="layernorm"),
+                    dict(mlp_gated=False, act="gelu"), dict(family="moe")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tserver.Server(dataclasses.replace(tc, **variant), sc, tp,
+                           device="cpu")
     srv = tserver.Server(tc, sc, tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        srv.snapshot()
+    with pytest.raises(ValueError, match="sliding window"):
+        tlm.decode_step_pooled(dataclasses.replace(tc, sliding_window=4),
+                               srv.kvcfg, srv.params, srv.tokens,
+                               srv.cache["pool"])
+    ring = tserver.Server(dataclasses.replace(tc, kv_banks=0), sc, tp,
+                          device="cpu")
+    with pytest.raises(ValueError, match="pool"):
+        ring.permute_pool(np.arange(4))
 
 
 def test_servelog_spans(params, tmp_path):
