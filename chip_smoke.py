@@ -7,7 +7,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. card and build: the card's name and power limit, torch and CUDA
    versions; every ``csrc/*.cu`` built with nvcc, one process each, all at
-   once, with its registers and spills as ptxas reports them;
+   once, with its registers and spills as ptxas reports them (for
+   ``coded_kv_decode.cu`` one line per split-kernel instantiation);
 2. kernel: ``gather_pool_cuda`` against ``gather_pool_plain`` on the card,
    bit for bit, at the serving shape (NB=8, S=64, P=64, Hkv=2, D=128, B=8,
    MP=32; bf16 lanes coded and uncoded, f32 lanes coded; -1 holes, ~40%
@@ -41,7 +42,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    within 1e-5 with TF32 off (a bf16 output must be the kernel's f32
    result rounded, bit for bit); timed with the L2 flushed,
    beside its bound from the actual plan and lengths, the plain version's
-   time and SDPA (``enable_gqa``) over the logical cache;
+   time and SDPA (``enable_gqa``) over the logical cache. Each shape also
+   prints its split kernel (the tensor-core one for bf16, the scalar one
+   for f32) with its registers, spills and shared memory from the build
+   log, its HMMA count from ``cuobjdump -sass`` (a 16-bit kernel with none
+   fails the phase), its blocks per SM and the split count it ran with;
 5. cross-device: the reduced config at f32 (TF32 off) on bench_serve's
    schedule (4 slots, page 4, 16 requests x 16 tokens, a placement churn
    every 2 steps) serves identical tokens on the card and on the CPU, the
@@ -80,6 +85,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -779,6 +785,85 @@ def time_cold(torch, fn, n: int, flush) -> float:
     return sum(a.elapsed_time(b) for a, b in marks) / n
 
 
+# the split kernels of csrc/coded_kv_decode.cu, by mangled name: kind
+# ("tc" or "split") and template arguments ((value type code, D, GM) or
+# (GM,) for the f32 kernel)
+_SPLIT_NAME = re.compile(r"kv_decode_(tc|split)_kernelI((?:Li\d+E)+)E")
+_VT_NAME = {1: "bf16", 2: "f16"}
+
+
+def _split_key(mangled: str):
+    m = _SPLIT_NAME.search(mangled)
+    if m is None:
+        return None
+    return m.group(1), tuple(int(x) for x in re.findall(r"Li(\d+)E",
+                                                          m.group(2)))
+
+
+def _split_label(key) -> str:
+    kind, args = key
+    if kind == "tc":
+        return (f"kv_decode_tc_kernel<{_VT_NAME[args[0]]}, D={args[1]}, "
+                f"G<={args[2]}>")
+    return f"kv_decode_split_kernel<f32, G<={args[0]}>"
+
+
+def split_kernel_resources(log: str) -> dict:
+    """Registers, spill bytes and static shared memory of each split-kernel
+    instantiation, from ptxas -v's lines in the build log."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = _split_key(m.group(1))
+            if cur is not None:
+                out[cur] = dict(registers=None, spill_stores=None,
+                                spill_loads=None, static_smem=0)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur]["spill_stores"] = int(m.group(1))
+            out[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[cur]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def split_kernel_hmma(lib_path) -> dict:
+    """HMMA (tensor-core mma) instructions in each split kernel's SASS,
+    from ``cuobjdump -sass`` of the built library."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = _split_key(m.group(1))
+            if cur is not None:
+                counts[cur] = 0
+            continue
+        if cur is not None and "HMMA" in line:
+            counts[cur] += 1
+    return counts
+
+
+def split_key_for(value_dtype: str, g: int, d: int):
+    """The instantiation the C dispatch picks (``pick_split``)."""
+    code = {"float32": 0, "bfloat16": 1, "float16": 2}[value_dtype]
+    if code:
+        return "tc", (code, d, 8 if g <= 8 else 16)
+    return "split", (next(m for m in (1, 2, 4, 8, 16) if g <= m),)
+
+
 def _decode_work(up, seq, nb, page, hkv, d, h, lane_bytes, q_bytes):
     """Bytes the decode must move and the operations it must do for this
     plan and these lengths: of each page it needs, the rows (tokens)
@@ -806,12 +891,15 @@ def _decode_work(up, seq, nb, page, hkv, d, h, lane_bytes, q_bytes):
     return int(n_bytes), ops
 
 
-def decode_phase(torch, ring_kv):
+def decode_phase(torch, ring_kv, built):
     """``coded_kv_decode`` at three shapes: the serving width (K/V of the
     ring run's layers 0 and 35), bench_kernels' shape, and one of at least
     256 MB. The main path is ``ops.coded_kv_decode`` after
     ``ops.pack_kv_banks``; then the kernel is held against its plain
-    version, timed, and put beside its bound and SDPA."""
+    version, timed, and put beside its bound and SDPA. ``built`` is the
+    source's build result: each case prints its split kernel's registers,
+    spills and shared memory (ptxas), its HMMA count (SASS; a 16-bit
+    kernel with none fails), its blocks per SM and split count."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
@@ -861,11 +949,34 @@ def decode_phase(torch, ring_kv):
     check(launches == len(cases),
           f"coded_kv_decode: {launches} launches for {len(cases)} calls")
 
+    resources = split_kernel_resources(built.log)
+    hmma = split_kernel_hmma(built.path)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     results = {}
     for (name, q, k, v, nb, page, up, seq), banks, out in zip(
             cases, packed, outs):
         vd = q.dtype
+        b, h, d = q.shape
+        hkv = k.shape[2]
+        vname = str(vd).split(".")[1]
+        key = split_key_for(vname, h // hkv, d)
+        res = resources.get(key, {})
+        blocks, smem, tc = ckd_kernel.decode_occupancy(vd, h, hkv, d, "cuda")
+        splits = ckd_kernel.decode_splits(b, hkv, up.shape[1], n_sms, blocks)
+        n_hmma = hmma.get(key, 0)
+        check(tc == (key[0] == "tc"),
+              f"coded_kv_decode {name}: the wrapper's kernel is not "
+              f"{_split_label(key)}")
+        check(not tc or n_hmma > 0,
+              f"coded_kv_decode {name}: {_split_label(key)} has no HMMA")
+        print(f"kernel coded_kv_decode {name}: split kernel "
+              f"{_split_label(key)}: {res.get('registers')} registers, "
+              f"spill stores/loads {res.get('spill_stores')}/"
+              f"{res.get('spill_loads')} bytes, shared memory "
+              f"{res.get('static_smem')} static + {smem} dynamic bytes, "
+              f"{n_hmma} HMMA in its SASS; {blocks} blocks/SM x {n_sms} "
+              f"SMs -> {splits} splits (grid {splits} x {hkv} x {b})")
         up32, seq32 = up.to(torch.int32), seq
         # compared in f32: with q in f32 the kernel and the plain version
         # return their f32 results (the q values are the same); a bf16
@@ -910,8 +1021,6 @@ def decode_phase(torch, ring_kv):
         full = torch.full_like(seq32, k.shape[1])
         ms_full = time_cold(torch, lambda: ckd_kernel.coded_kv_decode_cuda(
             q, *banks, zero, full, vd), reps, flush)
-        b, h, d = q.shape
-        hkv = k.shape[2]
         qk = q.view(b, h // hkv, hkv, d).transpose(1, 2).reshape(
             b, h, 1, d)                      # head h % Hkv -> kv-major
         kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
@@ -930,7 +1039,9 @@ def decode_phase(torch, ring_kv):
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
         results[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=lib_ms,
-                             max_abs_err=err, bytes=n_bytes, ms_full=ms_full)
+                             max_abs_err=err, bytes=n_bytes, ms_full=ms_full,
+                             registers=res.get("registers"), hmma=n_hmma,
+                             blocks_per_sm=blocks, splits=splits)
         n_deg = int(up32.sum())
         print(f"kernel coded_kv_decode {name}: B={b} T={k.shape[1]} H={h} "
               f"Hkv={hkv} D={d} {str(vd).split('.')[1]} NB={nb} P={page}, "
@@ -1302,13 +1413,20 @@ def main() -> int:
     for res in built:
         print(f"build: {res.name}.cu, nvcc {res.seconds:.1f} s -> "
               f"{res.path.name}")
+        if res.name == "coded_kv_decode":
+            for key, r in sorted(split_kernel_resources(res.log).items()):
+                print(f"    {_split_label(key)}: {r['registers']} registers,"
+                      f" spill stores/loads {r['spill_stores']}/"
+                      f"{r['spill_loads']} bytes")
+            continue
         for line in res.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
 
     kern = kernel_phase(torch)
     launches, ring_kv = serve_phase(torch)
-    decode, decode_launches = decode_phase(torch, ring_kv)
+    decode, decode_launches = decode_phase(
+        torch, ring_kv, next(r for r in built if r.name == "coded_kv_decode"))
     del ring_kv
     cross_device_phase(torch)
     sim_kern = sim_kernel_phase(torch)

@@ -18,34 +18,81 @@
 //
 // Bound: device memory. Per kv head and key it reads one K row and one V
 // row of D lanes (twice that on a degraded page: sibling and parity) and
-// does about 4 * G * D flops, far below the card's flop/byte ridge. At
-// B=16, T=16384, Hkv=2, D=128 in bf16 with 40% of pages degraded the reads
-// are ~376 MB: >= 112 us at 3.35 TB/s.
+// does about 4 * G * D flops, ~8 flops a byte, far below the card's ridge
+// (~295). At B=16, T=16384, Hkv=2, D=128 in bf16 with 40% of pages
+// degraded it must move ~290 MB: >= 87 us at 3.35 TB/s.
 //
-// Design, flash-decoding style. The TPU grid is (B,) with a sequential page
-// loop per block; here the pages of each (sequence, kv head) are cut into
-// n_splits ranges and each range is one block: grid (n_splits, Hkv, B),
-// 128 threads. Within a block a row of D lanes is read as L = D*bytes/16
-// threads' 16-byte vectors; the block's 128/L lane groups take the page's
-// tokens in turn, two tokens per pass so that four (eight when degraded)
-// 16-byte loads per thread are in flight. Each thread keeps its slice of
-// the G query heads and of the G accumulators in registers, the dot
-// products are summed across the L lanes with shuffles, and every lane
-// group keeps its own running max, sum and accumulator per head. The page
-// choice (direct or sibling ^ parity) is uniform over a block's page (its
-// plan flag is read a page ahead), and the XOR is done on the raw lanes
-// before any conversion. Pages whose first token is at or past seq_len are
-// not read. The wrapper picks n_splits so that the blocks fit the card in
-// one wave (two blocks an SM at these register counts). At the end the
-// lane groups are
-// merged through shared memory into one (m, s, acc) partial per (b, kh,
-// split, g), and a second kernel merges the splits and divides, with the
-// same guard for all-masked ranges (weight 0 where m = -inf).
+// Both kernels are flash-decoding: the pages of each (sequence, kv head)
+// are cut into n_splits ranges, one block of 128 threads each (grid
+// (n_splits, Hkv, B)); each block leaves one (m, s, acc) partial per head,
+// and a combine kernel merges the splits (an online merge whose loads of
+// up to 16 splits are in flight together) and divides, weighing a partial
+// with m = -inf by 0. The wrapper picks n_splits so that the blocks fill
+// the card in one wave, from the split kernel's occupancy
+// (coded_kv_decode_occupancy) and the card's SM count.
 //
-// Taken: value type f32 (32-bit lanes) or bf16/f16 (16-bit lanes); q and
-// the output in f32, bf16 or f16; D*bytes a multiple of 16 with
-// D*bytes/16 a power of two <= 32; G <= 8 (16-bit lanes) or <= 16 (f32);
-// 16-byte aligned banks and parity. Anything else is refused.
+// 16-bit lanes (bf16, f16): kv_decode_tc_kernel, on the tensor cores.
+//   Work: each of the block's 4 warps walks its own 8-token tiles of the
+//   block's token range (tiles w, w+4, ...), each with its own ring of 3
+//   shared-memory stages filled by cp.async.cg 16-byte copies; a warp asks
+//   for tile j + 2 before it waits for tile j, so three tiles a warp (up to
+//   24 KB at D=128) are in flight while it waits. The block first asks
+//   for q, seq_len and the plan flags of its first pages at once (the
+//   flags as one ballot mask a warp, moved on every 32 pages), then for
+//   its first tiles, and only then stages q through shared memory into
+//   the A fragments. A tile may span pages: each token row's address comes
+//   from its own page (bank, slot, plan bit). A stage holds the tile's K
+//   and V rows and a parity row for each; a direct row's parity is
+//   zero-filled (src-size 0) and a masked token's K, V and parity too, so
+//   the XOR is one branch-free instruction per fragment register and reads
+//   nothing more from device memory. Rows are stored with a 16-byte-chunk
+//   swizzle so that ldmatrix reads no bank twice. TMA is later work: the
+//   rows of one tile come from up to 8 pages, each from its bank or its
+//   sibling and parity.
+//   Math (the FlashAttention-2 register pattern): S = Q K^T with
+//   mma.sync.m16n8k16 (query rows in M, the tile's tokens in N, K from
+//   ldmatrix; K ^ parity on the raw fragment registers), one online
+//   softmax per (head, key) in the C fragment (row max: two quad
+//   shuffles; O is rescaled only when some row's max moved), then
+//   O += P V with P's A fragment built in registers from S and V from
+//   ldmatrix.trans (V ^ parity likewise). O stays in f32
+//   accumulators (16 x D a warp). wgmma is the wrong tool here: its 64-row
+//   minimum against G <= 16 query rows would waste 3/4 to 7/8 of it, and
+//   the flops are not the limit anyway; mma.sync is there to replace the
+//   scalar FMAs and shuffles that made the first version issue-bound.
+//   Precision with f32 accumulation and no looser tolerance than the
+//   scalar kernel: K and V are exact in their type, q and p are not. q is
+//   split into hi + lo parts of the lane type (lo = type(q - hi)); for
+//   G <= 8 hi(q) fills rows 0..G-1 and lo(q) rows 8..8+G-1 of the one
+//   16-row A tile, so the score is c[0] + c[2] (and c[1] + c[3]) inside
+//   the thread; for 8 < G <= 16 the lo part is a second mma, skipped when
+//   q has no lo part. p is split into three parts: in the k16 P.V product
+//   the k columns 0..7 are the tile's tokens with hi(p) in row gid and
+//   lo(p) in row gid+8, the columns 8..15 the same tokens again (V's
+//   fragment register given twice) with lo2(p) in row gid; O's two row
+//   halves are added at the end (G > 8: lo2 is an m16n8k8 product of its
+//   own). A bf16 or f16 q has no lo part, so a q given in f32 with the
+//   same values gives bit-identical f32 results. The scores are scaled by
+//   D^-0.5 log2(e) after the product and exponentiated with exp2f; the
+//   split's maximum is written back in natural units (times ln 2), as the
+//   f32 kernel writes it, for the one combine kernel.
+//   Taken: D = 8, 16, 32, 64, 128 or 256 (row 16..512 bytes; D = 8 pads
+//   the k dimension with zeros), G <= 16.
+//
+// f32 lanes: kv_decode_split_kernel, scalar. Within a block a row of D
+//   lanes is read as L = D*4/16 threads' 16-byte vectors; the block's
+//   128/L lane groups take the page's tokens in turn, two tokens per pass.
+//   Each thread keeps its slice of the G query heads and accumulators in
+//   registers, the dot products are summed across the L lanes with
+//   shuffles, and every lane group keeps its own running max, sum and
+//   accumulator per head, merged through shared memory at the end. The
+//   page choice (direct or sibling ^ parity) is uniform over a page (its
+//   plan flag is read a page ahead). f32 on tensor cores would be TF32,
+//   which breaks the 1e-5 contract. Taken: D*4 a power-of-two multiple of
+//   16 up to 512 bytes, G <= 16.
+//
+// q and the output may be f32, bf16 or f16 whatever the lanes are; banks
+// and parity must be 16-byte aligned. Anything else is refused.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -59,13 +106,10 @@ enum : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int VT> struct Lane { using T = uint16_t; };
-template <> struct Lane<kF32> { using T = uint32_t; };
-
+// A 16-bit lane (the low half of `bits`) of type VT as a float.
 template <int VT>
 __device__ __forceinline__ float lane_to_f32(uint32_t bits) {
-  if constexpr (VT == kF32) return __uint_as_float(bits);
-  else if constexpr (VT == kBF16) return __uint_as_float(bits << 16);
+  if constexpr (VT == kBF16) return __uint_as_float(bits << 16);
   else return __half2float(__ushort_as_half(static_cast<unsigned short>(bits)));
 }
 
@@ -90,20 +134,12 @@ __device__ __forceinline__ uint4 xor4(uint4 a, uint4 b) {
   return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
 }
 
-// The lanes of one 16-byte vector as floats.
-template <int VT, int VEC>
-__device__ __forceinline__ void unpack(uint4 v, float (&out)[VEC]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  if constexpr (VEC == 4) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[e] = lane_to_f32<VT>(w[e]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      out[2 * e] = lane_to_f32<VT>(w[e] & 0xffffu);
-      out[2 * e + 1] = lane_to_f32<VT>(w[e] >> 16);
-    }
-  }
+// The four f32 lanes of one 16-byte vector.
+__device__ __forceinline__ void unpack4(uint4 v, float (&out)[4]) {
+  out[0] = __uint_as_float(v.x);
+  out[1] = __uint_as_float(v.y);
+  out[2] = __uint_as_float(v.z);
+  out[3] = __uint_as_float(v.w);
 }
 
 struct Args {
@@ -121,12 +157,20 @@ struct Args {
   int q_dt, out_dt;
   int H, Hkv, D, NB, S, P, n_pages, pages_per_split, n_splits;
   float scale;
+  int p_shift, nb_shift;  // log2 of P and NB where powers of two, else -1
 };
 
-template <int VT, int GM>
+constexpr int kWarps = kThreads / 32;
+
+// x / d and x % d for x >= 0, with a shift where d is a power of two
+__device__ __forceinline__ int div_by(int x, int d, int shift) {
+  return shift >= 0 ? x >> shift : x / d;
+}
+
+template <int GM>
 __global__ void __launch_bounds__(kThreads)
 kv_decode_split_kernel(const Args a) {
-  constexpr int VEC = 16 / sizeof(typename Lane<VT>::T);  // lanes a vector
+  constexpr int VEC = 4;                   // f32 lanes a 16-byte vector
   const float kNegInf = -__int_as_float(0x7f800000);
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.Hkv;
@@ -194,7 +238,7 @@ kv_decode_split_kernel(const Args a) {
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         float kf[VEC];
-        unpack<VT, VEC>(kr[u], kf);
+        unpack4(kr[u], kf);
         float sc[GM];
 #pragma unroll
         for (int g = 0; g < GM; ++g) {
@@ -211,7 +255,7 @@ kv_decode_split_kernel(const Args a) {
         }
         if (valid[u]) {
           float vf[VEC];
-          unpack<VT, VEC>(vr[u], vf);
+          unpack4(vr[u], vf);
 #pragma unroll
           for (int g = 0; g < GM; ++g) {
             const float l = sc[g] * a.scale;
@@ -268,7 +312,524 @@ kv_decode_split_kernel(const Args a) {
   }
 }
 
-// Merge the splits of each (b, h) and write out[b, h] in the output type.
+// ------------------------------------------------- 16-bit lanes, tensor cores
+constexpr int kTile = 8;        // tokens a warp takes at a time
+constexpr int kStages = 3;      // ring stages a warp
+
+// Bytes of shared memory: q as f32 (GM rows of D), then each warp's ring
+// of kStages stages, each stage four buffers (K, K parity, V, V parity)
+// of kTile rows of D 2-byte lanes. After the walk the same memory holds
+// the warps' states for the block's merge, then the split merge's.
+template <int D, int GM>
+__host__ __device__ constexpr size_t tc_q_bytes() {
+  return sizeof(float) * GM * D;
+}
+template <int D, int GM>
+constexpr size_t tc_smem_bytes() {
+  return tc_q_bytes<D, GM>() + (size_t)kWarps * kStages * 4 * kTile * D * 2;
+}
+
+// The 16-byte chunk a row's chunk c is stored in: rows of a tile at the
+// same chunk fall in distinct 16-byte bank groups (ldmatrix reads 8 rows).
+template <int NC>
+__device__ __forceinline__ int swz(int r, int c) {
+  if constexpr (NC >= 8) return c ^ r;
+  else if constexpr (NC == 4) return c ^ ((r >> 1) & 3);
+  else if constexpr (NC == 2) return c ^ ((r >> 2) & 1);
+  else return c;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared, or zeros where src_bytes is 0
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// X 8x8 matrices of 16-bit lanes (X = 1, 2, 4), plain or transposed
+template <int X, bool TRANS>
+__device__ __forceinline__ void ldsm(uint32_t (&r)[X], uint32_t addr) {
+  if constexpr (X == 4) {
+    if constexpr (TRANS)
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+          "[%4];\n"
+          : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+          : "r"(addr)
+          : "memory");
+    else
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+          : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+          : "r"(addr)
+          : "memory");
+  } else if constexpr (X == 2) {
+    if constexpr (TRANS)
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+          : "=r"(r[0]), "=r"(r[1])
+          : "r"(addr)
+          : "memory");
+    else
+      asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+                   : "=r"(r[0]), "=r"(r[1])
+                   : "r"(addr)
+                   : "memory");
+  } else {
+    if constexpr (TRANS)
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x1.trans.shared.b16 {%0}, [%1];\n"
+          : "=r"(r[0])
+          : "r"(addr)
+          : "memory");
+    else
+      asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n"
+                   : "=r"(r[0])
+                   : "r"(addr)
+                   : "memory");
+  }
+}
+
+// d += a(16x16) . b(16x8), f32 accumulate
+template <int VT>
+__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  if constexpr (VT == kBF16)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += a(16x8) . b(8x8), f32 accumulate
+template <int VT>
+__device__ __forceinline__ void mma1688(float (&d)[4], uint32_t a0,
+                                        uint32_t a1, uint32_t b0) {
+  if constexpr (VT == kBF16)
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(a1), "r"(b0));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// Two floats rounded to the lane type, x in the low half (the lower
+// column of an mma fragment register), and back.
+template <int VT>
+__device__ __forceinline__ uint32_t pack2(float x, float y) {
+  if constexpr (VT == kBF16) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __half2 v = __floats2half2_rn(x, y);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+template <int VT>
+__device__ __forceinline__ float2 unpack2(uint32_t r) {
+  return make_float2(lane_to_f32<VT>(r & 0xffffu), lane_to_f32<VT>(r >> 16));
+}
+
+// x = hi + lo (+ the rest): both parts packed two to a register
+template <int VT>
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  hi = pack2<VT>(x, y);
+  const float2 h = unpack2<VT>(hi);
+  lo = pack2<VT>(x - h.x, y - h.y);
+}
+template <int VT>
+__device__ __forceinline__ void split3(float x, float y, uint32_t& hi,
+                                       uint32_t& lo, uint32_t& lo2) {
+  hi = pack2<VT>(x, y);
+  const float2 h = unpack2<VT>(hi);
+  const float rx = x - h.x, ry = y - h.y;
+  lo = pack2<VT>(rx, ry);
+  const float2 l = unpack2<VT>(lo);
+  lo2 = pack2<VT>(rx - l.x, ry - l.y);
+}
+
+// A warp's window of the plan: bit i of `bits` is use_parity[b, base + i]
+// (0 past the block's last page).
+struct PlanWindow {
+  int base;
+  uint32_t bits;
+};
+
+__device__ __forceinline__ PlanWindow load_plan(const Args& a, int b,
+                                                int base, int t_end,
+                                                int lane) {
+  const int t = base + lane;
+  const bool deg = t < t_end && a.use_parity[(long long)b * a.n_pages + t];
+  return {base, __ballot_sync(kFull, deg)};
+}
+
+// Copies of one tile: chunk e = lane + 32 u of its kTile rows x NC chunks,
+// into each of the stage's four buffers. Every row's page is in `win`.
+template <int D>
+__device__ __forceinline__ void issue_tile(const Args& a, int b, int kh,
+                                           int tok0, int tok_end,
+                                           const PlanWindow& win,
+                                           uint32_t stage, int lane) {
+  constexpr int NC = D / 8;              // 16-byte chunks in a row
+  constexpr int BUF = kTile * NC * 16;   // bytes of one buffer
+  constexpr int PER = (kTile * NC + 31) / 32;
+  const int NG = a.NB / 2;
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = lane + 32 * u;
+    if (kTile * NC < 32 && e >= kTile * NC) break;
+    const int r = e / NC, c = e % NC;
+    const int tok = tok0 + r;
+    const uint32_t dst = stage + (r * NC + swz<NC>(r, c)) * 16;
+    const uint4* ks = a.k_banks;
+    const uint4* vs = a.v_banks;
+    const uint4* kps = a.k_par;
+    const uint4* vps = a.v_par;
+    int n_row = 0, n_par = 0;            // bytes to copy (0: zero-fill)
+    if (tok < tok_end) {
+      const int t = div_by(tok, a.P, a.p_shift), p = tok - t * a.P;
+      const int slot = div_by(t, a.NB, a.nb_shift), bank = t - slot * a.NB;
+      const bool deg = (win.bits >> (t - win.base)) & 1u;
+      const long long row =
+          ((long long)(b * a.NB + (deg ? bank ^ 1 : bank)) * a.S + slot) *
+              a.P + p;
+      const long long off = (row * a.Hkv + kh) * NC + c;
+      ks += off;
+      vs += off;
+      n_row = 16;
+      if (deg) {
+        const long long prow =
+            ((long long)(b * NG + (bank >> 1)) * a.S + slot) * a.P + p;
+        const long long poff = (prow * a.Hkv + kh) * NC + c;
+        kps += poff;
+        vps += poff;
+        n_par = 16;
+      }
+    }
+    cp_async16(dst, ks, n_row);
+    cp_async16(dst + BUF, kps, n_par);
+    cp_async16(dst + 2 * BUF, vs, n_row);
+    cp_async16(dst + 3 * BUF, vps, n_par);
+  }
+}
+
+// One split of one (sequence, kv head): GM = 8 packs hi(q) and lo(q) of
+// up to 8 heads into one 16-row tile; GM = 16 takes up to 16 heads, one
+// row each, with hi and lo as two products.
+template <int VT, int D, int GM>
+__global__ void __launch_bounds__(kThreads)
+kv_decode_tc_kernel(const Args a) {
+  constexpr int NC = D / 8;              // chunks a row = n8 tiles of O
+  constexpr int KS = (D + 15) / 16;      // k16 steps of q.k
+  constexpr int X = NC < 4 ? NC : 4;     // matrices an ldmatrix takes
+  constexpr int BUF = kTile * NC * 16;
+  constexpr int STAGE = 4 * BUF;
+  constexpr bool PACKED = GM == 8;
+  const float kNegInf = -__int_as_float(0x7f800000);
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.Hkv;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, t4 = lane & 3;
+
+  // q's lanes, the sequence's length and the first tile's plan window:
+  // every load in flight at once, before the first tiles are asked for
+  constexpr int QN = (GM * D + kThreads - 1) / kThreads;
+  uint32_t qraw[QN];
+#pragma unroll
+  for (int u = 0; u < QN; ++u) {
+    const int i = threadIdx.x + u * kThreads, g = i / D;
+    qraw[u] = 0u;
+    if (i < GM * D && g < G) {
+      const long long at = ((long long)b * a.H + g * a.Hkv + kh) * D + i % D;
+      qraw[u] = a.q_dt == kF32 ? __ldg(static_cast<const uint32_t*>(a.q) + at)
+                               : __ldg(static_cast<const uint16_t*>(a.q) + at);
+    }
+  }
+  const int slen = a.seq_len[b];
+  const int t0 = split * a.pages_per_split;
+  const int t_end = min(a.n_pages, t0 + a.pages_per_split);
+  const int tok_begin = t0 * a.P;
+  PlanWindow win = load_plan(
+      a, b, div_by(tok_begin + warp * kTile, a.P, a.p_shift), t_end, lane);
+  const int tok_end = slen <= 0 ? tok_begin : min(t_end * a.P, slen);
+  const int n_tiles = tok_end > tok_begin
+                          ? (tok_end - tok_begin + kTile - 1) / kTile : 0;
+  const int my_tiles =
+      n_tiles > warp ? (n_tiles - warp + kWarps - 1) / kWarps : 0;
+  const uint32_t ring =
+      smem_u32(tc_smem) + tc_q_bytes<D, GM>() + warp * kStages * STAGE;
+  // a warp's j-th tile: its first token, and the copies that ask for it,
+  // with the plan window moved on where the tile's last page is past it
+  // (the same decision on every lane)
+  auto tile_tok = [&](int j) {
+    return tok_begin + (warp + kWarps * j) * kTile;
+  };
+  auto issue = [&](int j) {
+    const int tok0 = tile_tok(j);
+    const int last = div_by(min(tok0 + kTile, tok_end) - 1, a.P, a.p_shift);
+    if (last - win.base >= 32)
+      win = load_plan(a, b, div_by(tok0, a.P, a.p_shift), t_end, lane);
+    issue_tile<D>(a, b, kh, tok0, tok_end, win,
+                  ring + (j % kStages) * STAGE, lane);
+  };
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < my_tiles) issue(j);
+    cp_async_commit();
+  }
+
+  float* sq = reinterpret_cast<float*>(tc_smem);     // (GM, D)
+#pragma unroll
+  for (int u = 0; u < QN; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    if (i < GM * D)
+      sq[i] = a.q_dt == kF32 ? __uint_as_float(qraw[u])
+              : a.q_dt == kBF16 ? lane_to_f32<kBF16>(qraw[u])
+                                : lane_to_f32<kF16>(qraw[u]);
+  }
+  // q's A fragments: register i of k-step kk holds columns 16 kk + 2 t4
+  // (+8 for i = 2, 3), rows gid (i = 0, 2) and gid + 8 (i = 1, 3)
+  __syncthreads();
+  uint32_t qa[KS][4], qlo[PACKED ? 1 : KS][4];
+  bool any_lo = false;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int d0 = 16 * kk + 8 * half + 2 * t4;
+#pragma unroll
+      for (int row = 0; row < 2; ++row) {
+        // PACKED: both rows are head gid (hi, then lo); else heads gid and
+        // gid + 8
+        const int g = PACKED ? gid : gid + 8 * row;
+        const float x = d0 < D ? sq[g * D + d0] : 0.f;
+        const float y = d0 < D ? sq[g * D + d0 + 1] : 0.f;
+        uint32_t hi, lo;
+        split2<VT>(x, y, hi, lo);
+        any_lo |= lo != 0u;
+        if constexpr (PACKED) {
+          if (row == 0) qa[kk][2 * half] = hi;
+          else qa[kk][2 * half + 1] = lo;
+        } else {
+          qa[kk][2 * half + row] = hi;
+          qlo[kk][2 * half + row] = lo;
+        }
+      }
+    }
+  }
+  const bool has_lo = __any_sync(kFull, any_lo);
+  // ldmatrix row addresses: lane gives row (lane & 7) of matrix lane >> 3
+  const int lrow = lane & 7, lmat = (lane >> 3) % X;
+
+  float o[NC][4];
+#pragma unroll
+  for (int n = 0; n < NC; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // running max (log2 units) and this thread's part of the sum, per row
+  // half: PACKED uses half 0 (head gid), else halves 0 and 1 (gid, gid + 8)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float scale2 = a.scale * 1.4426950408889634f;
+
+  for (int j = 0; j < my_tiles; ++j) {
+    // the stage tile j - 1 used is free: ask for tile j + kStages - 1 there
+    // before waiting for tile j, so that kStages tiles are in flight
+    __syncwarp();
+    if (j + kStages - 1 < my_tiles) issue(j + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const uint32_t st = ring + (j % kStages) * STAGE;
+    const int tok0 = tile_tok(j);
+
+    // S = Q K^T over the tile's 8 tokens, even and odd k-steps in two
+    // chains of products
+    float sc[4] = {0.f, 0.f, 0.f, 0.f}, sc1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c0 = 0; c0 < NC; c0 += X) {
+      const uint32_t addr = st + (lrow * NC + swz<NC>(lrow, c0 + lmat)) * 16;
+      uint32_t kf[X], pf[X];
+      ldsm<X, false>(kf, addr);
+      ldsm<X, false>(pf, addr + BUF);
+#pragma unroll
+      for (int i = 0; i < X; ++i) kf[i] ^= pf[i];
+#pragma unroll
+      for (int i = 0; i < X; i += 2) {
+        const int kk = (c0 + i) / 2;
+        const uint32_t b1 = i + 1 < X ? kf[i + 1] : 0u;
+        float (&acc)[4] = kk % 2 ? sc1 : sc;
+        mma16816<VT>(acc, qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], kf[i],
+                     b1);
+        if constexpr (!PACKED) {
+          if (has_lo)
+            mma16816<VT>(acc, qlo[kk][0], qlo[kk][1], qlo[kk][2], qlo[kk][3],
+                         kf[i], b1);
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[e] += sc1[e];
+    // scores of this thread's 2 tokens per row half, masked, in log2 units
+    float s2[2][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool live = tok0 + 2 * t4 + e < tok_end;
+      if constexpr (PACKED) {
+        s2[0][e] = live ? (sc[e] + sc[2 + e]) * scale2 : kNegInf;
+        s2[1][e] = kNegInf;
+      } else {
+        s2[0][e] = live ? sc[e] * scale2 : kNegInf;
+        s2[1][e] = live ? sc[2 + e] * scale2 : kNegInf;
+      }
+    }
+    constexpr int NH = PACKED ? 1 : 2;
+    uint32_t ph[2], pl[2], pl2[2];
+    float alpha[2] = {1.f, 1.f};
+#pragma unroll
+    for (int r = 0; r < NH; ++r) {
+      float mt = fmaxf(s2[r][0], s2[r][1]);
+      mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, 2));
+      const float mn = fmaxf(m[r], mt);
+      alpha[r] = m[r] == kNegInf ? 0.f : exp2f(m[r] - mn);
+      const float p0 = s2[r][0] == kNegInf ? 0.f : exp2f(s2[r][0] - mn);
+      const float p1 = s2[r][1] == kNegInf ? 0.f : exp2f(s2[r][1] - mn);
+      l[r] = l[r] * alpha[r] + (p0 + p1);
+      m[r] = mn;
+      split3<VT>(p0, p1, ph[r], pl[r], pl2[r]);
+    }
+    // O *= alpha, unless no row's max moved (alpha 1 is exact)
+    if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= PACKED ? alpha[0] : alpha[1];
+        o[n][3] *= PACKED ? alpha[0] : alpha[1];
+      }
+    }
+    // O += P V
+#pragma unroll
+    for (int c0 = 0; c0 < NC; c0 += X) {
+      const uint32_t addr =
+          st + 2 * BUF + (lrow * NC + swz<NC>(lrow, c0 + lmat)) * 16;
+      uint32_t vf[X], pf[X];
+      ldsm<X, true>(vf, addr);
+      ldsm<X, true>(pf, addr + BUF);
+#pragma unroll
+      for (int i = 0; i < X; ++i) {
+        const int n = c0 + i;
+        const uint32_t v = vf[i] ^ pf[i];
+        if constexpr (PACKED) {
+          // k 0..7: hi(p) row gid, lo(p) row gid + 8; k 8..15 (the same
+          // tokens again): lo2(p) row gid
+          mma16816<VT>(o[n], ph[0], pl[0], pl2[0], 0u, v, v);
+        } else {
+          mma16816<VT>(o[n], ph[0], ph[1], pl[0], pl[1], v, v);
+          mma1688<VT>(o[n], pl2[0], pl2[1], v);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the quad's sums; this warp's state per head into shared memory
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+  __syncthreads();                       // every warp is done with its ring
+  float* sm_m = reinterpret_cast<float*>(tc_smem);   // (kWarps, GM)
+  float* sm_s = sm_m + kWarps * GM;                  // (kWarps, GM)
+  float* sm_acc = sm_s + kWarps * GM;                // (kWarps, GM, D)
+#pragma unroll
+  for (int r = 0; r < (PACKED ? 1 : 2); ++r) {
+    const int g = gid + 8 * r;
+    if (t4 == 0) {
+      sm_m[warp * GM + g] = m[r];
+      sm_s[warp * GM + g] = l[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      float* dst = sm_acc + (warp * GM + g) * D + 8 * n + 2 * t4;
+      if constexpr (PACKED) {
+        dst[0] = o[n][0] + o[n][2];
+        dst[1] = o[n][1] + o[n][3];
+      } else {
+        dst[0] = o[n][2 * r];
+        dst[1] = o[n][2 * r + 1];
+      }
+    }
+  }
+  __syncthreads();
+  // each head's max over the warps, the warps' weights (in place of their
+  // maxima) and the weighted sum; then the accumulators, GM * D / kThreads
+  // columns a thread, unrolled
+  const long long base = (((long long)b * a.Hkv + kh) * a.n_splits + split) * G;
+  if (threadIdx.x < G) {
+    const int g = threadIdx.x;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w * GM + g]);
+    float S = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float mw = sm_m[w * GM + g];
+      const float wt = mw == kNegInf ? 0.f : exp2f(mw - M);
+      sm_m[w * GM + g] = wt;
+      S = fmaf(sm_s[w * GM + g], wt, S);
+    }
+    a.part_m[base + g] = M * 0.6931471805599453f;   // log2 -> natural
+    a.part_s[base + g] = S;
+  }
+  __syncthreads();
+  constexpr int PER = (GM * D + kThreads - 1) / kThreads;
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    if (i >= G * D) break;
+    const int g = i / D;
+    float A = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      A = fmaf(sm_acc[(w * GM + g) * D + i % D], sm_m[w * GM + g], A);
+    a.part_acc[(base + g) * D + i % D] = A;
+  }
+}
+
+// Merge the splits of each (b, h) and write out[b, h] in the output type:
+// an online merge over chunks of kChunk splits, each chunk's loads issued
+// together (one round trip for up to kChunk splits).
+constexpr int kChunk = 16;
+
 __global__ void __launch_bounds__(kThreads)
 kv_decode_combine_kernel(const Args a) {
   const float kNegInf = -__int_as_float(0x7f800000);
@@ -276,50 +837,109 @@ kv_decode_combine_kernel(const Args a) {
   const int G = a.H / a.Hkv;
   const int g = h / a.Hkv, kh = h % a.Hkv;
   const long long first = ((long long)b * a.Hkv + kh) * a.n_splits * G + g;
-  // unrolled so that the loads of several splits are in flight at once
-  float M = kNegInf;
-#pragma unroll 8
-  for (int j = 0; j < a.n_splits; ++j)
-    M = fmaxf(M, a.part_m[first + (long long)j * G]);
   for (int d = threadIdx.x; d < a.D; d += kThreads) {
-    float S = 0.f, A = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < a.n_splits; ++j) {
-      const long long i = first + (long long)j * G;
-      const float mj = a.part_m[i];
-      const float w = mj == kNegInf ? 0.f : expf(mj - M);
-      S = fmaf(a.part_s[i], w, S);
-      A = fmaf(a.part_acc[i * a.D + d], w, A);
+    float M = kNegInf, S = 0.f, A = 0.f;
+    for (int j0 = 0; j0 < a.n_splits; j0 += kChunk) {
+      float mj[kChunk], sj[kChunk], aj[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int j = j0 + u;
+        mj[u] = kNegInf;
+        sj[u] = aj[u] = 0.f;
+        if (j < a.n_splits) {
+          const long long i = first + (long long)j * G;
+          mj[u] = a.part_m[i];
+          sj[u] = a.part_s[i];
+          aj[u] = a.part_acc[i * a.D + d];
+        }
+      }
+      float Mc = M;
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) Mc = fmaxf(Mc, mj[u]);
+      if (Mc == kNegInf) continue;       // no live key so far
+      const float r = M == kNegInf ? 0.f : expf(M - Mc);
+      S *= r;
+      A *= r;
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const float w = mj[u] == kNegInf ? 0.f : expf(mj[u] - Mc);
+        S = fmaf(sj[u], w, S);
+        A = fmaf(aj[u], w, A);
+      }
+      M = Mc;
     }
     store_f32(a.out, ((long long)b * a.H + h) * a.D + d, a.out_dt,
               A / fmaxf(S, 1e-30f));
   }
 }
 
-template <int VT, int GM>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(typename Lane<VT>::T);
-  const int n_grp = kThreads / (a.D / VEC);
-  const size_t smem = sizeof(float) * (size_t)n_grp * GM * (2 + a.D);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(a.n_splits, a.Hkv, B);
-  kv_decode_split_kernel<VT, GM><<<grid, kThreads, smem, stream>>>(a);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  kv_decode_combine_kernel<<<dim3(a.H, B), kThreads, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+// The split kernel that serves (value type, G, D) as a function pointer,
+// its dynamic shared memory and whether it is the tensor-core kernel; the
+// f32 kernel's shared memory depends on D at run time.
+struct Split {
+  void (*fn)(Args) = nullptr;
+  size_t smem = 0;
+  bool tc = false;
+};
+
+template <int GM>
+Split f32_split(int D) {
+  const int n_grp = kThreads / (D / 4);
+  return {kv_decode_split_kernel<GM>,
+          sizeof(float) * (size_t)n_grp * GM * (2 + D), false};
+}
+
+template <int VT, int D>
+Split tc_split_d(int G) {
+  if (G <= 8) return {kv_decode_tc_kernel<VT, D, 8>, tc_smem_bytes<D, 8>(),
+                      true};
+  return {kv_decode_tc_kernel<VT, D, 16>, tc_smem_bytes<D, 16>(), true};
 }
 
 template <int VT>
-int launch_g(const Args& a, int B, int G, cudaStream_t stream) {
-  if (G <= 1) return launch<VT, 1>(a, B, stream);
-  if (G <= 2) return launch<VT, 2>(a, B, stream);
-  if (G <= 4) return launch<VT, 4>(a, B, stream);
-  if (G <= 8) return launch<VT, 8>(a, B, stream);
-  if constexpr (VT == kF32) {
-    if (G <= 16) return launch<VT, 16>(a, B, stream);
+Split tc_split(int G, int D) {
+  switch (D) {
+    case 8: return tc_split_d<VT, 8>(G);
+    case 16: return tc_split_d<VT, 16>(G);
+    case 32: return tc_split_d<VT, 32>(G);
+    case 64: return tc_split_d<VT, 64>(G);
+    case 128: return tc_split_d<VT, 128>(G);
+    default: return tc_split_d<VT, 256>(G);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Refuses (fn null) what neither kernel takes: G > 16, or a row of other
+// than 16, 32, ..., 512 bytes.
+Split pick_split(int value_dt, int G, int D) {
+  const int lane_bytes = value_dt == kF32 ? 4 : 2;
+  const int row_bytes = D * lane_bytes;
+  const int L = row_bytes / 16;
+  if (G < 1 || G > 16 || D <= 0 || row_bytes % 16 != 0 || L > 32 ||
+      (L & (L - 1)) != 0)
+    return {};
+  if (value_dt == kBF16) return tc_split<kBF16>(G, D);
+  if (value_dt == kF16) return tc_split<kF16>(G, D);
+  if (G <= 1) return f32_split<1>(D);
+  if (G <= 2) return f32_split<2>(D);
+  if (G <= 4) return f32_split<4>(D);
+  if (G <= 8) return f32_split<8>(D);
+  return f32_split<16>(D);
+}
+
+// Lets the kernel use its dynamic shared memory (beyond 48 KB only by
+// this attribute).
+int allow_smem(const Split& k) {
+  if (k.smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(k.smem)));
+}
+
+int log2_or_neg(int x) {
+  if (x <= 0 || (x & (x - 1)) != 0) return -1;
+  int s = 0;
+  while ((1 << s) < x) ++s;
+  return s;
 }
 
 bool is_dt(int dt) { return dt == kF32 || dt == kBF16 || dt == kF16; }
@@ -328,9 +948,9 @@ bool is_dt(int dt) { return dt == kF32 || dt == kBF16 || dt == kF16; }
 
 // Launches the split and combine kernels on `stream` and returns
 // cudaGetLastError() (0: both launches were accepted; cudaErrorInvalidValue
-// for a shape or type the kernel does not take). dtype codes: 0 f32,
-// 1 bf16, 2 f16. The partial buffers hold B*Hkv*n_splits*G floats (m, s)
-// and that times D (acc).
+// for a shape or type no kernel takes). dtype codes: 0 f32, 1 bf16,
+// 2 f16. The partial buffers hold B*Hkv*n_splits*G floats (m, s) and that
+// times D (acc).
 extern "C" int coded_kv_decode(
     const void* q, int q_dt, const void* k_banks, const void* v_banks,
     const void* k_par, const void* v_par, const void* use_parity,
@@ -342,11 +962,8 @@ extern "C" int coded_kv_decode(
       S <= 0 || P <= 0 || n_pages < 0 || n_pages > NB * S || n_splits <= 0 ||
       Hkv > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int lane_bytes = value_dt == kF32 ? 4 : 2;
-  const int row_bytes = D * lane_bytes;
-  const int L = row_bytes / 16;
-  if (row_bytes % 16 != 0 || L > 32 || (L & (L - 1)) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const Split k = pick_split(value_dt, H / Hkv, D);
+  if (k.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(k_banks) | reinterpret_cast<uintptr_t>(v_banks) |
       reinterpret_cast<uintptr_t>(k_par) | reinterpret_cast<uintptr_t>(v_par);
@@ -375,13 +992,36 @@ extern "C" int coded_kv_decode(
   a.n_splits = n_splits;
   a.pages_per_split = n_pages == 0 ? 1 : (n_pages + n_splits - 1) / n_splits;
   a.scale = scale;
-  const int G = H / Hkv;
+  a.p_shift = log2_or_neg(P);
+  a.nb_shift = log2_or_neg(NB);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (value_dt) {
-    case kF32: return launch_g<kF32>(a, B, G, s);
-    case kBF16: return launch_g<kBF16>(a, B, G, s);
-    default: return launch_g<kF16>(a, B, G, s);
-  }
+  int err = allow_smem(k);
+  if (err != 0) return err;
+  k.fn<<<dim3(n_splits, Hkv, B), kThreads, k.smem, s>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  kv_decode_combine_kernel<<<dim3(H, B), kThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split kernel that serves (value_dt, H / Hkv, D): how many of its
+// blocks fit one SM of the current card (*blocks), its dynamic shared
+// memory (*smem_bytes) and whether it is the tensor-core kernel (*tc).
+// Returns a CUDA error code (cudaErrorInvalidValue for a shape no kernel
+// takes).
+extern "C" int coded_kv_decode_occupancy(int value_dt, int H, int Hkv, int D,
+                                         int* blocks, int* smem_bytes,
+                                         int* tc) {
+  if (!is_dt(value_dt) || H <= 0 || Hkv <= 0 || H % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Split k = pick_split(value_dt, H / Hkv, D);
+  if (k.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  *smem_bytes = static_cast<int>(k.smem);
+  *tc = k.tc ? 1 : 0;
+  const int err = allow_smem(k);
+  if (err != 0) return err;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, k.fn, kThreads, k.smem));
 }
 
 extern "C" const char* coded_kv_decode_error_string(int code) {

@@ -15,7 +15,7 @@ It never falls back to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -28,9 +28,10 @@ decode_launches = 0
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LANES_OF = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
              torch.float16: torch.int16}
-# flash-decoding splits: about one wave of blocks on the H100's 132 SMs,
-# two blocks an SM (the split kernel takes up to 253 registers a thread)
-TARGET_BLOCKS = 2 * 132
+# (blocks per SM, dynamic shared memory bytes, tensor-core kernel?) of the
+# split kernel serving (card, value dtype, H, Hkv, D)
+_OCCUPANCY: Dict[Tuple[int, torch.dtype, int, int, int],
+                 Tuple[int, int, bool]] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -112,18 +113,48 @@ def _decode_lib() -> ctypes.CDLL:
         lib.coded_kv_decode.argtypes = [p, i] + [p] * 10 + [i] * 11 + [
             ctypes.c_float, p]
         lib.coded_kv_decode.restype = ctypes.c_int
+        ip = ctypes.POINTER(i)
+        lib.coded_kv_decode_occupancy.argtypes = [i, i, i, i, ip, ip, ip]
+        lib.coded_kv_decode_occupancy.restype = ctypes.c_int
         lib.coded_kv_decode_error_string.argtypes = [ctypes.c_int]
         lib.coded_kv_decode_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def decode_splits(b: int, hkv: int, n_pages: int) -> int:
+def decode_occupancy(value_dtype: torch.dtype, h: int, hkv: int, d: int,
+                     device: torch.device) -> Tuple[int, int, bool]:
+    """The split kernel that serves this value type and shape (the
+    tensor-core one for bf16/f16 lanes, the scalar one for f32): how many
+    of its blocks fit one SM of ``device`` (CUDA's occupancy calculator),
+    its dynamic shared memory in bytes, and whether it is the tensor-core
+    kernel."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (idx, value_dtype, h, hkv, d)
+    if key not in _OCCUPANCY:
+        blocks, smem, tc = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            lib = _decode_lib()
+            err = lib.coded_kv_decode_occupancy(
+                _DT_CODE[value_dtype], h, hkv, d, ctypes.byref(blocks),
+                ctypes.byref(smem), ctypes.byref(tc))
+        if err != 0:
+            raise RuntimeError(
+                "coded_kv_decode occupancy query failed: "
+                + lib.coded_kv_decode_error_string(err).decode())
+        _OCCUPANCY[key] = (blocks.value, smem.value, bool(tc.value))
+    return _OCCUPANCY[key]
+
+
+def decode_splits(b: int, hkv: int, n_pages: int, n_sms: int,
+                  blocks_per_sm: int) -> int:
     """Page ranges per (sequence, kv head): as many as fit one wave of
-    ``TARGET_BLOCKS`` blocks (at least one), at least one page each, no
-    empty range."""
+    ``n_sms * blocks_per_sm`` blocks (at least one), at least one page
+    each, no empty range."""
     if n_pages == 0:
         return 1
-    ns = min(n_pages, max(1, TARGET_BLOCKS // max(b * hkv, 1)))
+    wave = n_sms * max(blocks_per_sm, 1)
+    ns = min(n_pages, max(1, wave // max(b * hkv, 1)))
     per = -(-n_pages // ns)
     return -(-n_pages // per)
 
@@ -139,7 +170,9 @@ def coded_kv_decode_cuda(
     value_dtype: torch.dtype,
 ) -> torch.Tensor:
     """Decode attention over per-sequence coded banks on the card: (B, H,
-    D) in q's dtype, the function of ``ref.coded_kv_decode_plain``."""
+    D) in q's dtype, the function of ``ref.coded_kv_decode_plain``. bf16
+    and f16 lanes run the tensor-core split kernel, f32 lanes the scalar
+    one (the source's note says why); both are hand-written."""
     global decode_launches
     fn = "coded_kv_decode_cuda"
     if value_dtype not in _LANES_OF:
@@ -164,10 +197,9 @@ def coded_kv_decode_cuda(
     if row % 16 or vecs > 32 or vecs & (vecs - 1):
         raise ValueError(f"{fn}: a row of {d} lanes is {row} bytes; the "
                          "kernel takes 16, 32, ..., 512 bytes")
-    g_max = 16 if lanes == torch.int32 else 8
-    if h // hkv > g_max:
+    if h // hkv > 16:
         raise ValueError(f"{fn}: {h // hkv} query heads per kv head (at most "
-                         f"{g_max} for {value_dtype})")
+                         "16)")
     bank_shape = (b, nb, slots, page, hkv, d)
     par_shape = (b, nb // 2) + bank_shape[2:]
     check_cuda_operand(fn, "q", q, q.dtype, (b, h, d))
@@ -186,7 +218,10 @@ def coded_kv_decode_cuda(
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    ns = decode_splits(b, hkv, n_pages)
+    ns = decode_splits(
+        b, hkv, n_pages,
+        torch.cuda.get_device_properties(q.device).multi_processor_count,
+        decode_occupancy(value_dtype, h, hkv, d, q.device)[0])
     g = h // hkv
     f32 = dict(dtype=torch.float32, device=q.device)
     part_m = torch.empty((b, hkv, ns, g), **f32)

@@ -209,3 +209,130 @@ def test_coded_kv_decode_pool_matches_jax(dtype, coded):
         _torch(v_par), torch.from_numpy(pt), torch.from_numpy(up),
         torch.from_numpy(seq))
     assert_close(got, want, dtype)
+
+
+# ------------------------------------- the tensor-core kernel's arithmetic
+from test_torch_gpu_kernels import DECODE_CASES, _decode_inputs  # noqa: E402
+
+from repro_torch.kernels.coded_kv_decode.kernel import (  # noqa: E402
+    decode_splits)
+
+LOG2E = 1.4426950408889634
+TILE = 8                 # tokens a warp takes at a time
+
+
+def _parts(x, lane, n):
+    """x as n parts of the lane type (each part the rounded remainder),
+    returned as f32 tensors of exact lane values."""
+    out = []
+    for _ in range(n):
+        hi = x.to(lane).float()
+        out.append(hi)
+        x = x - hi
+    return out
+
+
+def _emulate_tc_decode(q, kb, vb, kp, vp, up, seq, vd):
+    """``csrc/coded_kv_decode.cu``'s tensor-core arithmetic in plain
+    PyTorch: q split into hi + lo of the lane type; the score the sum of
+    the hi and lo rows' products (exact lane values, summed in f32), times
+    D^-0.5 log2(e); an online softmax over 8-token tiles with exp2; p split
+    into hi, lo, lo2; O kept as its two row halves (hi and lo2 products,
+    lo products), rescaled together and added at the end."""
+    b, nb, _, page, hkv, d = kb.shape
+    n_pages = up.shape[1]
+    t = torch.arange(n_pages)
+    bank, slot = t % nb, t // nb
+    deg = up.bool()[..., None, None, None]
+
+    def logical(banks, par):
+        pages = torch.where(deg, banks[:, bank ^ 1, slot]
+                            ^ par[:, bank // 2, slot], banks[:, bank, slot])
+        return pages.reshape(b, n_pages * page, hkv, d).view(vd).float()
+
+    k, v = logical(kb, kp), logical(vb, vp)
+    n_tok = k.shape[1]
+    g = q.shape[1] // hkv
+    q_hi, q_lo = _parts(q.float().reshape(b, g, hkv, d), vd, 2)
+    scale2 = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+    s = (torch.einsum("bgkd,btkd->bgkt", q_hi, k)
+         + torch.einsum("bgkd,btkd->bgkt", q_lo, k)) * scale2
+    live = torch.arange(n_tok)[None, None, None] < seq[:, None, None, None]
+    s = torch.where(live, s, float("-inf"))
+    m = torch.full((b, g, hkv), float("-inf"))
+    l = torch.zeros(b, g, hkv)
+    o_a = torch.zeros(b, g, hkv, d)
+    o_b = torch.zeros(b, g, hkv, d)
+    for t0 in range(0, n_tok, TILE):
+        st = s[..., t0:t0 + TILE]
+        mn = torch.maximum(m, st.amax(-1))
+        alpha = torch.where(m == float("-inf"), 0.0, torch.exp2(m - mn))
+        p = torch.where(st == float("-inf"), 0.0,
+                        torch.exp2(st - mn[..., None]))
+        l = l * alpha + p.sum(-1)
+        p_hi, p_lo, p_lo2 = _parts(p, vd, 3)
+        vt = v[:, t0:t0 + TILE]
+        o_a = o_a * alpha[..., None] + (
+            torch.einsum("bgkt,btkd->bgkd", p_hi, vt)
+            + torch.einsum("bgkt,btkd->bgkd", p_lo2, vt))
+        o_b = o_b * alpha[..., None] + torch.einsum("bgkt,btkd->bgkd", p_lo,
+                                                    vt)
+        m = mn
+    out = (o_a + o_b) / l.clamp(min=1e-30)[..., None]
+    return out.reshape(b, g * hkv, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_tensor_core_precision_plan_meets_the_tolerances(case):
+    """The split parts (two of q, three of p) keep the tensor-core kernel's
+    arithmetic within the tolerances of the scalar kernel, on the inputs
+    of the card's ``DECODE_CASES`` (made on the CPU from the same seed):
+    with q in f32 within rtol = atol = 1e-5 of the plain version, with a
+    16-bit q within one ulp, a 16-bit q's result the f32 one rounded, and
+    seq_len 0 exact zeros. An f32-lane case is taken at its shape with
+    bf16 lanes and an f32 q (f32 lanes keep the scalar kernel)."""
+    value, qd, b, t, h, hkv, d, nb, page, cut, p_deg, stale = \
+        DECODE_CASES[case]
+    if value == "f32":
+        value, qd = "bf16", "f32"
+    q, kb, vb, kp, vp, up, seq, vd = _decode_inputs(
+        torch.device("cpu"), 11, value=value, q_dtype=qd, b=b, t=t, h=h,
+        hkv=hkv, d=d, nb=nb, page=page, cut=cut, p_deg=p_deg, stale=stale)
+    q32 = q.float()
+    got32 = _emulate_tc_decode(q32, kb, vb, kp, vp, up, seq, vd)
+    want32 = coded_kv_decode_plain(q32, kb, vb, kp, vp, up, seq, vd)
+    np.testing.assert_allclose(got32.numpy(), want32.numpy(), **F32_TOL)
+    assert not got32[seq == 0].any(), "seq_len 0 must read exact zeros"
+    if q.dtype != torch.float32:
+        got = _emulate_tc_decode(q, kb, vb, kp, vp, up, seq, vd)
+        want = coded_kv_decode_plain(q, kb, vb, kp, vp, up, seq, vd)
+        assert _ulps(got, want).max() <= 1
+        assert torch.equal(got.view(torch.int16),
+                           got32.to(q.dtype).view(torch.int16))
+
+
+# b, hkv, n_pages, SMs, blocks per SM -> splits
+SPLITS = {
+    "serving_width": ((8, 2, 32, 132, 2), 16),
+    "large": ((16, 2, 256, 132, 2), 8),
+    "bench_f32": ((2, 2, 16, 132, 7), 16),
+    "no_page": ((4, 2, 0, 132, 2), 1),
+    "more_pairs_than_the_wave": ((64, 8, 100, 132, 1), 1),
+    "no_empty_range": ((1, 1, 10, 132, 2), 10),
+    "no_range_left_empty": ((1, 1, 9, 4, 1), 3),  # 3 pages a range
+    "unknown_occupancy_counts_as_one": ((1, 1, 500, 132, 0), 125),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLITS))
+def test_decode_splits_fill_one_wave(case):
+    """Page ranges per (sequence, kv head): one wave of SMs x blocks per
+    SM over B x Hkv, at least one page each, none empty."""
+    (b, hkv, n_pages, sms, per_sm), want = SPLITS[case]
+    ns = decode_splits(b, hkv, n_pages, sms, per_sm)
+    assert ns == want
+    if n_pages:
+        per = -(-n_pages // ns)
+        assert (ns - 1) * per < n_pages <= ns * per     # no empty range
+        assert ns * b * hkv <= max(sms * max(per_sm, 1), b * hkv)

@@ -265,6 +265,19 @@ DECODE_CASES = {
     "f32_stale_mixed": ("f32", "f32", 4, 128, 4, 2, 64, 4, 8, 0, .5, True),
     "bf16_one_page_per_block": ("bf16", "bf16", 1, 64, 2, 1, 64, 2, 2, 0,
                                 .5, False),
+    "bf16_g16": ("bf16", "bf16", 4, 256, 32, 2, 64, 8, 8, 0, .4, False),
+    "bf16_d256": ("bf16", "bf16", 3, 256, 8, 2, 256, 4, 16, 0, .5, False),
+    "bf16_d8": ("bf16", "bf16", 4, 128, 8, 2, 8, 4, 8, 0, .5, False),
+    "bf16_d16": ("bf16", "bf16", 4, 128, 8, 2, 16, 4, 8, 0, .5, False),
+    # f16 with G > 8: an f32 q takes the second (lo) q.K mma, and every
+    # case the separate lo2(p) mma
+    "f16_g16_f32_q": ("f16", "f32", 4, 256, 32, 2, 64, 8, 8, 0, .4, False),
+    "f16_d16_g16_f32_q_stale": ("f16", "f32", 2, 128, 32, 2, 16, 4, 4, 0,
+                                .5, True),
+    # 29 pages of 4: seq_len 7 ends inside page 1 and token tile 0, the
+    # full plan (116) inside page 28 and tile 14
+    "bf16_p4_ends_mid_tile": ("bf16", "bf16", 5, 128, 16, 2, 64, 8, 4, 3,
+                              .5, False),
 }
 
 
@@ -316,14 +329,76 @@ def test_coded_kv_decode_cuda_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="pages"):
         fn(q, kb, vb, kp, vp, torch.zeros((2, 17), dtype=torch.int32,
                                           device=cuda), seq, vd)
-    q16 = torch.zeros((2, 32, 32), dtype=torch.bfloat16, device=cuda)
+    q32 = torch.zeros((2, 64, 32), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="query heads"):
-        fn(q16, kb, vb, kp, vp, up, seq, vd)             # G = 16 > 8
+        fn(q32, kb, vb, kp, vp, up, seq, vd)             # G = 32 > 16
     odd = torch.zeros((2, 4, 2, 8, 2, 24), dtype=torch.int16, device=cuda)
     with pytest.raises(ValueError, match="bytes"):
         fn(torch.zeros((2, 4, 24), dtype=torch.bfloat16, device=cuda), odd,
            odd, odd[:, :2].contiguous(), odd[:, :2].contiguous(), up, seq,
            vd)
+
+
+@pytest.mark.parametrize("h,d", [(16, 128), (32, 64)])
+def test_coded_kv_decode_cuda_bf16_q_equals_f32_q(cuda, h, d):
+    """No degraded page, every sequence at full length: a bf16 q and the
+    same values given as f32 give bit-identical f32 results (a 16-bit q
+    has no lo part), so the bf16 output is the f32 one rounded."""
+    q, kb, vb, kp, vp, up, _, vd = _decode_inputs(
+        cuda, 5, value="bf16", q_dtype="bf16", b=3, t=512, h=h, hkv=2, d=d,
+        nb=8, page=16)
+    up = torch.zeros_like(up)
+    seq = torch.full((3,), 512, dtype=torch.int32, device=cuda)
+    out16 = ckd_kernel.coded_kv_decode_cuda(q, kb, vb, kp, vp, up, seq, vd)
+    out32 = ckd_kernel.coded_kv_decode_cuda(q.float(), kb, vb, kp, vp, up,
+                                            seq, vd)
+    torch.cuda.synchronize()
+    assert torch.equal(out32.to(torch.bfloat16).view(torch.int16),
+                       out16.view(torch.int16))
+    ref = coded_kv_decode_plain(q.float(), kb, vb, kp, vp, up, seq, vd)
+    torch.testing.assert_close(out32, ref, rtol=1e-5, atol=1e-5)
+
+
+def _decode_f64(q, kb, vb, kp, vp, up, seq, vd):
+    """Decode attention over the logical K/V computed in f64."""
+    b, nb, _, page, hkv, d = kb.shape
+    n_pages = up.shape[1]
+    t = torch.arange(n_pages, device=kb.device)
+    bank, slot = t % nb, t // nb
+    deg = up.bool()[..., None, None, None]
+
+    def logical(banks, par):
+        pages = torch.where(deg, banks[:, bank ^ 1, slot]
+                            ^ par[:, bank // 2, slot], banks[:, bank, slot])
+        return pages.reshape(b, n_pages * page, hkv, d).view(vd).double()
+
+    k, v = logical(kb, kp), logical(vb, vp)
+    g = q.shape[1] // hkv
+    s = torch.einsum("bgkd,btkd->bgkt", q.double().reshape(b, g, hkv, d),
+                     k) * d ** -0.5
+    live = (torch.arange(k.shape[1], device=kb.device)[None, None, None]
+            < seq[:, None, None, None])
+    s = torch.where(live, s, float("-inf"))
+    p = torch.where(live, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    out = torch.einsum("bgkt,btkd->bgkd", p, v)
+    return (out / p.sum(-1).clamp(min=1e-30)[..., None]).reshape(b, g * hkv,
+                                                                 d)
+
+
+def test_coded_kv_decode_cuda_f16_g12_within_one_ulp_of_f64(cuda):
+    """f16 lanes and an f16 q at G = 12 (the unpacked tile, the lo2(p)
+    m16n8k8 product): the output within one ulp of the f64 value rounded.
+    Held against f64, not the plain version: on these inputs the plain
+    version's own f32 result rounds two ulps away from the kernel's while
+    the kernel's stays within one ulp of the f64 value."""
+    q, kb, vb, kp, vp, up, seq, vd = _decode_inputs(
+        cuda, 11, value="f16", q_dtype="f16", b=3, t=128, h=24, hkv=2,
+        d=128, nb=4, page=8, p_deg=.5)
+    out = ckd_kernel.coded_kv_decode_cuda(q, kb, vb, kp, vp, up, seq, vd)
+    torch.cuda.synchronize()
+    want = _decode_f64(q, kb, vb, kp, vp, up, seq, vd)
+    assert int(_ulps(out, want.to(torch.float16)).max()) <= 1
+    assert not out[seq == 0].any(), "seq_len 0 must read exact zeros"
 
 
 def test_coded_kv_decode_cuda_empty_batch_and_plan(cuda):
