@@ -24,7 +24,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    requests, so pages spread unevenly over the banks and the coded runs
    serve degraded reads, which are counted. After each run the K/V banks
    must equal the first run's bit for bit, and on a coded pool every parity
-   row marked fresh must be the XOR of its two banks. The planes must agree
+   row marked fresh must be the XOR of its two banks; ``gather_pool_cuda``
+   must equal ``gather_pool_plain`` bit for bit on the run's last layer
+   through decode step 12's page table, with that step's plan and (coded)
+   a seeded plan with ~40% degraded pages. The planes must agree
    with the run's own counts (degraded reads, pages needed, steps; coded
    port cycles <= uncoded); a snapshot taken mid-stream and restored into
    a fresh card server must finish with the same tokens, pool and planes.
@@ -32,10 +35,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
    planes off and on, reports the device's busy and idle share, launches,
    host syncs and copies per step and the heaviest host ops. Then
    qwen2.5-3b with kv_banks=0 serves the same requests from the ring
-   cache, with the pool runs' tokens;
+   cache, with the pool runs' tokens. yi-6b (untied head), stablelm-12b
+   (coded embedding, untied head, head_dim 160) and granite-20b
+   (LayerNorm, GELU MLP, MQA: 48 heads on one kv head) are then served
+   the same way at full width, bf16, params drawn on the card one layer
+   at a time: coded and uncoded pool (same checks: identical tokens,
+   banks, fresh parity, the gather against its plain version at the
+   config's pool shape, degraded reads, launches = steps x layers, finite
+   prefill logits), a profiled window, then the ring cache. Every run's
+   peak allocated memory must stay within 50 GB;
 4. decode attention: ``coded_kv_decode`` through ``ops.coded_kv_decode``
-   (after ``ops.pack_kv_banks``) at the serving width (K/V of the ring
-   run's layers 0 and 35, seq_len mixed with 0, a partial page and 2048),
+   (after ``ops.pack_kv_banks``) at each serving width (K/V of qwen's ring
+   run's layers 0 and 35 and of each other config's layer 0: B=8, T=2048,
+   the config's H/Hkv/D; seq_len mixed with 0, a partial page and 2048),
    at bench_kernels' shape (f32) and at one of at least 256 MB, ~40% of
    pages degraded; held against ``coded_kv_decode_plain`` and, at the
    serving width, against ``mha`` over the ring cache itself, in f32
@@ -47,19 +59,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
    for f32) with its registers, spills and shared memory from the build
    log, its HMMA count from ``cuobjdump -sass`` (a 16-bit kernel with none
    fails the phase), its blocks per SM and the split count it ran with;
-5. cross-device: the reduced config at f32 (TF32 off) on bench_serve's
-   schedule (4 slots, page 4, 16 requests x 16 tokens, a placement churn
-   every 2 steps) serves identical tokens on the card and on the CPU, the
+5. cross-device: each of the four configs reduced, at f32 (TF32 off) on
+   bench_serve's schedule (4 slots, page 4, 16 requests x 16 tokens, a
+   placement churn every 2 steps), serves identical tokens on the card
+   and on the CPU, the
    logits agree to rtol = atol = 1e-4, and every serve plane is equal; the
    port cycles, degraded reads and critical-word p50/p99 (``read_latencies``
    under the coded plan and an all-direct one) are printed; a card
    snapshot restored on the CPU finishes with the card's tokens and planes;
-6. simulator kernels: ``gather_decode_cuda`` and ``encode_parities_cuda``
+6. BankedKVState: the per-sequence state API at bench_kvbank's five cases
+   on the card and on the CPU: plans, ``gather_kv`` (``gather_pool_cuda``
+   on the card) and every leaf equal, before and after appends and
+   budgeted recodes;
+7. simulator kernels: ``gather_decode_cuda`` and ``encode_parities_cuda``
    against their plain versions on the card, bit for bit, at three shapes
    each (the simulator's; ``bench_kernels``'; one of at least 256 MB), with
    their time per launch, byte bound, plain time and, where one PyTorch call
    computes the same function, that call's time;
-7. simulate: the coded-memory simulator at the paper figures' geometry (8
+8. simulate: the coded-memory simulator at the paper figures' geometry (8
    banks x 320 rows, queue depth 10, 8 cores x 96 requests of a seeded
    banded trace, r = 0.05, select period 32) for uncoded, scheme_i,
    scheme_iii at alpha 1 and scheme_i, scheme_ii at alpha 0.25, on the card
@@ -100,6 +117,10 @@ SERVE = dict(n_slots=8, max_prompt=128, max_seq=2048, max_new_tokens=32,
              page=64)
 N_REQUESTS = 16
 CHURN_SEED = 5                   # the placement permutation of every run
+# the other dense configs, served at full width on the coded and the
+# uncoded pool and on the ring cache
+DENSE_ARCHS = ("yi-6b", "stablelm-12b", "granite-20b")
+PEAK_LIMIT_GB = 50.0             # peak allocated of a served config
 LOGITS_TOL = 1e-4                # card vs CPU at f32: summation order
 # the simulator at the geometry of benchmarks/fig18_dedup.py (select period
 # 32; fig19/fig20 use 64): 8 banks x 320 rows, 8 cores x 96 requests
@@ -248,7 +269,8 @@ def profile_decode(torch, srv, Request, n_steps: int = 4) -> None:
             srv.step_decode()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    path = ROOT / "build" / f"chip_smoke_decode_{srv.sc.telemetry}.json"
+    path = ROOT / "build" / (f"chip_smoke_decode_{srv.cfg.name}_"
+                             f"{srv.sc.telemetry}.json")
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
@@ -269,7 +291,8 @@ def profile_decode(torch, srv, Request, n_steps: int = 4) -> None:
     syncs = sum("Synchronize" in n for n in runtime) / n_steps
     copies = sum("Memcpy" in n for n in runtime) / n_steps
     planes = "on" if srv.sc.telemetry else "off"
-    print(f"profile {srv.sc.n_slots}-slot decode step ({n_steps} steps, "
+    print(f"profile {srv.cfg.name} {srv.sc.n_slots}-slot decode step "
+          f"({n_steps} steps, "
           f"planes {planes}): wall {wall_ms:.2f} ms/step, device busy "
           f"{busy_ms:.2f} ms/step (idle {1 - busy_ms / wall_ms:.1%}), "
           f"{n_kernels:.0f} kernel launches/step, {syncs:.1f} host syncs "
@@ -353,6 +376,40 @@ def check_parity(pool, name: str) -> int:
     return int(fresh.sum())
 
 
+def check_gather(torch, cfg, pool, table, plan, name) -> str:
+    """``gather_pool_cuda`` against ``gather_pool_plain`` on the pool's
+    last layer, bit for bit, through a page table and plan taken from a
+    step of the run, and on a coded pool also with a seeded plan that
+    sends 40% of the pages degraded. The launch count is left as it was:
+    these launches are comparisons, not the main path's."""
+    from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
+    from repro_torch.kernels.coded_kv_decode.ref import gather_pool_plain
+    from repro_torch.runtime import kvbank
+
+    layer = cfg.n_layers - 1
+    plans = [plan]
+    if kvbank.pool_coded(pool):
+        gen = torch.Generator(device="cuda").manual_seed(99)
+        plans.append(torch.rand(plan.shape, generator=gen, device="cuda")
+                     < 0.4)
+    n = ckd_kernel.launches
+    for up in plans:
+        args = (pool.k_banks[layer], pool.v_banks[layer], pool.k_par[layer],
+                pool.v_par[layer], table, up)
+        ko, vo = ckd_kernel.gather_pool_cuda(*args)
+        kr, vr = gather_pool_plain(*args)
+        check(torch.equal(ko, kr) and torch.equal(vo, vr),
+              f"{cfg.name} {name}: gather_pool differs from the plain "
+              f"version on layer {layer} of the pool")
+    ckd_kernel.launches = n
+    live = table >= 0
+    n_deg = [int((up & live).sum()) for up in plans]
+    return (f"gather_pool bit-exact vs plain on layer {layer} through "
+            f"decode step {SNAP_STEP}'s table ({int(live.sum())} pages; "
+            f"{n_deg[0]} degraded by its plan"
+            + (f", {n_deg[1]} by a seeded one)" if len(n_deg) > 1 else ")"))
+
+
 def _same_pool(torch, a, b) -> bool:
     return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
                for f in dataclasses.fields(a))
@@ -407,9 +464,11 @@ SERVE_RUNS = (("coded_fused", {}), ("uncoded", {"coded": False}),
 SNAP_STEP = 12                   # decode steps before the mid-stream snapshot
 
 
-def serve_phase(torch):
-    """Returns the pool gather's launches over the pool runs and the ring
-    run's K/V of layers 0 and 35."""
+def serve_phase(torch, arch: str = "qwen2.5-3b", serve_runs=SERVE_RUNS):
+    """Serve ``arch`` at full width through each pool run of
+    ``serve_runs``, then from the ring cache. Returns the pool gather's
+    launches over the pool runs and the ring run's K/V of its first and
+    last layers."""
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
@@ -417,17 +476,23 @@ def serve_phase(torch):
     from repro_torch.runtime import kvbank
     from repro_torch.runtime.server import Request, ServeConfig, Server
 
-    cfg = get_config("qwen2.5-3b")
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in _leaves(params))
     print(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
-          f"vocab {cfg.vocab_pad}, random f32 params (seed 0) made on the "
-          f"card in {time.perf_counter() - t0:.1f} s")
+          f"heads {cfg.n_heads}/{cfg.n_kv} x {cfg.head_dim} vocab "
+          f"{cfg.vocab_pad}, {n_params / 1e9:.2f} B random "
+          f"{cfg.compute_dtype} params (seed 0) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     runs = {}
     ref_banks = None
     total_launches = 0
-    for name, kw in SERVE_RUNS:
+    plan_fn = kvbank.pool_plan                  # not the counting one
+    for name, kw in serve_runs:
         torch.cuda.reset_peak_memory_stats()
         srv = Server(cfg, ServeConfig(**SERVE, **kw), params, device="cuda")
         pool = srv.cache["pool"]
@@ -446,6 +511,10 @@ def serve_phase(torch):
         snap = {}
 
         def take_snapshot(step, s_):
+            if step == SNAP_STEP:       # device copies, no host sync
+                p_ = s_.cache["pool"]
+                snap["tables"] = (p_.page_table.clone(), plan_fn(
+                    s_.kvcfg, p_).use_parity.clone())
             if before is not None and step == SNAP_STEP:
                 snap["state"] = s_.snapshot()
                 snap["queue"] = [(r.rid, list(r.prompt), list(r.out))
@@ -461,6 +530,10 @@ def serve_phase(torch):
         launches = ckd_kernel.launches          # main path ends here
         total_launches += launches
         n_degraded = int(sum(reads["degraded"])) * cfg.n_layers
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(peak_gb <= PEAK_LIMIT_GB,
+              f"{cfg.name} {name}: peak allocated {peak_gb:.2f} GB > "
+              f"{PEAK_LIMIT_GB}")
         check(launches == srv.steps_run * cfg.n_layers,
               f"{name}: {launches} gather launches for {srv.steps_run} "
               f"decode steps x {cfg.n_layers} layers")
@@ -470,13 +543,14 @@ def serve_phase(torch):
             check(n_degraded > 0, f"{name}: the plan served no degraded read")
         elif name == "uncoded":
             check(n_degraded == 0, f"{name}: {n_degraded} degraded reads")
-        if ref_banks is None:
-            ref_banks = (pool.k_banks.clone(), pool.v_banks.clone())
-        check(torch.equal(pool.k_banks, ref_banks[0])
-              and torch.equal(pool.v_banks, ref_banks[1]),
+        if ref_banks is None:   # on the host: the later runs' peaks
+            ref_banks = (pool.k_banks.cpu(), pool.v_banks.cpu())
+        check(torch.equal(pool.k_banks.cpu(), ref_banks[0])
+              and torch.equal(pool.v_banks.cpu(), ref_banks[1]),
               f"{name}: K/V banks differ from the first run's")
         n_fresh = check_parity(pool, name) if kvbank.pool_coded(pool) \
             else 0
+        gathered = check_gather(torch, cfg, pool, *snap["tables"], name)
         summ = srv.log.summary(rids={r.rid for r in reqs})
         n_tok = sum(len(r.out) for r in reqs)
         with torch.no_grad():
@@ -487,7 +561,8 @@ def serve_phase(torch):
               f"{name}: prefill logits not finite of shape (1, vocab_pad)")
         steps = srv.steps_run - warm_steps
         runs[name] = [r.out for r in reqs]
-        print(f"serve {name}: {len(reqs)} requests, {n_tok} tokens in "
+        print(f"serve {cfg.name} {name}: {len(reqs)} requests, {n_tok} "
+              f"tokens in "
               f"{dt:.3f} s = {n_tok / dt:.1f} tok/s steady-state; "
               f"{steps} decode steps, {1e3 * sum(decode_s) / len(decode_s):.2f}"
               f" ms/step mean, {1e3 * sorted(decode_s)[len(decode_s) // 2]:.2f}"
@@ -495,8 +570,8 @@ def serve_phase(torch):
               f"gather launches {launches} = {srv.steps_run} steps x "
               f"{cfg.n_layers}; {n_degraded} degraded page reads; banks "
               f"equal the first run's, {n_fresh} fresh parity rows checked; "
-              f"pool {pool_mb:.0f} MB; peak allocated "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+              f"pool {pool_mb:.0f} MB; peak allocated {peak_gb:.2f} GB; "
+              f"{gathered}")
         if before is not None:
             total_launches += _telemetry_checks(torch, cfg, params, srv,
                                                 before, reads, steps, snap,
@@ -507,13 +582,21 @@ def serve_phase(torch):
         torch.cuda.empty_cache()
     names = list(runs)
     check(all(runs[n] == runs[names[0]] for n in names),
-          "the pool runs served different tokens")
-    print(f"serve: {', '.join(names)} served identical tokens "
+          f"{cfg.name}: the pool runs served different tokens")
+    print(f"serve {cfg.name}: {', '.join(names)} served identical tokens "
           f"(first request: {runs[names[0]][0][:8]}...)")
     ring_kv = _ring_run(torch, cfg, params, runs[names[0]])
     del params, ref_banks
     torch.cuda.empty_cache()
     return total_launches, ring_kv
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _telemetry_checks(torch, cfg, params, srv, before, reads, steps, snap,
@@ -564,9 +647,9 @@ def _telemetry_checks(torch, cfg, params, srv, before, reads, steps, snap,
 
 
 def _ring_run(torch, cfg, params, pool_tokens):
-    """qwen2.5-3b with kv_banks=0 serves from the ring cache: the same
-    requests must get the pool runs' tokens. Returns its K/V of layers 0
-    and 35 (B, max_seq, Hkv, D)."""
+    """The config with kv_banks=0 serves from the ring cache: the same
+    requests must get the pool runs' tokens. Returns its K/V of the first
+    and last layers (B, max_seq, Hkv, D)."""
     from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
     from repro_torch.runtime.server import Request, ServeConfig, Server
 
@@ -585,9 +668,10 @@ def _ring_run(torch, cfg, params, pool_tokens):
     dt = time.perf_counter() - t0
     check(ckd_kernel.launches == before, "ring: the pool gather launched")
     check([r.out for r in reqs] == pool_tokens,
-          "ring: tokens differ from the pool runs'")
+          f"{cfg.name} ring: tokens differ from the pool runs'")
     n_tok = sum(len(r.out) for r in reqs)
-    print(f"serve ring (kv_banks=0): {len(reqs)} requests, {n_tok} tokens in "
+    print(f"serve {cfg.name} ring (kv_banks=0): {len(reqs)} requests, "
+          f"{n_tok} tokens in "
           f"{dt:.3f} s = {n_tok / dt:.1f} tok/s; {srv.steps_run - warm_steps}"
           f" decode steps, {1e3 * sum(decode_s) / len(decode_s):.2f} ms/step "
           f"mean; tokens equal the pool runs' (MP x page = max_seq = "
@@ -656,8 +740,8 @@ def _bench_drive(srv, reqs, perms, start=0, on_step=None):
     return step
 
 
-def cross_device_phase(torch):
-    """The reduced config at f32 (TF32 off) on bench_serve's schedule, on
+def cross_device_phase(torch, arch: str):
+    """``arch`` reduced at f32 (TF32 off) on bench_serve's schedule, on
     the card and on the CPU: identical tokens, logits within 1e-4, the
     serve planes equal exactly; critical-word latencies from the port's
     ``read_latencies``; a card snapshot restored on the CPU finishes
@@ -671,8 +755,9 @@ def cross_device_phase(torch):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("qwen2.5-3b").reduced(), kv_page=4,
+    cfg = dataclasses.replace(get_config(arch).reduced(), kv_page=4,
                               compute_dtype="float32")
+    tag = f"cross-device {cfg.name}"
     params = lm.init_params(cfg, seed=1, device="cpu")
     sc = ServeConfig(**BENCH_SERVE, telemetry=True)
     out, logits, planes, perms, lat = {}, {}, {}, {}, {"coded": [],
@@ -700,23 +785,23 @@ def cross_device_phase(torch):
         if dev == "cuda":
             n_degraded = int(sum(reads["degraded"])) * cfg.n_layers
             card_pool = srv.cache["pool"]
-    check(ckd_kernel.launches > before, "cross-device: kernel not launched")
-    check(n_degraded > 0, "cross-device: the plan served no degraded read")
+    check(ckd_kernel.launches > before, f"{tag}: kernel not launched")
+    check(n_degraded > 0, f"{tag}: the plan served no degraded read")
     check(out["cuda"] == out["cpu"],
-          f"cross-device: card {out['cuda']} vs CPU {out['cpu']}")
+          f"{tag}: card {out['cuda']} vs CPU {out['cpu']}")
     check(len(logits["cuda"]) == len(logits["cpu"]),
-          "cross-device: the card and the CPU ran different step counts")
+          f"{tag}: the card and the CPU ran different step counts")
     err = 0.0
     for a, b in zip(logits["cuda"], logits["cpu"]):
         check(torch.allclose(a, b, rtol=LOGITS_TOL, atol=LOGITS_TOL),
-              f"cross-device: logits differ by {float((a - b).abs().max())}")
+              f"{tag}: logits differ by {float((a - b).abs().max())}")
         err = max(err, float((a - b).abs().max()))
     card, cpu = planes["cuda"].as_dict(), planes["cpu"].as_dict()
-    check(card == cpu, f"cross-device: planes differ card {card} vs CPU "
+    check(card == cpu, f"{tag}: planes differ card {card} vs CPU "
           f"{cpu}")
     p50_c, p99_c = np.percentile(lat["coded"], [50, 99])
     p50_u, p99_u = np.percentile(lat["uncoded"], [50, 99])
-    print(f"cross-device: reduced {cfg.name} at f32 (TF32 off) on "
+    print(f"{tag}: at f32 (TF32 off) on "
           f"bench_serve's schedule ({len(out['cpu'])} requests x "
           f"{BENCH_SERVE['max_new_tokens']} tokens, {BENCH_SERVE['n_slots']} "
           f"slots, page 4, churn every {BENCH_CHURN_EVERY}) served identical "
@@ -724,7 +809,7 @@ def cross_device_phase(torch):
           f"decode logits within rtol=atol={LOGITS_TOL} (max abs diff "
           f"{err:.3g}); every serve plane equal card vs CPU; "
           f"{n_degraded} degraded page reads on the card")
-    print(f"cross-device planes on the card: port cycles coded "
+    print(f"{tag} planes on the card: port cycles coded "
           f"{card['coded_cycles']} vs uncoded {card['uncoded_cycles']}, "
           f"{card['degraded_reads']} degraded reads of "
           f"{card['served_pages']}; critical-word latency (port cycles, "
@@ -734,7 +819,7 @@ def cross_device_phase(torch):
           f"{np.mean(lat['uncoded']):.3f}\n" + format_summary(planes["cuda"]))
 
     # a card snapshot restored on the CPU finishes identically
-    check("state" in snap, "cross-device: no snapshot was taken")
+    check("state" in snap, f"{tag}: no snapshot was taken")
     node = Server(cfg, sc, params, device="cpu")
     node.restore_snapshot(snap["state"])
     moved = [r for r in node.slots if r]
@@ -745,18 +830,115 @@ def cross_device_phase(torch):
     _bench_drive(node, [], perms, start=BENCH_SNAP_STEP + 1)
     by_rid = dict(zip(range(len(out["cuda"])), out["cuda"]))
     check(len(moved) > 0 and all(r.out == by_rid[r.rid] for r in moved),
-          "cross-device: the CPU node restored from the card served other "
+          f"{tag}: the CPU node restored from the card served other "
           "tokens")
     check(node.serve_snapshot().as_dict() == card,
-          "cross-device: the CPU node restored from the card has other "
+          f"{tag}: the CPU node restored from the card has other "
           "planes")
     for f in ("page_table", "length", "parity_fresh"):
         check(torch.equal(getattr(node.cache["pool"], f),
                           getattr(card_pool, f).cpu()),
-              f"cross-device: restored {f} differs")
-    print(f"cross-device: card snapshot after {BENCH_SNAP_STEP} decode steps "
-          f"restored on the CPU; {len(moved)} requests finished there with "
-          f"the card's tokens, planes and tables")
+              f"{tag}: restored {f} differs")
+    print(f"{tag}: card snapshot after {BENCH_SNAP_STEP} "
+          f"decode steps restored on the CPU; {len(moved)} requests "
+          f"finished there with the card's tokens, planes and tables")
+
+
+# ---------------------------------------------------------------- phase 6
+# benchmarks/bench_kvbank.py's cases: name, (banks, page), lengths, churn,
+# seed (its run() at :50-57)
+KVSTATE_CASES = (
+    ("churn_skew", (8, 16), (2048, 1024, 512, 256, 128, 128, 64, 64), 0.9,
+     0),
+    ("churn_uniform", (8, 16), (1024,) * 8, 0.9, 1),
+    ("churn_heavy", (8, 16), (4096, 256, 128, 128, 64, 64, 32, 32), 0.9, 2),
+    ("churn_4banks", (4, 32), (4096, 512, 256, 64), 0.9, 3),
+    ("fresh_arrival", (8, 16), (2048, 1024, 512, 256, 128, 128, 64, 64), 0.0,
+     4),
+)
+KVSTATE_APPENDS = 6              # tokens appended after the churned state
+
+
+def kvstate_phase(torch):
+    """The per-sequence ``BankedKVState`` API at bench_kvbank's cases, on
+    the card and on the CPU: the churned state of ``_churned_state`` (Hkv
+    1, D 8, bf16) with random bank bits and fresh parity; ``plan_reads``
+    and ``gather_kv`` (``gather_pool_cuda`` on the card) equal the CPU's
+    bit for bit; then appends with a budgeted recode every other token,
+    and every leaf, plan and gather equal again."""
+    import numpy as np
+    from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
+    from repro_torch.runtime import kvbank as kb
+
+    def compare(name, states, what):
+        plans = {dev: kb.plan_reads(cfg, st) for dev, st in states.items()}
+        for f in ("use_parity", "load", "uncoded_cycles", "coded_cycles"):
+            check(torch.equal(getattr(plans["cuda"], f).cpu(),
+                              getattr(plans["cpu"], f)),
+                  f"kvstate {name}: {what}: plan {f} differs card vs CPU")
+        before = ckd_kernel.launches
+        kv = {dev: kb.gather_kv(cfg, st, plans[dev], torch.bfloat16)
+              for dev, st in states.items()}
+        check(ckd_kernel.launches == before + 1,
+              f"kvstate {name}: gather_kv did not launch gather_pool")
+        for i in (0, 1):
+            check(torch.equal(kv["cuda"][i].cpu().view(torch.int16),
+                              kv["cpu"][i].view(torch.int16)),
+                  f"kvstate {name}: {what}: gather_kv differs card vs CPU")
+        for f in dataclasses.fields(states["cpu"]):
+            check(torch.equal(getattr(states["cuda"], f.name).cpu(),
+                              getattr(states["cpu"], f.name)),
+                  f"kvstate {name}: {what}: {f.name} differs card vs CPU")
+        return plans["cpu"]
+
+    for name, (nb, page), lengths, churn, seed in KVSTATE_CASES:
+        mp = max(max(lengths) // page + 1, nb)
+        n_pool = ((sum(lengths) // page * 2) // nb + 2) * nb
+        cfg = kb.KVBankConfig(n_banks=nb, page=page, pool_pages=n_pool,
+                              max_pages=mp)
+        rng = np.random.default_rng(seed)
+        n_live = sum(-(-n // page) for n in lengths)
+        phys = rng.choice(n_pool, size=n_live, replace=False) if churn > 0 \
+            else np.arange(n_live)
+        table = np.full((len(lengths), mp), -1, np.int32)
+        c = 0
+        for i, n in enumerate(lengths):
+            n_pages = -(-n // page)
+            table[i, :n_pages] = phys[c:c + n_pages]
+            c += n_pages
+        bits = rng.integers(-2 ** 15, 2 ** 15, size=(2, nb, n_pool // nb,
+                                                     page, 1, 8),
+                            dtype=np.int16)
+        states = {}
+        for dev in ("cuda", "cpu"):
+            st = kb.init_state(cfg, len(lengths), 1, 8, torch.bfloat16,
+                               device=dev)
+            st.page_table.copy_(torch.from_numpy(table))
+            st.length.copy_(torch.tensor(lengths, dtype=torch.int32))
+            st.k_banks.copy_(torch.from_numpy(bits[0]))
+            st.v_banks.copy_(torch.from_numpy(bits[1]))
+            states[dev] = kb.recode(cfg, st)
+        plan = compare(name, states, "churned state")
+        new = rng.integers(-2 ** 15, 2 ** 15, size=(KVSTATE_APPENDS, 2,
+                                                    len(lengths), 1, 8),
+                           dtype=np.int16)
+        for j in range(KVSTATE_APPENDS):
+            for st in states.values():
+                dev = st.length.device
+                k, v = (torch.from_numpy(new[j, i]).to(dev)
+                        .view(torch.bfloat16) for i in (0, 1))
+                kb.append_token(cfg, st, k, v)
+                if j % 2:
+                    kb.recode(cfg, st, budget=2)
+        after = compare(name, states, f"{KVSTATE_APPENDS} appends")
+        print(f"kvstate {name}: {nb} banks x page {page}, lengths "
+              f"{list(lengths)}: port cycles coded {int(plan.coded_cycles)} "
+              f"vs uncoded {int(plan.uncoded_cycles)}, "
+              f"{int(plan.use_parity.sum())} degraded reads; after "
+              f"{KVSTATE_APPENDS} appends and budget-2 recodes "
+              f"{int(after.coded_cycles)} vs {int(after.uncoded_cycles)}, "
+              f"{int(after.use_parity.sum())} degraded; plans, gather_kv and "
+              "every state leaf equal card vs CPU")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -805,7 +987,7 @@ def _split_label(key) -> str:
     if kind == "tc":
         return (f"kv_decode_tc_kernel<{_VT_NAME[args[0]]}, D={args[1]}, "
                 f"G<={args[2]}>")
-    return f"kv_decode_split_kernel<f32, G<={args[0]}>"
+    return f"kv_decode_split_kernel<f32, G<={args[0]}, NV={args[1]}>"
 
 
 def split_kernel_resources(log: str) -> dict:
@@ -856,12 +1038,12 @@ def split_kernel_hmma(lib_path) -> dict:
     return counts
 
 
-def split_key_for(value_dtype: str, g: int, d: int):
-    """The instantiation the C dispatch picks (``pick_split``)."""
-    code = {"float32": 0, "bfloat16": 1, "float16": 2}[value_dtype]
-    if code:
-        return "tc", (code, d, 8 if g <= 8 else 16)
-    return "split", (next(m for m in (1, 2, 4, 8, 16) if g <= m),)
+def split_key_for(value_dtype: str, d: int, occ):
+    """The split-kernel instantiation that ``occ`` (``decode_occupancy``)
+    names, as ``_split_key`` reads it from a mangled name."""
+    if occ.tc:
+        return "tc", ({"bfloat16": 1, "float16": 2}[value_dtype], d, occ.gm)
+    return "split", (occ.gm, occ.nv)
 
 
 def _decode_work(up, seq, nb, page, hkv, d, h, lane_bytes, q_bytes):
@@ -891,10 +1073,11 @@ def _decode_work(up, seq, nb, page, hkv, d, h, lane_bytes, q_bytes):
     return int(n_bytes), ops
 
 
-def decode_phase(torch, ring_kv, built):
-    """``coded_kv_decode`` at three shapes: the serving width (K/V of the
-    ring run's layers 0 and 35), bench_kernels' shape, and one of at least
-    256 MB. The main path is ``ops.coded_kv_decode`` after
+def decode_phase(torch, serving, built):
+    """``coded_kv_decode`` at the serving widths (``serving``: (label, H,
+    {layer: ring K/V}) of each served config's ring run: qwen2.5-3b's
+    layers 0 and 35, the others' layer 0), bench_kernels' shape, and one
+    of at least 256 MB. The main path is ``ops.coded_kv_decode`` after
     ``ops.pack_kv_banks``; then the kernel is held against its plain
     version, timed, and put beside its bound and SDPA. ``built`` is the
     source's build result: each case prints its split kernel's registers,
@@ -920,13 +1103,14 @@ def decode_phase(torch, ring_kv, built):
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = []          # (name, q, k, v, NB, page, plan, seq_len)
-    # 1. serving width: B=8, T=2048, H=16, Hkv=2, D=128, NB=8, P=64
-    for layer, (k, v) in ring_kv.items():
-        b, t, _, d = k.shape
-        seq = torch.tensor([t, 0, 37, 1000, 64, 1537, t - 1, 700],
-                           dtype=torch.int32, device="cuda")[:b]
-        cases.append((f"serving_layer{layer}", normal(b, 16, d, dtype=bf16),
-                      k, v, 8, 64, plan(b, t // 64), seq))
+    # 1. serving widths: B=8, T=2048, the config's H, Hkv and D, NB=8, P=64
+    for label, h, ring_kv in serving:
+        for layer, (k, v) in ring_kv.items():
+            b, t, _, d = k.shape
+            seq = torch.tensor([t, 0, 37, 1000, 64, 1537, t - 1, 700],
+                               dtype=torch.int32, device="cuda")[:b]
+            cases.append((f"{label}_layer{layer}", normal(b, h, d, dtype=bf16),
+                          k, v, 8, 64, plan(b, t // 64), seq))
     # 2. bench_kernels' shape (benchmarks/bench_kernels.py:122), f32
     cases.append(("bench", normal(2, 4, 64, dtype=f32),
                   normal(2, 128, 2, 64, dtype=f32),
@@ -960,15 +1144,20 @@ def decode_phase(torch, ring_kv, built):
         b, h, d = q.shape
         hkv = k.shape[2]
         vname = str(vd).split(".")[1]
-        key = split_key_for(vname, h // hkv, d)
-        res = resources.get(key, {})
-        blocks, smem, tc = ckd_kernel.decode_occupancy(vd, h, hkv, d, "cuda")
-        splits = ckd_kernel.decode_splits(b, hkv, up.shape[1], n_sms, blocks)
-        n_hmma = hmma.get(key, 0)
-        check(tc == (key[0] == "tc"),
-              f"coded_kv_decode {name}: the wrapper's kernel is not "
+        occ = ckd_kernel.decode_occupancy(vd, h, hkv, d, "cuda")
+        blocks, smem, groups, gb = occ.blocks, occ.smem, occ.groups, occ.gb
+        key = split_key_for(vname, d, occ)
+        check(key in resources,
+              f"coded_kv_decode {name}: the build log names no "
               f"{_split_label(key)}")
-        check(not tc or n_hmma > 0,
+        res = resources[key]
+        splits = ckd_kernel.decode_splits(b, hkv * groups, up.shape[1],
+                                          n_sms, blocks)
+        n_hmma = hmma.get(key, 0)
+        check(occ.tc == (vd != f32),
+              f"coded_kv_decode {name}: {vname} lanes run "
+              f"{_split_label(key)}")
+        check(not occ.tc or n_hmma > 0,
               f"coded_kv_decode {name}: {_split_label(key)} has no HMMA")
         print(f"kernel coded_kv_decode {name}: split kernel "
               f"{_split_label(key)}: {res.get('registers')} registers, "
@@ -976,7 +1165,8 @@ def decode_phase(torch, ring_kv, built):
               f"{res.get('spill_loads')} bytes, shared memory "
               f"{res.get('static_smem')} static + {smem} dynamic bytes, "
               f"{n_hmma} HMMA in its SASS; {blocks} blocks/SM x {n_sms} "
-              f"SMs -> {splits} splits (grid {splits} x {hkv} x {b})")
+              f"SMs -> {splits} splits; {groups} head group(s) of <= {gb} "
+              f"heads (grid {splits} x {hkv * groups} x {b})")
         up32, seq32 = up.to(torch.int32), seq
         # compared in f32: with q in f32 the kernel and the plain version
         # return their f32 results (the q values are the same); a bf16
@@ -996,7 +1186,7 @@ def decode_phase(torch, ring_kv, built):
         check(not out[seq == 0].any(),
               f"coded_kv_decode {name}: seq_len 0 did not read zeros")
         extra = ""
-        if name.startswith("serving"):
+        if "_layer" in name:
             # the coded read gives back the logical cache
             mask = (torch.arange(k.shape[1], device="cuda")[None, :]
                     < seq[:, None])[:, None, None, None, :]
@@ -1041,7 +1231,9 @@ def decode_phase(torch, ring_kv, built):
                              bound_by=bound_by, library_ms=lib_ms,
                              max_abs_err=err, bytes=n_bytes, ms_full=ms_full,
                              registers=res.get("registers"), hmma=n_hmma,
-                             blocks_per_sm=blocks, splits=splits)
+                             spills=res.get("spill_stores"),
+                             blocks_per_sm=blocks, splits=splits,
+                             groups=groups)
         n_deg = int(up32.sum())
         print(f"kernel coded_kv_decode {name}: B={b} T={k.shape[1]} H={h} "
               f"Hkv={hkv} D={d} {str(vd).split('.')[1]} NB={nb} P={page}, "
@@ -1062,7 +1254,7 @@ def decode_phase(torch, ring_kv, built):
     return results, launches
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 7
 def _gather_columns(torch, gen, n, n_data, rows, n_par, prows, mix=True):
     """int32 request columns on the card. ``mix``: every mode (-1 .. 6),
     sibling -1 included, as degraded reads of real options would have
@@ -1197,7 +1389,7 @@ def _kernel_row(name, shape, ms, plain_ms, n_bytes, lib_ms, err, what):
                 library_ms=lib_ms, max_abs_err=err, bytes=n_bytes)
 
 
-# ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phase 8
 class GoldenCheck:
     """``on_cycle`` hook: every read a cycle serves must return the golden
     (memory-order) value committed before that cycle. Counts on the
@@ -1423,12 +1615,23 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
 
+    from repro_torch.configs.base import get_config
+
     kern = kernel_phase(torch)
     launches, ring_kv = serve_phase(torch)
+    serving = [("serving", get_config("qwen2.5-3b").n_heads, ring_kv)]
+    for arch in DENSE_ARCHS:
+        n, kv = serve_phase(torch, arch, SERVE_RUNS[:2])
+        launches += n
+        serving.append((f"serving_{arch}", get_config(arch).n_heads,
+                        {0: kv[0]}))
     decode, decode_launches = decode_phase(
-        torch, ring_kv, next(r for r in built if r.name == "coded_kv_decode"))
-    del ring_kv
-    cross_device_phase(torch)
+        torch, serving, next(r for r in built if r.name == "coded_kv_decode"))
+    del serving, ring_kv, kv
+    torch.cuda.empty_cache()
+    for arch in ("qwen2.5-3b",) + DENSE_ARCHS:
+        cross_device_phase(torch, arch)
+    kvstate_phase(torch)
     sim_kern = sim_kernel_phase(torch)
     sim_launches = simulate_phase(torch)
 

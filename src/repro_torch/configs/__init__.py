@@ -1,8 +1,8 @@
-"""Architecture configs of the port (the slice's model only).
+"""Architecture configs of the port (the dense decoders the port serves).
 Importing ``load_all()`` populates the registry."""
 import importlib
 
-_MODULES = ("qwen2_5_3b",)
+_MODULES = ("qwen2_5_3b", "yi_6b", "stablelm_12b", "granite_20b")
 
 
 def load_all():

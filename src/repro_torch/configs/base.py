@@ -33,8 +33,8 @@ class ModelConfig:
     embed_banks: int = 8        # data banks for the coded vocab table
     kv_banks: int = 0           # >0: banked+parity KV cache in serving path
     kv_page: int = 64
-    # dtypes
-    param_dtype: str = "float32"
+    # dtype of the served params and activations (the port draws and keeps
+    # its params in it; a JAX tree is cast to it once, at load)
     compute_dtype: str = "bfloat16"
 
     def __post_init__(self):

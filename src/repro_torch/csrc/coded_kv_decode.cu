@@ -23,8 +23,12 @@
 // degraded it must move ~290 MB: >= 87 us at 3.35 TB/s.
 //
 // Both kernels are flash-decoding: the pages of each (sequence, kv head)
-// are cut into n_splits ranges, one block of 128 threads each (grid
-// (n_splits, Hkv, B)); each block leaves one (m, s, acc) partial per head,
+// are cut into n_splits ranges, and the query heads of a kv head into
+// head groups of at most GM heads (one group unless G exceeds the kernel's
+// GM); one block of 128 threads takes a (range, head group) (grid
+// (n_splits, groups x Hkv, B)), so a kv head's K/V tiles are read once a
+// group, the later groups mostly from L2. Each block leaves one (m, s,
+// acc) partial per head,
 // and a combine kernel merges the splits (an online merge whose loads of
 // up to 16 splits are in flight together) and divides, weighing a partial
 // with m = -inf by 0. The wrapper picks n_splits so that the blocks fill
@@ -76,12 +80,18 @@
 //   D^-0.5 log2(e) after the product and exponentiated with exp2f; the
 //   split's maximum is written back in natural units (times ln 2), as the
 //   f32 kernel writes it, for the one combine kernel.
-//   Taken: D = 8, 16, 32, 64, 128 or 256 (row 16..512 bytes; D = 8 pads
-//   the k dimension with zeros), G <= 16.
+//   Taken: D = 8, 16, 32, 64, 128, 160 or 256 (row 16..512 bytes; D = 8
+//   pads the k dimension with zeros); head groups of up to 16 heads (8 at
+//   D = 160, whose larger ring leaves one block an SM either way). At
+//   D = 160 a row is 20 chunks, not a power of two: the swizzle then flips
+//   only the low two chunk bits, inside aligned groups of 4 chunks, which
+//   still puts the 8 rows an ldmatrix reads in 8 distinct bank groups (the
+//   320-byte row stride moves odd rows by 4 groups).
 //
 // f32 lanes: kv_decode_split_kernel, scalar. Within a block a row of D
-//   lanes is read as L = D*4/16 threads' 16-byte vectors; the block's
-//   128/L lane groups take the page's tokens in turn, two tokens per pass.
+//   lanes is read by L = D*4/(16 NV) threads, NV 16-byte vectors each;
+//   the block's 128/L lane groups take the page's tokens in turn, two
+//   tokens per pass.
 //   Each thread keeps its slice of the G query heads and accumulators in
 //   registers, the dot products are summed across the L lanes with
 //   shuffles, and every lane group keeps its own running max, sum and
@@ -89,7 +99,10 @@
 //   page choice (direct or sibling ^ parity) is uniform over a page (its
 //   plan flag is read a page ahead). f32 on tensor cores would be TF32,
 //   which breaks the 1e-5 contract. Taken: D*4 a power-of-two multiple of
-//   16 up to 512 bytes, G <= 16.
+//   16 up to 512 bytes (one vector a thread, NV = 1) in head groups of up
+//   to 16, or D = 160 (40 vectors a row: 8 threads of NV = 5 vectors
+//   each) in head groups of up to 2, which keeps q and the accumulators
+//   in registers.
 //
 // q and the output may be f32, bf16 or f16 whatever the lanes are; banks
 // and parity must be 16-byte aligned. Anything else is refused.
@@ -156,6 +169,7 @@ struct Args {
   void* out;          // (B, H, D)
   int q_dt, out_dt;
   int H, Hkv, D, NB, S, P, n_pages, pages_per_split, n_splits;
+  int GB;             // query heads a block takes (its head group)
   float scale;
   int p_shift, nb_shift;  // log2 of P and NB where powers of two, else -1
 };
@@ -167,33 +181,54 @@ __device__ __forceinline__ int div_by(int x, int d, int shift) {
   return shift >= 0 ? x >> shift : x / d;
 }
 
-template <int GM>
+// The head group of block row blockIdx.y: its kv head, its first query
+// head g0 (heads g0 .. g0 + n - 1 of that kv head) and its head count n.
+struct HeadGroup {
+  int kh, g0, n;
+};
+__device__ __forceinline__ HeadGroup head_group(const Args& a) {
+  const int kh = blockIdx.y % a.Hkv;
+  const int g0 = (blockIdx.y / a.Hkv) * a.GB;
+  return {kh, g0, min(a.GB, a.H / a.Hkv - g0)};
+}
+
+// NV: 16-byte vectors a thread takes of each row (thread sub takes
+// vectors sub, sub + L, ...).
+template <int GM, int NV>
 __global__ void __launch_bounds__(kThreads)
 kv_decode_split_kernel(const Args a) {
   constexpr int VEC = 4;                   // f32 lanes a 16-byte vector
   const float kNegInf = -__int_as_float(0x7f800000);
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int G = a.H / a.Hkv;
-  const int L = a.D / VEC;                 // threads per row, power of 2
-  const int sub = threadIdx.x % L;         // vector index within the row
+  const int split = blockIdx.x, b = blockIdx.z;
+  const HeadGroup hg = head_group(a);
+  const int kh = hg.kh, G = hg.n;
+  const int L = a.D / (VEC * NV);          // threads per row, power of 2
+  const int sub = threadIdx.x % L;         // first vector within the row
   const int grp = threadIdx.x / L;         // lane group within the block
   const int n_grp = kThreads / L;
 
-  float qv[GM][VEC];
+  float qv[GM][NV][VEC];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    const long long row = ((long long)b * a.H + g * a.Hkv + kh) * a.D;
+    const long long row =
+        ((long long)b * a.H + (hg.g0 + g) * a.Hkv + kh) * a.D;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      qv[g][e] = g < G ? load_f32(a.q, row + sub * VEC + e, a.q_dt) : 0.f;
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        qv[g][v][e] = g < G ? load_f32(a.q, row + (sub + L * v) * VEC + e,
+                                       a.q_dt)
+                            : 0.f;
   }
-  float m[GM], s[GM], acc[GM][VEC];
+  float m[GM], s[GM], acc[GM][NV][VEC];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     m[g] = kNegInf;
     s[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[g][v][e] = 0.f;
   }
 
   const int slen = a.seq_len[b];
@@ -202,7 +237,7 @@ kv_decode_split_kernel(const Args a) {
   const int t_need = slen <= 0 ? 0 : (int)(((long long)slen + a.P - 1) / a.P);
   const int t_end = min(min(a.n_pages, t0 + a.pages_per_split), t_need);
   const int NG = a.NB / 2;
-  const long long row_vecs = L;            // 16-byte vectors in a row
+  const long long row_vecs = L * NV;       // 16-byte vectors in a row
   const int32_t* plan = a.use_parity + (long long)b * a.n_pages;
   int deg_next = t0 < t_end ? plan[t0] : 0;  // the plan read a page ahead
   for (int t = t0; t < t_end; ++t) {
@@ -216,35 +251,42 @@ kv_decode_split_kernel(const Args a) {
     for (int p0 = 0; p0 < a.P; p0 += 2 * n_grp) {
       int tok[2];
       bool valid[2];
-      uint4 kr[2], vr[2];
+      uint4 kr[2][NV], vr[2][NV];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int p = p0 + u * n_grp + grp;
         tok[u] = t * a.P + p;
         valid[u] = p < a.P && tok[u] < slen;
-        kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
-        if (valid[u]) {
-          const long long off = ((row0 + p) * a.Hkv + kh) * row_vecs + sub;
-          kr[u] = a.k_banks[off];
-          vr[u] = a.v_banks[off];
-          if (deg) {
-            const long long poff =
-                ((prow0 + p) * a.Hkv + kh) * row_vecs + sub;
-            kr[u] = xor4(kr[u], a.k_par[poff]);
-            vr[u] = xor4(vr[u], a.v_par[poff]);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          kr[u][v] = vr[u][v] = make_uint4(0, 0, 0, 0);
+          if (valid[u]) {
+            const long long off =
+                ((row0 + p) * a.Hkv + kh) * row_vecs + sub + L * v;
+            kr[u][v] = a.k_banks[off];
+            vr[u][v] = a.v_banks[off];
+            if (deg) {
+              const long long poff =
+                  ((prow0 + p) * a.Hkv + kh) * row_vecs + sub + L * v;
+              kr[u][v] = xor4(kr[u][v], a.k_par[poff]);
+              vr[u][v] = xor4(vr[u][v], a.v_par[poff]);
+            }
           }
         }
       }
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        float kf[VEC];
-        unpack4(kr[u], kf);
+        float kf[NV][VEC];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) unpack4(kr[u][v], kf[v]);
         float sc[GM];
 #pragma unroll
         for (int g = 0; g < GM; ++g) {
           float d = 0.f;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) d = fmaf(qv[g][e], kf[e], d);
+          for (int v = 0; v < NV; ++v)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) d = fmaf(qv[g][v][e], kf[v][e], d);
           sc[g] = d;
         }
         // every lane of the warp takes part, masked tokens included
@@ -254,8 +296,9 @@ kv_decode_split_kernel(const Args a) {
             sc[g] += __shfl_xor_sync(kFull, sc[g], off);
         }
         if (valid[u]) {
-          float vf[VEC];
-          unpack4(vr[u], vf);
+          float vf[NV][VEC];
+#pragma unroll
+          for (int v = 0; v < NV; ++v) unpack4(vr[u][v], vf[v]);
 #pragma unroll
           for (int g = 0; g < GM; ++g) {
             const float l = sc[g] * a.scale;
@@ -264,8 +307,10 @@ kv_decode_split_kernel(const Args a) {
             const float pr = expf(l - mn);
             s[g] = s[g] * alpha + pr;
 #pragma unroll
-            for (int e = 0; e < VEC; ++e)
-              acc[g][e] = fmaf(acc[g][e], alpha, pr * vf[e]);
+            for (int v = 0; v < NV; ++v)
+#pragma unroll
+              for (int e = 0; e < VEC; ++e)
+                acc[g][v][e] = fmaf(acc[g][v][e], alpha, pr * vf[v][e]);
             m[g] = mn;
           }
         }
@@ -288,11 +333,16 @@ kv_decode_split_kernel(const Args a) {
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      sm_acc[(grp * GM + g) * a.D + sub * VEC + e] = acc[g][e];
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        sm_acc[(grp * GM + g) * a.D + (sub + L * v) * VEC + e] = acc[g][v][e];
   }
   __syncthreads();
-  const long long base = (((long long)b * a.Hkv + kh) * a.n_splits + split) * G;
+  // this group's heads' partials: heads g0 .. of the kv head's H / Hkv
+  const long long base =
+      (((long long)b * a.Hkv + kh) * a.n_splits + split) * (a.H / a.Hkv) +
+      hg.g0;
   for (int i = threadIdx.x; i < G * a.D; i += kThreads) {
     const int g = i / a.D, d = i % a.D;
     float M = kNegInf;
@@ -333,8 +383,8 @@ constexpr size_t tc_smem_bytes() {
 // same chunk fall in distinct 16-byte bank groups (ldmatrix reads 8 rows).
 template <int NC>
 __device__ __forceinline__ int swz(int r, int c) {
-  if constexpr (NC >= 8) return c ^ r;
-  else if constexpr (NC == 4) return c ^ ((r >> 1) & 3);
+  if constexpr (NC % 8 == 0) return c ^ r;                 // 8, 16, 32
+  else if constexpr (NC % 4 == 0) return c ^ ((r >> 1) & 3);  // 4, 20
   else if constexpr (NC == 2) return c ^ ((r >> 2) & 1);
   else return c;
 }
@@ -555,8 +605,9 @@ kv_decode_tc_kernel(const Args a) {
   const float kNegInf = -__int_as_float(0x7f800000);
   extern __shared__ __align__(16) unsigned char tc_smem[];
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int G = a.H / a.Hkv;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const HeadGroup hg = head_group(a);
+  const int kh = hg.kh, G = hg.n;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, t4 = lane & 3;
 
@@ -569,7 +620,8 @@ kv_decode_tc_kernel(const Args a) {
     const int i = threadIdx.x + u * kThreads, g = i / D;
     qraw[u] = 0u;
     if (i < GM * D && g < G) {
-      const long long at = ((long long)b * a.H + g * a.Hkv + kh) * D + i % D;
+      const long long at =
+          ((long long)b * a.H + (hg.g0 + g) * a.Hkv + kh) * D + i % D;
       qraw[u] = a.q_dt == kF32 ? __ldg(static_cast<const uint32_t*>(a.q) + at)
                                : __ldg(static_cast<const uint16_t*>(a.q) + at);
     }
@@ -792,8 +844,11 @@ kv_decode_tc_kernel(const Args a) {
   __syncthreads();
   // each head's max over the warps, the warps' weights (in place of their
   // maxima) and the weighted sum; then the accumulators, GM * D / kThreads
-  // columns a thread, unrolled
-  const long long base = (((long long)b * a.Hkv + kh) * a.n_splits + split) * G;
+  // columns a thread, unrolled. This group's heads start at g0 of the kv
+  // head's H / Hkv.
+  const long long base =
+      (((long long)b * a.Hkv + kh) * a.n_splits + split) * (a.H / a.Hkv) +
+      hg.g0;
   if (threadIdx.x < G) {
     const int g = threadIdx.x;
     float M = kNegInf;
@@ -874,26 +929,40 @@ kv_decode_combine_kernel(const Args a) {
 }
 
 // The split kernel that serves (value type, G, D) as a function pointer,
-// its dynamic shared memory and whether it is the tensor-core kernel; the
+// its dynamic shared memory, whether it is the tensor-core kernel and its
+// template arguments GM and NV (NV: the f32 kernel's vectors a thread); the
 // f32 kernel's shared memory depends on D at run time.
 struct Split {
   void (*fn)(Args) = nullptr;
   size_t smem = 0;
   bool tc = false;
+  int gm = 0;         // most query heads a block of the kernel takes
+  int nv = 0;
+  int gb = 0;         // query heads a block takes
+  int groups = 0;     // head groups a kv head is cut into
 };
 
-template <int GM>
-Split f32_split(int D) {
-  const int n_grp = kThreads / (D / 4);
-  return {kv_decode_split_kernel<GM>,
-          sizeof(float) * (size_t)n_grp * GM * (2 + D), false};
+template <int GM, int NV>
+Split f32_split_gm(int D) {
+  const int n_grp = kThreads / (D / (4 * NV));
+  return {kv_decode_split_kernel<GM, NV>,
+          sizeof(float) * (size_t)n_grp * GM * (2 + D), false, GM, NV};
+}
+
+Split f32_split(int gb, int D) {
+  if (D == 160) return f32_split_gm<2, 5>(D);
+  if (gb <= 1) return f32_split_gm<1, 1>(D);
+  if (gb <= 2) return f32_split_gm<2, 1>(D);
+  if (gb <= 4) return f32_split_gm<4, 1>(D);
+  if (gb <= 8) return f32_split_gm<8, 1>(D);
+  return f32_split_gm<16, 1>(D);
 }
 
 template <int VT, int D>
 Split tc_split_d(int G) {
   if (G <= 8) return {kv_decode_tc_kernel<VT, D, 8>, tc_smem_bytes<D, 8>(),
-                      true};
-  return {kv_decode_tc_kernel<VT, D, 16>, tc_smem_bytes<D, 16>(), true};
+                      true, 8};
+  return {kv_decode_tc_kernel<VT, D, 16>, tc_smem_bytes<D, 16>(), true, 16};
 }
 
 template <int VT>
@@ -904,26 +973,33 @@ Split tc_split(int G, int D) {
     case 32: return tc_split_d<VT, 32>(G);
     case 64: return tc_split_d<VT, 64>(G);
     case 128: return tc_split_d<VT, 128>(G);
+    // groups of at most 8 heads at D = 160 (pick_split): one instantiation
+    case 160: return {kv_decode_tc_kernel<VT, 160, 8>, tc_smem_bytes<160, 8>(),
+                      true, 8};
     default: return tc_split_d<VT, 256>(G);
   }
 }
 
-// Refuses (fn null) what neither kernel takes: G > 16, or a row of other
-// than 16, 32, ..., 512 bytes.
+// The split kernel for G query heads a kv head, cut into the fewest head
+// groups of at most the kernel's GM heads, all of one size but the last.
+// Refuses (fn null) a row of other than 16, 32, ..., 512 bytes or
+// D = 160.
 Split pick_split(int value_dt, int G, int D) {
   const int lane_bytes = value_dt == kF32 ? 4 : 2;
   const int row_bytes = D * lane_bytes;
   const int L = row_bytes / 16;
-  if (G < 1 || G > 16 || D <= 0 || row_bytes % 16 != 0 || L > 32 ||
-      (L & (L - 1)) != 0)
-    return {};
-  if (value_dt == kBF16) return tc_split<kBF16>(G, D);
-  if (value_dt == kF16) return tc_split<kF16>(G, D);
-  if (G <= 1) return f32_split<1>(D);
-  if (G <= 2) return f32_split<2>(D);
-  if (G <= 4) return f32_split<4>(D);
-  if (G <= 8) return f32_split<8>(D);
-  return f32_split<16>(D);
+  const bool pow2_row = D > 0 && row_bytes % 16 == 0 && L <= 32 &&
+                        (L & (L - 1)) == 0;
+  if (G < 1 || (!pow2_row && D != 160)) return {};
+  const int gmax = D != 160 ? 16 : value_dt == kF32 ? 2 : 8;
+  const int n = (G + gmax - 1) / gmax;
+  const int gb = (G + n - 1) / n;
+  Split k = value_dt == kBF16  ? tc_split<kBF16>(gb, D)
+            : value_dt == kF16 ? tc_split<kF16>(gb, D)
+                               : f32_split(gb, D);
+  k.gb = gb;
+  k.groups = (G + gb - 1) / gb;
+  return k;
 }
 
 // Lets the kernel use its dynamic shared memory (beyond 48 KB only by
@@ -963,7 +1039,8 @@ extern "C" int coded_kv_decode(
       Hkv > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Split k = pick_split(value_dt, H / Hkv, D);
-  if (k.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (k.fn == nullptr || (long long)Hkv * k.groups > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(k_banks) | reinterpret_cast<uintptr_t>(v_banks) |
       reinterpret_cast<uintptr_t>(k_par) | reinterpret_cast<uintptr_t>(v_par);
@@ -990,6 +1067,7 @@ extern "C" int coded_kv_decode(
   a.P = P;
   a.n_pages = n_pages;
   a.n_splits = n_splits;
+  a.GB = k.gb;
   a.pages_per_split = n_pages == 0 ? 1 : (n_pages + n_splits - 1) / n_splits;
   a.scale = scale;
   a.p_shift = log2_or_neg(P);
@@ -997,31 +1075,36 @@ extern "C" int coded_kv_decode(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = allow_smem(k);
   if (err != 0) return err;
-  k.fn<<<dim3(n_splits, Hkv, B), kThreads, k.smem, s>>>(a);
+  k.fn<<<dim3(n_splits, Hkv * k.groups, B), kThreads, k.smem, s>>>(a);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   kv_decode_combine_kernel<<<dim3(H, B), kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The split kernel that serves (value_dt, H / Hkv, D): how many of its
-// blocks fit one SM of the current card (*blocks), its dynamic shared
-// memory (*smem_bytes) and whether it is the tensor-core kernel (*tc).
-// Returns a CUDA error code (cudaErrorInvalidValue for a shape no kernel
-// takes).
+// The split kernel that serves (value_dt, H / Hkv, D), as seven ints in
+// `info`: how many of its blocks fit one SM of the current card, its
+// dynamic shared memory in bytes, whether it is the tensor-core kernel,
+// how many head groups a kv head is cut into (the grid has groups x Hkv
+// rows), the query heads a block takes, and the kernel's template
+// arguments GM and NV (NV 0 for the tensor-core kernel). Returns a CUDA
+// error code (cudaErrorInvalidValue for a shape no kernel takes).
 extern "C" int coded_kv_decode_occupancy(int value_dt, int H, int Hkv, int D,
-                                         int* blocks, int* smem_bytes,
-                                         int* tc) {
+                                         int* info) {
   if (!is_dt(value_dt) || H <= 0 || Hkv <= 0 || H % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Split k = pick_split(value_dt, H / Hkv, D);
   if (k.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  *smem_bytes = static_cast<int>(k.smem);
-  *tc = k.tc ? 1 : 0;
+  info[1] = static_cast<int>(k.smem);
+  info[2] = k.tc ? 1 : 0;
+  info[3] = k.groups;
+  info[4] = k.gb;
+  info[5] = k.gm;
+  info[6] = k.nv;
   const int err = allow_smem(k);
   if (err != 0) return err;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, k.fn, kThreads, k.smem));
+      &info[0], k.fn, kThreads, k.smem));
 }
 
 extern "C" const char* coded_kv_decode_error_string(int code) {

@@ -15,7 +15,7 @@ It never falls back to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -28,10 +28,21 @@ decode_launches = 0
 _DT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LANES_OF = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
              torch.float16: torch.int16}
-# (blocks per SM, dynamic shared memory bytes, tensor-core kernel?) of the
-# split kernel serving (card, value dtype, H, Hkv, D)
-_OCCUPANCY: Dict[Tuple[int, torch.dtype, int, int, int],
-                 Tuple[int, int, bool]] = {}
+
+
+class Occupancy(NamedTuple):
+    """The split kernel that serves a value type and shape on a card."""
+    blocks: int        # its blocks that fit one SM
+    smem: int          # its dynamic shared memory, bytes
+    tc: bool           # the tensor-core kernel (else the scalar f32 one)
+    groups: int        # head groups a kv head's query heads are cut into
+    gb: int            # query heads a block takes
+    gm: int            # template argument GM: most heads a block can take
+    nv: int            # template argument NV of the f32 kernel (0 for tc)
+
+
+# the Occupancy of (card, value dtype, H, Hkv, D)
+_OCCUPANCY: Dict[Tuple[int, torch.dtype, int, int, int], Occupancy] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -114,7 +125,7 @@ def _decode_lib() -> ctypes.CDLL:
             ctypes.c_float, p]
         lib.coded_kv_decode.restype = ctypes.c_int
         ip = ctypes.POINTER(i)
-        lib.coded_kv_decode_occupancy.argtypes = [i, i, i, i, ip, ip, ip]
+        lib.coded_kv_decode_occupancy.argtypes = [i, i, i, i, ip]
         lib.coded_kv_decode_occupancy.restype = ctypes.c_int
         lib.coded_kv_decode_error_string.argtypes = [ctypes.c_int]
         lib.coded_kv_decode_error_string.restype = ctypes.c_char_p
@@ -122,39 +133,39 @@ def _decode_lib() -> ctypes.CDLL:
 
 
 def decode_occupancy(value_dtype: torch.dtype, h: int, hkv: int, d: int,
-                     device: torch.device) -> Tuple[int, int, bool]:
+                     device: torch.device) -> Occupancy:
     """The split kernel that serves this value type and shape (the
-    tensor-core one for bf16/f16 lanes, the scalar one for f32): how many
-    of its blocks fit one SM of ``device`` (CUDA's occupancy calculator),
-    its dynamic shared memory in bytes, and whether it is the tensor-core
-    kernel."""
+    tensor-core one for bf16/f16 lanes, the scalar one for f32), as the C
+    dispatch picks it: its blocks per SM of ``device`` (CUDA's occupancy
+    calculator), shared memory, head groups (one block per group) and
+    template arguments."""
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     key = (idx, value_dtype, h, hkv, d)
     if key not in _OCCUPANCY:
-        blocks, smem, tc = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        info = (ctypes.c_int * len(Occupancy._fields))()
         with torch.cuda.device(idx):
             lib = _decode_lib()
             err = lib.coded_kv_decode_occupancy(
-                _DT_CODE[value_dtype], h, hkv, d, ctypes.byref(blocks),
-                ctypes.byref(smem), ctypes.byref(tc))
+                _DT_CODE[value_dtype], h, hkv, d, info)
         if err != 0:
             raise RuntimeError(
                 "coded_kv_decode occupancy query failed: "
                 + lib.coded_kv_decode_error_string(err).decode())
-        _OCCUPANCY[key] = (blocks.value, smem.value, bool(tc.value))
+        blocks, smem, tc, *rest = info
+        _OCCUPANCY[key] = Occupancy(blocks, smem, bool(tc), *rest)
     return _OCCUPANCY[key]
 
 
-def decode_splits(b: int, hkv: int, n_pages: int, n_sms: int,
+def decode_splits(b: int, rows: int, n_pages: int, n_sms: int,
                   blocks_per_sm: int) -> int:
-    """Page ranges per (sequence, kv head): as many as fit one wave of
+    """Page ranges per (sequence, grid row): as many as fit one wave of
     ``n_sms * blocks_per_sm`` blocks (at least one), at least one page
-    each, no empty range."""
+    each, no empty range. ``rows`` is Hkv times the head groups."""
     if n_pages == 0:
         return 1
     wave = n_sms * max(blocks_per_sm, 1)
-    ns = min(n_pages, max(1, wave // max(b * hkv, 1)))
+    ns = min(n_pages, max(1, wave // max(b * rows, 1)))
     per = -(-n_pages // ns)
     return -(-n_pages // per)
 
@@ -172,7 +183,8 @@ def coded_kv_decode_cuda(
     """Decode attention over per-sequence coded banks on the card: (B, H,
     D) in q's dtype, the function of ``ref.coded_kv_decode_plain``. bf16
     and f16 lanes run the tensor-core split kernel, f32 lanes the scalar
-    one (the source's note says why); both are hand-written."""
+    one (the source's note says why); both are hand-written. Any number
+    of query heads per kv head: they are cut into head groups."""
     global decode_launches
     fn = "coded_kv_decode_cuda"
     if value_dtype not in _LANES_OF:
@@ -194,12 +206,9 @@ def coded_kv_decode_cuda(
                          "even NB, H % Hkv == 0, n_pages <= NB*S)")
     row = d * torch.iinfo(lanes).bits // 8
     vecs = row // 16
-    if row % 16 or vecs > 32 or vecs & (vecs - 1):
+    if d != 160 and (row % 16 or vecs > 32 or vecs & (vecs - 1)):
         raise ValueError(f"{fn}: a row of {d} lanes is {row} bytes; the "
-                         "kernel takes 16, 32, ..., 512 bytes")
-    if h // hkv > 16:
-        raise ValueError(f"{fn}: {h // hkv} query heads per kv head (at most "
-                         "16)")
+                         "kernel takes 16, 32, ..., 512 bytes, or D = 160")
     bank_shape = (b, nb, slots, page, hkv, d)
     par_shape = (b, nb // 2) + bank_shape[2:]
     check_cuda_operand(fn, "q", q, q.dtype, (b, h, d))
@@ -218,10 +227,11 @@ def coded_kv_decode_cuda(
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    occ = decode_occupancy(value_dtype, h, hkv, d, q.device)
     ns = decode_splits(
-        b, hkv, n_pages,
+        b, hkv * occ.groups, n_pages,
         torch.cuda.get_device_properties(q.device).multi_processor_count,
-        decode_occupancy(value_dtype, h, hkv, d, q.device)[0])
+        occ.blocks)
     g = h // hkv
     f32 = dict(dtype=torch.float32, device=q.device)
     part_m = torch.empty((b, hkv, ns, g), **f32)

@@ -5,6 +5,9 @@ CUDA card unless ``--device`` names another.
       [--reduced] [--device cpu] --requests 8 --slots 4 [--telemetry] \
       [--kv-banks 0]
 
+``--arch`` is one of the dense configs the port serves: qwen2.5-3b,
+yi-6b, stablelm-12b, granite-20b.
+
 Reports steady-state decode throughput (a warm-up request runs first, so
 the timed run excludes first-call set-up and the kernel build),
 per-request TTFT/ITL from the host-side lifecycle log and, with

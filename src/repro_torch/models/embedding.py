@@ -16,17 +16,20 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import as_lanes
+from repro_torch.models.layers import normal_init
 
 Params = Dict[str, torch.Tensor]
 
 
 def embed_init(cfg: ModelConfig, gen: torch.Generator, dtype) -> Params:
+    """The table (V_pad, D), or the coded banks (NB, V_pad / NB, D) drawn
+    one bank at a time, in ``dtype``."""
     v, d = cfg.vocab_pad, cfg.d_model
-    shape = (v, d) if not cfg.coded_embedding \
-        else (cfg.embed_banks, -(-v // cfg.embed_banks), d)
-    w = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32).mul_(d ** -0.5).to(dtype)
-    return {"banks": w} if cfg.coded_embedding else {"table": w}
+    if not cfg.coded_embedding:
+        return {"table": normal_init(gen, (v, d), d ** -0.5, dtype)}
+    nb = cfg.embed_banks
+    return {"banks": normal_init(gen, (-(-v // nb), d), d ** -0.5, dtype,
+                                 (nb,))}
 
 
 def coded_parity(banks: torch.Tensor) -> torch.Tensor:

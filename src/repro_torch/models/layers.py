@@ -1,8 +1,9 @@
 """Transformer layers of the serving slice (``repro.models.layers``
-counterparts): RMS norm, half-split RoPE, GQA attention with QKV bias
-(full-sequence, and one-token decode over a ring cache), SwiGLU MLP.
-Plain functions over parameter dicts in the JAX package's ``(d_in,
-d_out)`` layout, so ``x @ W`` needs no transpose."""
+counterparts): RMS norm and LayerNorm, half-split RoPE, GQA attention
+with optional QKV bias (full-sequence, and one-token decode over a ring
+cache), the SwiGLU MLP and the ungated GELU MLP. Plain functions over
+parameter dicts in the JAX package's ``(d_in, d_out)`` layout, so
+``x @ W`` needs no transpose."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -15,22 +16,39 @@ from repro_torch.configs.base import ModelConfig
 Params = Dict[str, torch.Tensor]
 
 
-def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=gen.device,
-                       dtype=torch.float32).mul_(scale).to(dtype)
+def normal_init(gen: torch.Generator, shape, scale: float, dtype,
+                lead=()) -> torch.Tensor:
+    """``scale`` times standard normals of ``(*lead, *shape)`` in ``dtype``,
+    drawn in f32 one leading index (one layer) at a time: the f32
+    temporary is one layer's leaf, never the stacked model's."""
+    out = torch.empty((*lead, *shape), dtype=dtype, device=gen.device)
+    for layer in out.view(-1, *shape):
+        layer.copy_(torch.randn(shape, generator=gen, device=gen.device,
+                                dtype=torch.float32).mul_(scale))
+    return out
 
 
 # ----------------------------------------------------------------- norms
 def norm_init(cfg: ModelConfig, dtype, device, lead=()) -> Params:
-    return {"scale": torch.ones(*lead, cfg.d_model, dtype=dtype,
-                                device=device)}
+    p = {"scale": torch.ones(*lead, cfg.d_model, dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(*lead, cfg.d_model, dtype=dtype,
+                                device=device)
+    return p
 
 
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """RMS norm in f32 (eps 1e-6), result in ``x``'s dtype."""
+    """RMS norm (eps 1e-6) or LayerNorm (eps 1e-5, the population variance
+    as ``jnp.var`` takes it) in f32, result in ``x``'s dtype."""
     xf = x.float()
-    ms = xf.square().mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(ms + 1e-6) * p["scale"].float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + 1e-6) * p["scale"].float()
     return y.to(x.dtype)
 
 
@@ -57,10 +75,11 @@ def attn_init(cfg: ModelConfig, gen: torch.Generator, dtype,
     d, hd, nh, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv
     s = d ** -0.5
     p = {
-        "wq": _normal(gen, (*lead, d, nh * hd), s, dtype),
-        "wk": _normal(gen, (*lead, d, nkv * hd), s, dtype),
-        "wv": _normal(gen, (*lead, d, nkv * hd), s, dtype),
-        "wo": _normal(gen, (*lead, nh * hd, d), (nh * hd) ** -0.5, dtype),
+        "wq": normal_init(gen, (d, nh * hd), s, dtype, lead),
+        "wk": normal_init(gen, (d, nkv * hd), s, dtype, lead),
+        "wv": normal_init(gen, (d, nkv * hd), s, dtype, lead),
+        "wo": normal_init(gen, (nh * hd, d), (nh * hd) ** -0.5, dtype,
+                          lead),
     }
     if cfg.qkv_bias:
         for name, n in (("bq", nh * hd), ("bk", nkv * hd), ("bv", nkv * hd)):
@@ -145,11 +164,24 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
 def mlp_init(cfg: ModelConfig, gen: torch.Generator, dtype,
              lead=()) -> Params:
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_up": _normal(gen, (*lead, d, f), d ** -0.5, dtype),
-            "w_down": _normal(gen, (*lead, f, d), f ** -0.5, dtype),
-            "w_gate": _normal(gen, (*lead, d, f), d ** -0.5, dtype)}
+    p = {"w_up": normal_init(gen, (d, f), d ** -0.5, dtype, lead),
+         "w_down": normal_init(gen, (f, d), f ** -0.5, dtype, lead)}
+    if cfg.mlp_gated:
+        p["w_gate"] = normal_init(gen, (d, f), d ** -0.5, dtype, lead)
+    return p
+
+
+def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """SiLU, or GELU in its tanh form: ``jax.nn.gelu`` approximates by
+    default, and the erf form differs by ~1e-3."""
+    if cfg.act == "silu":
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")
 
 
 def mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: silu(x @ W_gate) * (x @ W_up) @ W_down."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """Gated: act(x @ W_gate) * (x @ W_up) @ W_down; else act(x @ W_up) @
+    W_down."""
+    up = x @ p["w_up"]
+    h = _act(cfg, x @ p["w_gate"]) * up if cfg.mlp_gated else _act(cfg, up)
+    return h @ p["w_down"]

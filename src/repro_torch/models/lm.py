@@ -4,10 +4,13 @@ cache (``cache_spec``/``decode_step``) and the decode step over the coded
 KV page pool (``decode_step_pooled``).
 
 Params are nested dicts in the JAX package's layout: per-layer leaves
-stacked on axis 0 under ``"blocks"``, matrices ``(d_in, d_out)``. The JAX
+stacked on axis 0 under ``"blocks"``, matrices ``(d_in, d_out)``, an
+``"lm_head"`` ``(d_model, V_pad)`` when the head is untied. The JAX
 package casts the f32 params to the compute dtype inside every step; here
 ``cast_params`` does it once at load (serving never changes them), and
-``prefill``/``decode_step_pooled`` take the cast params.
+``prefill``/``decode_step_pooled`` take the cast params. ``init_params``
+draws straight into the compute dtype, one layer at a time, so a
+full-width model never has an f32 copy.
 """
 from __future__ import annotations
 
@@ -29,17 +32,14 @@ Params = Dict[str, Any]
 
 def check_slice(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config outside the ported
-    slice: the dense RoPE/RMSNorm/SwiGLU decoder with a tied head, global
-    or sliding-window attention."""
-    if cfg.family != "dense" or cfg.is_encdec or cfg.frontend != "none":
+    slice: the dense RoPE decoder (RMSNorm or LayerNorm, SwiGLU or an
+    ungated GELU MLP, a tied or untied head), global or sliding-window
+    attention."""
+    if cfg.family != "dense" or cfg.is_encdec or cfg.frontend != "none" \
+            or cfg.pos != "rope":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder is ported (ROADMAP.md, "
+            f"{cfg.name}: only the dense RoPE decoder is ported (ROADMAP.md, "
             "queue 1: 'Other model families and training')")
-    if (cfg.pos, cfg.norm, cfg.act, cfg.mlp_gated, cfg.tie_embeddings) != \
-            ("rope", "rmsnorm", "silu", True, True):
-        raise NotImplementedError(
-            f"{cfg.name}: only RoPE + RMSNorm + SwiGLU with a tied head is "
-            "ported (ROADMAP.md, queue 1: 'Other dense configs')")
 
 
 def _map(fn: Callable, tree):
@@ -57,24 +57,30 @@ def layer_params(blocks: Params, i: int) -> Params:
 # init / load
 # ======================================================================
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
-    """Random params in ``cfg.param_dtype`` from a seeded
-    ``torch.Generator`` on ``device`` (the card unless named). The port's
-    own init: the JAX package's ``jax.random`` bits are not reproduced;
-    ``convert.params_from_jax`` carries a JAX tree across instead."""
+    """Random params in ``cfg.compute_dtype`` from a seeded
+    ``torch.Generator`` on ``device`` (the card unless named), drawn in
+    f32 one layer's leaf at a time and stored in the compute dtype. The
+    port's own init: the JAX package's ``jax.random`` bits are not
+    reproduced; ``convert.params_from_jax`` carries a JAX tree across
+    instead."""
     check_slice(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    pd = getattr(torch, cfg.param_dtype)
+    cd = getattr(torch, cfg.compute_dtype)
     lead = (cfg.n_layers,)
-    return {
-        "embed": embed_init(cfg, gen, pd),
-        "final_norm": ly.norm_init(cfg, pd, device),
-        "blocks": {"norm1": ly.norm_init(cfg, pd, device, lead),
-                   "norm2": ly.norm_init(cfg, pd, device, lead),
-                   "attn": ly.attn_init(cfg, gen, pd, lead),
-                   "mlp": ly.mlp_init(cfg, gen, pd, lead)},
+    params = {
+        "embed": embed_init(cfg, gen, cd),
+        "final_norm": ly.norm_init(cfg, cd, device),
+        "blocks": {"norm1": ly.norm_init(cfg, cd, device, lead),
+                   "norm2": ly.norm_init(cfg, cd, device, lead),
+                   "attn": ly.attn_init(cfg, gen, cd, lead),
+                   "mlp": ly.mlp_init(cfg, gen, cd, lead)},
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = ly.normal_init(
+            gen, (cfg.d_model, cfg.vocab_pad), cfg.d_model ** -0.5, cd)
+    return params
 
 
 def cast_params(cfg: ModelConfig, params: Params, device) -> Params:
@@ -94,8 +100,12 @@ def cast_params(cfg: ModelConfig, params: Params, device) -> Params:
 # shared pieces
 # ======================================================================
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor):
-    """f32 logits over the padded vocab; padding ids masked to -1e30."""
-    logits = tied_logits(cfg, params["embed"], x).float()
+    """f32 logits over the padded vocab, through the embedding (tied) or
+    ``lm_head``; padding ids masked to -1e30."""
+    if cfg.tie_embeddings:
+        logits = tied_logits(cfg, params["embed"], x).float()
+    else:
+        logits = (x @ params["lm_head"].to(x.dtype)).float()
     logits[..., cfg.vocab:] = -1e30
     return logits
 

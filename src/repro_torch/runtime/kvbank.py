@@ -1,5 +1,7 @@
 """Paged, banked + coded KV page pool of the serving path
-(``repro.runtime.kvbank`` counterpart, layered pool ops).
+(``repro.runtime.kvbank`` counterpart): the layered pool ops of the
+serving step and the per-sequence ``BankedKVState`` API (``init_state``,
+``append_token``, ``recode``, ``plan_reads``, ``gather_kv``).
 
 Physical page ``p`` lives in bank ``p % NB``, slot ``p // NB``; parity group
 ``g`` holds ``bank[2g] ^ bank[2g+1]``. Every sequence owns a page-table row
@@ -26,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.coded_kv_decode.ops import gather_pool_layer
 from repro_torch.kernels.common import lane_dtype
 
 Lanes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -59,6 +62,20 @@ class PooledKV:
     length: torch.Tensor        # (B,) int32 tokens present (= decode pos)
 
 
+@dataclasses.dataclass
+class BankedKVState:
+    """One layer's banked + coded KV over a pool whose pages are allocated
+    in arrival order (``repro`` kvbank.py:47)."""
+    k_banks: torch.Tensor       # (NB, slots, page, Hkv, D) lanes
+    v_banks: torch.Tensor
+    k_par: torch.Tensor         # (NB/2, slots, page, Hkv, D)
+    v_par: torch.Tensor
+    parity_fresh: torch.Tensor  # (NB/2, slots) bool code-status table
+    page_table: torch.Tensor    # (B, max_pages) int32 physical id, -1 free
+    length: torch.Tensor        # (B,) int32 tokens present
+    next_page: torch.Tensor     # () int32 pool allocation cursor
+
+
 class WriteLanes(NamedTuple):
     """A step's live write lanes, split by bank parity (phase 0: even
     banks, phase 1: odd banks). Each phase is ``(rows, bank, slot,
@@ -86,6 +103,99 @@ def pool_init(cfg: KVBankConfig, n_layers: int, batch: int, n_kv: int,
                               device=device),
         length=torch.zeros(batch, dtype=torch.int32, device=device),
     )
+
+
+def init_state(cfg: KVBankConfig, batch: int, n_kv: int, head_dim: int,
+               dtype: torch.dtype, *, device) -> BankedKVState:
+    """An empty state (``repro`` kvbank.py:69): zero banks, fresh parity,
+    no page assigned, allocation cursor 0."""
+    pool = pool_init(cfg, 1, batch, n_kv, head_dim, dtype, device=device)
+    return BankedKVState(
+        k_banks=pool.k_banks[0], v_banks=pool.v_banks[0],
+        k_par=pool.k_par[0], v_par=pool.v_par[0],
+        parity_fresh=pool.parity_fresh, page_table=pool.page_table,
+        length=pool.length,
+        next_page=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _as_pool(st: BankedKVState) -> PooledKV:
+    """The state as a one-layer pool of views: the pool ops write through
+    to the state's tensors."""
+    return PooledKV(k_banks=st.k_banks[None], v_banks=st.v_banks[None],
+                    k_par=st.k_par[None], v_par=st.v_par[None],
+                    parity_fresh=st.parity_fresh, page_table=st.page_table,
+                    length=st.length)
+
+
+def append_token(cfg: KVBankConfig, st: BankedKVState, k_new: torch.Tensor,
+                 v_new: torch.Tensor,
+                 active: Optional[torch.Tensor] = None) -> BankedKVState:
+    """Append one token's (B, Hkv, D) K/V for every ``active`` sequence, in
+    place (``repro`` kvbank.py:86). A sequence at a page boundary takes the
+    next pool page (arrival-order allocation); the touched parity rows go
+    stale. As in JAX, a table write past ``max_pages`` is dropped and the
+    table read there clamps, and a token on a page past the pool is
+    dropped."""
+    b = st.length.shape[0]
+    if active is None:
+        active = torch.ones(b, dtype=torch.bool, device=st.length.device)
+    ku, vu = _as(k_new, st.k_banks.dtype), _as(v_new, st.v_banks.dtype)
+    nb = cfg.n_banks
+    pos = st.length.long()
+    lpage, in_page = pos // cfg.page, pos % cfg.page
+    lp = lpage.clamp(max=cfg.max_pages - 1)
+    rows = torch.arange(b, device=pos.device)
+    need = active & (in_page == 0)
+    n_need = need.to(torch.int32)
+    new_phys = st.next_page + torch.cumsum(n_need, 0, dtype=torch.int32) \
+        - n_need
+    fill = torch.where(need, new_phys, st.page_table[rows, lp])
+    inb = torch.nonzero(lpage < cfg.max_pages).squeeze(1)
+    st.page_table[inb, lpage[inb]] = fill[inb]
+    st.next_page += n_need.sum(dtype=torch.int32)
+    phys = st.page_table[rows, lp].long()
+    bank, slot = phys % nb, (phys // nb).clamp(min=0)
+    live = torch.nonzero(active & (slot < st.k_banks.shape[1])).squeeze(1)
+    bank, slot, ip = bank[live], slot[live], in_page[live]
+    st.k_banks[bank, slot, ip] = ku[live]
+    st.v_banks[bank, slot, ip] = vu[live]
+    st.parity_fresh[bank // 2, slot] = False
+    st.length += active.to(st.length.dtype)
+    return st
+
+
+def recode(cfg: KVBankConfig, st: BankedKVState,
+           budget: Optional[int] = None) -> BankedKVState:
+    """The ReCoding unit over the state, in place (``repro``
+    kvbank.py:155): every stale row when ``budget`` is None, else the
+    first ``budget`` stale rows in raster order (``pool_recode``)."""
+    pool_recode(cfg, _as_pool(st), budget=budget)
+    return st
+
+
+def _clamped_table(cfg: KVBankConfig, st: BankedKVState) -> torch.Tensor:
+    """The page table with every page past the pool moved to its bank's
+    last slot: JAX's gathers clamp such a slot, so its plan and reads see
+    that page."""
+    nb, slots = cfg.n_banks, st.k_banks.shape[1]
+    pt = st.page_table
+    return torch.where(pt >= nb * slots, pt % nb + nb * (slots - 1), pt)
+
+
+def plan_reads(cfg: KVBankConfig, st: BankedKVState) -> ReadPlan:
+    """This step's page-read plan (``repro`` kvbank.py:192)."""
+    return _plan_from_tables(cfg, _clamped_table(cfg, st), st.length,
+                             st.parity_fresh)
+
+
+def gather_kv(cfg: KVBankConfig, st: BankedKVState, plan: ReadPlan,
+              dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The logical (B, max_pages * page, Hkv, D) K/V in ``dtype`` through
+    the planned mix of direct and degraded reads (``repro``
+    kvbank.py:253); unallocated pages read zero. The same function as the
+    serving pool's gather, so on the card it is ``gather_pool_cuda``."""
+    return gather_pool_layer(st.k_banks, st.v_banks, st.k_par, st.v_par,
+                             _clamped_table(cfg, st), plan.use_parity, dtype)
 
 
 def pool_coded(pool: PooledKV) -> bool:

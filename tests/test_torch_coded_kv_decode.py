@@ -108,6 +108,12 @@ CASES = {
                                    8, 5),
     "bf16_fewer_pages_than_slots": ("bfloat16", False, 3, 128, 8, 2, 32, 8,
                                     4, 11),
+    # a 40-lane head (stablelm-12b reduced with head_dim 40: an 80-byte
+    # bf16 row) and 24 query heads on one kv head (granite's MQA kind)
+    "f32_d40": ("float32", False, 3, 64, 4, 2, 40, 4, 8, 0),
+    "bf16_d40": ("bfloat16", False, 3, 64, 8, 2, 40, 4, 8, 0),
+    "f32_g24": ("float32", False, 3, 64, 24, 1, 16, 4, 8, 0),
+    "bf16_g24": ("bfloat16", False, 3, 64, 48, 2, 32, 4, 8, 0),
 }
 
 
@@ -322,13 +328,15 @@ SPLITS = {
     "no_empty_range": ((1, 1, 10, 132, 2), 10),
     "no_range_left_empty": ((1, 1, 9, 4, 1), 3),  # 3 pages a range
     "unknown_occupancy_counts_as_one": ((1, 1, 500, 132, 0), 125),
+    # granite-20b's serving width: Hkv 1 x 3 head groups of 16 heads
+    "head_groups": ((8, 3, 32, 132, 2), 11),
 }
 
 
 @pytest.mark.parametrize("case", sorted(SPLITS))
 def test_decode_splits_fill_one_wave(case):
-    """Page ranges per (sequence, kv head): one wave of SMs x blocks per
-    SM over B x Hkv, at least one page each, none empty."""
+    """Page ranges per (sequence, grid row): one wave of SMs x blocks per
+    SM over B x Hkv x head groups, at least one page each, none empty."""
     (b, hkv, n_pages, sms, per_sm), want = SPLITS[case]
     ns = decode_splits(b, hkv, n_pages, sms, per_sm)
     assert ns == want

@@ -278,6 +278,28 @@ DECODE_CASES = {
     # full plan (116) inside page 28 and tile 14
     "bf16_p4_ends_mid_tile": ("bf16", "bf16", 5, 128, 16, 2, 64, 8, 4, 3,
                               .5, False),
+    # stablelm-12b's head: D = 160, a 320-byte row of 20 chunks (bf16/f16)
+    # or 640 bytes in 40 vectors (f32, 5 a thread)
+    "bf16_d160_g4": ("bf16", "bf16", 4, 256, 8, 2, 160, 8, 16, 0, .4,
+                     False),
+    "f16_d160_g4": ("f16", "f16", 3, 256, 8, 2, 160, 4, 16, 0, .5, False),
+    "f16_d160_g4_f32_q_stale": ("f16", "f32", 2, 128, 8, 2, 160, 4, 8, 0,
+                                .5, True),
+    "f32_d160_g4": ("f32", "f32", 3, 128, 8, 2, 160, 4, 8, 0, .5, False),
+    # head groups at D = 160: 12 heads as two groups of 6 (tensor cores),
+    # 3 heads as groups of 2 and 1 (f32)
+    "bf16_d160_g12_two_groups": ("bf16", "bf16", 2, 128, 24, 2, 160, 4, 8,
+                                 0, .5, False),
+    "f32_d160_g3_uneven_groups": ("f32", "f32", 2, 128, 6, 2, 160, 4, 8, 0,
+                                  .5, False),
+    # granite-20b's MQA: 48 heads on one kv head, three groups of 16; an
+    # f32 q on f16 lanes takes the lo(q) mma in every group
+    "bf16_d128_g48": ("bf16", "bf16", 2, 256, 48, 1, 128, 8, 8, 0, .4,
+                      False),
+    "f16_g48_f32_q": ("f16", "f32", 2, 128, 48, 1, 128, 4, 8, 0, .5, False),
+    "f32_g48": ("f32", "f32", 2, 128, 48, 1, 128, 4, 8, 0, .5, False),
+    "bf16_g20_two_groups_stale": ("bf16", "bf16", 2, 128, 40, 2, 64, 4, 8,
+                                  0, .5, True),
 }
 
 
@@ -329,14 +351,14 @@ def test_coded_kv_decode_cuda_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="pages"):
         fn(q, kb, vb, kp, vp, torch.zeros((2, 17), dtype=torch.int32,
                                           device=cuda), seq, vd)
-    q32 = torch.zeros((2, 64, 32), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="query heads"):
-        fn(q32, kb, vb, kp, vp, up, seq, vd)             # G = 32 > 16
-    odd = torch.zeros((2, 4, 2, 8, 2, 24), dtype=torch.int16, device=cuda)
-    with pytest.raises(ValueError, match="bytes"):
-        fn(torch.zeros((2, 4, 24), dtype=torch.bfloat16, device=cuda), odd,
-           odd, odd[:, :2].contiguous(), odd[:, :2].contiguous(), up, seq,
-           vd)
+    # rows no config gives: 48 bytes, and 80 (D = 40, stablelm reduced
+    # with head_dim 40; only D = 160 is taken outside the powers of two)
+    for d in (24, 40):
+        odd = torch.zeros((2, 4, 2, 8, 2, d), dtype=torch.int16, device=cuda)
+        with pytest.raises(ValueError, match="bytes"):
+            fn(torch.zeros((2, 4, d), dtype=torch.bfloat16, device=cuda),
+               odd, odd, odd[:, :2].contiguous(), odd[:, :2].contiguous(),
+               up, seq, vd)
 
 
 @pytest.mark.parametrize("h,d", [(16, 128), (32, 64)])

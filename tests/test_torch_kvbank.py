@@ -228,3 +228,76 @@ def test_pool_init_matches_jax():
         assert_pool_equal(jp, tp)
         assert tkb.pool_coded(tp) == coded
         assert dataclasses.is_dataclass(tp)
+
+
+# --------------------------------------------------- per-sequence state API
+STATE_FIELDS = ("k_banks", "v_banks", "k_par", "v_par", "parity_fresh",
+                "page_table", "length", "next_page")
+# name: (pool pages, table width, steps): "past_the_table" appends past
+# max_pages * page tokens (JAX drops those table writes and clamps the
+# table reads); "past_the_pool" allocates past the pool's last page (JAX
+# drops those token writes and clamps the slot of the plan's and the
+# gather's reads)
+STATE_CASES = {"churned": (64, 6, 20), "past_the_table": (64, 4, 20),
+               "past_the_pool": (16, 16, 40)}
+
+
+def assert_state_equal(js, ts):
+    for f in STATE_FIELDS:
+        assert_same(getattr(ts, f), getattr(js, f))
+
+
+@pytest.mark.parametrize("case", sorted(STATE_CASES))
+@pytest.mark.parametrize("budget", [None, 2])
+def test_banked_state_matches_jax(case, budget):
+    """``init_state`` then a churned append sequence (a random active set
+    each step, so sequences cross page boundaries at different steps and
+    their pages interleave in the pool), recoding every third step with
+    ``budget``: every leaf, the read plan and the ``gather_kv`` output
+    equal JAX's bit for bit after every step."""
+    pool_pages, mp, steps = STATE_CASES[case]
+    kw = dict(n_banks=NB, page=PAGE, pool_pages=pool_pages, max_pages=mp)
+    jc, tc = jkb.KVBankConfig(**kw), tkb.KVBankConfig(**kw)
+    js = jkb.init_state(jc, B, HKV, D, jnp.bfloat16)
+    ts = tkb.init_state(tc, B, HKV, D, torch.bfloat16, device="cpu")
+    assert_state_equal(js, ts)
+    # served churn first (as benchmarks/bench_kvbank.py models it): the
+    # live pages sit on random physical pages at the top of the pool, so
+    # the banks are loaded unevenly and the plan serves degraded reads
+    rng = np.random.default_rng(11)
+    length = rng.integers(0, 2 * PAGE + 1, size=B).astype(np.int32)
+    n_live = -(-length // PAGE)
+    top = rng.permutation(np.arange(pool_pages // 2, pool_pages))
+    table = np.full((B, mp), -1, np.int32)
+    for i, c in enumerate(np.cumsum(n_live) - n_live):
+        table[i, :n_live[i]] = top[c:c + n_live[i]]
+    js = js._replace(page_table=jnp.asarray(table), length=jnp.asarray(length))
+    ts.page_table.copy_(torch.from_numpy(table))
+    ts.length.copy_(torch.from_numpy(length))
+    n_degraded = 0
+    for step in range(steps):
+        k = rng.integers(0, 2 ** 16, size=(B, HKV, D), dtype=np.uint16)
+        v = rng.integers(0, 2 ** 16, size=(B, HKV, D), dtype=np.uint16)
+        act = rng.random(B) < 0.75
+        kj, vj = (jnp.asarray(x).view(jnp.bfloat16) for x in (k, v))
+        js = jkb.append_token(jc, js, kj, vj, jnp.asarray(act))
+        out = tkb.append_token(tc, ts, _signed(k).view(torch.bfloat16),
+                               _signed(v).view(torch.bfloat16),
+                               torch.from_numpy(act))
+        assert out is ts                       # in place
+        if step % 3 == 2:
+            js = jkb.recode(jc, js, budget=budget)
+            tkb.recode(tc, ts, budget=budget)
+        assert_state_equal(js, ts)
+        jplan, tplan = jkb.plan_reads(jc, js), tkb.plan_reads(tc, ts)
+        for f in ("use_parity", "load", "uncoded_cycles", "coded_cycles"):
+            np.testing.assert_array_equal(getattr(tplan, f).numpy(),
+                                          np.asarray(getattr(jplan, f)))
+        n_degraded += int(tplan.use_parity.sum())
+        jk, jv = jkb.gather_kv(jc, js, jplan, jnp.bfloat16)
+        tk, tv = tkb.gather_kv(tc, ts, tplan, torch.bfloat16)
+        assert_same(tk.view(torch.int16), np.asarray(jk).view(np.uint16))
+        assert_same(tv.view(torch.int16), np.asarray(jv).view(np.uint16))
+    assert n_degraded > 0, "no degraded read planned"
+    if case == "past_the_pool":
+        assert int(ts.next_page) > pool_pages, "the pool was not exhausted"

@@ -33,13 +33,19 @@ def _close(t, j, **tol):
     np.testing.assert_allclose(t.numpy(), np.asarray(j), **(tol or TOL))
 
 
-def test_port_config_matches_jax(cfgs):
-    jc, tc = cfgs
-    full_j, full_t = jget_config("qwen2.5-3b"), tget_config("qwen2.5-3b")
-    for a, b in ((full_j, full_t), (jc, tc)):
-        for f in dataclasses.fields(b):
-            assert getattr(a, f.name) == getattr(b, f.name), f.name
-        assert a.vocab_pad == b.vocab_pad
+DENSE = ("qwen2.5-3b", "yi-6b", "stablelm-12b", "granite-20b")
+
+
+def test_port_config_matches_jax():
+    """Every dense config the port serves, full and reduced, field for
+    field."""
+    for name in DENSE:
+        full_j, full_t = jget_config(name), tget_config(name)
+        for a, b in ((full_j, full_t), (full_j.reduced(), full_t.reduced())):
+            for f in dataclasses.fields(b):
+                assert getattr(a, f.name) == getattr(b, f.name), \
+                    (name, f.name)
+            assert a.vocab_pad == b.vocab_pad
 
 
 def test_apply_norm(cfgs):
@@ -49,6 +55,23 @@ def test_apply_norm(cfgs):
     _close(tly.apply_norm(tc, {"scale": torch.from_numpy(s)},
                           torch.from_numpy(x)),
            jly.apply_norm(jc, {"scale": jnp.asarray(s)}, jnp.asarray(x)))
+
+
+def test_apply_layernorm(cfgs):
+    """LayerNorm with its bias, eps 1e-5 and the population variance, on
+    rows with a large mean (where an unbiased variance would show)."""
+    jc, tc = (dataclasses.replace(c, norm="layernorm") for c in cfgs)
+    rng = np.random.default_rng(10)
+    x = _f32(rng, 2, 5, jc.d_model) + 3.0
+    p = {"scale": _f32(rng, jc.d_model), "bias": _f32(rng, jc.d_model)}
+    _close(tly.apply_norm(tc, {k: torch.from_numpy(v) for k, v in p.items()},
+                          torch.from_numpy(x)),
+           jly.apply_norm(jc, {k: jnp.asarray(v) for k, v in p.items()},
+                          jnp.asarray(x)))
+    init = tly.norm_init(tc, torch.float32, "cpu", (3,))
+    jinit = jly.norm_init(jc, jnp.float32)
+    assert init.keys() == jinit.keys()
+    assert tuple(init["bias"].shape) == (3, jc.d_model)
 
 
 @pytest.mark.parametrize("theta", [10000.0, 1_000_000.0])
@@ -111,6 +134,66 @@ def test_mlp_block(cfgs):
                          torch.from_numpy(x)),
            jly.mlp_block(jc, {k: jnp.asarray(v) for k, v in p.items()},
                          jnp.asarray(x)))
+
+
+def test_mlp_block_ungated_gelu(cfgs):
+    """granite's MLP: gelu(x @ W_up) @ W_down with the tanh GELU of
+    ``jax.nn.gelu``; the init has no gate."""
+    jc, tc = (dataclasses.replace(c, mlp_gated=False, act="gelu")
+              for c in cfgs)
+    rng = np.random.default_rng(8)
+    d, f = jc.d_model, jc.d_ff
+    p = {"w_up": _f32(rng, d, f, scale=d ** -0.5),
+         "w_down": _f32(rng, f, d, scale=f ** -0.5)}
+    x = _f32(rng, 2, 3, d) * 3.0
+    _close(tly.mlp_block(tc, {k: torch.from_numpy(v) for k, v in p.items()},
+                         torch.from_numpy(x)),
+           jly.mlp_block(jc, {k: jnp.asarray(v) for k, v in p.items()},
+                         jnp.asarray(x)))
+    gen = torch.Generator().manual_seed(0)
+    tp = tly.mlp_init(tc, gen, torch.float32, (2,))
+    assert tp.keys() == jly.mlp_init(jc, jax.random.key(0),
+                                     jnp.float32).keys()
+    assert tuple(tp["w_up"].shape) == (2, d, f)
+
+
+def test_gelu_is_the_tanh_form():
+    """``jax.nn.gelu`` approximates by default; the erf form is ~1e-3 off
+    and would fail the 1e-4 logits check."""
+    x = np.linspace(-6, 6, 1001).astype(np.float32)
+    cfg = tget_config("granite-20b").reduced()
+    got = tly._act(cfg, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax.nn.gelu(jnp.asarray(x))),
+                               **TOL)
+    erf = torch.nn.functional.gelu(torch.from_numpy(x)).numpy()
+    assert np.abs(erf - got).max() > 1e-4
+
+
+@pytest.mark.parametrize("name", ["yi-6b", "stablelm-12b"])
+def test_untied_logits(name):
+    """An untied head: ``x @ lm_head`` in f32 with the padding ids masked,
+    against the JAX ``_logits``; the tied path is not taken (stablelm's
+    coded banks are ignored)."""
+    from repro.models import lm as jlm
+    from repro_torch.models import lm as tlm
+    jc = dataclasses.replace(jget_config(name).reduced(), vocab=500)
+    tc = dataclasses.replace(tget_config(name).reduced(), vocab=500)
+    rng = np.random.default_rng(9)
+    head = _f32(rng, jc.d_model, jc.vocab_pad, scale=jc.d_model ** -0.5)
+    x = _f32(rng, 2, 3, jc.d_model)
+    p = {"lm_head": head, "embed": {"banks": _banks(jc, rng)}
+         if jc.coded_embedding else {"table": _f32(rng, jc.vocab_pad,
+                                                   jc.d_model)}}
+    got = tlm._logits(tc, {"lm_head": torch.from_numpy(head),
+                           "embed": {k: torch.from_numpy(v)
+                                     for k, v in p["embed"].items()}},
+                      torch.from_numpy(x))
+    want = jlm._logits(jc, {"lm_head": jnp.asarray(head),
+                            "embed": {k: jnp.asarray(v)
+                                      for k, v in p["embed"].items()}},
+                       jnp.asarray(x))
+    _close(got, want)
+    assert (got[..., jc.vocab:] == -1e30).all()
 
 
 def _banks(cfg, rng):

@@ -1,6 +1,12 @@
 """The whole serving slice: the same request stream through the JAX
 ``Server`` (reference gather) and the port's ``Server(device="cpu")``, with
-the JAX params carried across by ``convert.params_from_jax``.
+the JAX params carried across by ``convert.params_from_jax``, for each
+dense config the port serves, reduced: qwen2.5-3b (tied coded embedding,
+QKV bias), yi-6b (untied head), stablelm-12b (coded embedding, untied
+head), granite-20b (LayerNorm, ungated GELU MLP, QKV bias), and two
+variants that ``reduced()`` would hide: granite with its one kv head (MQA,
+G = H) and stablelm with a 40-lane head (a row that is not a power of
+two).
 
 At f32 the served tokens are identical and the prefill and first decode
 step logits agree to rtol=atol=1e-4 (the frameworks sum in different
@@ -31,18 +37,52 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 SC = dict(n_slots=3, max_prompt=8, max_seq=24, max_new_tokens=5)
 
 
-def _cfgs(dtype):
+# name: (config, fields replaced after reduced())
+ARCHS = {
+    "qwen2.5-3b": ("qwen2.5-3b", {}),
+    "yi-6b": ("yi-6b", {}),
+    "stablelm-12b": ("stablelm-12b", {}),
+    "granite-20b": ("granite-20b", {}),
+    "granite-20b-mqa": ("granite-20b", {"n_kv": 1}),
+    "stablelm-12b-d40": ("stablelm-12b", {"head_dim": 40}),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(ARCHS))
+def arch(request):
+    return request.param
+
+
+def _cfgs(arch, dtype):
     # page 4 divides max_seq, as in tests/test_serve.py
-    return tuple(dataclasses.replace(g("qwen2.5-3b").reduced(), kv_page=4,
-                                     compute_dtype=dtype)
+    name, extra = ARCHS[arch]
+    return tuple(dataclasses.replace(g(name).reduced(), kv_page=4,
+                                     compute_dtype=dtype, **extra)
                  for g in (jget_config, tget_config))
 
 
 @pytest.fixture(scope="module")
-def params():
-    jc, tc = _cfgs("bfloat16")
+def params(arch):
+    jc, tc = _cfgs(arch, "bfloat16")
     jp = jlm.init_params(jc, jax.random.key(0), max_seq=48)
-    return jp, params_from_jax(tc, jax.tree.map(np.asarray, jp), "cpu")
+    return arch, jp, params_from_jax(tc, jax.tree.map(np.asarray, jp), "cpu")
+
+
+def test_params_from_jax_carries_every_leaf(params):
+    """``convert.params_from_jax`` carries every leaf bit for bit: the
+    untied ``lm_head`` (yi, stablelm) and LayerNorm's biases (granite)
+    included."""
+    arch, jp, tp = params
+    jleaves = jax.tree_util.tree_leaves_with_path(jp)
+    assert len(jleaves) == len(jax.tree_util.tree_leaves(tp))
+    for path, a in jleaves:
+        node = tp
+        for key in path:
+            node = node[key.key]
+        np.testing.assert_array_equal(node.numpy(), np.asarray(a))
+    cfg = _cfgs(arch, "float32")[1]
+    assert ("lm_head" in tp) == (not cfg.tie_embeddings)
+    assert ("bias" in tp["final_norm"]) == (cfg.norm == "layernorm")
 
 
 def _reqs(server_mod, n=5, seed=0):
@@ -125,10 +165,10 @@ def _port_first_logits(srv):
 @pytest.fixture(scope="module")
 def runs(params):
     """Both packages over one churned request stream, at f32 and bf16."""
-    jp, tp = params
+    arch, jp, tp = params
     out = {}
     for dtype in ("float32", "bfloat16"):
-        jc, tc = _cfgs(dtype)
+        jc, tc = _cfgs(arch, dtype)
         f32 = dtype == "float32"
         jrec, jhook = _recorder(_jax_plan, _jax_first_logits if f32 else None)
         trec, thook = _recorder(_port_plan,
@@ -154,8 +194,8 @@ def test_f32_first_step_logits_agree(runs):
 
 
 def test_f32_prefill_logits_and_kv_agree(params):
-    jp, tp = params
-    jc, tc = _cfgs("float32")
+    arch, jp, tp = params
+    jc, tc = _cfgs(arch, "float32")
     toks = np.random.default_rng(4).integers(0, 256, size=(2, 8))
     jl, jcache = jlm.prefill(jc, jp, {"tokens": jnp.asarray(toks, jnp.int32)})
     tl, tcache = tlm.prefill(tc, tlm.cast_params(tc, tp, "cpu"),
@@ -180,8 +220,8 @@ def test_tables_and_plans_identical(runs, dtype):
 
 @pytest.fixture(scope="module")
 def port_bf16_tokens(params, runs):
-    _, tp = params
-    _, tc = _cfgs("bfloat16")
+    arch, _, tp = params
+    _, tc = _cfgs(arch, "bfloat16")
 
     def serve(permute_seed=None, **kw):
         srv = tserver.Server(tc, tserver.ServeConfig(**SC, **kw), tp,
@@ -202,8 +242,8 @@ def test_port_pool_variants_serve_same_tokens(port_bf16_tokens, variant):
 
 def test_server_without_device_needs_a_card(params):
     """No silent CPU fallback: with no card, the default device raises."""
-    _, tp = params
-    _, tc = _cfgs("bfloat16")
+    arch, _, tp = params
+    _, tc = _cfgs(arch, "bfloat16")
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         return
@@ -214,18 +254,14 @@ def test_server_without_device_needs_a_card(params):
 
 
 def test_unported_paths_raise(params):
-    """What the port still leaves out raises: the other dense variants (an
-    untied head, LayerNorm, an ungated GELU MLP) and the other families;
-    the pooled step refuses a sliding window (that config takes the
-    ring)."""
-    _, tp = params
-    _, tc = _cfgs("bfloat16")
+    """What the port still leaves out raises: the other families; the
+    pooled step refuses a sliding window (that config takes the ring)."""
+    arch, _, tp = params
+    _, tc = _cfgs(arch, "bfloat16")
     sc = tserver.ServeConfig(**SC)
-    for variant in (dict(tie_embeddings=False), dict(norm="layernorm"),
-                    dict(mlp_gated=False, act="gelu"), dict(family="moe")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserver.Server(dataclasses.replace(tc, **variant), sc, tp,
-                           device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserver.Server(dataclasses.replace(tc, family="moe"), sc, tp,
+                       device="cpu")
     srv = tserver.Server(tc, sc, tp, device="cpu")
     with pytest.raises(ValueError, match="sliding window"):
         tlm.decode_step_pooled(dataclasses.replace(tc, sliding_window=4),
@@ -237,9 +273,33 @@ def test_unported_paths_raise(params):
         ring.permute_pool(np.arange(4))
 
 
+@pytest.mark.parametrize("variant", ["untied_head", "layernorm",
+                                     "ungated_gelu"])
+def test_dense_variants_serve(variant):
+    """The dense variants the port once refused now serve from the port's
+    own init: every request finishes, the coded and the uncoded pool
+    serve the same tokens, and the init has the variant's leaves."""
+    kw = {"untied_head": dict(tie_embeddings=False),
+          "layernorm": dict(norm="layernorm"),
+          "ungated_gelu": dict(mlp_gated=False, act="gelu")}[variant]
+    _, tc = _cfgs("qwen2.5-3b", "float32")
+    tc = dataclasses.replace(tc, **kw)
+    tp = tlm.init_params(tc, seed=2, device="cpu")
+    assert ("lm_head" in tp) == (variant == "untied_head")
+    assert ("bias" in tp["blocks"]["norm1"]) == (variant == "layernorm")
+    assert ("w_gate" in tp["blocks"]["mlp"]) == (variant != "ungated_gelu")
+    out = []
+    for coded in (True, False):
+        srv = tserver.Server(tc, tserver.ServeConfig(**SC, coded=coded), tp,
+                             device="cpu")
+        out.append(_drive(srv, _reqs(tserver), permute_seed=5))
+    assert out[0] == out[1]
+    assert all(len(r) == SC["max_new_tokens"] for r in out[0])
+
+
 def test_servelog_spans(params, tmp_path):
-    _, tp = params
-    _, tc = _cfgs("bfloat16")
+    arch, _, tp = params
+    _, tc = _cfgs(arch, "bfloat16")
     srv = tserver.Server(tc, tserver.ServeConfig(**SC), tp, device="cpu")
     _drive(srv, _reqs(tserver, n=4))
     s = srv.log.summary()
