@@ -86,11 +86,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
    than uncoded; each kernel's launches must equal its wrapper's calls on
    the card (one region encode per switch, at least one per alpha < 1
    run). It reports ms per simulated cycle, cycles/s, and a profiled window's
-   kernel launches per cycle and device idle share.
+   kernel launches per cycle and device idle share;
+9. stream: streamed trace replay (``repro_torch.traces.stream_replay``,
+   which leaves each chunk's loop at quiescence) on the card and the CPU.
+   (a) bench_stream's workload (8 cores x 2,048 banded requests, 8 banks x
+   512 rows, scheme_i, alpha 0.25, r 0.05, select period 256) at chunk
+   256: every SimResult field (window series included) and final state
+   leaf equal, every served read returns the committed value, each
+   kernel's launches equal its wrapper's calls; cycles run against
+   ``drain_bound``, ms/cycle, requests/s; then a busy and a drained
+   profile window (launches, host syncs and copies per cycle, device idle
+   share). (b) the simulate phase's scheme_i alpha 0.25 trace streamed at
+   chunks 32 and 96 equals its single-shot result. (c) the
+   ``tests/data`` Ramulator and gem5 fixtures through ``load_trace`` and
+   ``stream_file`` replay alike on the card and the CPU. (d) region
+   priors from (a)'s trace profile: the primed init state and the primed
+   streamed replay equal card vs CPU.
 
 Each kernel's launches are counted from 0 over its own main path (the
 serve runs for ``gather_pool``, the decode-attention calls for
-``coded_kv_decode``, the simulate runs for the simulator's kernels).
+``coded_kv_decode``, the simulate runs and then the stream phase for the
+simulator's kernels, whose table entries add the two; a line before the
+table gives the split).
 The third-to-last line is the card's name and power limit, the
 second-to-last the kernel table as JSON, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -1256,11 +1273,11 @@ def decode_phase(torch, serving, built):
 
 # ---------------------------------------------------------------- phase 7
 def _gather_columns(torch, gen, n, n_data, rows, n_par, prows, mix=True):
-    """int32 request columns on the card. ``mix``: every mode (-1 .. 6),
+    """int32 request columns on ``gen``'s device. ``mix``: every mode (-1 .. 6),
     sibling -1 included, as degraded reads of real options would have
     them; otherwise all direct reads."""
     def rint(lo, hi):
-        return torch.randint(lo, hi, (n,), generator=gen, device="cuda",
+        return torch.randint(lo, hi, (n,), generator=gen, device=gen.device,
                              dtype=torch.int32)
 
     bank, row = rint(0, n_data), rint(0, rows)
@@ -1393,16 +1410,19 @@ def _kernel_row(name, shape, ms, plain_ms, n_bytes, lib_ms, err, what):
 class GoldenCheck:
     """``on_cycle`` hook: every read a cycle serves must return the golden
     (memory-order) value committed before that cycle. Counts on the
-    device; ``result()`` reads them once."""
+    device; ``result()`` reads them once. ``cycles`` (host) counts the
+    cycles the hook saw."""
 
     def __init__(self):
         self.bad = self.served = 0      # device tensors after the first cycle
+        self.cycles = 0
 
     def __call__(self, before, after, out):
         want = before.mem.golden[out.r_bank.long(),
                                  out.r_row.long().clamp(min=0)]
         self.bad = self.bad + ((out.r_value != want) & out.r_served).sum()
         self.served = self.served + out.r_served.sum()
+        self.cycles += 1
 
     def result(self):
         return int(self.bad), int(self.served)
@@ -1478,6 +1498,9 @@ def simulate_phase(torch):
         extra = ""
         if golden is not None:
             bad, served = golden.result()
+            check(golden.cycles == n_cycles,
+                  f"simulate {name}: the golden hook saw {golden.cycles} of "
+                  f"{n_cycles} cycles")
             check(bad == 0 and served == res.served_reads,
                   f"simulate {name}: {bad} of {served} served reads did "
                   "not return the committed value")
@@ -1504,7 +1527,7 @@ def simulate_phase(torch):
           f"{card_s:.1f} s = {card_s / total * 1e3:.3f} ms/cycle, "
           f"{total / card_s:.0f} simulated cycles/s; launches {launches}")
     profile_sim(torch, traces["cuda"])
-    return launches
+    return launches, results
 
 
 def profile_sim(torch, tr, n: int = 40) -> None:
@@ -1586,6 +1609,337 @@ def profile_sim(torch, tr, n: int = 40) -> None:
           f"every cycle would add that to each cycle")
 
 
+# ---------------------------------------------------------------- phase 9
+# benchmarks/bench_stream.py:39-49: 8 cores x 2,048 requests of the seeded
+# banded trace, 8 banks x 512 rows, scheme_i, alpha 0.25, r 0.05, select
+# period 256, streamed at chunk 256
+STREAM_TRACE = dict(n_cores=8, length=2048, n_banks=8, n_rows=512, seed=0)
+STREAM_POINT = dict(scheme="scheme_i", alpha=0.25, r=0.05, select_period=256)
+STREAM_CHUNK = 256
+SIM_STREAM_CHUNKS = (32, 96)     # the simulate phase's trace, streamed
+# tests/data fixtures, dealt over 2 cores onto 8 banks x 64 rows
+FILE_TRACES = (("tiny_ramulator.trace", {}),
+               ("tiny_gem5.gem5", {"line_bytes": 64}))
+FILE_GEOMETRY = dict(n_cores=2, n_banks=8, n_rows=64)
+
+
+def _stream_system(dev, scheme, n_rows, alpha, r, select_period, n_cores):
+    """A system as ``simulate`` builds one, on ``dev``."""
+    from repro_torch.core.codes import get_tables
+    from repro_torch.core.state import make_params, make_tunables
+    from repro_torch.core.system import CodedMemorySystem
+
+    tables = get_tables(scheme)
+    return CodedMemorySystem(
+        tables, make_params(tables, n_rows=n_rows, alpha=alpha, r=r),
+        n_cores=n_cores, tunables=make_tunables(select_period=select_period),
+        device=dev)
+
+
+def _streamed(torch, sys_, source, chunk_len, label, **kw):
+    """One ``stream_replay`` on ``sys_``'s device: (SimResult, final state,
+    seconds, (xor_gather, xor_encode) wrapper calls). On the card each
+    kernel's launches must equal its wrapper's calls, on the CPU be 0.
+    ``kw`` goes to ``stream_replay`` (``on_cycle``, ``region_priors``)."""
+    from repro_torch.kernels.xor_encode import kernel as ek
+    from repro_torch.kernels.xor_encode import ops as eops
+    from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.kernels.xor_gather import ops as gops
+    from repro_torch.traces import stream_replay
+
+    card = sys_.device.type == "cuda"
+    g0, e0, gc0, ec0 = gk.launches, ek.launches, gops.calls, eops.calls
+    if card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, st = stream_replay(sys_, source, chunk_len=chunk_len,
+                            return_state=True, **kw)
+    if card:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    calls = (gops.calls - gc0, eops.calls - ec0)
+    launched = (gk.launches - g0, ek.launches - e0)
+    check(launched == (calls if card else (0, 0)),
+          f"stream {label} on {sys_.device.type}: launches {launched}, "
+          f"wrapper calls {calls}")
+    return res, st, secs, calls
+
+
+class CycleSampler:
+    """``on_cycle`` hook: keeps the state before every ``every``-th cycle
+    (from cycle ``every // 2``). A cycle builds new state tensors, so this
+    holds references: no copy, no host read."""
+
+    def __init__(self, every: int):
+        self.every, self.n, self.states = every, 0, []
+
+    def __call__(self, before, after, out):
+        if self.n % self.every == self.every // 2:
+            self.states.append(before)
+        self.n += 1
+
+
+def check_live_kernels(torch, sys_, states, label) -> str:
+    """Both sim kernels bit for bit against their plain versions on live
+    card states of a run, at the run's own geometry: ``xor_gather`` on each
+    state's banks and parities with the read plan the controller builds
+    from its queues, and with seeded columns of every mode at the plan's
+    length; ``xor_encode`` on every region's rows of its banks, as a
+    region switch encodes them. Called after the path's launches are
+    read: these launches count nowhere."""
+    from repro_torch.core import controller as ctl
+    from repro_torch.kernels.xor_encode import kernel as ek
+    from repro_torch.kernels.xor_encode.ops import member_table
+    from repro_torch.kernels.xor_encode.ref import encode_parities_plain
+    from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.kernels.xor_gather.ops import plan_columns
+    from repro_torch.kernels.xor_gather.ref import gather_decode_plain
+
+    check(len(states) > 0, f"{label}: no live state was sampled")
+    p, t, dev = sys_.p, sys_.t, sys_.device
+    rs = rs_a = p.region_size
+    gen = torch.Generator(device=dev).manual_seed(99)
+    members = member_table(t.par_members, dev)
+    off = torch.arange(rs, device=dev)
+    modes = torch.zeros(8, dtype=torch.long, device=dev)      # -1 .. 6
+    n_gather = n_encode = 0
+    for st in states:
+        m = st.mem
+        banks, pars = m.banks_data[..., None], m.parity_data[..., None]
+        ci = m.rq_row.flatten()
+        plan = ctl.build_read_pattern(
+            p, t, sys_._bank_ids, ci, m.rq_age.flatten(),
+            m.rq_valid.flatten(), sys_._port_busy0, m.fresh_loc,
+            m.parity_valid, m.region_slot, rs_a)
+        real = list(plan_columns(t, plan, sys_._bank_ids, ci, m.region_slot,
+                                 rs, m.fresh_loc, rs_active=rs_a))
+        seeded = _gather_columns(torch, gen, ci.numel(), p.n_data, p.n_rows,
+                                 pars.shape[0], pars.shape[1])
+        for cols in (real, seeded):
+            got = gk.gather_decode_cuda(banks, pars, *cols)
+            check(torch.equal(got, gather_decode_plain(banks, pars, *cols)),
+                  f"{label}: xor_gather differs from its plain version on a "
+                  f"live state at cycle {int(m.cycle)}")
+            n_gather += 1
+        modes += torch.bincount(real[2].long() + 1, minlength=8)
+        for region in range(p.n_regions):
+            rows = (region * rs_a + off).clamp(0, p.n_rows - 1)
+            region_rows = m.banks_data[:, rows][..., None]
+            check(torch.equal(ek.encode_parities_cuda(region_rows, members),
+                              encode_parities_plain(region_rows, members)),
+                  f"{label}: xor_encode differs from its plain version on "
+                  f"region {region} at cycle {int(m.cycle)}")
+            n_encode += 1
+    modes = modes.tolist()
+    check(sum(modes[1:]) > 0, f"{label}: the sampled read plans serve "
+          "nothing")
+    return (f"xor_gather and xor_encode bit-exact vs plain on {len(states)} "
+            f"live card states ({n_gather} gathers at N={ci.numel()}, banks "
+            f"{tuple(banks.shape)}, parities {tuple(pars.shape)}: real plans "
+            f"with {modes[1] + modes[2]} direct, {sum(modes[3:7])} degraded, "
+            f"{modes[7]} redirected reads, and seeded columns of every mode; "
+            f"{n_encode} region encodes of {tuple(region_rows.shape)})")
+
+
+def stream_phase(torch, sim_single):
+    """Streamed trace replay on the card against the CPU: (a) bench_stream's
+    workload at full size, (b) the simulate phase's trace streamed at
+    chunks 32 and 96 against its single-shot result ``sim_single``, (c)
+    the file fixtures through ``load_trace`` and ``stream_file``, (d)
+    region priors from the trace's profile. Returns each sim kernel's
+    launches over the phase and the card's state for the profile."""
+    from repro_torch.core.system import Trace, drain_bound
+    from repro_torch.kernels.xor_encode import kernel as ek
+    from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.sim import trace
+    from repro_torch.traces import (load_trace, profile_trace, stream_file,
+                                    strip_windows)
+
+    gk.launches = ek.launches = 0                   # main path starts here
+    # (a) full size
+    tr_cpu = trace.banded_trace(trace.TraceSpec(**STREAM_TRACE), device="cpu")
+    traces = {"cpu": tr_cpu, "cuda": Trace(*(x.to("cuda") for x in tr_cpu))}
+    n_req = int(tr_cpu.valid.sum())
+    nc, length, n_rows = (STREAM_TRACE[k] for k in ("n_cores", "length",
+                                                    "n_rows"))
+    bound = drain_bound(nc, length)
+    point = (STREAM_POINT["scheme"], n_rows, STREAM_POINT["alpha"],
+             STREAM_POINT["r"], STREAM_POINT["select_period"], nc)
+    golden, sampler = GoldenCheck(), CycleSampler(50)
+
+    def card_hooks(before, after, out):
+        golden(before, after, out)
+        sampler(before, after, out)
+
+    systems = {dev: _stream_system(dev, *point) for dev in ("cuda", "cpu")}
+    out = {dev: _streamed(torch, systems[dev], traces[dev], STREAM_CHUNK,
+                          "(a)", on_cycle=card_hooks if dev == "cuda"
+                          else None)
+           for dev in ("cuda", "cpu")}
+    (res, st, secs, calls), (res_c, st_c, secs_c, calls_c) = \
+        out["cuda"], out["cpu"]
+    check(res == res_c, f"stream (a): card {res} vs CPU {res_c}")
+    check(_same_state(torch, st, st_c),
+          "stream (a): final state leaves differ card vs CPU")
+    check(calls == calls_c, f"stream (a): card calls {calls} vs CPU "
+          f"{calls_c}")
+    check(res.completed and res.served_reads + res.served_writes == n_req,
+          f"stream (a): {res} did not serve all {n_req} requests")
+    check(calls[1] == res.switches and calls[1] >= 1,
+          f"stream (a): {calls[1]} region encodes for {res.switches} "
+          "switches")
+    bad, served = golden.result()
+    cycles = int(st.mem.cycle)
+    check(golden.cycles == cycles, f"stream (a): the golden hook saw "
+          f"{golden.cycles} of {cycles} cycles")
+    check(bad == 0 and served == res.served_reads,
+          f"stream (a): {bad} of {served} served reads did not return the "
+          "committed value")
+    check(cycles < bound, f"stream (a): {cycles} cycles, bound {bound}")
+    print(f"stream (a) bench_stream's workload ({n_req} requests, 8 x 512, "
+          f"{point[0]} alpha={point[2]} r={point[3]} select {point[4]}) at "
+          f"chunk {STREAM_CHUNK}: {cycles} cycles run against drain_bound "
+          f"{bound} ({cycles / bound:.1%}), drained at cycle {res.cycles}, "
+          f"{len(res.window_read_latency)} windows, {res.switches} switches,"
+          f" stalls {res.stall_cycles}; card {secs:.2f} s = "
+          f"{secs / cycles * 1e3:.3f} ms/cycle, {n_req / secs:.0f} "
+          f"requests/s (served reads checked each cycle); CPU {secs_c:.2f} "
+          f"s = {secs_c / cycles * 1e3:.3f} ms/cycle, {n_req / secs_c:.0f} "
+          f"requests/s; launches xor_gather {calls[0]}, xor_encode "
+          f"{calls[1]}; card = CPU in every field (windows included) and "
+          f"leaf; all {served} served reads returned committed values")
+    # (b) the simulate phase's trace, streamed, against its single shot
+    sim_tr = trace.banded_trace(trace.TraceSpec(**SIM_TRACE), device="cuda")
+    sim_point = (GOLDEN_RUN[0], SIM_TRACE["n_rows"], GOLDEN_RUN[1],
+                 SIM_KW["r"], SIM_KW["select_period"], SIM_TRACE["n_cores"])
+    for chunk in SIM_STREAM_CHUNKS:
+        r_b, st_b, secs_b, _ = _streamed(
+            torch, _stream_system("cuda", *sim_point), sim_tr, chunk,
+            f"(b) chunk {chunk}")
+        check(strip_windows(r_b) == sim_single,
+              f"stream (b) chunk {chunk}: {r_b} vs single shot "
+              f"{sim_single}")
+        print(f"stream (b) {GOLDEN_RUN[0]} alpha={GOLDEN_RUN[1]} on the "
+              f"simulate phase's trace at chunk {chunk}: equals the single "
+              f"shot; {int(st_b.mem.cycle)} cycles run against its "
+              f"{drain_bound(SIM_TRACE['n_cores'], SIM_TRACE['length'])}, "
+              f"{len(r_b.window_read_latency)} windows, {secs_b:.2f} s")
+    # (c) the file fixtures
+    for name, kw in FILE_TRACES:
+        path = str(ROOT / "tests" / "data" / name)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            sys_ = _stream_system(dev, "scheme_i", FILE_GEOMETRY["n_rows"],
+                                  0.25, 0.125, 8, FILE_GEOMETRY["n_cores"])
+            whole = load_trace(path, device=dev, **FILE_GEOMETRY, **kw)
+            got[dev] = tuple(_streamed(torch, sys_, src, 2, f"(c) {name}")[0]
+                             for src in (whole, stream_file(
+                                 path, 2, **FILE_GEOMETRY, **kw)))
+            single = sys_.run(whole, drain_bound(*whole.bank.shape))
+            check(all(strip_windows(r) == single for r in got[dev]),
+                  f"stream (c) {name} on {dev}: {got[dev]} vs single shot "
+                  f"{single}")
+        check(got["cuda"] == got["cpu"],
+              f"stream (c) {name}: card {got['cuda']} vs CPU {got['cpu']}")
+        print(f"stream (c) {name}: load_trace and stream_file replay alike "
+              f"on the card and the CPU and equal the single shot: "
+              f"{got['cuda'][0].served_reads} reads + "
+              f"{got['cuda'][0].served_writes} writes in "
+              f"{got['cuda'][0].cycles} cycles")
+    # (d) region priors from the trace's profile
+    prof = profile_trace(tr_cpu, STREAM_TRACE["n_banks"], n_rows, window=512)
+    primed = {}
+    for dev in ("cuda", "cpu"):
+        sys_ = _stream_system(dev, *point)
+        p = sys_.p
+        pri = prof.region_priors(p.region_size, p.n_regions, k=p.n_slots)
+        primed[dev] = (sys_.init(region_priors=pri),) + _streamed(
+            torch, sys_, traces[dev], STREAM_CHUNK, "(d)", region_priors=pri)
+    (init, r_d, st_d, secs_d, calls_d), (init_c, r_dc, st_dc, _, _) = \
+        primed["cuda"], primed["cpu"]
+    check(_same_state(torch, init, init_c),
+          "stream (d): primed init state differs card vs CPU")
+    check(r_d == r_dc and _same_state(torch, st_d, st_dc),
+          f"stream (d): card {r_d} vs CPU {r_dc}")
+    check(r_d.completed, f"stream (d): {r_d} did not complete")
+    print(f"stream (d) region priors {pri.tolist()} from a profile with "
+          f"bands {[(b.row_lo, b.row_hi) for b in prof.bands()]}: primed "
+          f"init state and replay equal card vs CPU; drained at cycle "
+          f"{r_d.cycles} (cold {res.cycles}), {r_d.switches} switches "
+          f"(cold {res.switches}), stalls {r_d.stall_cycles} (cold "
+          f"{res.stall_cycles}), {int(st_d.mem.cycle)} cycles run in "
+          f"{secs_d:.2f} s = {secs_d / int(st_d.mem.cycle) * 1e3:.3f} "
+          f"ms/cycle; launches xor_gather {calls_d[0]}, xor_encode "
+          f"{calls_d[1]}")
+    launches = {"xor_gather": gk.launches, "xor_encode": ek.launches}
+    # main path ends here
+    check(all(v > 0 for v in launches.values()),
+          f"stream: a kernel of the path never launched: {launches}")
+    live = check_live_kernels(torch, systems["cuda"], sampler.states,
+                              "stream (a)")
+    print(f"stream (a) kernels: {live}")
+    profile_stream(torch, traces["cuda"], st, point)
+    return launches
+
+
+def profile_stream(torch, tr, drained, point, n: int = 40) -> None:
+    """Where a streamed cycle's time goes: ``n`` cycles of ``run_chunk``
+    with the queues loaded (from cycle 20 of the first chunk), and ``n``
+    drained cycles from (a)'s final state through the single-shot loop,
+    which has no early exit: what each cycle past quiescence would cost.
+    Each window is timed on the host clock, then under torch.profiler for
+    device busy time, kernel launches, host syncs and copies per cycle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.state import INT32_MAX
+    from repro_torch.core.system import Trace
+
+    sys_ = _stream_system("cuda", *point)
+    chunk = Trace(*(x[:, :STREAM_CHUNK].contiguous() for x in tr))
+    se = torch.full((sys_.n_cores,), INT32_MAX, dtype=torch.int32,
+                    device="cuda")
+    busy = sys_.run_chunk(sys_.init(), chunk, se, 20)
+    drained = drained._replace(core_ptr=torch.full_like(drained.core_ptr,
+                                                        STREAM_CHUNK))
+    windows = {"busy": (busy, lambda st: sys_.run_chunk(st, chunk, se, n)),
+               "drained": (drained, lambda st: sys_._run(st, chunk, n)[0])}
+    for window, (st, fn) in windows.items():
+        c0 = int(st.mem.cycle)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = fn(st)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        check(int(st.mem.cycle) == c0 + n,
+              f"profile stream {window}: {int(st.mem.cycle) - c0} of {n} "
+              "cycles ran")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(st)
+            torch.cuda.synchronize()
+        path = ROOT / "build" / f"chip_smoke_stream_{window}_trace.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+               ("kernel", "gpu_memcpy", "gpu_memset")]
+        runtime = [e["name"] for e in events
+                   if e.get("cat") == "cuda_runtime"]
+        syncs = sum("Synchronize" in e for e in runtime) / n
+        copies = sum("Memcpy" in e for e in runtime) / n
+        if not dev:
+            print(f"profile stream {window}: the trace holds no device "
+                  "activity; device busy share not measured")
+            continue
+        busy_ms = sum(e["dur"] for e in dev) / 1e3 / n
+        kernels = sum(e["cat"] == "kernel" for e in dev) / n
+        print(f"profile stream {window} cycles {c0 + n}..{c0 + 2 * n}: wall "
+              f"{wall_ms:.3f} ms/cycle, device busy {busy_ms:.3f} ms/cycle "
+              f"(idle {1 - busy_ms / wall_ms:.1%} of the unprofiled wall), "
+              f"{kernels:.0f} kernel launches, {syncs:.1f} host syncs and "
+              f"{copies:.1f} copies per cycle")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1633,7 +1987,10 @@ def main() -> int:
         cross_device_phase(torch, arch)
     kvstate_phase(torch)
     sim_kern = sim_kernel_phase(torch)
-    sim_launches = simulate_phase(torch)
+    sim_launches, sim_results = simulate_phase(torch)
+    stream_launches = stream_phase(torch, sim_results[GOLDEN_RUN])
+    print(f"launches by phase: simulate {sim_launches}, stream "
+          f"{stream_launches}")
 
     main_case = kern["bf16_coded"]
     table = {"kernels": [{
@@ -1659,7 +2016,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": sim_launches[name],
+            "launches": sim_launches[name] + stream_launches[name],
             "max_abs_err": max(v["max_abs_err"] for (k, _), v in
                                sim_kern.items() if k == name),
             "ms": case["ms"],

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.controller import JTables
@@ -59,6 +60,45 @@ def _encode_region_data(p: MemParams, t: JTables, banks_data: torch.Tensor,
     out = parity_data.clone()
     out[:, start:start + rs] = vals
     return out
+
+
+def priors_layout(p: MemParams, tn, priors, device):
+    """(region_slot, slot_region, parity_valid) on ``device``, pre-mapping
+    profiled hot regions into parity slots: the warm start ``init_state``
+    applies with ``region_priors``.
+
+    ``priors`` (array, list or tensor) is a ranked array of distinct
+    region ids, hottest first, -1 padded
+    (``repro_torch.traces.TraceProfile.region_priors`` emits one). The
+    leading entries fill parity slots 0.. up to the slot budget; ids
+    outside the active regions and -1 padding are skipped without shifting
+    later entries. The mapped slots' parity rows are valid: every data
+    bank is zero at init, so the all-zero parity rows are their members'
+    XOR. Built on the host (a few hundred cells, once), as JAX's
+    ``.at[].set`` scatters it, then moved to ``device``."""
+    rs = p.region_size
+    if tn is None:
+        rs_a, nr_a = p.region_size, p.n_regions
+        budget = p.n_active
+    else:
+        rs_a, nr_a = active_geometry(p, tn)
+        budget = min(int(tn.n_slots_active), p.n_active)
+    if isinstance(priors, torch.Tensor):
+        priors = priors.cpu().numpy()
+    pr = np.asarray(priors).astype(np.int32).reshape(-1)
+    cand = np.full(p.n_slots, -1, np.int32)       # slot s takes entry s
+    cand[:min(pr.size, p.n_slots)] = pr[:p.n_slots]
+    ok = (np.arange(p.n_slots) < budget) & (cand >= 0) & (cand < nr_a)
+    slot_region = np.where(ok, cand, -1).astype(np.int32)
+    region_slot = np.full(p.n_regions + 1, -1, np.int32)       # + a sink
+    region_slot[np.where(ok, cand, p.n_regions)] = np.arange(p.n_slots)
+    # parity rows are stored at the allocated stride (slot * rs +
+    # i % rs_active): this walks that storage layout
+    row = np.arange(p.n_slots * rs)
+    active = ok[row // rs] & (row % rs < rs_a)
+    parity_valid = np.broadcast_to(active, (p.n_parities, row.size))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (region_slot[:-1], slot_region, parity_valid))
 
 
 def dynamic_step(

@@ -20,7 +20,7 @@ Differences from the JAX state, all of representation only:
   * ``TunableParams`` holds python ints: the port runs one point at a time.
 
 This slice carries no telemetry planes, no fault schedule and no traced
-(padded) geometry: those flags and ``region_priors`` raise
+(padded) geometry: those flags and fault plans raise
 ``NotImplementedError``, the ``tele``/``fault`` leaves stay ``None``, and
 ``make_params`` takes none of the padded-allocation arguments the JAX sweep
 engine passes.
@@ -198,9 +198,9 @@ def init_state(p: MemParams, tn: Optional[TunableParams] = None,
                region_priors=None, n_cores: int = 8, fault_plan=None,
                device="cpu") -> MemState:
     """Initial controller state on ``device`` (``n_cores`` only sized the
-    telemetry planes in JAX and is unused here)."""
-    if region_priors is not None:
-        raise NotImplementedError("region_priors are not ported yet")
+    telemetry planes in JAX and is unused here). ``region_priors`` (a
+    sub-coverage system only) is a ranked array of hot region ids, -1
+    padded, pre-mapped into parity slots (``dynamic.priors_layout``)."""
     if fault_plan is not None:
         raise NotImplementedError("fault plans are not ported yet")
     if tn is not None:
@@ -221,6 +221,10 @@ def init_state(p: MemParams, tn: Optional[TunableParams] = None,
         slot_region = torch.arange(p.n_slots, **i32)
         parity_valid = torch.ones((p.n_parities, n_slot_rows), dtype=torch.bool,
                                   device=dev)
+    elif region_priors is not None:
+        from repro_torch.core.dynamic import priors_layout
+        region_slot, slot_region, parity_valid = priors_layout(
+            p, tn, region_priors, dev)
     else:
         region_slot = torch.full((p.n_regions,), -1, **i32)
         slot_region = torch.full((p.n_slots,), -1, **i32)

@@ -14,7 +14,10 @@ One ``cycle_fn`` call is one memory clock cycle (paper Fig 2 / §IV):
      ``xor_encode`` kernel).
 
 ``run`` executes exactly ``n_cycles`` cycles, as JAX's ``lax.scan`` does,
-so final states compare leaf for leaf.
+so final states compare leaf for leaf. ``run_chunk`` advances a state over
+one staged chunk of a longer stream and leaves its loop early (starved,
+quiescent or out of budget), as JAX's ``lax.while_loop`` does: the device
+half of ``repro_torch.traces.stream_replay``.
 
 Eager execution, and how it stays bit-identical to JAX: JAX runs both
 builders every cycle (the off-duty one on masked-invalid candidates) and
@@ -25,8 +28,8 @@ does with ``mode="drop"`` go through flat buffers with one trailing sink
 entry that is sliced off (``_set_flat``); scatters with duplicate indices
 only ever write one value per cell apart from the sink.
 
-Not ported in this slice: ``run_chunk`` (streaming replay), telemetry,
-faults, traced geometry and region priors (they raise).
+Not ported in this slice: telemetry, faults and traced geometry (they
+raise).
 """
 from __future__ import annotations
 
@@ -174,16 +177,22 @@ class CodedMemorySystem:
         )
 
     # --------------------------------------------------------------- arbiter
-    def _arbiter(self, st: SimState, trace: Trace, rs_a: int) -> SimState:
+    def _arbiter(self, st: SimState, trace: Trace, rs_a: int,
+                 stream_end=None) -> SimState:
         """Push each core's pending request into its destination queue;
         cores rank within their destination queue by core index, and the
         first ``rank`` free slots of a queue go to the first ``rank``
-        ranked cores (the JAX arbiter's vectorized rule)."""
+        ranked cores (the JAX arbiter's vectorized rule).
+
+        ``stream_end`` (chunked replay): each core's count of staged
+        requests, INT32_MAX for "more behind this chunk"; ``None`` makes
+        the trace length every core's end (single-shot). A pointer at or
+        past the end reads a clamped cell, which ``in_range`` masks."""
         p = self.p
         m = st.mem
         tlen = trace.bank.shape[1]
         pos = st.core_ptr
-        in_range = pos < tlen
+        in_range = pos < (tlen if stream_end is None else stream_end)
         pc = pos.clamp(max=tlen - 1)
         v = trace.valid[self._cores, pc] & in_range
         b = trace.bank[self._cores, pc].long().clamp(min=0)
@@ -344,15 +353,12 @@ class CodedMemorySystem:
     def cycle_fn(self, st: SimState, trace: Trace,
                  tn: Optional[TunableParams] = None,
                  stream_end=None):
-        if stream_end is not None:
-            raise NotImplementedError("chunked replay (stream_end) is not "
-                                      "ported yet")
         p, t = self.p, self.t
         if tn is None:
             tn = self.tunables
         rs_a, _ = active_geometry(p, tn)
         was_done = st.done_cycle >= 0
-        st = self._arbiter(st, trace, rs_a)
+        st = self._arbiter(st, trace, rs_a, stream_end)
         m = st.mem
 
         # write-drain hysteresis; one host read picks the branch
@@ -388,8 +394,11 @@ class CodedMemorySystem:
             parity_data=dy.parity_data, enc_region=dy.enc_region,
             enc_remaining=dy.enc_remaining, enc_slot=dy.enc_slot,
             switches=dy.switches)
+        # a core is consumed once its pointer reaches its stream end (never,
+        # for a chunk with more behind it: INT32_MAX)
         tlen = trace.bank.shape[1]
-        consumed = (st.core_ptr >= tlen).all()
+        consumed = (st.core_ptr
+                    >= (tlen if stream_end is None else stream_end)).all()
         drained = ~m.rq_valid.any() & ~m.wq_valid.any()
         done_cycle = torch.where((st.done_cycle < 0) & consumed & drained,
                                  m.cycle, st.done_cycle)
@@ -440,9 +449,37 @@ class CodedMemorySystem:
             trace, n_cycles, tn, on_cycle)
         return self.summarize(st)
 
-    def run_chunk(self, *args, **kw):
-        raise NotImplementedError("run_chunk (streaming replay) is not "
-                                  "ported yet")
+    def run_chunk(self, st: SimState, trace: Trace, stream_end,
+                  n_cycles: int,
+                  tn: Optional[TunableParams] = None,
+                  on_cycle: Optional[Callable] = None) -> SimState:
+        """One streaming-replay step: advance ``st`` over a staged chunk.
+
+        ``trace`` holds each core's next (up to) ``tlen`` requests from its
+        own stream position; ``stream_end[c]`` is core ``c``'s count of
+        staged requests when its stream ends inside the chunk, else
+        INT32_MAX. Cycles run until, checked before each one as JAX's
+        ``lax.while_loop`` does: (a) some core with more data behind the
+        chunk has consumed its staged requests (starved: the caller
+        restages), (b) ``quiescent(st)``, or (c) ``n_cycles`` cycles ran
+        (this call's budget, apart from the state's own ``cycle``). The
+        exit test is one host read a cycle. ``on_cycle(before, after, out)``
+        is called after every cycle when given, as in ``_run``."""
+        self.check_trace(trace)
+        tlen = trace.bank.shape[1]
+        stream_end = torch.as_tensor(stream_end, dtype=torch.int32,
+                                     device=self.device)
+        more = stream_end > tlen
+        for _ in range(n_cycles):
+            starved, quiet = torch.stack([
+                ((st.core_ptr >= tlen) & more).any(), quiescent(st)]).tolist()
+            if starved or quiet:
+                break
+            nxt, out = self.cycle_fn(st, trace, tn, stream_end)
+            if on_cycle is not None:
+                on_cycle(st, nxt, out)
+            st = nxt
+        return st
 
     def summarize(self, st: SimState) -> SimResult:
         return result_from_host(st.mem, st.done_cycle)

@@ -479,3 +479,83 @@ def test_snapshot_restores_on_the_other_device(cuda, first, second):
     assert moved and all(r.out == by_rid[r.rid] for r in moved)
     assert a.serve_snapshot().as_dict() == b.serve_snapshot().as_dict()
     assert b.cache["pool"].k_banks.device.type == second
+
+
+# ------------------------------------------------- streamed trace replay
+def _stream_systems(seed=0, n_cores=4, length=24, n_rows=64):
+    """The same system on the card and on the CPU, and a seeded trace on
+    each (8 banks x 64 rows, scheme_i, alpha 0.25, r 0.125, select 8)."""
+    from repro_torch.core import codes, state, system
+
+    rng = np.random.default_rng(seed)
+    cols = (rng.integers(0, 8, (n_cores, length)).astype(np.int32),
+            rng.integers(0, n_rows, (n_cores, length)).astype(np.int32),
+            rng.random((n_cores, length)) < 0.45,
+            rng.integers(1, 1 << 20, (n_cores, length)).astype(np.int32),
+            rng.random((n_cores, length)) < 0.9)
+    t = codes.get_tables("scheme_i")
+    p = state.make_params(t, n_rows=n_rows, alpha=0.25, r=0.125, recode_cap=8)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        sys_ = system.CodedMemorySystem(
+            t, p, n_cores=n_cores, device=dev,
+            tunables=state.make_tunables(select_period=8))
+        out[dev] = (sys_, system.Trace(*(torch.from_numpy(c).to(dev)
+                                         for c in cols)))
+    return out
+
+
+def _same_sim_state(a, b):
+    leaves = list(zip(a.mem, b.mem)) + [(a.core_ptr, b.core_ptr),
+                                        (a.done_cycle, b.done_cycle)]
+    return all((x is None and y is None) or (
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()))
+        for x, y in leaves)
+
+
+@pytest.mark.parametrize("exit_", ["starved", "quiescent", "budget"])
+def test_run_chunk_on_the_card_equals_the_cpu(cuda, exit_):
+    """One ``run_chunk`` call from a fresh state, on the card and on the
+    CPU, leaves every leaf equal, for each way out of its loop; on the card
+    the read datapath launches ``xor_gather``."""
+    from repro_torch.core.state import INT32_MAX
+    from repro_torch.core.system import quiescent
+    from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.traces import chunk_bound
+
+    systems = _stream_systems()
+    chunk_len, more, budget = {
+        "starved": (6, True, None), "quiescent": (24, False, None),
+        "budget": (24, False, 9)}[exit_]
+    got = {}
+    launched = gk.launches
+    for dev, (sys_, tr) in systems.items():
+        chunk = type(tr)(*(x[:, :chunk_len].contiguous() for x in tr))
+        se = torch.full((sys_.n_cores,), INT32_MAX if more else chunk_len,
+                        dtype=torch.int32, device=dev)
+        n = budget if budget is not None else chunk_bound(sys_, chunk_len)
+        got[dev] = sys_.run_chunk(sys_.init(), chunk, se, n)
+    assert gk.launches > launched
+    st = got["cpu"]
+    assert _same_sim_state(got["cuda"], st)
+    starved = bool((st.core_ptr >= chunk_len).any()) and more
+    assert (starved, bool(quiescent(st)), int(st.mem.cycle) == budget) == (
+        exit_ == "starved", exit_ == "quiescent", exit_ == "budget")
+
+
+@pytest.mark.parametrize("chunk_len", [5, 16])
+def test_stream_replay_on_the_card_equals_the_cpu(cuda, chunk_len):
+    """A short streamed replay on the card equals the CPU's (windows and
+    final state included) and the card's single-shot run."""
+    from repro_torch.core.system import drain_bound
+    from repro_torch.traces import stream_replay, strip_windows
+
+    systems = _stream_systems(seed=3)
+    got = {dev: stream_replay(sys_, tr, chunk_len=chunk_len,
+                              return_state=True)
+           for dev, (sys_, tr) in systems.items()}
+    res = {dev: r for dev, (r, _) in got.items()}
+    assert res["cuda"] == res["cpu"] and res["cuda"].completed
+    assert _same_sim_state(got["cuda"][1], got["cpu"][1])
+    sys_, tr = systems["cuda"]
+    assert strip_windows(res["cuda"]) == sys_.run(tr, drain_bound(4, 24))

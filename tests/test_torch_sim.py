@@ -126,10 +126,10 @@ def test_flags_not_ported_raise():
             state.make_params(t, 64, 0.25, 0.125, **{flag: True})
     p = state.make_params(t, 64, 0.25, 0.125)
     with pytest.raises(NotImplementedError):
-        state.init_state(p, region_priors=np.array([0, 1]))
+        state.init_state(p, fault_plan=object())
     sys_ = system.CodedMemorySystem(t, p, n_cores=2, device=CPU)
     with pytest.raises(NotImplementedError):
-        sys_.run_chunk()
+        sys_.init(fault_plan=object())
 
 
 # ------------------------------------------------------------------- traces
