@@ -101,13 +101,42 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``tests/data`` Ramulator and gem5 fixtures through ``load_trace`` and
    ``stream_file`` replay alike on the card and the CPU. (d) region
    priors from (a)'s trace profile: the primed init state and the primed
-   streamed replay equal card vs CPU.
+   streamed replay equal card vs CPU;
+10. sweep: the simulator's point axis (``repro_torch.sweep.run_points``,
+   B points lock-step, one ``xor_gather`` and at most one ``xor_encode``
+   launch a batched cycle) on the card and the CPU. (a) paper_fig19's
+   grid at the figures' geometry (split-band trace of 8 bands, 8 x 320,
+   8 cores x 96, seed 0, select period 64; uncoded and scheme_i over r
+   {0.05, 0.125, 0.25} x alpha {0.1, 0.25, 0.5, 1}): 13 points in 3
+   batches, each leaving its loop when every point is quiescent; every
+   SimResult field and final state leaf equal card vs CPU, each point
+   equal to looped ``simulate`` on the CPU, every read the scheme_i alpha
+   0.25 r 0.05 point serves returns its committed value; cycles run per
+   batch, ms per batched cycle, point-cycles/s beside the simulate
+   phase's looped cycles/s. (b) the simulate phase's golden run at seeds
+   0..7, one batch; seed 0 equals the simulate phase's card result. (c)
+   ``stream_replay_points`` at bench_stream's geometry for alpha 0.1, 0.25,
+   0.5 (one batch) and 1 (alone), card = CPU windows included, alpha
+   0.25 = the stream phase's (a) apart from windows, and a pass killed at
+   ``max_cycles`` after a checkpoint every 2 chunks resumes to the
+   uninterrupted results. (d) both kernels bit for bit against their
+   plain versions on live batched card states of every batch of (a), (b)
+   and (c) (every 50th batched cycle of (a) and (b), every 100th of (c)),
+   with the real plans and seeded columns of every mode. Then
+   profiled windows of seed-axis batches of 1, 8 and 13 points and of
+   (a)'s traced batch: ms and launches per batched cycle, host syncs,
+   copies and the device idle share. The phase's CPU side (the CPU runs
+   of (a)-(c) and (a)'s looped runs) is computed by a worker process the
+   script starts first and kills on every way out. The worker runs only
+   while no time is taken: through the build and the cross-device and
+   kvstate phases, and after (a)'s card run; it is stopped (SIGSTOP)
+   through every phase that reports a time.
 
 Each kernel's launches are counted from 0 over its own main path (the
 serve runs for ``gather_pool``, the decode-attention calls for
-``coded_kv_decode``, the simulate runs and then the stream phase for the
-simulator's kernels, whose table entries add the two; a line before the
-table gives the split).
+``coded_kv_decode``, the simulate runs, the stream phase and the sweep
+phase for the simulator's kernels, whose table entries add the three; a
+line before the table gives the split).
 The third-to-last line is the card's name and power limit, the
 second-to-last the kernel table as JSON, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -119,7 +148,9 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -1329,7 +1360,9 @@ def sim_kernel_phase(torch):
                          dtype=i32, device="cuda")
     results = {}
     # name: (n_data, rows, n_par, prows, W, N, mixed modes, launches timed)
+    # "batch13": the sweep phase's 13 points lock-step, flattened
     gather_shapes = {"sim": (8, 320, 12, 320, 1, 80, True, 400),
+                     "batch13": (104, 320, 156, 80, 1, 1040, True, 400),
                      "bench": (8, 256, 4, 256, 256, 64, False, 400),
                      "large": (8, 8192, 12, 2048, 1024, 16384, True, 40)}
     for shape, (nd, rows, npar, prows, w, n, mix, reps) in \
@@ -1362,12 +1395,17 @@ def sim_kernel_phase(torch):
             f"N={n}{' mixed modes' if mix else ' direct'}")
     # name: (n_data, rows, W, members, launches timed)
     encode_shapes = {"sim": (8, 16, 1, "scheme_i", 400),
+                     "batch13": (104, 16, 1, "scheme_i", 400),
                      "bench": (8, 512, 256, "pairs", 400),
                      "large": (8, 8192, 1024, "pairs", 40)}
     for shape, (nd, rows, w, mem, reps) in encode_shapes.items():
         banks = bits(nd, rows, w)
         members = pairs if mem == "pairs" else torch.from_numpy(
             sch.par_members).to("cuda")
+        if mem == "scheme_i" and nd > 8:     # each point's own banks
+            pt = torch.arange(nd // 8, device="cuda")[:, None, None] * 8
+            members = torch.where(members >= 0, members + pt,
+                                  -1).flatten(0, 1).int()
         out = ek.encode_parities_cuda(banks, members)
         torch.cuda.synchronize()
         ref = encode_parities_plain(banks, members)
@@ -1526,22 +1564,24 @@ def simulate_phase(torch):
     print(f"simulate: {len(SIM_RUNS)} card runs, {total} cycles in "
           f"{card_s:.1f} s = {card_s / total * 1e3:.3f} ms/cycle, "
           f"{total / card_s:.0f} simulated cycles/s; launches {launches}")
-    profile_sim(torch, traces["cuda"])
-    return launches, results
+    busy_ms = profile_sim(torch, traces["cuda"])
+    return launches, results, total / card_s, busy_ms
 
 
-def profile_sim(torch, tr, n: int = 40) -> None:
+def profile_sim(torch, tr, n: int = 40) -> float:
     """Where a simulated cycle's time goes, in two windows of ``n`` cycles
     of scheme_i at alpha 0.25: a busy one (from cycle 20, queues loaded)
     and a drained one (from cycle 600; ~90% of a run's 1216 cycles come
     after the workload drains). Each is timed on the host clock without
     the profiler, then under torch.profiler for device busy time, kernel
     launches and copies per cycle. Then the cost of the off-duty branch,
-    which running both branches every cycle would add."""
+    which running both branches every cycle would add. Returns the busy
+    window's wall ms a cycle."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.codes import get_tables
-    from repro_torch.core.state import make_params, make_tunables
+    from repro_torch.core.state import (batch_of_one, make_params,
+                                        make_tunables)
     from repro_torch.core.system import CodedMemorySystem
 
     tables = get_tables(GOLDEN_RUN[0])
@@ -1560,6 +1600,8 @@ def profile_sim(torch, tr, n: int = 40) -> None:
         sys_._run(st, tr, n)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        if window == "busy":
+            busy_wall_ms = wall_ms
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1591,7 +1633,7 @@ def profile_sim(torch, tr, n: int = 40) -> None:
               f"{ours['xor_encode']:.4f} ms/cycle")
     # what running both branches every cycle (the JAX program's choice,
     # for vmap) would add: the off-duty branch on masked-invalid candidates
-    m = st.mem
+    m = batch_of_one(st.mem)
     off = {"read": m._replace(rq_valid=torch.zeros_like(m.rq_valid)),
            "write": m._replace(wq_valid=torch.zeros_like(m.wq_valid))}
     off_ms = {}
@@ -1607,6 +1649,7 @@ def profile_sim(torch, tr, n: int = 40) -> None:
           f"{off_ms['read']:.3f} ms (read side) / {off_ms['write']:.3f} ms "
           f"(write side) per call on the host clock; running both branches "
           f"every cycle would add that to each cycle")
+    return busy_wall_ms
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1679,15 +1722,19 @@ class CycleSampler:
         self.n += 1
 
 
-def check_live_kernels(torch, sys_, states, label) -> str:
+def check_live_kernels(torch, sys_, tn, states, label) -> str:
     """Both sim kernels bit for bit against their plain versions on live
-    card states of a run, at the run's own geometry: ``xor_gather`` on each
-    state's banks and parities with the read plan the controller builds
-    from its queues, and with seeded columns of every mode at the plan's
-    length; ``xor_encode`` on every region's rows of its banks, as a
-    region switch encodes them. Called after the path's launches are
-    read: these launches count nowhere."""
+    card states of a run (batched states of B points, ``tn`` their batched
+    tunables), at the run's own geometry: ``xor_gather`` on each state's
+    banks and parities viewed (B·n_data, L, 1) and (B·n_par, Lp, 1), with
+    the read plans the controller builds from its queues (``plan_columns``
+    offsets each point's ids) and with seeded columns of every mode at the
+    plans' length; ``xor_encode`` on every region's rows of every point's
+    banks, as a batched region switch encodes them (one call for the
+    batch). Called after the path's launches are read: these launches
+    count nowhere."""
     from repro_torch.core import controller as ctl
+    from repro_torch.core.state import active_geometry
     from repro_torch.kernels.xor_encode import kernel as ek
     from repro_torch.kernels.xor_encode.ops import member_table
     from repro_torch.kernels.xor_encode.ref import encode_parities_plain
@@ -1697,38 +1744,46 @@ def check_live_kernels(torch, sys_, states, label) -> str:
 
     check(len(states) > 0, f"{label}: no live state was sampled")
     p, t, dev = sys_.p, sys_.t, sys_.device
-    rs = rs_a = p.region_size
+    rs = p.region_size
+    rs_a, _ = active_geometry(p, tn)
+    rs_col = torch.as_tensor(rs_a, device=dev).view(-1, 1)
     gen = torch.Generator(device=dev).manual_seed(99)
-    members = member_table(t.par_members, dev)
     off = torch.arange(rs, device=dev)
     modes = torch.zeros(8, dtype=torch.long, device=dev)      # -1 .. 6
     n_gather = n_encode = 0
     for st in states:
         m = st.mem
-        banks, pars = m.banks_data[..., None], m.parity_data[..., None]
-        ci = m.rq_row.flatten()
-        plan = ctl.build_read_pattern(
-            p, t, sys_._bank_ids, ci, m.rq_age.flatten(),
-            m.rq_valid.flatten(), sys_._port_busy0, m.fresh_loc,
-            m.parity_valid, m.region_slot, rs_a)
-        real = list(plan_columns(t, plan, sys_._bank_ids, ci, m.region_slot,
-                                 rs, m.fresh_loc, rs_active=rs_a))
-        seeded = _gather_columns(torch, gen, ci.numel(), p.n_data, p.n_rows,
-                                 pars.shape[0], pars.shape[1])
+        B = m.cycle.shape[0]
+        banks = m.banks_data[..., None].flatten(0, 1)
+        pars = m.parity_data[..., None].flatten(0, 1)
+        cb = sys_._bank_ids.expand(B, -1)
+        ci = m.rq_row.flatten(1)
+        plan = ctl.build_read_patterns(
+            p, t, cb, ci, m.rq_age.flatten(1), m.rq_valid.flatten(1),
+            sys_._idle_ports(B), m.fresh_loc, m.parity_valid, m.region_slot,
+            rs_a)
+        real = list(plan_columns(t, plan, cb, ci, m.region_slot, rs,
+                                 m.fresh_loc, rs_active=rs_a))
+        seeded = _gather_columns(torch, gen, ci.numel(), banks.shape[0],
+                                 p.n_rows, pars.shape[0], pars.shape[1])
         for cols in (real, seeded):
             got = gk.gather_decode_cuda(banks, pars, *cols)
             check(torch.equal(got, gather_decode_plain(banks, pars, *cols)),
                   f"{label}: xor_gather differs from its plain version on a "
-                  f"live state at cycle {int(m.cycle)}")
+                  f"live state at cycle {m.cycle.tolist()}")
             n_gather += 1
         modes += torch.bincount(real[2].long() + 1, minlength=8)
+        pt = torch.arange(B, device=dev)[:, None, None] * p.n_data
+        base = member_table(t.par_members, dev)
+        members = torch.where(base >= 0, base + pt, -1).flatten(0, 1).int()
         for region in range(p.n_regions):
-            rows = (region * rs_a + off).clamp(0, p.n_rows - 1)
-            region_rows = m.banks_data[:, rows][..., None]
+            rows = (region * rs_col + off).clamp(0, p.n_rows - 1)
+            region_rows = m.banks_data.gather(2, rows[:, None].expand(
+                B, p.n_data, rs))[..., None].flatten(0, 1)
             check(torch.equal(ek.encode_parities_cuda(region_rows, members),
                               encode_parities_plain(region_rows, members)),
                   f"{label}: xor_encode differs from its plain version on "
-                  f"region {region} at cycle {int(m.cycle)}")
+                  f"region {region} at cycle {m.cycle.tolist()}")
             n_encode += 1
     modes = modes.tolist()
     check(sum(modes[1:]) > 0, f"{label}: the sampled read plans serve "
@@ -1747,7 +1802,8 @@ def stream_phase(torch, sim_single):
     chunks 32 and 96 against its single-shot result ``sim_single``, (c)
     the file fixtures through ``load_trace`` and ``stream_file``, (d)
     region priors from the trace's profile. Returns each sim kernel's
-    launches over the phase and the card's state for the profile."""
+    launches over the phase and (a)'s card result."""
+    from repro_torch.core.state import batch_of_one
     from repro_torch.core.system import Trace, drain_bound
     from repro_torch.kernels.xor_encode import kernel as ek
     from repro_torch.kernels.xor_gather import kernel as gk
@@ -1875,11 +1931,12 @@ def stream_phase(torch, sim_single):
     # main path ends here
     check(all(v > 0 for v in launches.values()),
           f"stream: a kernel of the path never launched: {launches}")
-    live = check_live_kernels(torch, systems["cuda"], sampler.states,
-                              "stream (a)")
+    live = check_live_kernels(
+        torch, systems["cuda"], systems["cuda"].batch_tunables(),
+        [batch_of_one(st_) for st_ in sampler.states], "stream (a)")
     print(f"stream (a) kernels: {live}")
     profile_stream(torch, traces["cuda"], st, point)
-    return launches
+    return launches, res
 
 
 def profile_stream(torch, tr, drained, point, n: int = 40) -> None:
@@ -1940,6 +1997,512 @@ def profile_stream(torch, tr, drained, point, n: int = 40) -> None:
               f"{copies:.1f} copies per cycle")
 
 
+# --------------------------------------------------------------- phase 10
+# paper_fig19's grid at the figures' geometry (benchmarks/fig19_split.py:
+# 13-17, src/repro/sweep/workloads.py:158-167): the split-band trace with 8
+# bands, 8 banks x 320 rows, queue depth 10, 8 cores x 96 requests, seed 0,
+# write fraction 0.3, select period 64; uncoded, then scheme_i over r x alpha
+FIG19_BASE = dict(scheme="scheme_i", trace="split",
+                  trace_kwargs=(("n_bands", 8),), n_rows=320, n_banks=8,
+                  n_cores=8, length=96, seed=0, write_frac=0.3,
+                  select_period=64)
+FIG19_AXES = dict(r=(0.05, 0.125, 0.25), alpha=(0.1, 0.25, 0.5, 1.0))
+FIG19_GOLDEN = dict(alpha=0.25, r=0.05)
+SEED_AXIS = 8                    # (b): the simulate phase's golden run
+PROFILE_BATCHES = (1, 8, 13)     # seed-axis batch sizes profiled
+STREAM_ALPHAS = (0.1, 0.25, 0.5, 1.0)
+CKPT_EVERY = 2                   # (c): chunks between checkpoints
+CKPT_STOP = 1024                 # (c): the killed pass stops past this cycle
+LIVE_EVERY = 50                  # (d): batched cycles of (a), (b) between
+STREAM_LIVE_EVERY = 100          # live checks, and of (c)
+
+
+def fig19_points():
+    from repro_torch.sweep import SweepPoint, grid
+
+    base = SweepPoint(**FIG19_BASE)
+    return ([base.replace(scheme="uncoded", alpha=1.0, r=0.05)]
+            + grid(base, **FIG19_AXES))
+
+
+def seed_points(n: int):
+    """(b)'s points: the simulate phase's scheme_i alpha 0.25 run (its
+    banded trace, r 0.05, select period 32) at seeds 0 .. n - 1."""
+    from repro_torch.sweep import SweepPoint
+
+    return [SweepPoint(scheme=GOLDEN_RUN[0], alpha=GOLDEN_RUN[1],
+                       trace="banded", **SIM_KW, **SIM_TRACE).replace(seed=s)
+            for s in range(n)]
+
+
+def stream_points():
+    """(c)'s points: bench_stream's workload (``STREAM_TRACE``, select
+    period 256, r 0.05) at each of ``STREAM_ALPHAS``."""
+    return [seed_points(1)[0].replace(
+        alpha=a, select_period=STREAM_POINT["select_period"],
+        **{k: STREAM_TRACE[k] for k in ("n_cores", "length", "n_banks",
+                                        "n_rows")}) for a in STREAM_ALPHAS]
+
+
+def sweep_cpu_side() -> dict:
+    """The sweep phase's CPU side: (a)'s and (b)'s ``run_points`` (results,
+    each point's final state as numpy leaves, seconds, wrapper calls),
+    each (a) point's looped ``simulate``, and (c)'s ``stream_replay_points``
+    per batch. It runs in a worker process started with the script
+    (``CpuSide``) while the card does untimed work: the card's loop is
+    host-bound, so this CPU work would otherwise add to the script's wall
+    time. Its seconds are the worker's CPU time (``time.process_time``,
+    over its 2 threads): its wall clock runs on while it is stopped."""
+    import torch
+
+    from repro_torch.core.state import MemState
+    from repro_torch.core.system import SimState
+    from repro_torch.kernels.xor_encode import ops as eops
+    from repro_torch.kernels.xor_gather import ops as gops
+    from repro_torch.sim import ramulator
+    from repro_torch.sim import trace as tr_mod
+    from repro_torch.sweep import build_trace, partition, run_points
+    from repro_torch.traces import stream_replay_points
+
+    torch.set_num_threads(2)
+
+    def host(st):
+        return SimState(MemState(*(None if x is None else x.numpy()
+                                   for x in st.mem)),
+                        st.core_ptr.numpy(), st.done_cycle.numpy())
+
+    out = {}
+    for key, pts in (("a", fig19_points()), ("b", seed_points(SEED_AXIS))):
+        c0, t0 = (gops.calls, eops.calls), time.process_time()
+        res, states = run_points(pts, device="cpu", return_state=True)
+        out[key] = (res, [host(st) for st in states],
+                    time.process_time() - t0,
+                    (gops.calls - c0[0], eops.calls - c0[1]))
+    t0 = time.process_time()
+    out["looped"] = [ramulator.simulate(
+        pt.scheme, build_trace(pt, device="cpu"), pt.n_rows,
+        alpha=pt.alpha, r=pt.r, n_data=pt.n_data,
+        n_cycles=pt.resolved_cycles(), select_period=pt.select_period,
+        wq_hi=pt.wq_hi, wq_lo=pt.wq_lo, queue_depth=pt.queue_depth,
+        device="cpu") for pt in fig19_points()]
+    out["looped_s"] = time.process_time() - t0
+    src = tr_mod.banded_trace(tr_mod.TraceSpec(**STREAM_TRACE), device="cpu")
+    for b in partition(stream_points()):
+        t0 = time.process_time()
+        res = stream_replay_points(b.points, [src] * len(b),
+                                   chunk_len=STREAM_CHUNK, device="cpu")
+        out[("c",) + tuple(b.indices)] = (res, time.process_time() - t0)
+    return out
+
+
+def _cpu_worker(conn) -> None:
+    """Worker process: send ``("ok", sweep_cpu_side())``, or the traceback
+    of its failure, through ``conn``."""
+    try:
+        conn.send(("ok", sweep_cpu_side()))
+    except BaseException:
+        import traceback
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+class CpuSide:
+    """``sweep_cpu_side`` in a spawned worker process that runs only while
+    the script takes no time: ``pause`` stops it (SIGSTOP) before a phase
+    that reports a time, ``resume`` lets it go on (SIGCONT), ``receive``
+    lets it finish and returns its result, ``close`` kills it (SIGKILL
+    ends a stopped process too) on every way out of ``main``."""
+
+    def __init__(self):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.recv, send = ctx.Pipe(duplex=False)
+        self.worker = ctx.Process(target=_cpu_worker, args=(send,),
+                                  daemon=True)
+        self.worker.start()
+        send.close()
+        self.ran = 0.0                  # seconds it was let run
+        self._since = time.perf_counter()
+
+    def _signal(self, sig) -> None:
+        try:
+            os.kill(self.worker.pid, sig)
+        except ProcessLookupError:      # it has exited
+            pass
+
+    def pause(self) -> None:
+        if self._since is not None:
+            self._signal(signal.SIGSTOP)
+            self.ran += time.perf_counter() - self._since
+            self._since = None
+
+    def resume(self) -> None:
+        if self._since is None:
+            self._signal(signal.SIGCONT)
+            self._since = time.perf_counter()
+
+    def receive(self) -> dict:
+        """The worker's ``sweep_cpu_side()``, letting it finish first."""
+        self.resume()
+        t0 = time.perf_counter()
+        try:
+            status, data = self.recv.recv()
+        except EOFError:
+            status, data = "error", "the worker exited without a result"
+        self.worker.join()
+        check(status == "ok", f"sweep: the CPU side failed:\n{data}")
+        waited = time.perf_counter() - t0
+        print(f"sweep: the CPU side (a worker process, stopped through "
+              f"every timed phase) had run {self.ran:.1f} s beside the "
+              f"untimed phases and was ready after {waited:.1f} s more")
+        return data
+
+    def close(self) -> None:
+        if self.worker.is_alive():
+            self._signal(signal.SIGKILL)
+        self.worker.join()
+
+
+def _as_tensors(torch, host):
+    """A SimState of numpy leaves (from the worker) as CPU tensors."""
+    from repro_torch.core.state import MemState
+    from repro_torch.core.system import SimState
+
+    return SimState(MemState(*(None if x is None else torch.from_numpy(x)
+                               for x in host.mem)),
+                    torch.from_numpy(host.core_ptr),
+                    torch.from_numpy(host.done_cycle))
+
+
+class SweepHook:
+    """``run_points``' ``on_cycle(batch, before, after, out)`` on the card:
+    counts each batch's cycles and host time, holds every read that point
+    ``golden`` serves against the golden value committed before its cycle,
+    checks each batched cycle launched each sim kernel at most once, and
+    keeps each batch's state before every ``every``-th cycle (from cycle
+    ``every // 2``; references, no copy)."""
+
+    def __init__(self, golden: int, every: int):
+        from repro_torch.kernels.xor_encode import kernel as ek
+        from repro_torch.kernels.xor_gather import kernel as gk
+
+        self.kernels = (gk, ek)
+        self.golden, self.every = golden, every
+        self.bad = self.served = 0
+        self.cycles, self.secs, self.states = {}, {}, []
+        self.most = [0, 0]
+        self._last = None
+
+    def __call__(self, batch, before, after, out):
+        key = tuple(batch.indices)
+        now = time.perf_counter()
+        launched = [k.launches for k in self.kernels]
+        if self._last is not None and self._last[0] == key:
+            self.secs[key] = self.secs.get(key, 0.0) + now - self._last[1]
+            self.most = [max(m, a - b) for m, a, b in
+                         zip(self.most, launched, self._last[2])]
+        n = self.cycles.get(key, 0)
+        self.cycles[key] = n + 1
+        if n % self.every == self.every // 2:
+            self.states.append((batch, before))
+        if self.golden in batch.indices:
+            k = batch.indices.index(self.golden)
+            want = before.mem.golden[k][out.r_bank[k].long(),
+                                        out.r_row[k].long().clamp(min=0)]
+            self.bad = self.bad + ((out.r_value[k] != want)
+                                   & out.r_served[k]).sum()
+            self.served = self.served + out.r_served[k].sum()
+        self._last = (key, time.perf_counter(), launched)
+
+
+def _sweep_run(torch, points, hook=None):
+    """``run_points`` on the card: (results, per-point final states,
+    seconds, (xor_gather, xor_encode) wrapper calls). Each kernel's
+    launches must equal its wrapper's calls."""
+    from repro_torch.kernels.xor_encode import kernel as ek
+    from repro_torch.kernels.xor_encode import ops as eops
+    from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.kernels.xor_gather import ops as gops
+    from repro_torch.sweep import run_points
+
+    g0, e0, gc0, ec0 = gk.launches, ek.launches, gops.calls, eops.calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, states = run_points(points, device="cuda", return_state=True,
+                             on_cycle=hook)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    calls = (gops.calls - gc0, eops.calls - ec0)
+    launched = (gk.launches - g0, ek.launches - e0)
+    check(launched == calls,
+          f"sweep: launches {launched}, wrapper calls {calls} on the card")
+    return res, states, secs, calls
+
+
+def profile_batch(torch, points, label, start: int = 20, n: int = 20):
+    """Where a batched cycle's time goes: ``n`` busy cycles of the batch
+    (from cycle ``start``, queues loaded) through ``run_chunk_batch``, timed
+    on the host clock, then under torch.profiler for device busy time,
+    kernel launches, host syncs and copies per batched cycle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.sweep import build_trace, stack_traces
+    from repro_torch.sweep.engine import (mixed_geometry, stack_tunables,
+                                          system_for)
+    from repro_torch.sweep.grid import batch_geometry_alloc
+
+    # the system, batched trace and tunables run_batch gives the batch
+    sys_ = system_for(points[0], batch_geometry_alloc(points),
+                      mixed_geometry(points), device="cuda")
+    trace_b = stack_traces([build_trace(p, device="cuda") for p in points])
+    tn_b = stack_tunables(points, sys_.p.queue_depth, "cuda")
+    st = sys_.run_chunk_batch(sys_.init_batch(tn_b), trace_b, None, start,
+                              tn_b)
+    out = {}
+    for window in ("timed", "profiled"):
+        c0 = int(st.mem.cycle[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if window == "profiled" else contextlib.nullcontext()) as prof:
+            st = sys_.run_chunk_batch(st, trace_b, None, n, tn_b)
+            torch.cuda.synchronize()
+        out[window] = (time.perf_counter() - t0) * 1e3 / n
+        check(int(st.mem.cycle[0]) == c0 + n,
+              f"profile {label}: {int(st.mem.cycle[0]) - c0} of {n} cycles "
+              "ran (the batch went quiescent)")
+    path = ROOT / "build" / f"chip_smoke_sweep_{label}_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    runtime = [e["name"] for e in events if e.get("cat") == "cuda_runtime"]
+    wall = out["timed"]
+    if not dev:
+        print(f"profile sweep {label}: the trace holds no device activity; "
+              "device busy share not measured")
+        return dict(wall_ms=wall)
+    busy_ms = sum(e["dur"] for e in dev) / 1e3 / n
+    stats = dict(
+        wall_ms=wall, busy_ms=busy_ms, idle=1 - busy_ms / wall,
+        launches=sum(e["cat"] == "kernel" for e in dev) / n,
+        syncs=sum("Synchronize" in e for e in runtime) / n,
+        copies=sum("Memcpy" in e for e in runtime) / n)
+    print(f"profile sweep {label} (B={len(points)}) batched cycles "
+          f"{start}..{start + n}: wall {wall:.3f} ms/cycle "
+          f"({out['profiled']:.3f} under the profiler) = "
+          f"{wall / len(points):.3f} ms per point-cycle, device busy "
+          f"{busy_ms:.3f} ms/cycle (idle {stats['idle']:.1%} of the "
+          f"unprofiled wall), {stats['launches']:.0f} kernel launches, "
+          f"{stats['syncs']:.1f} host syncs and {stats['copies']:.1f} copies "
+          "per batched cycle")
+    return stats
+
+
+def _live_batch(torch, points, states, label) -> None:
+    """``check_live_kernels`` on one batch's sampled card states, with the
+    system and tunables ``run_batch`` gives that batch."""
+    from repro_torch.sweep.engine import (mixed_geometry, stack_tunables,
+                                          system_for)
+    from repro_torch.sweep.grid import batch_geometry_alloc
+
+    sys_ = system_for(points[0], batch_geometry_alloc(points),
+                      mixed_geometry(points), device="cuda")
+    live = check_live_kernels(
+        torch, sys_, stack_tunables(points, sys_.p.queue_depth, "cuda"),
+        states, label)
+    print(f"{label}: {live}")
+
+
+def sweep_phase(torch, sim_single, looped_rate, looped_busy_ms,
+                stream_single, cpu_side):
+    """The point axis on the card against the CPU: (a) paper_fig19's grid
+    through ``run_points``, (b) a seed axis, (c) ``stream_replay_points``
+    at bench_stream's geometry with a kill-and-resume pass, (d) both sim
+    kernels bit for bit on live batched card states of every batch of
+    (a), (b) and (c). ``sim_single`` is the simulate phase's card result
+    of its golden run, ``looped_rate`` its looped cycles/s (drained cycles
+    included), ``looped_busy_ms`` its busy profile window's ms a cycle,
+    ``stream_single`` the stream phase's (a) card result, ``cpu_side`` the
+    ``CpuSide`` worker. Returns each sim kernel's launches over the
+    phase."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.kernels.xor_encode import kernel as ek
+    from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.sweep import partition
+    from repro_torch.sweep.engine import mixed_geometry
+    from repro_torch.traces import stream_replay_points, strip_windows
+
+    gk.launches = ek.launches = 0                   # main path starts here
+    # (a) paper_fig19's 13 points
+    pts = fig19_points()
+    batches = partition(pts)
+    check(len(pts) == 13 and len(batches) == 3,
+          f"sweep (a): {len(pts)} points in {len(batches)} batches, want 13 "
+          "in 3")
+    golden = next(i for i, p in enumerate(pts)
+                  if p.scheme == "scheme_i" and p.alpha == FIG19_GOLDEN[
+                      "alpha"] and p.r == FIG19_GOLDEN["r"])
+    hook = SweepHook(golden, LIVE_EVERY)
+    res, st, secs, calls = _sweep_run(torch, pts, hook)
+    cpu = cpu_side.receive()
+    res_c, st_c, secs_c, calls_c = cpu["a"]
+    st_c = [_as_tensors(torch, h) for h in st_c]
+    check(res == res_c, f"sweep (a): card {res} vs CPU {res_c}")
+    check(all(_same_state(torch, a, b) for a, b in zip(st, st_c)),
+          "sweep (a): final state leaves differ card vs CPU")
+    check(calls == calls_c, f"sweep (a): card calls {calls} vs CPU {calls_c}")
+    check(all(r.completed for r in res), "sweep (a): a point did not drain")
+    check(hook.most[0] <= 1 and hook.most[1] <= 1,
+          f"sweep (a): a batched cycle made {hook.most} launches")
+    for pt, r, want in zip(pts, res, cpu["looped"]):
+        check(r == want, f"sweep (a) {pt.scheme} alpha={pt.alpha} r={pt.r}: "
+              f"batched {r} vs looped {want}")
+    looped_cpu_s = cpu["looped_s"]
+    bad, served = (int(x) for x in (hook.bad, hook.served))
+    check(bad == 0 and served == res[golden].served_reads,
+          f"sweep (a): {bad} of {served} served reads of the golden point "
+          "did not return the committed value")
+    bound = pts[0].resolved_cycles()
+    cyc = [int(st[b.indices[0]].mem.cycle) for b in batches]
+    check(all(hook.cycles[tuple(b.indices)] == c for b, c in
+              zip(batches, cyc)), f"sweep (a): the hook saw {hook.cycles}")
+    n_batched = sum(cyc)
+    point_cycles = sum(len(b) * c for b, c in zip(batches, cyc))
+    for b, c in zip(batches, cyc):
+        key = tuple(b.indices)
+        geometry = "traced" if mixed_geometry(b.points) else "uniform"
+        print(f"sweep (a) batch {list(key)} (B={len(b)}, {geometry} "
+              f"geometry): {c} cycles run against drain_bound {bound}; "
+              f"{hook.secs.get(key, 0.0) / max(c - 1, 1) * 1e3:.3f} ms per "
+              "batched cycle on the host clock (hooks on)")
+    print(f"sweep (a) paper_fig19 ({len(pts)} points, {len(batches)} "
+          f"batches): card {secs:.2f} s for {n_batched} batched cycles = "
+          f"{secs / n_batched * 1e3:.3f} ms per batched cycle, "
+          f"{point_cycles / secs:.0f} point-cycles/s = "
+          f"{secs / point_cycles * 1e3:.3f} ms per point-cycle, against the "
+          f"simulate phase's {looped_rate:.0f} looped cycles/s (drained "
+          f"cycles included; a busy looped cycle {looped_busy_ms:.3f} ms); "
+          f"looped, the grid would run {len(pts)} x {bound} cycles: ~"
+          f"{len(pts) * bound / looped_rate:.0f} s, estimated from that "
+          f"rate, not run; CPU {secs_c:.2f} s of worker CPU time; "
+          f"launches xor_gather {calls[0]}, xor_encode {calls[1]} (at most "
+          f"one each a batched cycle); card = CPU in every field and leaf; "
+          f"each point = looped simulate on the CPU ({looped_cpu_s:.1f} s "
+          "of worker CPU time); "
+          f"all {served} served reads of scheme_i alpha=0.25 r=0.05 "
+          f"returned committed values; switches {[r.switches for r in res]}")
+    # (b) a seed axis: one untraced batch of 8
+    seeds = seed_points(SEED_AXIS)
+    check(len(partition(seeds)) == 1, "sweep (b): the seed axis split")
+    hook_b = SweepHook(-1, LIVE_EVERY)              # no golden point
+    res_b, st_b, secs_b, calls_b = _sweep_run(torch, seeds, hook_b)
+    check(hook_b.most[0] <= 1 and hook_b.most[1] <= 1,
+          f"sweep (b): a batched cycle made {hook_b.most} launches")
+    res_bc, st_bc, _, calls_bc = cpu["b"]
+    st_bc = [_as_tensors(torch, h) for h in st_bc]
+    check(calls_b == calls_bc, f"sweep (b): card calls {calls_b} vs CPU "
+          f"{calls_bc}")
+    check(res_b == res_bc and all(_same_state(torch, a, b) for a, b in
+                                  zip(st_b, st_bc)),
+          f"sweep (b): card {res_b} vs CPU {res_bc}")
+    check(res_b[0] == sim_single,
+          f"sweep (b): seed 0 {res_b[0]} vs the simulate phase's "
+          f"{sim_single}")
+    c_b = int(st_b[0].mem.cycle)
+    print(f"sweep (b) {GOLDEN_RUN[0]} alpha={GOLDEN_RUN[1]} seeds "
+          f"0..{SEED_AXIS - 1} (one batch): {c_b} batched cycles in "
+          f"{secs_b:.2f} s = "
+          f"{secs_b / c_b * 1e3:.3f} ms per batched cycle, "
+          f"{SEED_AXIS * c_b / secs_b:.0f} point-cycles/s; seed 0 equals the "
+          f"simulate phase's card result; card = CPU; cycles to drain "
+          f"{[r.cycles for r in res_b]}; launches {calls_b}")
+    # (c) stream_replay_points at bench_stream's geometry
+    from repro_torch.sim import trace as tr_mod
+    spts = stream_points()
+    src = tr_mod.banded_trace(tr_mod.TraceSpec(**STREAM_TRACE), device="cpu")
+    sbatches = partition(spts)
+    check([b.indices for b in sbatches] == [[0, 1, 2], [3]],
+          f"sweep (c): batches {[b.indices for b in sbatches]}")
+    out_c, samplers = {}, {}
+    for b in sbatches:
+        got, secs_s = {}, {}
+        samplers[tuple(b.indices)] = sampler = CycleSampler(STREAM_LIVE_EVERY)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got["cuda"] = stream_replay_points(b.points, [src] * len(b),
+                                           chunk_len=STREAM_CHUNK,
+                                           device="cuda", on_cycle=sampler)
+        torch.cuda.synchronize()
+        secs_s["cuda"] = time.perf_counter() - t0
+        got["cpu"], secs_s["cpu"] = cpu[("c",) + tuple(b.indices)]
+        check(got["cuda"] == got["cpu"],
+              f"sweep (c) {b.indices}: card {got['cuda']} vs CPU "
+              f"{got['cpu']}")
+        out_c[tuple(b.indices)] = got
+        print(f"sweep (c) stream_replay_points alpha "
+              f"{[spts[i].alpha for i in b.indices]} at chunk {STREAM_CHUNK}"
+              f": card {secs_s['cuda']:.2f} s, CPU {secs_s['cpu']:.2f} s of "
+              "worker CPU time; "
+              f"cycles {[r.cycles for r in got['cuda']]}, windows "
+              f"{[len(r.window_read_latency) for r in got['cuda']]}, "
+              f"switches {[r.switches for r in got['cuda']]}; card = CPU "
+              "(windows included)")
+    sub = out_c[(0, 1, 2)]["cuda"]
+    check(strip_windows(sub[1]) == strip_windows(stream_single),
+          f"sweep (c): alpha 0.25 {sub[1]} vs the stream phase's "
+          f"{stream_single}")
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        b = sbatches[0]
+        kw = dict(chunk_len=STREAM_CHUNK, device="cuda", checkpoint_dir=ckdir,
+                  checkpoint_every=CKPT_EVERY)
+        cut = stream_replay_points(b.points, [src] * len(b),
+                                   max_cycles=CKPT_STOP, **kw)
+        step = latest_step(ckdir)
+        check(step is not None and cut != sub,
+              f"sweep (c): the killed pass left step {step}")
+        resumed = stream_replay_points(b.points, [src] * len(b),
+                                       resume=True, **kw)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    check(resumed == sub, f"sweep (c): resumed {resumed} vs uninterrupted "
+          f"{sub}")
+    print(f"sweep (c) kill-and-resume: stopped at cycle "
+          f"{[r.cycles for r in cut]} with step {step} committed (every "
+          f"{CKPT_EVERY} chunks), resumed to the uninterrupted results, "
+          "windows included; alpha 0.25 equals the stream phase's (a) "
+          "apart from windows")
+    launches = {"xor_gather": gk.launches, "xor_encode": ek.launches}
+    # main path ends here
+    check(all(v > 0 for v in launches.values()),
+          f"sweep: a kernel of the path never launched: {launches}")
+    # (d) the kernels on live batched card states of every batch of (a),
+    # (b) and (c), at the shapes the path gave them
+    for b in batches:
+        _live_batch(torch, b.points, [s_ for bb, s_ in hook.states
+                                      if bb.indices == b.indices],
+                    f"sweep (d) (a) batch {b.indices}")
+    _live_batch(torch, seeds, [s_ for _, s_ in hook_b.states],
+                f"sweep (d) (b) seeds 0..{SEED_AXIS - 1}")
+    for b in sbatches:
+        _live_batch(torch, b.points, samplers[tuple(b.indices)].states,
+                    f"sweep (d) (c) alpha {[spts[i].alpha for i in b.indices]}")
+    # launches per batched cycle and idle share, B = 1, 8, 13 and (a)'s
+    # traced batch, in this call
+    for n in PROFILE_BATCHES:
+        profile_batch(torch, seed_points(n), f"seeds{n}")
+    profile_batch(torch, batches[1].points, "fig19_traced")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1947,6 +2510,14 @@ def main() -> int:
         return 1
     from repro_torch.kernels import build
 
+    cpu_side = CpuSide()
+    try:
+        return _main(torch, build, cpu_side)
+    finally:
+        cpu_side.close()
+
+
+def _main(torch, build, cpu_side) -> int:
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1971,6 +2542,7 @@ def main() -> int:
 
     from repro_torch.configs.base import get_config
 
+    cpu_side.pause()                    # timed phases: the worker waits
     kern = kernel_phase(torch)
     launches, ring_kv = serve_phase(torch)
     serving = [("serving", get_config("qwen2.5-3b").n_heads, ring_kv)]
@@ -1983,14 +2555,19 @@ def main() -> int:
         torch, serving, next(r for r in built if r.name == "coded_kv_decode"))
     del serving, ring_kv, kv
     torch.cuda.empty_cache()
+    cpu_side.resume()                   # untimed phases: the worker runs
     for arch in ("qwen2.5-3b",) + DENSE_ARCHS:
         cross_device_phase(torch, arch)
     kvstate_phase(torch)
+    cpu_side.pause()
     sim_kern = sim_kernel_phase(torch)
-    sim_launches, sim_results = simulate_phase(torch)
-    stream_launches = stream_phase(torch, sim_results[GOLDEN_RUN])
+    sim_launches, sim_results, sim_rate, sim_busy_ms = simulate_phase(torch)
+    stream_launches, stream_single = stream_phase(torch,
+                                                  sim_results[GOLDEN_RUN])
+    sweep_launches = sweep_phase(torch, sim_results[GOLDEN_RUN], sim_rate,
+                                 sim_busy_ms, stream_single, cpu_side)
     print(f"launches by phase: simulate {sim_launches}, stream "
-          f"{stream_launches}")
+          f"{stream_launches}, sweep {sweep_launches}")
 
     main_case = kern["bf16_coded"]
     table = {"kernels": [{
@@ -2016,7 +2593,8 @@ def main() -> int:
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces,
-            "launches": sim_launches[name] + stream_launches[name],
+            "launches": (sim_launches[name] + stream_launches[name]
+                         + sweep_launches[name]),
             "max_abs_err": max(v["max_abs_err"] for (k, _), v in
                                sim_kern.items() if k == name),
             "ms": case["ms"],

@@ -1,0 +1,171 @@
+"""Atomic, asynchronous checkpoints of a tree of tensors and numpy arrays;
+the part of ``repro/checkpoint/checkpoint.py`` that the batched streamed
+replay (``repro_torch.traces.stream_replay_points``) uses.
+
+Layout per step::
+
+    <dir>/step_000123/
+        manifest.json        # leaf paths, shapes, dtypes, step
+        leaves.npz           # every leaf as a numpy array
+    <dir>/step_000123.tmp…   # staging dir, atomically renamed on commit
+
+  * **Atomicity** — a step is written into a fresh staging directory and
+    ``os.replace`` to its final name is the commit point, so a killed
+    writer never leaves a readable half-checkpoint; ``latest_step`` only
+    considers committed directories.
+  * **Async** — ``CheckpointManager.save_async`` copies the leaves to host
+    memory synchronously (a consistent view), then writes on a background
+    thread; ``wait`` joins it and raises what the writer raised.
+
+A tree is nested dicts, tuples, lists and NamedTuples with tensor, array
+or None leaves. ``restore`` rebuilds the structure of a ``like`` tree:
+tensor leaves come back as tensors on the ``like`` leaf's device and in
+its dtype, arrays as arrays.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import tempfile
+import threading
+from typing import Any, Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+_STEP_RE = re.compile(r"^step_(\d{9})$")
+
+
+def _walk(fn: Callable[[str, Any], Any], tree: Any, path: str = "") -> Any:
+    """``tree`` with every tensor or array leaf ``x`` at ``path`` replaced
+    by ``fn(path, x)``."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v, f"{path}/{k}") for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_walk(fn, v, f"{path}/{k}")
+                            for k, v in zip(tree._fields, tree)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_walk(fn, v, f"{path}/{i}")
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    raise TypeError(f"checkpoint leaf {path!r}: unsupported {type(tree)}")
+
+
+def _to_host(tree: Any) -> List[Tuple[str, np.ndarray]]:
+    leaves: List[Tuple[str, np.ndarray]] = []
+
+    def take(path, x):
+        leaves.append((path, x.detach().cpu().numpy().copy()
+                       if isinstance(x, torch.Tensor) else np.array(x)))
+
+    _walk(take, tree)
+    return leaves
+
+
+def _write(step: int, leaves, directory: str) -> str:
+    os.makedirs(directory, exist_ok=True)
+    final = os.path.join(directory, f"step_{step:09d}")
+    tmp = tempfile.mkdtemp(prefix=f"step_{step:09d}.tmp", dir=directory)
+    try:
+        np.savez(os.path.join(tmp, "leaves.npz"),
+                 **{f"leaf_{i:05d}": a for i, (_, a) in enumerate(leaves)})
+        manifest = {"step": step, "names": [n for n, _ in leaves],
+                    "shapes": [list(a.shape) for _, a in leaves],
+                    "dtypes": [str(a.dtype) for _, a in leaves]}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):            # idempotent re-save
+            shutil.rmtree(final)
+        os.replace(tmp, final)               # commit point
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return final
+
+
+def save(step: int, tree: Any, directory: str) -> str:
+    """Blocking save of ``tree`` as step ``step``; returns the committed
+    directory."""
+    return _write(step, _to_host(tree), directory)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """The newest committed step in ``directory``, or None."""
+    if not os.path.isdir(directory):
+        return None
+    steps = [int(m.group(1)) for m in map(_STEP_RE.match,
+                                          os.listdir(directory))
+             if m and os.path.exists(os.path.join(directory, m.group(0),
+                                                  "manifest.json"))]
+    return max(steps) if steps else None
+
+
+def restore(directory: str, like: Any, step: Optional[int] = None) -> Any:
+    """Step ``step`` (default the latest) restored into the structure of
+    ``like``."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {directory}")
+    d = os.path.join(directory, f"step_{step:09d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        names = json.load(f)["names"]
+    with np.load(os.path.join(d, "leaves.npz")) as z:
+        by_name = {n: z[f"leaf_{i:05d}"] for i, n in enumerate(names)}
+
+    def load(path, proto):
+        if path not in by_name:
+            raise KeyError(f"checkpoint {d} has no leaf {path!r}")
+        arr = by_name[path]
+        if isinstance(proto, torch.Tensor):
+            return torch.from_numpy(arr).to(device=proto.device,
+                                            dtype=proto.dtype)
+        return arr.astype(proto.dtype, copy=False)
+
+    return _walk(load, like)
+
+
+class CheckpointManager:
+    """Asynchronous writer with retention of the newest ``keep`` steps. One
+    save in flight at a time: the next save joins the previous first."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save_async(self, step: int, tree: Any) -> None:
+        self.wait()
+        leaves = _to_host(tree)          # a consistent host copy, now
+
+        def work():
+            try:
+                _write(step, leaves, self.directory)
+                self._gc()
+            except BaseException as e:   # re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the save in flight; raise what it raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _gc(self) -> None:
+        steps = sorted(int(m.group(1)) for m in
+                       map(_STEP_RE.match, os.listdir(self.directory)) if m)
+        for s in steps[:-self.keep] if self.keep > 0 else []:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:09d}"),
+                          ignore_errors=True)

@@ -9,6 +9,8 @@ the same nesting, the same ``(d_in, d_out)`` layout (the port computes
 leaves (``jax.device_get(st)``) and returns the port's ``SimState``;
 ``sim_state_to_numpy(st)`` goes back. The field order is the same on both
 sides; the wide (lo, hi) uint32 counter pairs of JAX are int64 in the port.
+Both take one point's state or a batch's (a leading point axis on every
+leaf).
 """
 from __future__ import annotations
 
@@ -57,8 +59,8 @@ def sim_state_from_numpy(host, device) -> SimState:
             continue
         a = np.asarray(a)
         if name in WIDE_FIELDS:
-            lo, hi = (int(x) for x in a.astype(np.uint64))
-            a = np.int64(lo + (hi << 32))
+            w = a.astype(np.int64)
+            a = w[..., 0] + (w[..., 1] << 32)
         leaves[name] = torch.from_numpy(np.array(a)).to(device)
     return SimState(MemState(**leaves), _tensor(host.core_ptr, device),
                     _tensor(host.done_cycle, device))
@@ -74,8 +76,7 @@ def sim_state_to_numpy(st: SimState) -> SimState:
             continue
         a = a.cpu().numpy()
         if name in WIDE_FIELDS:
-            v = int(a)
-            a = np.array([v & 0xFFFFFFFF, v >> 32], np.uint32)
+            a = np.stack([a & 0xFFFFFFFF, a >> 32], -1).astype(np.uint32)
         leaves[name] = a
     return SimState(MemState(**leaves), st.core_ptr.cpu().numpy(),
                     st.done_cycle.cpu().numpy())

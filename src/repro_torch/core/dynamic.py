@@ -10,11 +10,14 @@ cycles; its completion writes the region's parities (the XOR of member
 data banks), validates them and counts one switch. Counts halve each
 period.
 
-The unit's control scalars (cycle, encoder state, the drained flag) are
-read to the host once per call, and only the work a cycle actually has is
-issued: the region encode runs only on the cycle an encode completes, on
-the card through the CUDA ``xor_encode`` kernel. JAX evaluates every
-branch every cycle and selects; the results are identical.
+The unit runs B points lock-step. Their control scalars (cycle, encoder
+state, the drained flag and the tunables the unit reads) are read to the
+host once per call, for the whole batch, and only the work a cycle
+actually has is issued: the region encodes run only on a cycle an encode
+completes, the encodes of every point completing that cycle through one
+``xor_encode`` launch on the card, and a selection reads its candidates
+once for the batch. JAX evaluates every branch every cycle and selects;
+the results are identical.
 """
 from __future__ import annotations
 
@@ -23,9 +26,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.controller import JTables
+from repro_torch.core.controller import JTables, col
 from repro_torch.core.state import (INT32_MAX, MemParams, TunableParams,
-                                    active_geometry)
+                                    active_geometry, active_ints)
 from repro_torch.kernels.xor_encode.ops import encode_parities
 
 
@@ -41,48 +44,47 @@ class DynOut(NamedTuple):
     switches: torch.Tensor
 
 
-def _encode_region_data(p: MemParams, t: JTables, banks_data: torch.Tensor,
-                        parity_data: torch.Tensor, region: int, slot: int,
-                        rs_a: int) -> torch.Tensor:
-    """``parity_data`` with ``slot``'s rows set to the XOR parities of
-    ``region``'s rows (a new tensor). The rows are gathered with the clamped
-    indices of ``repro/core/dynamic.py:63``; lanes at offsets ≥ ``rs_a``
-    write 0."""
+def _encode_regions(p: MemParams, t: JTables, banks_data: torch.Tensor,
+                    parity_data: torch.Tensor, done) -> torch.Tensor:
+    """``parity_data`` (B, n_par, Lp) with each completing point's slot rows
+    set to the XOR parities of its region's rows (a new tensor). ``done``
+    lists (point, region, slot, rs_a) host ints; the rows are gathered with
+    the clamped indices of ``repro/core/dynamic.py:63`` and lanes at offsets
+    >= ``rs_a`` write 0. All points' encodes go through one
+    ``encode_parities`` call."""
     rs = p.region_size
     dev = banks_data.device
     off = torch.arange(rs, device=dev)
-    rows = (int(region) * rs_a + off).clamp(0, p.n_rows - 1)
-    region_rows = banks_data[:, rows][..., None]            # (n_data, rs, 1)
-    vals = encode_parities(region_rows, t.par_members)[..., 0]
-    vals = torch.where(off < rs_a, vals, 0)
-    # dynamic_update_slice clamps the start so the slice fits
-    start = min(max(int(slot), 0) * rs, parity_data.shape[1] - rs)
+    rows = torch.stack([banks_data[b][:, (region * rs_a + off).clamp(
+        0, p.n_rows - 1)] for b, region, _, rs_a in done])  # (C, n_data, rs)
+    vals = encode_parities(rows[..., None], t.par_members)[..., 0]
     out = parity_data.clone()
-    out[:, start:start + rs] = vals
+    for k, (b, _, slot, rs_a) in enumerate(done):
+        # dynamic_update_slice clamps the start so the slice fits
+        start = min(max(slot, 0) * rs, parity_data.shape[2] - rs)
+        out[b, :, start:start + rs] = torch.where(off < rs_a, vals[k], 0)
     return out
 
 
-def priors_layout(p: MemParams, tn, priors, device):
-    """(region_slot, slot_region, parity_valid) on ``device``, pre-mapping
-    profiled hot regions into parity slots: the warm start ``init_state``
-    applies with ``region_priors``.
+def priors_layout(p: MemParams, tn, priors):
+    """(region_slot, slot_region, parity_valid) of one point as numpy
+    arrays, pre-mapping profiled hot regions into parity slots: the warm
+    start ``init_states`` applies with ``region_priors``.
 
     ``priors`` (array, list or tensor) is a ranked array of distinct
     region ids, hottest first, -1 padded
     (``repro_torch.traces.TraceProfile.region_priors`` emits one). The
-    leading entries fill parity slots 0.. up to the slot budget; ids
-    outside the active regions and -1 padding are skipped without shifting
-    later entries. The mapped slots' parity rows are valid: every data
-    bank is zero at init, so the all-zero parity rows are their members'
-    XOR. Built on the host (a few hundred cells, once), as JAX's
-    ``.at[].set`` scatters it, then moved to ``device``."""
+    leading entries fill parity slots 0.. up to the point's slot budget;
+    ids outside its active regions and -1 padding are skipped without
+    shifting later entries. The mapped slots' parity rows are valid: every
+    data bank is zero at init, so the all-zero parity rows are their
+    members' XOR. ``tn`` is the point's python-int tunables (or None).
+    Built on the host (a few hundred cells, once), as JAX's ``.at[].set``
+    scatters it."""
     rs = p.region_size
-    if tn is None:
-        rs_a, nr_a = p.region_size, p.n_regions
-        budget = p.n_active
-    else:
-        rs_a, nr_a = active_geometry(p, tn)
-        budget = min(int(tn.n_slots_active), p.n_active)
+    rs_a, nr_a = active_ints(p, tn)
+    budget = p.n_active if tn is None else min(int(tn.n_slots_active),
+                                                 p.n_active)
     if isinstance(priors, torch.Tensor):
         priors = priors.cpu().numpy()
     pr = np.asarray(priors).astype(np.int32).reshape(-1)
@@ -97,8 +99,7 @@ def priors_layout(p: MemParams, tn, priors, device):
     row = np.arange(p.n_slots * rs)
     active = ok[row // rs] & (row % rs < rs_a)
     parity_valid = np.broadcast_to(active, (p.n_parities, row.size))
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (region_slot[:-1], slot_region, parity_valid))
+    return region_slot[:-1], slot_region, np.ascontiguousarray(parity_valid)
 
 
 def dynamic_step(
@@ -119,76 +120,114 @@ def dynamic_step(
     switches: torch.Tensor,
     quiesce=None,
 ) -> DynOut:
+    """One cycle of the unit for B points: every state input has a leading
+    (B,) axis and ``tn`` is batched (the inputs are not modified)."""
     if p.n_active >= p.n_regions:  # static full coverage: unit disabled
         return DynOut(region_slot, slot_region, access_count, parity_valid,
                       parity_data, enc_region, enc_remaining, enc_slot,
                       switches)
     rs = p.region_size
-    rs_a, nr_a = active_geometry(p, tn)
+    _, nr_a = active_geometry(p, tn)
     dev = region_slot.device
-    no_q = torch.zeros((), dtype=torch.bool, device=dev)
-    cyc, er, erem, es, q = torch.stack([
-        cycle.long(), enc_region.long(), enc_remaining.long(),
-        enc_slot.long(), (no_q if quiesce is None else quiesce).long()
-    ]).tolist()
-
-    # ---- encode in flight
-    in_flight = er >= 0
-    erem = erem - 1 if in_flight else 0
-    if in_flight and erem <= 0:
+    q = torch.zeros_like(cycle) if quiesce is None else quiesce.int()
+    host = torch.stack([cycle, enc_region, enc_remaining, enc_slot, q,
+                        tn.select_period, tn.region_size_active]).T.tolist()
+    enc = [h[1:4] for h in host]                 # (er, erem, es) per point
+    state = [list(e) for e in enc]
+    done, period, select = [], [], []
+    for b, (cyc, er, erem, es, quiet, sp, rsa) in enumerate(host):
+        rs_a = min(rsa, rs) if p.traced_geometry else rs
+        # ---- encode in flight
+        in_flight = er >= 0
+        erem = erem - 1 if in_flight else 0
+        if in_flight and erem <= 0:
+            done.append((b, er, es, rs_a))
+            er = es = -1
+        # ---- periodic selection (none once the workload has drained)
+        period.append(cyc % sp == 0 and cyc > 0)
+        if period[-1] and er < 0 and not quiet:
+            select.append((b, rs_a))
+        state[b] = [er, erem, es]
+    cloned = bool(done)
+    if done:
         # completion: write the parity data, validate rows, install mapping
-        parity_data = _encode_region_data(p, t, banks_data, parity_data, er,
-                                          es, rs_a)
-        s0 = max(es, 0) * rs
+        parity_data = _encode_regions(p, t, banks_data, parity_data, done)
         parity_valid = parity_valid.clone()
-        parity_valid[:, s0:s0 + rs] |= torch.arange(rs, device=dev) < rs_a
         region_slot = region_slot.clone()
         slot_region = slot_region.clone()
-        region_slot[max(er, 0)] = es
-        slot_region[max(es, 0)] = er
-        switches = switches + 1
-        er = es = -1
-
-    # ---- periodic selection (none once the workload has drained)
-    period = cyc % tn.select_period == 0 and cyc > 0
-    if period and er < 0 and not q:
+        switches = switches.clone()
+        off = torch.arange(rs, device=dev)
+        for b, er, es, rs_a in done:
+            s0 = max(es, 0) * rs
+            parity_valid[b, :, s0:s0 + rs] |= off < rs_a
+            region_slot[b, max(er, 0)] = es
+            slot_region[b, max(es, 0)] = er
+            switches[b] += 1
+    if select:
         coded = region_slot >= 0
-        region_active = torch.arange(p.n_regions, device=dev) < nr_a
+        region_active = torch.arange(p.n_regions, device=dev) < col(nr_a)
         cand_counts = torch.where(coded | ~region_active, -1, access_count)
-        cand = cand_counts.argmax(0, True)
+        cand = cand_counts.argmax(1, True)
         evict_counts = torch.where(coded & (parked_count == 0), access_count,
                                    INT32_MAX)
-        victim = evict_counts.argmin(0, True)
-        budget = min(tn.n_slots_active, p.n_active)
+        victim = evict_counts.argmin(1, True)
+        budget = tn.n_slots_active.clamp(max=p.n_active)[:, None]
         free_mask = (slot_region < 0) & (
             torch.arange(p.n_slots, device=dev) < budget)
-        (cand, cand_count, victim, victim_count, has_free, free_slot,
-         vslot) = torch.cat([
-             cand, cand_counts[cand].long(), victim,
-             evict_counts[victim].long(), free_mask.any().long().view(1),
-             free_mask.int().argmax(0, True), region_slot[victim].long()
-         ]).tolist()
-        start_free = has_free and cand_count > 0
-        start_evict = (not has_free and cand_count > victim_count
-                       and victim_count < INT32_MAX)
-        vslot = max(vslot, 0)
-        if start_evict:
-            # clear the victim's slot and validity (whole allocated stride)
-            parity_valid = parity_valid.clone()
-            parity_valid[:, vslot * rs:vslot * rs + rs] = False
-            region_slot = region_slot.clone()
-            slot_region = slot_region.clone()
-            region_slot[victim] = -1
-            slot_region[vslot] = -1
-        if start_free or start_evict:
-            er = cand
-            es = vslot if start_evict else free_slot
-            erem = max(1, rs_a // p.encode_rows_per_cycle)
-    if period:
-        access_count = access_count // 2      # windowed counts decay
-
-    def scalar(v):
-        return torch.full((), v, dtype=torch.int32, device=dev)
-
+        rows = torch.cat([
+            cand, cand_counts.gather(1, cand).long(), victim,
+            evict_counts.gather(1, victim).long(),
+            free_mask.any(1, True).long(), free_mask.int().argmax(1, True),
+            region_slot.gather(1, victim).long()], 1).tolist()
+        for b, rs_a in select:
+            (cand_b, cand_count, victim_b, victim_count, has_free,
+             free_slot, vslot) = rows[b]
+            start_free = has_free and cand_count > 0
+            start_evict = (not has_free and cand_count > victim_count
+                           and victim_count < INT32_MAX)
+            vslot = max(vslot, 0)
+            if start_evict:
+                # clear the victim's slot and validity (whole allocated
+                # stride)
+                if not cloned:
+                    parity_valid = parity_valid.clone()
+                    region_slot = region_slot.clone()
+                    slot_region = slot_region.clone()
+                    cloned = True
+                parity_valid[b, :, vslot * rs:vslot * rs + rs] = False
+                region_slot[b, victim_b] = -1
+                slot_region[b, vslot] = -1
+            if start_free or start_evict:
+                state[b] = [cand_b, max(1, rs_a // p.encode_rows_per_cycle),
+                            vslot if start_evict else free_slot]
+    if any(period):
+        # windowed counts decay
+        if all(period):
+            access_count = access_count // 2
+        else:
+            per = _to_device(period, torch.bool, dev)
+            access_count = torch.where(per[:, None], access_count // 2,
+                                       access_count)
+    if state != enc:
+        cols = [_ints([s[k] for s in state], dev) for k in range(3)]
+        enc_region, enc_remaining, enc_slot = cols
     return DynOut(region_slot, slot_region, access_count, parity_valid,
-                  parity_data, scalar(er), scalar(erem), scalar(es), switches)
+                  parity_data, enc_region, enc_remaining, enc_slot, switches)
+
+
+def _ints(values, device) -> torch.Tensor:
+    """(B,) int32 tensor of host ints on ``device``: a fill when they are
+    all equal, else one copy."""
+    if all(v == values[0] for v in values):
+        return torch.full((len(values),), values[0], dtype=torch.int32,
+                          device=device)
+    return _to_device(values, torch.int32, device)
+
+
+def _to_device(values, dtype, device) -> torch.Tensor:
+    """Host values as a tensor on ``device``; on the card an asynchronous
+    copy from pinned memory (a plain copy would synchronise the stream)."""
+    host = torch.tensor(values, dtype=dtype)
+    if torch.device(device).type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)

@@ -12,22 +12,30 @@ Dynamic coding (§IV-E) groups rows into ``n_regions`` regions of
 ``region_size`` rows; ``region_slot[g]`` maps region ``g`` to a parity slot
 (or -1), giving parity row ``region_slot[i // rs] * rs + i % rs``.
 
+The point axis. The cycle engine runs B points lock-step: every leaf of
+a batched ``MemState`` has a leading (B,) axis (where JAX ``vmap``s the
+unbatched state), and a batched ``TunableParams`` holds (B,) int32
+tensors (``batch_tunables``). A single point is a batch of one
+(``batch_of_one`` / ``point_of`` move between the two forms as views).
+
+A sweep group may pad its region and parity state to the group maxima
+(``make_params``' ``*_alloc`` arguments) and run each point at its own
+traced geometry (``traced_geometry``, ``active_geometry``), as JAX does.
+
 Differences from the JAX state, all of representation only:
 
   * the wide statistics (``read_latency_sum``, ``write_latency_sum``,
-    ``stall_cycles``) are native 0-d ``int64`` tensors where JAX keeps
+    ``stall_cycles``) are native ``int64`` tensors where JAX keeps
     (lo, hi) uint32 limb pairs; ``repro_torch.convert`` maps between them;
-  * ``TunableParams`` holds python ints: the port runs one point at a time.
+  * an unbatched ``TunableParams`` holds python ints.
 
-This slice carries no telemetry planes, no fault schedule and no traced
-(padded) geometry: those flags and fault plans raise
-``NotImplementedError``, the ``tele``/``fault`` leaves stay ``None``, and
-``make_params`` takes none of the padded-allocation arguments the JAX sweep
-engine passes.
+This slice carries no telemetry planes and no fault schedule: those flags
+and fault plans raise ``NotImplementedError`` and the ``tele``/``fault``
+leaves stay ``None``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -60,7 +68,10 @@ class MemParams(NamedTuple):
 
 
 class TunableParams(NamedTuple):
-    """Per-point scalar knobs (python ints)."""
+    """Per-point scalar knobs: python ints for one point, (B,) int32
+    tensors for a batch (``batch_tunables``). The ``*_active`` fields carry
+    a point's own geometry inside a padded allocation; INT32_MAX clamps to
+    the allocation."""
 
     select_period: int
     wq_hi: int
@@ -91,10 +102,55 @@ def make_tunables(
     )
 
 
+def batch_tunables(tns: Sequence[TunableParams], device) -> TunableParams:
+    """Stack per-point tunables (python ints) into one batched
+    ``TunableParams`` of (B,) int32 tensors on ``device``."""
+    cols = torch.tensor([list(tn) for tn in tns], dtype=torch.int32)
+    return TunableParams(*cols.T.contiguous().to(device).unbind(0))
+
+
 def active_geometry(p: MemParams, tn: TunableParams):
-    """(region_size_active, n_regions_active): the allocation itself, since
-    the port has no traced (padded sweep) geometry yet."""
-    return p.region_size, p.n_regions
+    """(region_size_active, n_regions_active) of each point.
+
+    Without ``p.traced_geometry`` these are the allocation's python ints
+    (the ``*_active`` tunables then equal it by construction). With it they
+    are (B,) tensors ``min(tn.*_active, alloc)`` of a batched ``tn``. Parity
+    rows always keep the *allocated* slot stride: row ``i`` of a slot lives
+    at ``slot * p.region_size + i % region_size_active``."""
+    if not p.traced_geometry:
+        return p.region_size, p.n_regions
+    return (tn.region_size_active.clamp(max=p.region_size),
+            tn.n_regions_active.clamp(max=p.n_regions))
+
+
+def active_ints(p: MemParams, tn: Optional[TunableParams]):
+    """``active_geometry`` of one point with python-int tunables, on the
+    host: (region_size_active, n_regions_active)."""
+    if tn is None or not p.traced_geometry:
+        return p.region_size, p.n_regions
+    return (min(int(tn.region_size_active), p.region_size),
+            min(int(tn.n_regions_active), p.n_regions))
+
+
+def _map(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        leaves = (_map(fn, x) for x in tree)
+        return type(tree)(*leaves) if hasattr(tree, "_fields") \
+            else tuple(leaves)
+    return tree                          # None, python scalars
+
+
+def batch_of_one(tree):
+    """Every tensor leaf of ``tree`` (nested NamedTuples) with a leading
+    point axis of 1 (views)."""
+    return _map(lambda x: x[None], tree)
+
+
+def point_of(tree, b: int):
+    """Point ``b`` of a batched tree (views)."""
+    return _map(lambda x: x[b], tree)
 
 
 def derive_geometry(n_rows: int, alpha: float, r: float):
@@ -117,12 +173,19 @@ def make_params(
     encode_rows_per_cycle: int = 64,
     recode_budget: int = 4,
     coalesce: bool = True,
+    n_slots_alloc: Optional[int] = None,
+    region_size_alloc: Optional[int] = None,
+    n_regions_alloc: Optional[int] = None,
     traced_geometry: bool = False,
     telemetry: bool = False,
     faults: bool = False,
 ) -> MemParams:
-    for flag, name in ((traced_geometry, "traced_geometry"),
-                       (telemetry, "telemetry"), (faults, "faults")):
+    """Static geometry of one (scheme, n_rows, α, r) point. The ``*_alloc``
+    arguments pad the region and parity state to a sweep group's maxima
+    (each at least the derived value; ``n_slots_alloc`` must not change
+    full-coverage status); ``traced_geometry`` makes region indexing use
+    each point's ``TunableParams.*_active`` geometry."""
+    for flag, name in ((telemetry, "telemetry"), (faults, "faults")):
         if flag:
             raise NotImplementedError(f"make_params({name}=True) is not "
                                       "ported yet")
@@ -131,8 +194,29 @@ def make_params(
             f"max_syms={max_syms} < n_ports={tables.n_ports}: the symbol "
             "capacity must cover the per-cycle port-claim bound")
     region_size, n_regions, n_slots = derive_geometry(n_rows, alpha, r)
+    full = n_slots >= n_regions
+    if region_size_alloc is not None:
+        if region_size_alloc < region_size:
+            raise ValueError(f"region_size_alloc={region_size_alloc} < "
+                             f"derived region_size={region_size}")
+        region_size = region_size_alloc
+    if n_regions_alloc is not None:
+        if n_regions_alloc < n_regions:
+            raise ValueError(f"n_regions_alloc={n_regions_alloc} < "
+                             f"derived n_regions={n_regions}")
+        n_regions = n_regions_alloc
     # ⌊α/r⌋ active regions, as in the paper's §V-C experiments
     n_active = n_slots
+    if n_slots_alloc is not None:
+        if n_slots_alloc < n_slots:
+            raise ValueError(
+                f"n_slots_alloc={n_slots_alloc} < derived n_slots={n_slots}")
+        if (n_slots_alloc >= n_regions) != full:
+            raise ValueError(
+                "n_slots_alloc must not change full-coverage status "
+                f"(alloc {n_slots_alloc}, derived {n_slots}, regions "
+                f"{n_regions})")
+        n_slots = n_active = n_slots_alloc
     return MemParams(
         n_data=tables.n_data,
         n_parities=max(tables.n_parities, 1),
@@ -148,11 +232,14 @@ def make_params(
         recode_budget=recode_budget,
         coalesce=coalesce if tables.n_parities > 0 else False,
         encode_rows_per_cycle=encode_rows_per_cycle,
+        traced_geometry=traced_geometry,
     )
 
 
 class MemState(NamedTuple):
-    """Dynamic controller state; the field order of the JAX ``MemState``."""
+    """Dynamic controller state; the field order of the JAX ``MemState``.
+    The shapes are one point's; a batched state has a leading (B,) axis on
+    every leaf."""
 
     fresh_loc: torch.Tensor      # (n_data, L) int32
     parity_valid: torch.Tensor   # (n_par, n_slots * rs) bool
@@ -197,61 +284,98 @@ WIDE_FIELDS = ("read_latency_sum", "write_latency_sum", "stall_cycles")
 def init_state(p: MemParams, tn: Optional[TunableParams] = None,
                region_priors=None, n_cores: int = 8, fault_plan=None,
                device="cpu") -> MemState:
-    """Initial controller state on ``device`` (``n_cores`` only sized the
-    telemetry planes in JAX and is unused here). ``region_priors`` (a
-    sub-coverage system only) is a ranked array of hot region ids, -1
-    padded, pre-mapped into parity slots (``dynamic.priors_layout``)."""
+    """One point's initial controller state on ``device``: ``init_states``
+    on a batch of one (``n_cores`` only sized the telemetry planes in JAX
+    and is unused here)."""
     if fault_plan is not None:
         raise NotImplementedError("fault plans are not ported yet")
-    if tn is not None:
-        for v, alloc, name in ((tn.region_size_active, p.region_size,
-                                "region_size_active"),
-                               (tn.n_regions_active, p.n_regions,
-                                "n_regions_active")):
-            if int(v) not in (alloc, INT32_MAX):
-                raise ValueError(
-                    f"TunableParams.{name}={int(v)} differs from the "
-                    f"allocation ({alloc}) and traced geometry is not ported")
+    tn_b = batch_tunables([tn if tn is not None else make_tunables()],
+                          device)
+    pri = None if region_priors is None else [region_priors]
+    return point_of(init_states(p, tn_b, pri, device), 0)
+
+
+def init_states(p: MemParams, tn: TunableParams, region_priors=None,
+                device="cpu") -> MemState:
+    """Initial controller states of a batch of points on ``device``; ``tn``
+    is batched (``batch_tunables``). Each point's active geometry shapes its
+    region map and parity validity inside the allocation: padded regions
+    and slots stay unmapped (-1) and padded parity rows invalid, so a padded
+    point equals an exactly allocated one. ``region_priors`` (a
+    sub-coverage system only) is a (B, K) ranked array of hot region ids,
+    -1 padded, pre-mapped into each point's parity slots
+    (``dynamic.priors_layout``)."""
     dev = torch.device(device)
+    host = torch.stack(list(tn)).T.tolist()        # (B, 6) python ints
+    B = len(host)
+    tns = [TunableParams(*h) for h in host]
+    if not p.traced_geometry:
+        for tnp in tns:
+            for v, alloc, name in ((tnp.region_size_active, p.region_size,
+                                    "region_size_active"),
+                                   (tnp.n_regions_active, p.n_regions,
+                                    "n_regions_active")):
+                if v not in (alloc, INT32_MAX):
+                    raise ValueError(
+                        f"TunableParams.{name}={v} differs from the "
+                        f"allocation ({alloc}) but the system was built "
+                        "without make_params(traced_geometry=True)")
     i32 = dict(dtype=torch.int32, device=dev)
     n_slot_rows = p.n_slots * p.region_size
-    if p.n_active >= p.n_regions:
+    if p.n_active >= p.n_regions and not p.traced_geometry:
         # static full coverage: identity region->slot map, all parities valid
-        region_slot = torch.arange(p.n_regions, **i32)
-        slot_region = torch.arange(p.n_slots, **i32)
-        parity_valid = torch.ones((p.n_parities, n_slot_rows), dtype=torch.bool,
-                                  device=dev)
+        region_slot = torch.arange(p.n_regions, **i32).expand(B, -1)
+        slot_region = torch.arange(p.n_slots, **i32).expand(B, -1)
+        parity_valid = torch.ones((B, p.n_parities, n_slot_rows),
+                                  dtype=torch.bool, device=dev)
+    elif p.n_active >= p.n_regions:
+        # the same inside a padded allocation: each point's own regions
+        rs_a, nr_a = torch.tensor([active_ints(p, t) for t in tns],
+                                  **i32).T[..., None]
+        rid = torch.arange(p.n_regions, **i32)
+        region_slot = torch.where(rid < nr_a, rid, -1)
+        sid = torch.arange(p.n_slots, **i32)
+        slot_region = torch.where(sid < nr_a, sid, -1)
+        row = torch.arange(n_slot_rows, **i32)
+        # the storage layout at the allocated stride
+        active = (row // p.region_size < nr_a) & (row % p.region_size < rs_a)
+        parity_valid = active[:, None].expand(B, p.n_parities,
+                                              n_slot_rows).contiguous()
     elif region_priors is not None:
         from repro_torch.core.dynamic import priors_layout
-        region_slot, slot_region, parity_valid = priors_layout(
-            p, tn, region_priors, dev)
+        if isinstance(region_priors, torch.Tensor):
+            region_priors = region_priors.cpu().numpy()
+        layouts = [priors_layout(p, t, pr) for t, pr in
+                   zip(tns, region_priors)]
+        region_slot, slot_region, parity_valid = (
+            torch.from_numpy(np.stack(a)).to(dev) for a in zip(*layouts))
     else:
-        region_slot = torch.full((p.n_regions,), -1, **i32)
-        slot_region = torch.full((p.n_slots,), -1, **i32)
-        parity_valid = torch.zeros((p.n_parities, n_slot_rows),
+        region_slot = torch.full((B, p.n_regions), -1, **i32)
+        slot_region = torch.full((B, p.n_slots), -1, **i32)
+        parity_valid = torch.zeros((B, p.n_parities, n_slot_rows),
                                    dtype=torch.bool, device=dev)
 
     def z():
-        return torch.zeros((), **i32)
+        return torch.zeros((B,), **i32)
 
     def wide():
-        return torch.zeros((), dtype=torch.int64, device=dev)
+        return torch.zeros((B,), dtype=torch.int64, device=dev)
 
-    nq = (p.n_data, p.queue_depth)
+    nq = (B, p.n_data, p.queue_depth)
     return MemState(
-        fresh_loc=torch.zeros((p.n_data, p.n_rows), **i32),
+        fresh_loc=torch.zeros((B, p.n_data, p.n_rows), **i32),
         parity_valid=parity_valid,
-        region_slot=region_slot,
-        slot_region=slot_region,
-        access_count=torch.zeros((p.n_regions,), **i32),
-        parked_count=torch.zeros((p.n_regions,), **i32),
-        enc_region=torch.full((), -1, **i32),
+        region_slot=region_slot.contiguous(),
+        slot_region=slot_region.contiguous(),
+        access_count=torch.zeros((B, p.n_regions), **i32),
+        parked_count=torch.zeros((B, p.n_regions), **i32),
+        enc_region=torch.full((B,), -1, **i32),
         enc_remaining=z(),
-        enc_slot=torch.full((), -1, **i32),
+        enc_slot=torch.full((B,), -1, **i32),
         switches=z(),
-        rc_bank=torch.full((p.recode_cap,), -1, **i32),
-        rc_row=torch.full((p.recode_cap,), -1, **i32),
-        rc_valid=torch.zeros((p.recode_cap,), dtype=torch.bool, device=dev),
+        rc_bank=torch.full((B, p.recode_cap), -1, **i32),
+        rc_row=torch.full((B, p.recode_cap), -1, **i32),
+        rc_valid=torch.zeros((B, p.recode_cap), dtype=torch.bool, device=dev),
         rq_row=torch.full(nq, -1, **i32),
         rq_age=torch.full(nq, INT32_MAX, **i32),
         rq_valid=torch.zeros(nq, dtype=torch.bool, device=dev),
@@ -259,11 +383,11 @@ def init_state(p: MemParams, tn: Optional[TunableParams] = None,
         wq_age=torch.full(nq, INT32_MAX, **i32),
         wq_valid=torch.zeros(nq, dtype=torch.bool, device=dev),
         wq_data=torch.zeros(nq, **i32),
-        write_mode=torch.zeros((), dtype=torch.bool, device=dev),
+        write_mode=torch.zeros((B,), dtype=torch.bool, device=dev),
         cycle=z(),
-        banks_data=torch.zeros((p.n_data, p.n_rows), **i32),
-        parity_data=torch.zeros((p.n_parities, n_slot_rows), **i32),
-        golden=torch.zeros((p.n_data, p.n_rows), **i32),
+        banks_data=torch.zeros((B, p.n_data, p.n_rows), **i32),
+        parity_data=torch.zeros((B, p.n_parities, n_slot_rows), **i32),
+        golden=torch.zeros((B, p.n_data, p.n_rows), **i32),
         served_reads=z(),
         served_writes=z(),
         degraded_reads=z(),

@@ -13,43 +13,58 @@ One ``cycle_fn`` call is one memory clock cycle (paper Fig 2 / §IV):
   4. ReCoding unit; 5. dynamic coding unit (region encodes through the
      ``xor_encode`` kernel).
 
+The point axis. ``cycle_batch`` advances B points lock-step: every state
+leaf and trace field has a leading (B,) axis and the tunables are batched
+(``state.batch_tunables``), where JAX ``vmap``s ``cycle_fn``. A batched
+cycle makes about the launches of one point's cycle, whatever B is: one
+``xor_gather`` launch serves every point's reads and one ``xor_encode``
+launch every region encode. ``cycle_fn``, ``run``, ``run_chunk`` and
+``init`` are one point's: the batched code on a batch of one.
+
 ``run`` executes exactly ``n_cycles`` cycles, as JAX's ``lax.scan`` does,
-so final states compare leaf for leaf. ``run_chunk`` advances a state over
-one staged chunk of a longer stream and leaves its loop early (starved,
-quiescent or out of budget), as JAX's ``lax.while_loop`` does: the device
-half of ``repro_torch.traces.stream_replay``.
+so final states compare leaf for leaf. ``run_chunk_batch`` advances B
+points over one staged chunk (or a whole trace) and leaves its loop early
+(one point starved, every point quiescent, or out of budget), as JAX's
+``lax.while_loop`` does: the device half of the sweep engine
+(``repro_torch.sweep``) and of streamed replay (``repro_torch.traces``).
 
 Eager execution, and how it stays bit-identical to JAX: JAX runs both
 builders every cycle (the off-duty one on masked-invalid candidates) and
-selects, for ``vmap``'s sake; here one host read of ``serve_writes`` picks
-the branch and only that one runs — the selected branch sees exactly the
-candidates JAX's would, so the results are the same. Scatters that JAX
-does with ``mode="drop"`` go through flat buffers with one trailing sink
-entry that is sliced off (``_set_flat``); scatters with duplicate indices
-only ever write one value per cell apart from the sink.
+selects per point, for ``vmap``'s sake; here one host read of the batch's
+``serve_writes`` picks the branches. When every point writes only the
+write builder runs, when every point reads only the read builder, and
+when they disagree both run on masked candidates and each point takes
+its own branch's result, as JAX does. Each branch sees exactly the
+candidates JAX's would, so the results are the same (and a batch of one
+runs one branch). Scatters that JAX does with ``mode="drop"`` go through
+flat buffers with one trailing sink entry that is sliced off
+(``_set_flat``); scatters with duplicate indices only ever write one value
+per cell apart from the sink.
 
-Not ported in this slice: telemetry, faults and traced geometry (they
-raise).
+Not ported in this slice: telemetry and faults (they raise).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import controller as ctl
 from repro_torch.core.codes import MAX_OPTS, CodeTables
+from repro_torch.core.controller import add_offset, col, point_offsets
 from repro_torch.core.dynamic import dynamic_step
-from repro_torch.core.recoding import recode_step
+from repro_torch.core.recoding import recode_steps
 from repro_torch.core.state import (INT32_MAX, MemParams, MemState,
                                     TunableParams, active_geometry,
-                                    init_state, make_tunables)
+                                    batch_of_one, batch_tunables,
+                                    init_states, make_tunables, point_of)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.xor_gather.ops import gather_decode, plan_columns
 
 
 class Trace(NamedTuple):
-    """Per-core request streams. Invalid entries are idle cycles."""
+    """Per-core request streams. Invalid entries are idle cycles. A batch
+    of B points' traces has a leading (B,) axis."""
 
     bank: torch.Tensor      # (n_cores, T) int32
     row: torch.Tensor       # (n_cores, T) int32
@@ -72,7 +87,9 @@ class SimState(NamedTuple):
 
 
 def quiescent(st: SimState) -> torch.Tensor:
-    """Workload drained, encoder idle, recode ring empty."""
+    """Workload drained, encoder idle, recode ring empty: after it every
+    cycle is an observable no-op, which makes every early exit equal to
+    running the bound out. One point's 0-d flag, or (B,) for a batch."""
     m = st.mem
     return ((st.done_cycle >= 0) & (m.enc_region < 0)
             & ~m.rc_valid.any(-1))
@@ -109,25 +126,25 @@ class SimResult(NamedTuple):
     dead_bank_cycles: int = 0
 
 
-def result_from_host(m: MemState, done_cycle) -> SimResult:
-    """One point's SimResult from a MemState (host or device leaves)."""
-    dc = int(done_cycle)
-    sr = int(m.served_reads)
-    sw = int(m.served_writes)
-    return SimResult(
-        cycles=dc if dc >= 0 else int(m.cycle),
-        completed=dc >= 0,
-        served_reads=sr,
-        served_writes=sw,
-        degraded_reads=int(m.degraded_reads),
-        parked_writes=int(m.parked_writes),
-        switches=int(m.switches),
-        recode_backlog=int(m.rc_valid.sum()),
-        stall_cycles=int(m.stall_cycles),
-        avg_read_latency=int(m.read_latency_sum) / max(sr, 1),
-        avg_write_latency=int(m.write_latency_sum) / max(sw, 1),
-        rc_dropped=int(m.rc_dropped),
-    )
+def summarize_batch(st: SimState,
+                    n_points: Optional[int] = None) -> List[SimResult]:
+    """A batched SimState's per-point SimResults, with one device-to-host
+    copy (``n_points`` keeps the first points only)."""
+    m = st.mem
+    rows = torch.stack([
+        st.done_cycle.long(), m.cycle.long(), m.served_reads.long(),
+        m.served_writes.long(), m.degraded_reads.long(),
+        m.parked_writes.long(), m.switches.long(), m.rc_valid.sum(-1),
+        m.stall_cycles, m.read_latency_sum, m.write_latency_sum,
+        m.rc_dropped.long()], 1)[:n_points].tolist()
+    return [SimResult(
+        cycles=dc if dc >= 0 else cyc, completed=dc >= 0,
+        served_reads=sr, served_writes=sw, degraded_reads=deg,
+        parked_writes=pw, switches=swi, recode_backlog=rc,
+        stall_cycles=stall, avg_read_latency=rl / max(sr, 1),
+        avg_write_latency=wl / max(sw, 1), rc_dropped=drop)
+        for (dc, cyc, sr, sw, deg, pw, swi, rc, stall, rl, wl, drop)
+        in rows]
 
 
 def _set_flat(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
@@ -157,84 +174,122 @@ class CodedMemorySystem:
         self._bank_ids = torch.arange(p.n_data, dtype=torch.int32,
                                       device=dev).repeat_interleave(
                                           p.queue_depth)
-        self._port_busy0 = torch.zeros((p.n_ports + 1,), dtype=torch.bool,
-                                       device=dev)
         self._cores = torch.arange(n_cores, device=dev)
         self._older = torch.ones((n_cores, n_cores), dtype=torch.bool,
                                  device=dev).tril(-1)
+        self._port_busy0 = {}
+
+    def _idle_ports(self, B: int) -> torch.Tensor:
+        """(B, n_ports + 1) idle port mask (read only, kept per B)."""
+        pb = self._port_busy0.get(B)
+        if pb is None:
+            pb = self._port_busy0[B] = torch.zeros(
+                (B, self.p.n_ports + 1), dtype=torch.bool, device=self.device)
+        return pb
+
+    def batch_tunables(self, tn: Optional[TunableParams] = None
+                       ) -> TunableParams:
+        """One point's tunables (default the system's) as a batch of one."""
+        return batch_tunables([tn if tn is not None else self.tunables],
+                              self.device)
 
     # ------------------------------------------------------------------ init
     def init(self, tn: Optional[TunableParams] = None, region_priors=None,
              fault_plan=None) -> SimState:
+        """One point's initial state (``init_batch`` on a batch of one;
+        without ``tn`` the allocation is the geometry, as in JAX)."""
+        if fault_plan is not None:
+            raise NotImplementedError("fault plans are not ported yet")
+        pri = None if region_priors is None else [region_priors]
+        tn_b = batch_tunables([tn if tn is not None else make_tunables()],
+                              self.device)
+        return point_of(self.init_batch(tn_b, pri), 0)
+
+    def init_batch(self, tn: TunableParams, region_priors=None) -> SimState:
+        """Initial states of a batch of points (``tn`` batched); each
+        point's active geometry masks the shared allocation, and
+        ``region_priors`` (B, K) warm-starts each point's dynamic coding
+        unit (see ``state.init_states``)."""
         dev = self.device
+        mem = init_states(self.p, tn, region_priors, dev)
+        B = mem.cycle.shape[0]
         return SimState(
-            mem=init_state(self.p, tn, region_priors=region_priors,
-                           n_cores=self.n_cores, fault_plan=fault_plan,
-                           device=dev),
-            core_ptr=torch.zeros((self.n_cores,), dtype=torch.int32,
+            mem=mem,
+            core_ptr=torch.zeros((B, self.n_cores), dtype=torch.int32,
                                  device=dev),
-            done_cycle=torch.full((), -1, dtype=torch.int32, device=dev),
+            done_cycle=torch.full((B,), -1, dtype=torch.int32, device=dev),
         )
 
     # --------------------------------------------------------------- arbiter
-    def _arbiter(self, st: SimState, trace: Trace, rs_a: int,
+    def _arbiter(self, st: SimState, trace: Trace, rs_a,
                  stream_end=None) -> SimState:
         """Push each core's pending request into its destination queue;
         cores rank within their destination queue by core index, and the
         first ``rank`` free slots of a queue go to the first ``rank``
-        ranked cores (the JAX arbiter's vectorized rule).
+        ranked cores (the JAX arbiter's vectorized rule), for every point.
 
-        ``stream_end`` (chunked replay): each core's count of staged
+        ``stream_end`` (chunked replay): (B, n_cores) counts of staged
         requests, INT32_MAX for "more behind this chunk"; ``None`` makes
         the trace length every core's end (single-shot). A pointer at or
         past the end reads a clamped cell, which ``in_range`` masks."""
         p = self.p
         m = st.mem
-        tlen = trace.bank.shape[1]
+        B = st.core_ptr.shape[0]
+        dev = st.core_ptr.device
+        tlen = trace.bank.shape[-1]
         pos = st.core_ptr
         in_range = pos < (tlen if stream_end is None else stream_end)
-        pc = pos.clamp(max=tlen - 1)
-        v = trace.valid[self._cores, pc] & in_range
-        b = trace.bank[self._cores, pc].long().clamp(min=0)
-        i = trace.row[self._cores, pc].clamp(min=0)
-        isw = trace.is_write[self._cores, pc]
-        payload = trace.data[self._cores, pc]
+        pc = pos.clamp(max=tlen - 1).long()[..., None]
 
-        same_bank = b[:, None] == b[None, :]
+        def at(x):
+            return x.gather(2, pc)[..., 0]
+
+        v = at(trace.valid) & in_range
+        b = at(trace.bank).long().clamp(min=0)
+        i = at(trace.row).clamp(min=0)
+        isw = at(trace.is_write)
+        payload = at(trace.data)
+
+        same_bank = b[:, :, None] == b[:, None, :]
         want_r = v & ~isw
         want_w = v & isw
-        rank_r = (same_bank & self._older & want_r[None, :]).sum(1)
-        rank_w = (same_bank & self._older & want_w[None, :]).sum(1)
-        free_r = (~m.rq_valid).sum(1)
-        free_w = (~m.wq_valid).sum(1)
-        full = torch.where(isw, rank_w >= free_w[b], rank_r >= free_r[b])
+        rank_r = (same_bank & self._older & want_r[:, None, :]).sum(2)
+        rank_w = (same_bank & self._older & want_w[:, None, :]).sum(2)
+        free_r = (~m.rq_valid).sum(2)
+        free_w = (~m.wq_valid).sum(2)
+        full = torch.where(isw, rank_w >= free_w.gather(1, b),
+                           rank_r >= free_r.gather(1, b))
         push = v & ~full
 
         dq = p.queue_depth
-        sink = p.n_data * dq
+        sink = B * p.n_data * dq
+        cell0 = add_offset(b * dq, point_offsets(B, p.n_data * dq, dev))
+        arange_dq = torch.arange(dq, device=dev).expand(B, p.n_data, dq)
 
         def target(valid, rank, mask):
             """Flat queue cell of each pushing core (the rank-th free slot of
             its bank's queue), the sink for the others."""
             fr = ~valid
-            free_rank = fr.cumsum(1) - 1
-            slot_of = torch.full((p.n_data, dq + 1), dq, dtype=torch.int64,
-                                 device=valid.device)
-            slot_of.scatter_(1, torch.where(fr, free_rank, dq),
-                             torch.arange(dq, device=valid.device).expand(
-                                 p.n_data, dq))
-            slot = slot_of[b, rank.clamp(max=dq - 1)]
-            return torch.where(mask, b * dq + slot, sink)
+            free_rank = fr.cumsum(2) - 1
+            slot_of = torch.full((B, p.n_data, dq + 1), dq, dtype=torch.int64,
+                                 device=dev)
+            slot_of.scatter_(2, torch.where(fr, free_rank, dq), arange_dq)
+            slot = slot_of.flatten(1).gather(
+                1, b * (dq + 1) + rank.clamp(max=dq - 1))
+            return torch.where(mask, cell0 + slot, sink)
 
         fr_ = target(m.rq_valid, rank_r, push & ~isw)
         fw_ = target(m.wq_valid, rank_w, push & isw)
-        cyc = m.cycle.expand(self.n_cores)
-        true = torch.ones((), dtype=torch.bool, device=b.device)
-        access = torch.cat([m.access_count, m.access_count.new_zeros(1)])
+        cyc = m.cycle[:, None].expand(B, self.n_cores)
+        true = torch.ones((), dtype=torch.bool, device=dev)
+        n_regions = m.access_count.shape[1]
+        access = torch.cat([m.access_count.flatten(),
+                            m.access_count.new_zeros(1)])
         access.index_put_(
-            (torch.where(push, i.long() // rs_a, p.n_regions),),
-            torch.ones((), dtype=torch.int32, device=b.device),
-            accumulate=True)
+            (torch.where(push, add_offset(i.long() // col(rs_a),
+                                    point_offsets(B, n_regions, dev)),
+                         B * n_regions),),
+            torch.ones((), dtype=torch.int32, device=dev), accumulate=True)
         mem = m._replace(
             rq_row=_set_flat(m.rq_row, fr_, i),
             rq_age=_set_flat(m.rq_age, fr_, cyc),
@@ -243,38 +298,44 @@ class CodedMemorySystem:
             wq_age=_set_flat(m.wq_age, fw_, cyc),
             wq_valid=_set_flat(m.wq_valid, fw_, true),
             wq_data=_set_flat(m.wq_data, fw_, payload),
-            access_count=access[:-1],
-            stall_cycles=m.stall_cycles + (v & full).sum(),
+            access_count=access[:-1].view_as(m.access_count),
+            stall_cycles=m.stall_cycles + (v & full).sum(1),
         )
         ptr = pos + (in_range & (push | ~v)).int()
         return st._replace(mem=mem, core_ptr=ptr)
 
     # ----------------------------------------------------------- read values
     def _read_values(self, m: MemState, plan: ctl.ReadPlan, cb, ci,
-                     rs_a: int) -> torch.Tensor:
-        """The served reads' values: the plan's columns through the coded
-        row gather (the CUDA ``xor_gather`` kernel on the card), on the
-        banks viewed as (…, L, 1) int32 rows."""
+                     rs_a) -> torch.Tensor:
+        """The served reads' values, (B, N): the plan's columns through the
+        coded row gather (the CUDA ``xor_gather`` kernel on the card, one
+        launch for the batch), on the banks viewed as (…, L, 1) int32
+        rows."""
         cols = plan_columns(self.t, plan, cb, ci, m.region_slot,
                             self.p.region_size, m.fresh_loc, rs_active=rs_a)
         return gather_decode(m.banks_data[..., None],
-                             m.parity_data[..., None], cols)[:, 0]
+                             m.parity_data[..., None],
+                             cols)[:, 0].view(cb.shape)
 
     # ------------------------------------------------------- write datapath
     def _commit_writes(self, m: MemState, plan: ctl.WritePlan, cb, ci_, ca,
-                       cv, cd, rs_a: int):
+                       cv, cd, rs_a):
         """Commit served write payloads in age order (last write wins): the
         age position of each candidate is scatter-maxed into its target
         cell and only the latest served write per cell lands."""
         p, t = self.p, self.t
         rs = p.region_size
+        B, n = cb.shape
+        dev = cb.device
         b = cb.long().clamp(min=0)
         i = ci_.long().clamp(min=0)
-        n = cb.shape[0]
-        order = torch.argsort(torch.where(cv, ca, INT32_MAX), stable=True)
-        pos = torch.empty((n,), dtype=torch.int32, device=cb.device)
-        pos[order] = torch.arange(n, dtype=torch.int32, device=cb.device)
-        slot = m.region_slot[i // rs_a].long()
+        order = torch.argsort(torch.where(cv, ca, INT32_MAX), dim=1,
+                              stable=True)
+        pos = torch.empty((B, n), dtype=torch.int32, device=dev)
+        pos.scatter_(1, order, torch.arange(n, dtype=torch.int32,
+                                            device=dev).expand(B, n))
+        rs_a = col(rs_a)
+        slot = m.region_slot.gather(1, i // rs_a).long()
         pr = slot.clamp(min=0) * rs + i % rs_a
         kk = (plan.mode.long() - ctl.WMODE_PARK0).clamp(0, MAX_OPTS - 1)
         j = t.opt_parity[b, kk].clamp(min=0)
@@ -283,31 +344,39 @@ class CodedMemorySystem:
 
         def commit(x, mask, flat):
             sink = x.numel()
-            best = torch.full((sink + 1,), -1, dtype=torch.int32,
-                              device=x.device)
-            best.scatter_reduce_(0, torch.where(mask, flat, sink), pos,
-                                 reduce="amax")
+            best = torch.full((sink + 1,), -1, dtype=torch.int32, device=dev)
+            best.scatter_reduce_(0, torch.where(mask, flat, sink).flatten(),
+                                 pos.flatten(), reduce="amax")
             win = mask & (best[flat] == pos)
             return _set_flat(x, torch.where(win, flat, sink), cd)
 
-        cell = b * p.n_rows + i
+        cell = add_offset(b * p.n_rows + i,
+                          point_offsets(B, p.n_data * p.n_rows, dev))
         banks_data = commit(m.banks_data, is_dir, cell)
+        n_pd = m.parity_data[0].numel()
         parity_data = commit(m.parity_data, is_park,
-                             j * m.parity_data.shape[1] + pr)
+                             add_offset(j * m.parity_data.shape[2] + pr,
+                                  point_offsets(B, n_pd, dev)))
         golden = commit(m.golden, plan.served, cell)
         return banks_data, parity_data, golden
 
     # ------------------------------------------------------------ branches
-    def _do_reads(self, m: MemState, rs_a: int):
+    def _do_reads(self, m: MemState, rs_a, active=None):
+        """The read branch for every point; ``active`` (B,) masks the
+        candidates of points that take the other branch."""
         p, t = self.p, self.t
-        cb = self._bank_ids
-        ci_ = m.rq_row.flatten()
-        ca = m.rq_age.flatten()
-        plan = ctl.build_read_pattern(
-            p, t, cb, ci_, ca, m.rq_valid.flatten(), self._port_busy0,
-            m.fresh_loc, m.parity_valid, m.region_slot, rs_a)
+        B = m.cycle.shape[0]
+        cb = self._bank_ids.expand(B, -1)
+        ci_ = m.rq_row.flatten(1)
+        ca = m.rq_age.flatten(1)
+        cv = m.rq_valid.flatten(1)
+        if active is not None:
+            cv = cv & active[:, None]
+        plan = ctl.build_read_patterns(
+            p, t, cb, ci_, ca, cv, self._idle_ports(B), m.fresh_loc,
+            m.parity_valid, m.region_slot, rs_a)
         vals = self._read_values(m, plan, cb, ci_, rs_a)
-        lat = torch.where(plan.served, m.cycle - ca, 0).sum()
+        lat = torch.where(plan.served, m.cycle[:, None] - ca, 0).sum(1)
         m = m._replace(
             rq_valid=m.rq_valid & ~plan.served.view_as(m.rq_valid),
             served_reads=m.served_reads + plan.n_served,
@@ -317,19 +386,24 @@ class CodedMemorySystem:
         return m, plan.port_busy, CycleOut(plan.served, cb, ci_, vals,
                                            plan.n_served)
 
-    def _do_writes(self, m: MemState, rs_a: int):
+    def _do_writes(self, m: MemState, rs_a, active=None):
+        """The write branch for every point; ``active`` as in
+        ``_do_reads``."""
         p, t = self.p, self.t
-        cb = self._bank_ids
-        ci_ = m.wq_row.flatten()
-        ca = m.wq_age.flatten()
-        cv = m.wq_valid.flatten()
-        plan = ctl.build_write_pattern(
-            p, t, cb, ci_, ca, cv, self._port_busy0, m.fresh_loc,
+        B = m.cycle.shape[0]
+        cb = self._bank_ids.expand(B, -1)
+        ci_ = m.wq_row.flatten(1)
+        ca = m.wq_age.flatten(1)
+        cv = m.wq_valid.flatten(1)
+        if active is not None:
+            cv = cv & active[:, None]
+        plan = ctl.build_write_patterns(
+            p, t, cb, ci_, ca, cv, self._idle_ports(B), m.fresh_loc,
             m.parity_valid, m.region_slot, m.parked_count, m.rc_bank,
             m.rc_row, m.rc_valid, rs_a)
         banks_data, parity_data, golden = self._commit_writes(
-            m, plan, cb, ci_, ca, cv, m.wq_data.flatten(), rs_a)
-        lat = torch.where(plan.served, m.cycle - ca, 0).sum()
+            m, plan, cb, ci_, ca, cv, m.wq_data.flatten(1), rs_a)
+        lat = torch.where(plan.served, m.cycle[:, None] - ca, 0).sum(1)
         m = m._replace(
             wq_valid=m.wq_valid & ~plan.served.view_as(m.wq_valid),
             fresh_loc=plan.fresh_loc,
@@ -342,39 +416,59 @@ class CodedMemorySystem:
             write_latency_sum=m.write_latency_sum + lat,
             banks_data=banks_data, parity_data=parity_data, golden=golden,
         )
-        n_cand = cb.shape[0]
-        out = CycleOut(torch.zeros((n_cand,), dtype=torch.bool,
-                                   device=cb.device), cb, ci_,
-                       torch.zeros((n_cand,), dtype=torch.int32,
-                                   device=cb.device), plan.n_served)
+        zeros = torch.zeros(cb.shape, dtype=torch.int32, device=cb.device)
+        out = CycleOut(zeros.bool(), cb, ci_, zeros, plan.n_served)
         return m, plan.port_busy, out
 
     # ------------------------------------------------------------- one cycle
     def cycle_fn(self, st: SimState, trace: Trace,
                  tn: Optional[TunableParams] = None,
                  stream_end=None):
+        """One point's cycle (``cycle_batch`` on a batch of one)."""
+        se = None if stream_end is None else torch.as_tensor(
+            stream_end, dtype=torch.int32, device=self.device)[None]
+        nxt, out = self.cycle_batch(batch_of_one(st), batch_of_one(trace),
+                                    self.batch_tunables(tn), se)
+        return point_of(nxt, 0), point_of(out, 0)
+
+    def cycle_batch(self, st: SimState, trace: Trace, tn: TunableParams,
+                    stream_end=None):
+        """One cycle of B points lock-step: batched state and trace, batched
+        ``tn``, ``stream_end`` (B, n_cores) or None."""
         p, t = self.p, self.t
-        if tn is None:
-            tn = self.tunables
         rs_a, _ = active_geometry(p, tn)
         was_done = st.done_cycle >= 0
         st = self._arbiter(st, trace, rs_a, stream_end)
         m = st.mem
 
-        # write-drain hysteresis; one host read picks the branch
-        wq_occ = m.wq_valid.sum(1).max()
-        any_r = m.rq_valid.any()
-        any_w = m.wq_valid.any()
+        # write-drain hysteresis; one host read picks the branches
+        wq_occ = m.wq_valid.sum(2).amax(1)
+        any_r = m.rq_valid.flatten(1).any(1)
+        any_w = m.wq_valid.flatten(1).any(1)
         wm = torch.where(m.write_mode, wq_occ > tn.wq_lo, wq_occ >= tn.wq_hi)
         serve_writes = (wm | (~any_r & any_w)) & any_w
-        if bool(serve_writes):
+        sw = serve_writes.tolist()
+        if all(sw):
             m, port_busy, out = self._do_writes(m, rs_a)
-        else:
+        elif not any(sw):
             m, port_busy, out = self._do_reads(m, rs_a)
+        else:
+            # the points disagree: both builders on masked candidates, and
+            # each point takes its own branch's result, as JAX's ``pick``
+            m_r, pb_r, out_r = self._do_reads(m, rs_a, ~serve_writes)
+            m_w, pb_w, out_w = self._do_writes(m, rs_a, serve_writes)
+
+            def pick(x, y):
+                return x if x is y else torch.where(
+                    serve_writes.view(-1, *[1] * (x.dim() - 1)), x, y)
+
+            m = MemState(*map(pick, m_w, m_r))
+            out = CycleOut(*map(pick, out_w, out_r))
+            port_busy = pick(pb_w, pb_r)
         m = m._replace(write_mode=wm)
 
         # recoding unit uses leftover ports
-        rc = recode_step(
+        rc = recode_steps(
             p, t, port_busy, m.fresh_loc, m.parity_valid, m.parked_count,
             m.rc_bank, m.rc_row, m.rc_valid, m.region_slot, m.banks_data,
             m.parity_data, rs_a)
@@ -396,10 +490,11 @@ class CodedMemorySystem:
             switches=dy.switches)
         # a core is consumed once its pointer reaches its stream end (never,
         # for a chunk with more behind it: INT32_MAX)
-        tlen = trace.bank.shape[1]
+        tlen = trace.bank.shape[-1]
         consumed = (st.core_ptr
-                    >= (tlen if stream_end is None else stream_end)).all()
-        drained = ~m.rq_valid.any() & ~m.wq_valid.any()
+                    >= (tlen if stream_end is None else stream_end)).all(1)
+        drained = ~m.rq_valid.flatten(1).any(1) & ~m.wq_valid.flatten(
+            1).any(1)
         done_cycle = torch.where((st.done_cycle < 0) & consumed & drained,
                                  m.cycle, st.done_cycle)
         m = m._replace(cycle=m.cycle + 1)
@@ -407,10 +502,11 @@ class CodedMemorySystem:
 
     # ------------------------------------------------------------------- run
     def check_trace(self, trace: Trace) -> None:
-        """Raise unless every bank and row of ``trace`` is below the
-        geometry's bounds (negative values read as 0, as in JAX). JAX clamps
-        or drops an index past the end where torch would raise, or assert
-        on the card, so a run checks its trace once, up front."""
+        """Raise unless every bank and row of ``trace`` (one point's or a
+        batch's) is below the geometry's bounds (negative values read as 0,
+        as in JAX). JAX clamps or drops an index past the end where torch
+        would raise, or assert on the card, so a run checks its trace once,
+        up front."""
         if trace.bank.numel() == 0:
             return
         bank, row = torch.stack([trace.bank.max(), trace.row.max()]).tolist()
@@ -422,20 +518,23 @@ class CodedMemorySystem:
     def _run(self, st: SimState, trace: Trace, n_cycles: int,
              tn: Optional[TunableParams] = None,
              on_cycle: Optional[Callable] = None):
-        """``n_cycles`` cycles from ``st``: the final state and the (n_cycles,)
-        int32 accesses served per cycle. ``on_cycle(before, after, out)`` is
-        called after every cycle when given."""
+        """``n_cycles`` cycles of one point from ``st`` (a batch of one):
+        the final state and the (n_cycles,) int32 accesses served per
+        cycle. ``on_cycle(before, after, out)`` is called with one point's
+        states after every cycle when given."""
         self.check_trace(trace)
+        tn_b = self.batch_tunables(tn)
+        st_b, tr_b = batch_of_one(st), batch_of_one(trace)
         served = []
         for _ in range(n_cycles):
-            nxt, out = self.cycle_fn(st, trace, tn)
+            nxt, out = self.cycle_batch(st_b, tr_b, tn_b)
             if on_cycle is not None:
-                on_cycle(st, nxt, out)
-            st = nxt
+                on_cycle(*point_of((st_b, nxt, out), 0))
+            st_b = nxt
             served.append(out.n_served)
-        n_served = (torch.stack(served) if served else
+        n_served = (torch.cat(served) if served else
                     torch.zeros((0,), dtype=torch.int32, device=self.device))
-        return st, n_served
+        return point_of(st_b, 0), n_served
 
     def run(self, trace: Trace, n_cycles: int,
             tn: Optional[TunableParams] = None,
@@ -453,33 +552,55 @@ class CodedMemorySystem:
                   n_cycles: int,
                   tn: Optional[TunableParams] = None,
                   on_cycle: Optional[Callable] = None) -> SimState:
-        """One streaming-replay step: advance ``st`` over a staged chunk.
+        """One streaming-replay step of one point (``run_chunk_batch`` on a
+        batch of one): advance ``st`` over a staged chunk. ``stream_end[c]``
+        is core ``c``'s count of staged requests when its stream ends
+        inside the chunk, else INT32_MAX. ``on_cycle(before, after, out)``
+        sees one point's states after every cycle when given."""
+        hook = None if on_cycle is None else (
+            lambda *a: on_cycle(*point_of(a, 0)))
+        se = torch.as_tensor(stream_end, dtype=torch.int32,
+                             device=self.device)[None]
+        st = self.run_chunk_batch(batch_of_one(st), batch_of_one(trace), se,
+                                  n_cycles, self.batch_tunables(tn), hook)
+        return point_of(st, 0)
 
-        ``trace`` holds each core's next (up to) ``tlen`` requests from its
-        own stream position; ``stream_end[c]`` is core ``c``'s count of
-        staged requests when its stream ends inside the chunk, else
-        INT32_MAX. Cycles run until, checked before each one as JAX's
-        ``lax.while_loop`` does: (a) some core with more data behind the
-        chunk has consumed its staged requests (starved: the caller
-        restages), (b) ``quiescent(st)``, or (c) ``n_cycles`` cycles ran
-        (this call's budget, apart from the state's own ``cycle``). The
-        exit test is one host read a cycle. ``on_cycle(before, after, out)``
-        is called after every cycle when given, as in ``_run``."""
+    def run_chunk_batch(self, st: SimState, trace: Trace, stream_end,
+                        n_cycles: int, tn: TunableParams,
+                        on_cycle: Optional[Callable] = None) -> SimState:
+        """Advance B points lock-step over a staged chunk, or over whole
+        traces when ``stream_end`` is None.
+
+        ``trace`` holds each point's cores' next (up to) ``tlen`` requests;
+        ``stream_end`` (B, n_cores) as in ``run_chunk``. Cycles run until,
+        checked before each one as JAX's ``lax.while_loop`` does: (a) some
+        core of some point with more data behind the chunk has consumed its
+        staged requests (starved: the caller restages), (b) every point is
+        ``quiescent``, or (c) ``n_cycles`` cycles ran (this call's budget,
+        apart from the states' own ``cycle``). A point that quiesced before
+        the others runs observable no-op cycles. The exit test is one host
+        read a cycle. ``on_cycle(before, after, out)`` sees the batched
+        states after every cycle when given."""
         self.check_trace(trace)
-        tlen = trace.bank.shape[1]
-        stream_end = torch.as_tensor(stream_end, dtype=torch.int32,
-                                     device=self.device)
-        more = stream_end > tlen
+        tlen = trace.bank.shape[-1]
+        if stream_end is not None:
+            stream_end = torch.as_tensor(stream_end, dtype=torch.int32,
+                                         device=self.device)
+            more = stream_end > tlen
         for _ in range(n_cycles):
-            starved, quiet = torch.stack([
-                ((st.core_ptr >= tlen) & more).any(), quiescent(st)]).tolist()
-            if starved or quiet:
+            quiet = quiescent(st).all()
+            if stream_end is None:
+                stop = bool(quiet)
+            else:
+                stop = any(torch.stack([
+                    ((st.core_ptr >= tlen) & more).any(), quiet]).tolist())
+            if stop:
                 break
-            nxt, out = self.cycle_fn(st, trace, tn, stream_end)
+            nxt, out = self.cycle_batch(st, trace, tn, stream_end)
             if on_cycle is not None:
                 on_cycle(st, nxt, out)
             st = nxt
         return st
 
     def summarize(self, st: SimState) -> SimResult:
-        return result_from_host(st.mem, st.done_cycle)
+        return summarize_batch(batch_of_one(st))[0]

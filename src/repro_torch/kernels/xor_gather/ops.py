@@ -6,6 +6,13 @@ tensors go through the hand-written kernel (which launches or raises), CPU
 tensors through the plain PyTorch version. ``calls`` counts the calls of
 ``gather_decode`` on any device; on the card it must equal the kernel's
 ``launches`` (less the empty plans, which launch nothing).
+
+The point axis: ``plan_columns`` of B points' plans gives one set of
+(B·N,) columns whose bank, parity and sibling ids are offset by the
+point's index, and ``gather_decode`` views banks (B, n_data, L, W) and
+parities (B, n_par, Lp, W) as (B·n_data, L, W) and (B·n_par, Lp, W): one
+launch serves every point's reads (the kernel takes ``n_data`` and
+``n_par`` at run time, so the CUDA source is the one-point kernel).
 """
 from __future__ import annotations
 
@@ -14,7 +21,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.codes import MAX_OPTS
-from repro_torch.core.controller import MODE_OPT0, MODE_REDIRECT, ReadPlan
+from repro_torch.core.controller import (MODE_OPT0, MODE_REDIRECT, ReadPlan,
+                                        col)
+from repro_torch.core.state import batch_of_one
 from repro_torch.kernels.common import as_lanes
 from repro_torch.kernels.xor_gather.kernel import gather_decode_cuda
 from repro_torch.kernels.xor_gather.ref import gather_decode_plain
@@ -40,30 +49,43 @@ def plan_columns(
     region_slot: torch.Tensor,
     region_size: int,
     fresh_loc: torch.Tensor,
-    rs_active: Optional[int] = None,
+    rs_active=None,
 ) -> PlanColumns:
     """Expand a controller ReadPlan into the kernel's per-request int32
     columns. ``tables`` is the port's ``JTables`` on the plan's device.
     Parity rows use the allocated stride ``region_size`` and the offset
-    ``row % rs_active`` (``rs_active`` defaults to ``region_size``, the
-    only geometry this slice runs)."""
-    rs_a = region_size if rs_active is None else int(rs_active)
+    ``row % rs_active`` (``rs_active``: an int, default ``region_size``, or
+    each point's (B,) tensor). One point's plan ((N,) candidates) gives
+    (N,) columns; B points' plans ((B, N) candidates, (B, ...) state) give
+    (B·N,) columns with each point's bank, parity and sibling ids offset
+    for the banks and parities viewed (B·n_data, ...), (B·n_par, ...)."""
+    if cand_bank.dim() == 1:
+        plan, cand_bank, cand_row, region_slot, fresh_loc = batch_of_one(
+            (plan, cand_bank, cand_row, region_slot, fresh_loc))
+    B, nd, rows = fresh_loc.shape
+    rs_a = col(region_size if rs_active is None else rs_active)
     b = cand_bank.long().clamp(min=0)
     i = cand_row.long().clamp(min=0)
     k = (plan.mode.long() - MODE_OPT0).clamp(0, MAX_OPTS - 1)
     is_opt = (plan.mode >= MODE_OPT0) & (plan.mode < MODE_REDIRECT)
     is_rd = plan.mode == MODE_REDIRECT
     j_opt = tables.opt_parity[b, k]
-    j_rd = (fresh_loc[b, i].long() - 1).clamp(min=0)
+    j_rd = (fresh_loc.flatten(1).gather(1, b * rows + i).long() - 1).clamp(
+        min=0)
     par = torch.where(is_opt, j_opt, torch.where(is_rd, j_rd, 0))
-    slot = region_slot[i // rs_a].long()
+    slot = region_slot.gather(1, i // rs_a).long()
     prow = slot.clamp(min=0) * region_size + i % rs_a
-    sibs = torch.where(is_opt[:, None], tables.opt_sibs[b, k], -1)
+    sibs = torch.where(is_opt[..., None], tables.opt_sibs[b, k], -1)
     mode = torch.where(plan.served, plan.mode, -1)
+    if B > 1:
+        pt = torch.arange(B, device=b.device)[:, None]
+        b = b + pt * nd
+        par = par + pt * tables.par_members.shape[0]
+        sibs = torch.where(sibs >= 0, sibs + pt[..., None] * nd, -1)
     # one int32 block, each column a contiguous row of it
-    cols = torch.stack([b, i, mode.long(), par, prow, sibs[:, 0],
-                        sibs[:, 1]]).int()
-    return PlanColumns(*cols.unbind(0))
+    cols = torch.stack([b, i, mode.long(), par, prow, sibs[..., 0],
+                        sibs[..., 1]]).int()
+    return PlanColumns(*cols.flatten(1).unbind(0))
 
 
 def gather_decode(banks: torch.Tensor, parities: torch.Tensor,
@@ -71,9 +93,12 @@ def gather_decode(banks: torch.Tensor, parities: torch.Tensor,
                   value_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Serve one cycle's read pattern: (N, W) rows in ``value_dtype``
     (default ``banks.dtype``); unserved entries read zero. Any N, including
-    an empty plan."""
+    an empty plan. Banks (B, n_data, L, W) and parities (B, n_par, Lp, W)
+    serve B points' columns from ``plan_columns`` in one launch."""
     global calls
     calls += 1
+    if banks.dim() == 4:
+        banks, parities = banks.flatten(0, 1), parities.flatten(0, 1)
     if value_dtype is None:
         value_dtype = banks.dtype
     if banks.dtype.is_floating_point:

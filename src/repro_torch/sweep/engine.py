@@ -1,0 +1,209 @@
+"""Batched sweep engine: one lock-step loop per static shape, not per
+point; the port of ``repro/sweep/engine.py``.
+
+The looped path (``repro_torch.sim.ramulator.simulate``) runs one point at
+a time, each cycle a few hundred to a thousand small launches and a few
+host reads. This engine instead:
+
+  1. partitions the sweep by static signature (``repro_torch.sweep.grid``),
+  2. runs each partition's points lock-step on the core's point axis
+     (``CodedMemorySystem.cycle_batch``): seeds, trace contents and
+     ``TunableParams`` all batch, and one batched cycle makes about the
+     launches of one point's cycle, so B points cost close to one point's
+     wall time,
+  3. leaves the loop once every point is quiescent (or the cycle bound
+     runs out), one host read a cycle, and
+  4. summarizes with a single device-to-host copy per partition.
+
+Per-point results are bit-identical to the looped path and to the JAX
+engine (tests/test_torch_sweep.py). This is one card's path: sharding the
+point axis over several cards waits for ROADMAP queue 1 item 7, so
+``shard=True`` raises where more than one card is visible
+(``check_shard``) and means nothing more than ``False`` on one.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.codes import get_tables
+from repro_torch.core.state import (TunableParams, batch_tunables,
+                                    make_params, make_tunables, point_of)
+from repro_torch.core.system import (CodedMemorySystem, SimResult, SimState,
+                                     Trace, summarize_batch)
+from repro_torch.kernels.common import resolve_device
+from repro_torch.sweep import workloads
+from repro_torch.sweep.grid import (GridBatch, SweepPoint,
+                                    batch_geometry_alloc, partition,
+                                    static_signature)
+
+# One system per (static signature, geometry allocation, traced, device),
+# so re-running a sweep rebuilds no tables.
+_SYSTEMS: Dict[Tuple, CodedMemorySystem] = {}
+
+
+def system_for(pt: SweepPoint,
+               geometry_alloc: Optional[Tuple[int, int, int]] = None,
+               traced_geometry: bool = False,
+               device=None) -> CodedMemorySystem:
+    """The system a batch led by ``pt`` runs on. The cache keys on the
+    actual (region_size, n_regions, n_slots) allocation, since
+    ``static_signature`` drops α and r, and on ``traced_geometry`` (a
+    single-geometry batch indexes with the allocation's python ints)."""
+    dev = resolve_device(device)
+    alloc = (geometry_alloc if geometry_alloc is not None
+             else pt.derived_slots())
+    key = (static_signature(pt), alloc, traced_geometry, str(dev))
+    sys_ = _SYSTEMS.get(key)
+    if sys_ is None:
+        if pt.faults:
+            raise NotImplementedError("fault plans are not ported yet")
+        rs_alloc, nr_alloc, ns_alloc = alloc
+        tables = get_tables(pt.scheme, n_data=pt.n_data)
+        params = make_params(tables, n_rows=pt.n_rows, alpha=pt.alpha, r=pt.r,
+                             queue_depth=pt.queue_depth, coalesce=pt.coalesce,
+                             recode_cap=pt.recode_cap, max_syms=pt.max_syms,
+                             encode_rows_per_cycle=pt.encode_rows_per_cycle,
+                             recode_budget=pt.recode_budget,
+                             n_slots_alloc=ns_alloc,
+                             region_size_alloc=rs_alloc,
+                             n_regions_alloc=nr_alloc,
+                             traced_geometry=traced_geometry,
+                             telemetry=pt.telemetry)
+        sys_ = CodedMemorySystem(tables, params, n_cores=pt.n_cores,
+                                 device=dev)
+        _SYSTEMS[key] = sys_
+    return sys_
+
+
+def stack_tunables(points: Sequence[SweepPoint], queue_depth: int,
+                   device) -> TunableParams:
+    """Each point's tunables, its own geometry in the ``*_active`` fields,
+    as one batched ``TunableParams`` on ``device``."""
+    tns = []
+    for pt in points:
+        rs, nr, ns = pt.derived_slots()
+        tns.append(make_tunables(queue_depth=queue_depth,
+                                 select_period=pt.select_period,
+                                 wq_hi=pt.wq_hi, wq_lo=pt.wq_lo,
+                                 n_slots_active=ns,
+                                 region_size_active=rs,
+                                 n_regions_active=nr))
+    return batch_tunables(tns, device)
+
+
+def _stack_priors(priors: Sequence, n_points: int):
+    """Ragged per-point region-prior arrays → one -1-padded (B, K) array
+    (None when no point has priors)."""
+    arrs = [np.asarray(pr.cpu() if isinstance(pr, torch.Tensor) else
+                       (pr if pr is not None else []), np.int32).reshape(-1)
+            for pr in priors]
+    k = max((a.size for a in arrs), default=0)
+    if k == 0:
+        return None
+    out = np.full((n_points, k), -1, np.int32)
+    for b, a in enumerate(arrs):
+        out[b, :a.size] = a
+    return out
+
+
+def mixed_geometry(points: Sequence[SweepPoint]) -> bool:
+    """Whether a batch mixes (region_size, n_regions) geometries: only then
+    is its geometry indexing traced; a uniform batch (trace, seed, tunable
+    or α axes at one r) indexes with the allocation's python ints."""
+    return len({pt.derived_slots()[:2] for pt in points}) > 1
+
+
+def check_shard(shard: bool, device: torch.device) -> None:
+    """``shard=True`` asks for JAX's sharding of the point axis over the
+    local devices. On one card that pads and splits nothing; over several
+    it is not ported (ROADMAP queue 1 item 7), so it raises rather than
+    run on one card unasked."""
+    if shard and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise NotImplementedError(
+            "sharding the point axis over several cards is not ported yet; "
+            "pass shard=False to run on one card")
+
+
+def run_batch(batch: GridBatch, traces: Optional[Sequence[Trace]] = None,
+              *, shard: bool = False,
+              region_priors: Optional[Sequence] = None,
+              collect_telemetry: bool = False,
+              device=None,
+              return_state: bool = False,
+              on_cycle=None):
+    """Evaluate one shape-compatible batch lock-step on ``device`` (the
+    card unless the caller names another): the per-point SimResults, and
+    with ``return_state`` also the final batched ``SimState``.
+    ``on_cycle(before, after, out)`` sees the batched states after every
+    cycle when given."""
+    if collect_telemetry:
+        raise NotImplementedError("telemetry planes are not ported yet")
+    pts = batch.points
+    sys_ = system_for(pts[0], geometry_alloc=batch_geometry_alloc(pts),
+                      traced_geometry=mixed_geometry(pts), device=device)
+    dev = sys_.device
+    check_shard(shard, dev)
+    if traces is None:
+        traces = [workloads.build_trace(pt, index=i, device=dev)
+                  for i, pt in zip(batch.indices, pts)]
+    for pt, tr in zip(pts, traces):
+        if tuple(tr.bank.shape) != (pt.n_cores, pt.length):
+            raise ValueError(
+                f"trace shape {tuple(tr.bank.shape)} does not match point "
+                f"geometry ({pt.n_cores}, {pt.length})")
+    trace_b = Trace(*(x.to(dev) for x in workloads.stack_traces(traces)))
+    tn_b = stack_tunables(pts, sys_.p.queue_depth, dev)
+    priors_b = (_stack_priors(region_priors, len(pts))
+                if region_priors is not None else None)
+    st_b = sys_.init_batch(tn_b, priors_b)
+    st = sys_.run_chunk_batch(st_b, trace_b, None, pts[0].resolved_cycles(),
+                              tn_b, on_cycle)
+    results = summarize_batch(st)
+    return (results, st) if return_state else results
+
+
+def run_points(points: Sequence[SweepPoint],
+               traces: Optional[Sequence[Trace]] = None,
+               *, shard: bool = False,
+               region_priors: Optional[Sequence] = None,
+               collect_telemetry: bool = False,
+               device=None, return_state: bool = False,
+               on_cycle=None):
+    """Evaluate an arbitrary sweep, one batch per ``partition`` group;
+    results align with ``points`` order. ``region_priors`` aligns 1:1 with
+    ``points``: each entry is None (cold start) or a ranked hot-region
+    array warm-starting that point's dynamic coding unit. With
+    ``return_state`` also each point's final ``SimState`` (views into its
+    batch's state, allocated at the batch's geometry).
+    ``on_cycle(batch, before, after, out)`` sees each batch's states after
+    every cycle when given."""
+    if traces is not None and len(traces) != len(points):
+        raise ValueError("traces must align 1:1 with points")
+    if region_priors is not None and len(region_priors) != len(points):
+        raise ValueError("region_priors must align 1:1 with points")
+    results: List[Optional[SimResult]] = [None] * len(points)
+    states: List[Optional[SimState]] = [None] * len(points)
+    for batch in partition(points):
+        btraces = ([traces[i] for i in batch.indices]
+                   if traces is not None else None)
+        bpriors = ([region_priors[i] for i in batch.indices]
+                   if region_priors is not None else None)
+        hook = None if on_cycle is None else functools.partial(on_cycle,
+                                                               batch)
+        res, st = run_batch(batch, btraces, shard=shard,
+                            region_priors=bpriors,
+                            collect_telemetry=collect_telemetry,
+                            device=device, return_state=True, on_cycle=hook)
+        for k, i in enumerate(batch.indices):
+            results[i] = res[k]
+            states[i] = point_of(st, k)
+    return (results, states) if return_state else results
+
+
+def clear_caches():
+    """Drop memoized systems — mainly for tests."""
+    _SYSTEMS.clear()

@@ -4,7 +4,8 @@
   stream   — ``stream_replay``: arbitrarily long traces as fixed-shape
              chunks with an explicit ``SimState`` carry, equal to
              single-shot ``run()`` and leaving at quiescence;
-             ``stream_replay_points`` waits for the sweep engine (raises)
+             ``stream_replay_points``: a batch of sweep points lock-step,
+             with checkpointed resume
   source   — bounded rolling-window ``TraceSource`` with background chunk
              prefetch
   formats  — Ramulator / gem5 text parsers and the ``.npz`` form, with the
@@ -42,5 +43,6 @@ from repro_torch.traces.source import (  # noqa: F401
 from repro_torch.traces.stream import (  # noqa: F401
     chunk_bound,
     stream_replay,
+    stream_replay_points,
     strip_windows,
 )

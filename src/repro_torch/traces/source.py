@@ -197,7 +197,14 @@ class TraceSource:
         core ``c``'s stream ends inside the buffer, else INT32_MAX ("more
         behind the buffer"). Everything crosses to the device as one int32
         block."""
-        dev = resolve_device(device)
+        trace, stream_end = stage_batch([self], np.asarray(positions)[None],
+                                        chunk_len, device)
+        return Trace(*(x[0] for x in trace)), stream_end[0]
+
+    def _stage_block(self, positions: np.ndarray,
+                     chunk_len: int) -> np.ndarray:
+        """The staging buffer as one host int32 block: the five trace
+        fields (n_cores, chunk_len) raveled, then ``stream_end``."""
         positions = np.asarray(positions, np.int64)
         self._fill_to(int(positions.max()) + chunk_len)
         self._trim(int(positions.min()))
@@ -218,14 +225,8 @@ class TraceSource:
             remaining = self.total - positions
             stream_end = np.where(remaining <= chunk_len, remaining,
                                   INT32_MAX).astype(np.int32)
-        block = torch.from_numpy(np.concatenate(
-            [a.astype(np.int32).ravel() for a in out] + [stream_end])).to(dev)
-        n = self.n_cores * chunk_len
-        cols = [block[f * n:(f + 1) * n].view(self.n_cores, chunk_len)
-                for f in range(5)]
-        chunk = Trace(bank=cols[0], row=cols[1], is_write=cols[2].bool(),
-                      data=cols[3], valid=cols[4].bool())
-        return chunk, block[5 * n:]
+        return np.concatenate([a.astype(np.int32).ravel() for a in out]
+                              + [stream_end])
 
     def exhausted(self, positions: np.ndarray) -> bool:
         """True once every core's position has passed the stream end."""
@@ -253,3 +254,22 @@ def chunk_iter(trace: Trace, chunk_len: int) -> Iterator[Trace]:
             yield Trace(*(a[:, off:off + chunk_len] for a in arrs))
 
     return chunks()
+
+
+def stage_batch(sources, positions: np.ndarray, chunk_len: int,
+                device=None) -> Tuple[Trace, torch.Tensor]:
+    """``TraceSource.stage`` for B points at once: ``positions`` (B,
+    n_cores), the sources sharing ``n_cores``. Returns the chunks as one
+    ``Trace`` of (B, n_cores, chunk_len) fields and ``stream_end`` (B,
+    n_cores) on ``device``, with one host-to-device copy."""
+    dev = resolve_device(device)
+    blocks = np.stack([src._stage_block(pos, chunk_len)
+                       for src, pos in zip(sources, positions)])
+    block = torch.from_numpy(blocks).to(dev)
+    B, nc = len(blocks), sources[0].n_cores
+    n = nc * chunk_len
+    cols = [block[:, f * n:(f + 1) * n].view(B, nc, chunk_len)
+            for f in range(5)]
+    chunk = Trace(bank=cols[0], row=cols[1], is_write=cols[2].bool(),
+                  data=cols[3], valid=cols[4].bool())
+    return chunk, block[:, 5 * n:]

@@ -11,6 +11,12 @@ requests the single-shot program would: the replay equals ``run()`` on the
 whole trace, for any chunk split, and its quiescent exit skips the drained
 tail a single-shot run spends up to ``drain_bound``.
 
+``stream_replay_points`` composes the chunk axis with the sweep engine's
+point axis: a shape-compatible batch of points, each with its own trace
+source, replays chunked lock-step (``run_chunk_batch``), each point with
+its own per-core staging windows, optionally checkpointed
+(``repro_torch.checkpoint``) and resumed.
+
 Each ``run_chunk`` return is a window boundary: the served-count and
 latency-sum differences between boundaries give the per-window read and
 write latency series in ``SimResult.window_read_latency`` /
@@ -20,15 +26,16 @@ same integers as JAX's.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+import json
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.state import TunableParams
 from repro_torch.core.system import (CodedMemorySystem, SimResult, SimState,
-                                     drain_bound, quiescent)
-from repro_torch.traces.source import as_source
+                                     drain_bound, quiescent, summarize_batch)
+from repro_torch.traces.source import as_source, stage_batch
 
 DEFAULT_CHUNK_LEN = 256
 
@@ -57,10 +64,10 @@ def _window_stats(prev, now) -> Tuple[tuple, tuple]:
 
 def _snapshot(st: SimState) -> torch.Tensor:
     """(served_reads, served_writes, read_latency_sum, write_latency_sum)
-    as one int64 tensor."""
+    as one int64 tensor: (4,) for one point, (B, 4) for a batch."""
     m = st.mem
     return torch.stack([m.served_reads.long(), m.served_writes.long(),
-                        m.read_latency_sum, m.write_latency_sum])
+                        m.read_latency_sum, m.write_latency_sum], -1)
 
 
 def stream_replay(system: CodedMemorySystem, source,
@@ -127,12 +134,148 @@ def stream_replay(system: CodedMemorySystem, source,
     return (res, st) if return_state else res
 
 
-def stream_replay_points(*args, **kwargs):
-    """Chunked replay of a batch of sweep points (JAX
-    ``repro/traces/stream.py::stream_replay_points``) and its checkpointed
-    resume need the sweep engine's point axis, which is not ported yet
-    (ROADMAP queue 1 item 2)."""
-    raise NotImplementedError(
-        "stream_replay_points needs the sweep engine's point axis, which "
-        "is not ported yet (ROADMAP queue 1 item 2); replay one point at a "
-        "time with stream_replay")
+# -------------------------------------------------------- checkpointed carry
+# The whole replay carry is three leaves: the batched SimState, the per-core
+# stream positions, and the accumulated window series (JSON bytes: ragged
+# python tuples are no fixed-shape leaf). ``prev``/``prev_cycle`` are not
+# saved: at a chunk boundary they are ``_snapshot`` and ``mem.cycle`` of
+# the carried state, so resume re-derives them.
+
+def _wins_blob(win_r, win_w) -> np.ndarray:
+    return np.frombuffer(json.dumps([win_r, win_w]).encode("utf-8"),
+                         np.uint8).copy()
+
+
+def _wins_unblob(arr) -> Tuple[List[List[tuple]], List[List[tuple]]]:
+    def tup(x):
+        return tuple(tup(e) for e in x) if isinstance(x, list) else x
+
+    wr, ww = json.loads(bytes(np.asarray(arr, np.uint8).tobytes()).decode())
+    return ([[tup(w) for w in pt] for pt in wr],
+            [[tup(w) for w in pt] for pt in ww])
+
+
+def stream_replay_points(points: Sequence, sources: Sequence,
+                         chunk_len: int = DEFAULT_CHUNK_LEN,
+                         region_priors: Optional[Sequence] = None,
+                         max_cycles: Optional[int] = None,
+                         *, shard: bool = False,
+                         checkpoint_dir: Optional[str] = None,
+                         checkpoint_every: int = 0,
+                         resume: bool = False,
+                         device=None,
+                         on_cycle: Optional[Callable] = None
+                         ) -> List[SimResult]:
+    """Chunked batched replay: one shape-compatible batch of sweep points,
+    each with its own (arbitrarily long) trace source, lock-step on the
+    core's point axis, on ``device`` (the card unless named).
+
+    ``points`` must share a single static signature (one
+    ``repro_torch.sweep.partition`` batch; the caller splits mixed
+    sweeps); ``sources`` align 1:1 (anything ``as_source`` takes). Each
+    point's result equals ``repro_torch.sweep.run_points`` on the
+    materialized traces, window series aside, and JAX's
+    ``stream_replay_points`` windows included. A chunk step leaves its
+    loop when any point starves (its window restages and every point
+    goes on) or every point is quiescent.
+
+    With ``checkpoint_dir`` and ``checkpoint_every=N``, the replay carry
+    (batched state, stream positions, window series) is checkpointed
+    atomically every N chunks (an asynchronous writer; a killed run never
+    leaves a readable half-checkpoint). ``resume=True`` restores the latest
+    committed checkpoint and continues: each point's final result equals
+    the uninterrupted run's, windows included. The caller supplies
+    equivalent ``sources`` again; a lazy source only replays forward to
+    the restored positions. ``shard`` is ``run_batch``'s (one card's
+    path: see ``repro_torch.sweep.engine.check_shard``).
+    ``on_cycle(before, after, out)`` sees the batched states of every
+    cycle of every chunk."""
+    from repro_torch.sweep.engine import (_stack_priors, check_shard,
+                                          mixed_geometry, stack_tunables,
+                                          system_for)
+    from repro_torch.sweep.grid import batch_geometry_alloc, static_signature
+
+    if len(sources) != len(points):
+        raise ValueError("sources must align 1:1 with points")
+    sigs = {static_signature(pt) for pt in points}
+    if len(sigs) > 1:
+        raise ValueError(
+            f"stream_replay_points needs one shape-compatible batch, got "
+            f"{len(sigs)} static signatures; split with "
+            "repro_torch.sweep.partition")
+    srcs = [as_source(s) for s in sources]
+    system = system_for(points[0], geometry_alloc=batch_geometry_alloc(points),
+                        traced_geometry=mixed_geometry(points), device=device)
+    dev = system.device
+    check_shard(shard, dev)
+    for b, src in enumerate(srcs):
+        if src.n_cores is not None and src.n_cores != system.n_cores:
+            raise ValueError(f"source for point [{b}] has {src.n_cores} "
+                             f"cores, the batch has {system.n_cores}")
+    n_pts, nc = len(points), system.n_cores
+    tn_b = stack_tunables(points, system.p.queue_depth, dev)
+    pri_b = (_stack_priors(region_priors, n_pts)
+             if region_priors is not None else None)
+    st_b = system.init_batch(tn_b, pri_b)
+    pos = np.zeros((n_pts, nc), np.int64)
+    bound = chunk_bound(system, chunk_len)
+    win_r: List[List[tuple]] = [[] for _ in range(n_pts)]
+    win_w: List[List[tuple]] = [[] for _ in range(n_pts)]
+    ckpt = None
+    step = 0
+    if checkpoint_dir is not None and checkpoint_every > 0:
+        from repro_torch.checkpoint import (CheckpointManager, latest_step,
+                                            restore)
+        ckpt = CheckpointManager(checkpoint_dir, keep=2)
+        last = latest_step(checkpoint_dir) if resume else None
+        if last is not None:
+            like = {"state": st_b, "pos": pos,
+                    "wins": np.zeros(0, np.uint8)}
+            tree = restore(checkpoint_dir, like, step=last)
+            st_b = tree["state"]
+            pos = np.asarray(tree["pos"], np.int64)
+            win_r, win_w = _wins_unblob(tree["wins"])
+            step = last
+    elif resume:
+        raise ValueError("resume=True needs checkpoint_dir and "
+                         "checkpoint_every")
+    host = torch.cat([_snapshot(st_b), st_b.mem.cycle.long()[:, None]],
+                     1).tolist()
+    prev = [h[:4] for h in host]
+    prev_cycle = np.array([h[4] for h in host], np.int64)
+    while True:
+        trace_b, stream_end_b = stage_batch(srcs, pos, chunk_len, dev)
+        st_b = st_b._replace(core_ptr=torch.zeros_like(st_b.core_ptr))
+        st_b = system.run_chunk_batch(st_b, trace_b, stream_end_b, bound,
+                                      tn_b, on_cycle)
+        host = torch.cat([st_b.core_ptr.long(),
+                          quiescent(st_b).long()[:, None],
+                          st_b.mem.cycle.long()[:, None], _snapshot(st_b)],
+                         1).tolist()
+        moved = np.array([h[:nc] for h in host], np.int64)
+        quiet = all(h[nc] for h in host)
+        cycles = np.array([h[nc + 1] for h in host], np.int64)
+        snap = [h[nc + 2:] for h in host]
+        for b in range(n_pts):
+            wr, ww = _window_stats(prev[b], snap[b])
+            win_r[b].append(wr)
+            win_w[b].append(ww)
+        prev = snap
+        pos += moved
+        step += 1
+        if ckpt is not None and step % checkpoint_every == 0:
+            ckpt.save_async(step, {"state": st_b, "pos": pos.copy(),
+                                   "wins": _wins_blob(win_r, win_w)})
+        if all(src.exhausted(pos[b]) for b, src in enumerate(srcs)) \
+                and quiet:
+            break
+        if not moved.any() and (cycles - prev_cycle >= bound).all():
+            break
+        if max_cycles is not None and int(cycles.max()) >= max_cycles:
+            break
+        prev_cycle = cycles
+    if ckpt is not None:
+        ckpt.wait()
+    return [res._replace(window_read_latency=tuple(win_r[b]),
+                         window_write_latency=tuple(win_w[b]))
+            for b, res in enumerate(summarize_batch(st_b))]

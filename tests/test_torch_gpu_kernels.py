@@ -559,3 +559,65 @@ def test_stream_replay_on_the_card_equals_the_cpu(cuda, chunk_len):
     assert _same_sim_state(got["cuda"][1], got["cpu"][1])
     sys_, tr = systems["cuda"]
     assert strip_windows(res["cuda"]) == sys_.run(tr, drain_bound(4, 24))
+
+
+# ------------------------------------------------------- the point axis
+@pytest.mark.parametrize("B", [1, 3, 13])
+def test_batched_sim_kernels_equal_plain(cuda, B):
+    """The simulator kernels on a flattened batch of B points at the
+    simulator's shapes (8 banks x 320 rows, scheme_i's 12 parities of 5
+    slots x 16 rows, N = 80 requests a point, one region encode a point),
+    through the wrappers, against the plain versions: one launch each."""
+    from repro_torch.core.codes import get_tables
+    from repro_torch.kernels.xor_encode import ops as enc_ops
+    from repro_torch.kernels.xor_gather import ops as g_ops
+
+    rng = np.random.default_rng(B)
+    nd, rows, npar, prows, n = 8, 320, 12, 80, 80
+    info = np.iinfo(np.int32)
+    banks = torch.from_numpy(rng.integers(
+        info.min, info.max, (B, nd, rows, 1), endpoint=True,
+        dtype=np.int32)).to(cuda)
+    pars = torch.from_numpy(rng.integers(
+        info.min, info.max, (B, npar, prows, 1), endpoint=True,
+        dtype=np.int32)).to(cuda)
+    pt = np.arange(B)[:, None]
+    sib = rng.integers(-1, nd, (2, B, n))
+    cols = [rng.integers(0, nd, (B, n)) + pt * nd, rng.integers(0, rows,
+                                                                (B, n)),
+            rng.integers(-1, 7, (B, n)), rng.integers(0, npar, (B, n))
+            + pt * npar, rng.integers(0, prows, (B, n)),
+            np.where(sib[0] >= 0, sib[0] + pt * nd, -1),
+            np.where(sib[1] >= 0, sib[1] + pt * nd, -1)]
+    cols = g_ops.PlanColumns(*(torch.from_numpy(c.reshape(-1).astype(
+        np.int32)).to(cuda) for c in cols))
+    g0, e0 = gat_kernel.launches, enc_kernel.launches
+    got = g_ops.gather_decode(banks, pars, cols)
+    members = get_tables("scheme_i").par_members
+    region = banks[:, :, 16:32].contiguous()
+    enc = enc_ops.encode_parities(region, members)
+    torch.cuda.synchronize()
+    assert (gat_kernel.launches - g0, enc_kernel.launches - e0) == (1, 1)
+    assert torch.equal(got, gather_decode_plain(
+        banks.flatten(0, 1), pars.flatten(0, 1), *cols))
+    m = enc_ops.member_table(members, cuda)
+    for b in range(B):
+        assert torch.equal(enc[b], encode_parities_plain(region[b], m))
+
+
+def test_run_batch_on_the_card_equals_the_cpu(cuda):
+    """A small α x r sweep (two batches, one with traced geometry) through
+    ``run_points`` on the card and on the CPU: every SimResult field and
+    every final state leaf equal; both kernels launched on the card."""
+    from repro_torch.sweep import SweepPoint, grid, run_points
+
+    pts = grid(SweepPoint(scheme="scheme_i", n_rows=64, n_cores=3,
+                          length=16, select_period=4),
+               alpha=(0.25, 0.5, 1.0), r=(0.125, 0.25), seed=(0, 1))
+    g0, e0 = gat_kernel.launches, enc_kernel.launches
+    card, card_st = run_points(pts, device=cuda, return_state=True)
+    assert gat_kernel.launches > g0 and enc_kernel.launches > e0
+    cpu, cpu_st = run_points(pts, device="cpu", return_state=True)
+    assert card == cpu and sum(r.switches for r in card) > 0
+    for a, b in zip(card_st, cpu_st):
+        assert _same_sim_state(a, b)

@@ -121,9 +121,11 @@ def test_init_state_matches_jax(scheme, alpha):
 
 def test_flags_not_ported_raise():
     t = codes.get_tables("scheme_i")
-    for flag in ("telemetry", "faults", "traced_geometry"):
+    for flag in ("telemetry", "faults"):
         with pytest.raises(NotImplementedError):
             state.make_params(t, 64, 0.25, 0.125, **{flag: True})
+    assert state.make_params(t, 64, 0.25, 0.125,
+                             traced_geometry=True).traced_geometry
     p = state.make_params(t, 64, 0.25, 0.125)
     with pytest.raises(NotImplementedError):
         state.init_state(p, fault_plan=object())

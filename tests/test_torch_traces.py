@@ -537,11 +537,19 @@ def test_primed_streamed_run_matches_jax():
     assert traces.strip_windows(got) == single
 
 
-# ------------------------------------------------------------- what waits
+# ------------------------------------------------------- the point axis
 def test_stream_replay_points_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        stream.stream_replay_points([], [])
-    assert not hasattr(traces, "stream_replay_points")
+    """``stream_replay_points`` is exported and runs a two-point batch on
+    the CPU, equal to each point's own streamed replay (its JAX
+    comparisons are in tests/test_torch_stream_points.py)."""
+    from repro_torch.sweep import SweepPoint
+    assert traces.stream_replay_points is stream.stream_replay_points
+    pts = [SweepPoint(scheme="scheme_i", alpha=0.25, r=0.125, n_rows=N_ROWS,
+                      n_cores=N_CORES, length=TLEN, select_period=8,
+                      seed=s) for s in (0, 1)]
+    trs = [_trace(s)[1] for s in (5, 6)]
+    got = traces.stream_replay_points(pts, trs, chunk_len=4, device=CPU)
+    assert got == [traces.stream_replay(TSYS, tr, chunk_len=4) for tr in trs]
 
 
 def test_exports_match_jax():
@@ -549,7 +557,7 @@ def test_exports_match_jax():
             and n not in ("formats", "profiler", "source", "stream")}
     got = {n for n in dir(traces) if not n.startswith("_")
            and n not in ("formats", "profiler", "source", "stream")}
-    assert got == want - {"stream_replay_points"}
+    assert got == want
 
 
 def test_default_devices_need_the_card():
