@@ -1,9 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py                    # every phase, from a checkout
+    python3 chip_smoke.py --only paper       # the build, then only these
+                                             # phases and those they need
 
-Phases, each of which fails the run (nonzero exit, no result line):
+Phases, each of which fails the run (nonzero exit, no result line). With
+``--only`` (names: kernel, serve, decode, cross, kvstate, simkernel,
+simulate, stream, sweep, paper) it runs the build and the named phases
+with the phases they need (decode needs serve; stream and paper need
+simulate; sweep needs simulate and stream), and prints no kernel table and
+no result line; with no flag it runs every phase:
 
 1. card and build: the card's name and power limit, torch and CUDA
    versions; every ``csrc/*.cu`` built with nvcc, one process each, all at
@@ -101,7 +108,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ``tests/data`` Ramulator and gem5 fixtures through ``load_trace`` and
    ``stream_file`` replay alike on the card and the CPU. (d) region
    priors from (a)'s trace profile: the primed init state and the primed
-   streamed replay equal card vs CPU;
+   streamed replay of the trace's first 512 requests a core equal card vs
+   CPU, beside that head replayed cold;
 10. sweep: the simulator's point axis (``repro_torch.sweep.run_points``,
    B points lock-step, one ``xor_gather`` and at most one ``xor_encode``
    launch a batched cycle) on the card and the CPU. (a) paper_fig19's
@@ -115,27 +123,47 @@ Phases, each of which fails the run (nonzero exit, no result line):
    batch, ms per batched cycle, point-cycles/s beside the simulate
    phase's looped cycles/s. (b) the simulate phase's golden run at seeds
    0..7, one batch; seed 0 equals the simulate phase's card result. (c)
-   ``stream_replay_points`` at bench_stream's geometry for alpha 0.1, 0.25,
-   0.5 (one batch) and 1 (alone), card = CPU windows included, alpha
-   0.25 = the stream phase's (a) apart from windows, and a pass killed at
-   ``max_cycles`` after a checkpoint every 2 chunks resumes to the
+   ``stream_replay_points`` at bench_stream's geometry on the trace's first
+   512 requests a core, at chunk 64, for alpha 0.1, 0.25, 0.5 (one batch)
+   and 1 (alone), card = CPU windows included, alpha 0.25 = the stream
+   phase's cold replay of that head apart from windows, and a pass killed
+   at ``max_cycles`` after a checkpoint every 2 chunks resumes to the
    uninterrupted results. (d) both kernels bit for bit against their
    plain versions on live batched card states of every batch of (a), (b)
    and (c) (every 50th batched cycle of (a) and (b), every 100th of (c)),
    with the real plans and seeded columns of every mode. Then
-   profiled windows of seed-axis batches of 1, 8 and 13 points and of
+   profiled windows of seed-axis batches of 1 and 8 points and of
    (a)'s traced batch: ms and launches per batched cycle, host syncs,
    copies and the device idle share. The phase's CPU side (the CPU runs
-   of (a)-(c) and (a)'s looped runs) is computed by a worker process the
-   script starts first and kills on every way out. The worker runs only
-   while no time is taken: through the build and the cross-device and
-   kvstate phases, and after (a)'s card run; it is stopped (SIGSTOP)
-   through every phase that reports a time.
+   of (a)-(c) and (a)'s looped runs), and after it the paper phase's, is
+   computed by a worker process the script starts first and kills on
+   every way out. The worker runs only while no time is taken: through
+   the build and the cross-device and kvstate phases, after (a)'s card
+   run, through (c)'s kill-and-resume pass and (d), and after the paper
+   phase's card runs; it is stopped (SIGSTOP) through every phase that
+   reports a time;
+11. paper: the paper's Fig 18 through the port's harness
+   (``repro_torch.harness.fig18_dedup.run``: ``paper_fig18`` ->
+   ``run_sweep`` -> ``run_points``) at the figures' geometry (8 banks x
+   320 rows, 8 cores x 96 banded requests, write fraction 0.3, r 0.05,
+   select period 32; uncoded and schemes I-III over alpha {0.05, 0.1,
+   0.25, 0.5, 1}: 16 points in 7 batches), printing its table, each
+   batch's batched cycles against ``drain_bound`` and the grid's wall
+   time; then the quickstart (``compare_schemes`` over a banded 8 x 64
+   trace, 256 rows, alpha 1, r 0.25, 512 cycles, four schemes). The card's
+   Fig 18 rows must equal the CPU's (run by the worker) in every field,
+   and the quickstart's results too; each of the simulate phase's five
+   points must equal its batched result (batched = looped on the card);
+   every alpha 1 row must have 0 switches; every read scheme_i alpha 0.25
+   serves must return its committed value; each kernel's launches must
+   equal its wrapper's calls; and both sim kernels must equal their plain
+   versions bit for bit on live card states of every Fig 18 batch
+   (schemes II and III included), as in the sweep phase's (d).
 
 Each kernel's launches are counted from 0 over its own main path (the
 serve runs for ``gather_pool``, the decode-attention calls for
-``coded_kv_decode``, the simulate runs, the stream phase and the sweep
-phase for the simulator's kernels, whose table entries add the three; a
+``coded_kv_decode``, the simulate runs and the stream, sweep and paper
+phases for the simulator's kernels, whose table entries add the four; a
 line before the table gives the split).
 The third-to-last line is the card's name and power limit, the
 second-to-last the kernel table as JSON, the last
@@ -146,6 +174,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import os
@@ -186,11 +215,12 @@ def check(ok: bool, msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0]
+    """The card's ``name, power.limit`` as ``nvidia-smi`` gives them."""
+    from repro_torch.obs.runlog import card_lines
+
+    lines = card_lines()
+    check(bool(lines), "nvidia-smi reported no card")
+    return lines[0]
 
 
 def time_on_card(torch, fn, n: int) -> float:
@@ -1660,10 +1690,17 @@ STREAM_TRACE = dict(n_cores=8, length=2048, n_banks=8, n_rows=512, seed=0)
 STREAM_POINT = dict(scheme="scheme_i", alpha=0.25, r=0.05, select_period=256)
 STREAM_CHUNK = 256
 SIM_STREAM_CHUNKS = (32, 96)     # the simulate phase's trace, streamed
+STREAM_HEAD = 512                # (d) and the sweep's (c): requests a
+                                 # core of the trace's head replayed
 # tests/data fixtures, dealt over 2 cores onto 8 banks x 64 rows
 FILE_TRACES = (("tiny_ramulator.trace", {}),
                ("tiny_gem5.gem5", {"line_bytes": 64}))
 FILE_GEOMETRY = dict(n_cores=2, n_banks=8, n_rows=64)
+
+
+def stream_head(tr):
+    """The first ``STREAM_HEAD`` requests a core of the trace ``tr``."""
+    return type(tr)(*(x[:, :STREAM_HEAD].contiguous() for x in tr))
 
 
 def _stream_system(dev, scheme, n_rows, alpha, r, select_period, n_cores):
@@ -1802,7 +1839,8 @@ def stream_phase(torch, sim_single):
     chunks 32 and 96 against its single-shot result ``sim_single``, (c)
     the file fixtures through ``load_trace`` and ``stream_file``, (d)
     region priors from the trace's profile. Returns each sim kernel's
-    launches over the phase and (a)'s card result."""
+    launches over the phase and (d)'s cold card replay of the trace's
+    head."""
     from repro_torch.core.state import batch_of_one
     from repro_torch.core.system import Trace, drain_bound
     from repro_torch.kernels.xor_encode import kernel as ek
@@ -1902,28 +1940,34 @@ def stream_phase(torch, sim_single):
               f"{got['cuda'][0].served_reads} reads + "
               f"{got['cuda'][0].served_writes} writes in "
               f"{got['cuda'][0].cycles} cycles")
-    # (d) region priors from the trace's profile
+    # (d) region priors from the whole trace's profile, replayed over its
+    # first STREAM_HEAD requests a core, beside that head replayed cold
     prof = profile_trace(tr_cpu, STREAM_TRACE["n_banks"], n_rows, window=512)
+    heads = {dev: stream_head(traces[dev]) for dev in traces}
     primed = {}
     for dev in ("cuda", "cpu"):
         sys_ = _stream_system(dev, *point)
         p = sys_.p
         pri = prof.region_priors(p.region_size, p.n_regions, k=p.n_slots)
         primed[dev] = (sys_.init(region_priors=pri),) + _streamed(
-            torch, sys_, traces[dev], STREAM_CHUNK, "(d)", region_priors=pri)
+            torch, sys_, heads[dev], STREAM_CHUNK, "(d)", region_priors=pri)
     (init, r_d, st_d, secs_d, calls_d), (init_c, r_dc, st_dc, _, _) = \
         primed["cuda"], primed["cpu"]
+    cold = _streamed(torch, _stream_system("cuda", *point), heads["cuda"],
+                     STREAM_CHUNK, "(d) cold")[0]
     check(_same_state(torch, init, init_c),
           "stream (d): primed init state differs card vs CPU")
     check(r_d == r_dc and _same_state(torch, st_d, st_dc),
           f"stream (d): card {r_d} vs CPU {r_dc}")
-    check(r_d.completed, f"stream (d): {r_d} did not complete")
+    check(r_d.completed and cold.completed,
+          f"stream (d): primed {r_d} or cold {cold} did not complete")
     print(f"stream (d) region priors {pri.tolist()} from a profile with "
           f"bands {[(b.row_lo, b.row_hi) for b in prof.bands()]}: primed "
-          f"init state and replay equal card vs CPU; drained at cycle "
-          f"{r_d.cycles} (cold {res.cycles}), {r_d.switches} switches "
-          f"(cold {res.switches}), stalls {r_d.stall_cycles} (cold "
-          f"{res.stall_cycles}), {int(st_d.mem.cycle)} cycles run in "
+          f"init state and replay of the first {STREAM_HEAD} requests a "
+          f"core equal card vs CPU; drained at cycle {r_d.cycles} (cold "
+          f"{cold.cycles}), {r_d.switches} switches (cold {cold.switches}),"
+          f" stalls {r_d.stall_cycles} (cold {cold.stall_cycles}), "
+          f"{int(st_d.mem.cycle)} cycles run in "
           f"{secs_d:.2f} s = {secs_d / int(st_d.mem.cycle) * 1e3:.3f} "
           f"ms/cycle; launches xor_gather {calls_d[0]}, xor_encode "
           f"{calls_d[1]}")
@@ -1936,7 +1980,7 @@ def stream_phase(torch, sim_single):
         [batch_of_one(st_) for st_ in sampler.states], "stream (a)")
     print(f"stream (a) kernels: {live}")
     profile_stream(torch, traces["cuda"], st, point)
-    return launches, res
+    return launches, cold
 
 
 def profile_stream(torch, tr, drained, point, n: int = 40) -> None:
@@ -2009,10 +2053,11 @@ FIG19_BASE = dict(scheme="scheme_i", trace="split",
 FIG19_AXES = dict(r=(0.05, 0.125, 0.25), alpha=(0.1, 0.25, 0.5, 1.0))
 FIG19_GOLDEN = dict(alpha=0.25, r=0.05)
 SEED_AXIS = 8                    # (b): the simulate phase's golden run
-PROFILE_BATCHES = (1, 8, 13)     # seed-axis batch sizes profiled
+PROFILE_BATCHES = (1, 8)         # seed-axis batch sizes profiled
 STREAM_ALPHAS = (0.1, 0.25, 0.5, 1.0)
+SWEEP_STREAM_CHUNK = 64          # (c): 8 chunks of the head
 CKPT_EVERY = 2                   # (c): chunks between checkpoints
-CKPT_STOP = 1024                 # (c): the killed pass stops past this cycle
+CKPT_STOP = 400                  # (c): the killed pass stops past this cycle
 LIVE_EVERY = 50                  # (d): batched cycles of (a), (b) between
 STREAM_LIVE_EVERY = 100          # live checks, and of (c)
 
@@ -2045,11 +2090,11 @@ def stream_points():
 
 
 def sweep_cpu_side() -> dict:
-    """The sweep phase's CPU side: (a)'s and (b)'s ``run_points`` (results,
-    each point's final state as numpy leaves, seconds, wrapper calls),
-    each (a) point's looped ``simulate``, and (c)'s ``stream_replay_points``
-    per batch. It runs in a worker process started with the script
-    (``CpuSide``) while the card does untimed work: the card's loop is
+    """The sweep phase's CPU side for (a) and (b): ``run_points`` (results,
+    each point's final state as numpy leaves, seconds, wrapper calls) and
+    each (a) point's looped ``simulate``. It runs in a worker process
+    started with the script (``CpuSide``) while the card does untimed
+    work: the card's loop is
     host-bound, so this CPU work would otherwise add to the script's wall
     time. Its seconds are the worker's CPU time (``time.process_time``,
     over its 2 threads): its wall clock runs on while it is stopped."""
@@ -2060,9 +2105,7 @@ def sweep_cpu_side() -> dict:
     from repro_torch.kernels.xor_encode import ops as eops
     from repro_torch.kernels.xor_gather import ops as gops
     from repro_torch.sim import ramulator
-    from repro_torch.sim import trace as tr_mod
-    from repro_torch.sweep import build_trace, partition, run_points
-    from repro_torch.traces import stream_replay_points
+    from repro_torch.sweep import build_trace, run_points
 
     torch.set_num_threads(2)
 
@@ -2086,44 +2129,102 @@ def sweep_cpu_side() -> dict:
         wq_hi=pt.wq_hi, wq_lo=pt.wq_lo, queue_depth=pt.queue_depth,
         device="cpu") for pt in fig19_points()]
     out["looped_s"] = time.process_time() - t0
-    src = tr_mod.banded_trace(tr_mod.TraceSpec(**STREAM_TRACE), device="cpu")
-    for b in partition(stream_points()):
-        t0 = time.process_time()
-        res = stream_replay_points(b.points, [src] * len(b),
-                                   chunk_len=STREAM_CHUNK, device="cpu")
-        out[("c",) + tuple(b.indices)] = (res, time.process_time() - t0)
     return out
 
 
-def _cpu_worker(conn) -> None:
-    """Worker process: send ``("ok", sweep_cpu_side())``, or the traceback
-    of its failure, through ``conn``."""
+def sweep_stream_cpu_side() -> dict:
+    """The sweep phase's (c) on the CPU: ``stream_replay_points`` per batch
+    (results, worker CPU seconds), keyed by the batch's indices."""
+    import torch
+
+    from repro_torch.sim import trace as tr_mod
+    from repro_torch.sweep import partition
+    from repro_torch.traces import stream_replay_points
+
+    torch.set_num_threads(2)
+    src = stream_head(tr_mod.banded_trace(tr_mod.TraceSpec(**STREAM_TRACE),
+                                          device="cpu"))
+    out = {}
+    for b in partition(stream_points()):
+        t0 = time.process_time()
+        res = stream_replay_points(b.points, [src] * len(b),
+                                   chunk_len=SWEEP_STREAM_CHUNK, device="cpu")
+        out[tuple(b.indices)] = (res, time.process_time() - t0)
+    return out
+
+
+def paper_cpu_side() -> dict:
+    """The paper phase's CPU side: the Fig 18 harness's rows and the
+    quickstart's results on the CPU, with the worker's CPU seconds for the
+    grid. Their printed tables are dropped, and the CPU run's artefact goes
+    to a temporary directory (the card run writes
+    ``experiments/torch/fig18_dedup.json``)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.harness import common, fig18_dedup, quickstart
+
+    torch.set_num_threads(2)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_paper_")
+    common.ART_DIR = tmp
     try:
-        conn.send(("ok", sweep_cpu_side()))
-    except BaseException:
-        import traceback
-        conn.send(("error", traceback.format_exc()))
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.process_time()
+            rows = fig18_dedup.run(device="cpu")
+            secs = time.process_time() - t0
+            quick = quickstart.main(device="cpu")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"fig18": rows, "fig18_s": secs, "quickstart": quick}
+
+
+CPU_STAGES = {"sweep": sweep_cpu_side, "sweep_c": sweep_stream_cpu_side,
+              "paper": paper_cpu_side}
+STAGE_PHASE = {"sweep": "sweep", "sweep_c": "sweep", "paper": "paper"}
+
+
+def _cpu_worker(conn, stages) -> None:
+    """Worker process: for each stage in turn send ``(stage, "ok",
+    result)``, or the traceback of its failure, through ``conn``."""
+    try:
+        for stage in stages:
+            try:
+                conn.send((stage, "ok", CPU_STAGES[stage]()))
+            except BaseException:
+                import traceback
+                conn.send((stage, "error", traceback.format_exc()))
+                raise
     finally:
         conn.close()
 
 
 class CpuSide:
-    """``sweep_cpu_side`` in a spawned worker process that runs only while
-    the script takes no time: ``pause`` stops it (SIGSTOP) before a phase
-    that reports a time, ``resume`` lets it go on (SIGCONT), ``receive``
-    lets it finish and returns its result, ``close`` kills it (SIGKILL
-    ends a stopped process too) on every way out of ``main``."""
+    """The CPU sides of the sweep and paper phases (``CPU_STAGES``, in that
+    order: the sweep's (a) and (b), its (c), the paper's) in a spawned
+    worker process that runs only while the script
+    takes no time: ``pause`` stops it (SIGSTOP) before a phase that reports
+    a time, ``resume`` lets it go on (SIGCONT), ``receive`` lets it finish
+    the next stage and returns its result (and stops it again while stages
+    remain), ``close`` kills it (SIGKILL ends a stopped process too) on
+    every way out of ``main``. With no stages it starts no process."""
 
-    def __init__(self):
+    def __init__(self, stages=tuple(CPU_STAGES)):
         import multiprocessing
 
+        self.stages = list(stages)
+        self.ran = 0.0                  # seconds it was let run (this stage)
+        self._since = None
+        self.worker = None
+        if not self.stages:
+            return
         ctx = multiprocessing.get_context("spawn")
         self.recv, send = ctx.Pipe(duplex=False)
-        self.worker = ctx.Process(target=_cpu_worker, args=(send,),
-                                  daemon=True)
+        self.worker = ctx.Process(target=_cpu_worker,
+                                  args=(send, self.stages), daemon=True)
         self.worker.start()
         send.close()
-        self.ran = 0.0                  # seconds it was let run
         self._since = time.perf_counter()
 
     def _signal(self, sig) -> None:
@@ -2139,30 +2240,44 @@ class CpuSide:
             self._since = None
 
     def resume(self) -> None:
-        if self._since is None:
+        if self._since is None and self.stages:
             self._signal(signal.SIGCONT)
             self._since = time.perf_counter()
 
-    def receive(self) -> dict:
-        """The worker's ``sweep_cpu_side()``, letting it finish first."""
+    def receive(self, stage: str) -> dict:
+        """The worker's result of ``stage`` (the next one it owes), letting
+        it run until then."""
+        check(self.stages[:1] == [stage],
+              f"{stage}: the CPU worker owes {self.stages}")
+        self.pause()                    # settles ``ran``
+        ran, self.ran = self.ran, 0.0
         self.resume()
         t0 = time.perf_counter()
         try:
-            status, data = self.recv.recv()
+            got, status, data = self.recv.recv()
         except EOFError:
-            status, data = "error", "the worker exited without a result"
-        self.worker.join()
-        check(status == "ok", f"sweep: the CPU side failed:\n{data}")
+            got, status, data = stage, "error", ("the worker exited "
+                                                 "without a result")
         waited = time.perf_counter() - t0
-        print(f"sweep: the CPU side (a worker process, stopped through "
-              f"every timed phase) had run {self.ran:.1f} s beside the "
-              f"untimed phases and was ready after {waited:.1f} s more")
+        check(got == stage and status == "ok",
+              f"{stage}: the CPU side failed:\n{data}")
+        self.stages.pop(0)
+        if self.stages:
+            self.pause()
+            self.ran = 0.0              # the next stage starts now
+        else:
+            self.worker.join()
+            self._since = None
+        print(f"{stage}: the CPU side (a worker process, stopped through "
+              f"every timed phase) had run {ran:.1f} s beside the untimed "
+              f"phases and was ready after {waited:.1f} s more")
         return data
 
     def close(self) -> None:
-        if self.worker.is_alive():
+        if self.worker is not None and self.worker.is_alive():
             self._signal(signal.SIGKILL)
-        self.worker.join()
+        if self.worker is not None:
+            self.worker.join()
 
 
 def _as_tensors(torch, host):
@@ -2180,9 +2295,10 @@ class SweepHook:
     """``run_points``' ``on_cycle(batch, before, after, out)`` on the card:
     counts each batch's cycles and host time, holds every read that point
     ``golden`` serves against the golden value committed before its cycle,
-    checks each batched cycle launched each sim kernel at most once, and
-    keeps each batch's state before every ``every``-th cycle (from cycle
-    ``every // 2``; references, no copy)."""
+    checks each batched cycle launched each sim kernel at most once, keeps
+    each batch's state before every ``every``-th cycle (from cycle
+    ``every // 2``) and its latest state after a cycle (``final``: the
+    batch's final state once the run is over; references, no copy)."""
 
     def __init__(self, golden: int, every: int):
         from repro_torch.kernels.xor_encode import kernel as ek
@@ -2192,6 +2308,7 @@ class SweepHook:
         self.golden, self.every = golden, every
         self.bad = self.served = 0
         self.cycles, self.secs, self.states = {}, {}, []
+        self.final = {}
         self.most = [0, 0]
         self._last = None
 
@@ -2207,6 +2324,7 @@ class SweepHook:
         self.cycles[key] = n + 1
         if n % self.every == self.every // 2:
             self.states.append((batch, before))
+        self.final[key] = (batch, after)
         if self.golden in batch.indices:
             k = batch.indices.index(self.golden)
             want = before.mem.golden[k][out.r_bank[k].long(),
@@ -2319,7 +2437,7 @@ def _live_batch(torch, points, states, label) -> None:
 
 
 def sweep_phase(torch, sim_single, looped_rate, looped_busy_ms,
-                stream_single, cpu_side):
+                stream_cold, cpu_side):
     """The point axis on the card against the CPU: (a) paper_fig19's grid
     through ``run_points``, (b) a seed axis, (c) ``stream_replay_points``
     at bench_stream's geometry with a kill-and-resume pass, (d) both sim
@@ -2327,7 +2445,8 @@ def sweep_phase(torch, sim_single, looped_rate, looped_busy_ms,
     (a), (b) and (c). ``sim_single`` is the simulate phase's card result
     of its golden run, ``looped_rate`` its looped cycles/s (drained cycles
     included), ``looped_busy_ms`` its busy profile window's ms a cycle,
-    ``stream_single`` the stream phase's (a) card result, ``cpu_side`` the
+    ``stream_cold`` the stream phase's cold card replay of the trace's
+    head, ``cpu_side`` the
     ``CpuSide`` worker. Returns each sim kernel's launches over the
     phase."""
     import shutil
@@ -2352,7 +2471,7 @@ def sweep_phase(torch, sim_single, looped_rate, looped_busy_ms,
                       "alpha"] and p.r == FIG19_GOLDEN["r"])
     hook = SweepHook(golden, LIVE_EVERY)
     res, st, secs, calls = _sweep_run(torch, pts, hook)
-    cpu = cpu_side.receive()
+    cpu = cpu_side.receive("sweep")
     res_c, st_c, secs_c, calls_c = cpu["a"]
     st_c = [_as_tensors(torch, h) for h in st_c]
     check(res == res_c, f"sweep (a): card {res} vs CPU {res_c}")
@@ -2424,46 +2543,36 @@ def sweep_phase(torch, sim_single, looped_rate, looped_busy_ms,
           f"{SEED_AXIS * c_b / secs_b:.0f} point-cycles/s; seed 0 equals the "
           f"simulate phase's card result; card = CPU; cycles to drain "
           f"{[r.cycles for r in res_b]}; launches {calls_b}")
-    # (c) stream_replay_points at bench_stream's geometry
+    # (c) stream_replay_points at bench_stream's geometry, on its head
     from repro_torch.sim import trace as tr_mod
     spts = stream_points()
-    src = tr_mod.banded_trace(tr_mod.TraceSpec(**STREAM_TRACE), device="cpu")
+    src = stream_head(tr_mod.banded_trace(tr_mod.TraceSpec(**STREAM_TRACE),
+                                          device="cpu"))
     sbatches = partition(spts)
     check([b.indices for b in sbatches] == [[0, 1, 2], [3]],
           f"sweep (c): batches {[b.indices for b in sbatches]}")
-    out_c, samplers = {}, {}
+    out_c, samplers, secs_s = {}, {}, {}
     for b in sbatches:
-        got, secs_s = {}, {}
         samplers[tuple(b.indices)] = sampler = CycleSampler(STREAM_LIVE_EVERY)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        got["cuda"] = stream_replay_points(b.points, [src] * len(b),
-                                           chunk_len=STREAM_CHUNK,
-                                           device="cuda", on_cycle=sampler)
+        out_c[tuple(b.indices)] = stream_replay_points(
+            b.points, [src] * len(b), chunk_len=SWEEP_STREAM_CHUNK,
+            device="cuda",
+            on_cycle=sampler)
         torch.cuda.synchronize()
-        secs_s["cuda"] = time.perf_counter() - t0
-        got["cpu"], secs_s["cpu"] = cpu[("c",) + tuple(b.indices)]
-        check(got["cuda"] == got["cpu"],
-              f"sweep (c) {b.indices}: card {got['cuda']} vs CPU "
-              f"{got['cpu']}")
-        out_c[tuple(b.indices)] = got
-        print(f"sweep (c) stream_replay_points alpha "
-              f"{[spts[i].alpha for i in b.indices]} at chunk {STREAM_CHUNK}"
-              f": card {secs_s['cuda']:.2f} s, CPU {secs_s['cpu']:.2f} s of "
-              "worker CPU time; "
-              f"cycles {[r.cycles for r in got['cuda']]}, windows "
-              f"{[len(r.window_read_latency) for r in got['cuda']]}, "
-              f"switches {[r.switches for r in got['cuda']]}; card = CPU "
-              "(windows included)")
-    sub = out_c[(0, 1, 2)]["cuda"]
-    check(strip_windows(sub[1]) == strip_windows(stream_single),
-          f"sweep (c): alpha 0.25 {sub[1]} vs the stream phase's "
-          f"{stream_single}")
+        secs_s[tuple(b.indices)] = time.perf_counter() - t0
+    sub = out_c[(0, 1, 2)]
+    check(strip_windows(sub[1]) == strip_windows(stream_cold),
+          f"sweep (c): alpha 0.25 {sub[1]} vs the stream phase's cold "
+          f"head {stream_cold}")
+    # kill-and-resume: untimed, so the CPU worker runs meanwhile
+    cpu_side.resume()
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         b = sbatches[0]
-        kw = dict(chunk_len=STREAM_CHUNK, device="cuda", checkpoint_dir=ckdir,
-                  checkpoint_every=CKPT_EVERY)
+        kw = dict(chunk_len=SWEEP_STREAM_CHUNK, device="cuda",
+                  checkpoint_dir=ckdir, checkpoint_every=CKPT_EVERY)
         cut = stream_replay_points(b.points, [src] * len(b),
                                    max_cycles=CKPT_STOP, **kw)
         step = latest_step(ckdir)
@@ -2475,17 +2584,33 @@ def sweep_phase(torch, sim_single, looped_rate, looped_busy_ms,
         shutil.rmtree(ckdir, ignore_errors=True)
     check(resumed == sub, f"sweep (c): resumed {resumed} vs uninterrupted "
           f"{sub}")
+    cpu_c = cpu_side.receive("sweep_c")
+    for b in sbatches:
+        key = tuple(b.indices)
+        card, (want, secs_cpu) = out_c[key], cpu_c[key]
+        check(card == want, f"sweep (c) {b.indices}: card {card} vs CPU "
+              f"{want}")
+        print(f"sweep (c) stream_replay_points alpha "
+              f"{[spts[i].alpha for i in b.indices]} on the first "
+              f"{STREAM_HEAD} requests a core at chunk "
+              f"{SWEEP_STREAM_CHUNK}: card {secs_s[key]:.2f} s, CPU "
+              f"{secs_cpu:.2f} s of worker CPU time; cycles "
+              f"{[r.cycles for r in card]}, windows "
+              f"{[len(r.window_read_latency) for r in card]}, switches "
+              f"{[r.switches for r in card]}; card = CPU (windows included)")
     print(f"sweep (c) kill-and-resume: stopped at cycle "
           f"{[r.cycles for r in cut]} with step {step} committed (every "
           f"{CKPT_EVERY} chunks), resumed to the uninterrupted results, "
-          "windows included; alpha 0.25 equals the stream phase's (a) "
-          "apart from windows")
+          "windows included; alpha 0.25 equals the stream phase's cold "
+          "head apart from windows")
     launches = {"xor_gather": gk.launches, "xor_encode": ek.launches}
     # main path ends here
     check(all(v > 0 for v in launches.values()),
           f"sweep: a kernel of the path never launched: {launches}")
     # (d) the kernels on live batched card states of every batch of (a),
-    # (b) and (c), at the shapes the path gave them
+    # (b) and (c), at the shapes the path gave them; untimed, so the CPU
+    # worker runs meanwhile
+    cpu_side.resume()
     for b in batches:
         _live_batch(torch, b.points, [s_ for bb, s_ in hook.states
                                       if bb.indices == b.indices],
@@ -2495,7 +2620,8 @@ def sweep_phase(torch, sim_single, looped_rate, looped_busy_ms,
     for b in sbatches:
         _live_batch(torch, b.points, samplers[tuple(b.indices)].states,
                     f"sweep (d) (c) alpha {[spts[i].alpha for i in b.indices]}")
-    # launches per batched cycle and idle share, B = 1, 8, 13 and (a)'s
+    cpu_side.pause()
+    # launches per batched cycle and idle share, B = 1, 8 and (a)'s
     # traced batch, in this call
     for n in PROFILE_BATCHES:
         profile_batch(torch, seed_points(n), f"seeds{n}")
@@ -2503,26 +2629,221 @@ def sweep_phase(torch, sim_single, looped_rate, looped_busy_ms,
     return launches
 
 
-def main() -> int:
+# --------------------------------------------------------------- phase 11
+def paper_phase(torch, sim_results, cpu_side):
+    """The paper's Fig 18 on the card through the port's harness
+    (``repro_torch.harness.fig18_dedup.run``: ``paper_fig18`` ->
+    ``run_sweep`` -> ``run_points`` at the figures' geometry, 16 points) and
+    the quickstart (``compare_schemes`` -> ``run_points``), each against its
+    CPU run from the ``CpuSide`` worker, row for row and field for field.
+    Each of the simulate phase's five looped points (``sim_results``) must
+    equal its batched result here, every alpha 1 row must have 0 switches,
+    every read of scheme_i alpha 0.25 must return its committed value, and
+    both sim kernels must equal their plain versions bit for bit on live
+    states of every Fig 18 batch and on every launch of scheme III's
+    alpha < 1 batch (``_recorded_batch``). The grid runs once more without
+    the hook, timed as a user runs it. Returns each sim kernel's launches
+    over the phase's two counted runs."""
+    from repro_torch.configs.paper_memsys import PAPER_ALPHAS, PAPER_SCHEMES
+    from repro_torch.core.system import summarize_batch
+    from repro_torch.harness import fig18_dedup, quickstart
+    from repro_torch.kernels.xor_encode import kernel as ek
+    from repro_torch.kernels.xor_encode import ops as eops
+    from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.kernels.xor_gather import ops as gops
+
+    # paper_fig18's order: uncoded, then each scheme over the alphas
+    golden = (1 + PAPER_SCHEMES.index(GOLDEN_RUN[0]) * len(PAPER_ALPHAS)
+              + PAPER_ALPHAS.index(GOLDEN_RUN[1]))
+    hook = SweepHook(golden, LIVE_EVERY)
+    gk.launches = ek.launches = 0                   # main path starts here
+    c0 = (gops.calls, eops.calls)
+    rows = fig18_dedup.run(device="cuda", on_cycle=hook)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quick = quickstart.main(device="cuda")
+    torch.cuda.synchronize()
+    quick_s = time.perf_counter() - t0
+    launches = {"xor_gather": gk.launches, "xor_encode": ek.launches}
+    # main path ends here
+    calls = (gops.calls - c0[0], eops.calls - c0[1])
+    check(tuple(launches.values()) == calls,
+          f"paper: launches {launches}, wrapper calls {calls} on the card")
+    check(all(v > 0 for v in launches.values()),
+          f"paper: a kernel of the path never launched: {launches}")
+    check(hook.most[0] <= 1 and hook.most[1] <= 1,
+          f"paper: a batched cycle made {hook.most} launches")
+    # each point's SimResult, from its batch's final state
+    res = {}
+    for batch, st in hook.final.values():
+        for k, (i, r) in enumerate(zip(batch.indices, summarize_batch(st))):
+            res[i] = (batch.points[k], r)
+    check(sorted(res) == list(range(len(rows))) and len(rows) == 16,
+          f"paper: {len(rows)} rows, results for points {sorted(res)}")
+    for row, (pt, r) in zip(rows, (res[i] for i in range(len(rows)))):
+        uncoded = pt.scheme == "uncoded"
+        check((row["scheme"], row["cycles"], row["degraded"],
+               row["parked"]) == (pt.scheme, r.cycles, r.degraded_reads,
+                                  r.parked_writes)
+              and row["switches"] == (0 if uncoded else r.switches),
+              f"paper: row {row} vs {pt.scheme} alpha={pt.alpha} {r}")
+        check(r.completed, f"paper: {pt.scheme} alpha={pt.alpha} did not "
+              "drain")
+        if pt.alpha == 1.0:
+            check(r.switches == 0, f"paper: {pt.scheme} at alpha 1 made "
+                  f"{r.switches} region switches")
+    for (scheme, alpha), want in sim_results.items():
+        got = next(r for pt, r in res.values()
+                   if (pt.scheme, pt.alpha) == (scheme, alpha))
+        check(got == want, f"paper: {scheme} alpha={alpha} batched {got} "
+              f"vs the simulate phase's looped {want}")
+    check(res[golden][0].scheme == GOLDEN_RUN[0]
+          and res[golden][0].alpha == GOLDEN_RUN[1],
+          f"paper: point {golden} is {res[golden][0]}")
+    bad, served = int(hook.bad), int(hook.served)
+    check(bad == 0 and served == res[golden][1].served_reads,
+          f"paper: {bad} of {served} served reads of {GOLDEN_RUN} did not "
+          "return the committed value")
+    # the grid as a user runs it: the harness's own cycle counter and no
+    # hook (outside the counts; its table is printed once, above)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        alone = fig18_dedup.run(device="cuda")
+    check(alone == rows, f"paper: Fig 18 rows without the hook {alone} vs "
+          f"with it {rows}")
+    print("paper fig18 without the hook (as the harness runs alone; the "
+          "rows equal): " + next(line for line in printed.getvalue()
+                                 .splitlines() if line.startswith("grid:")))
+    cpu = cpu_side.receive("paper")
+    check(rows == cpu["fig18"],
+          f"paper: Fig 18 card rows {rows} vs CPU rows {cpu['fig18']}")
+    check(quick == cpu["quickstart"],
+          f"paper: quickstart card {quick} vs CPU {cpu['quickstart']}")
+    print(f"paper fig18: card rows = CPU rows, every field ({len(rows)} "
+          f"rows; CPU {cpu['fig18_s']:.1f} s of worker CPU time); the "
+          f"simulate phase's {len(sim_results)} looped points = their "
+          "batched results; every alpha 1 row has 0 switches; all "
+          f"{served} served reads of {GOLDEN_RUN[0]} alpha={GOLDEN_RUN[1]} "
+          "returned committed values; reduction % / switches: " + ", ".join(
+              f"{r['scheme']} {r['alpha']}: {r['reduction_%']} / "
+              f"{r['switches']}" for r in rows))
+    print(f"paper quickstart: card {quick_s:.2f} s = CPU in every field; "
+          f"cycles {[(k, v.cycles) for k, v in quick.items()]}; launches "
+          f"xor_gather {launches['xor_gather']}, xor_encode "
+          f"{launches['xor_encode']} over the phase (fig18 + quickstart)")
+    # the kernels on live batched card states of every Fig 18 batch
+    for batch, _ in hook.final.values():
+        _live_batch(torch, batch.points,
+                    [s_ for b, s_ in hook.states
+                     if b.indices == batch.indices],
+                    f"paper (d) fig18 batch {batch.points[0].scheme} alpha "
+                    f"{[pt.alpha for pt in batch.points]}")
+    print(f"paper (e) {_recorded_batch(torch, hook, res)}")
+    return launches
+
+
+def _recorded_batch(torch, hook, res) -> str:
+    """Scheme III's alpha < 1 Fig 18 batch run once more on the card with
+    every ``xor_gather`` and ``xor_encode`` launch held against the plain
+    version on that launch's own operands (its degraded reads XOR two
+    siblings), and its results against the phase's. Outside the counts."""
+    from repro_torch.core.controller import MODE_OPT0, MODE_REDIRECT
+    from repro_torch.kernels.xor_encode import ops as eops
+    from repro_torch.kernels.xor_encode.ref import encode_parities_plain
+    from repro_torch.kernels.xor_gather import ops as gops
+    from repro_torch.kernels.xor_gather.ref import gather_decode_plain
+    from repro_torch.sweep import run_points
+
+    batch = next(b for b, _ in hook.final.values()
+                 if b.points[0].scheme == "scheme_iii" and len(b) > 1)
+    seen = {"gather": 0, "encode": 0, "degraded": 0, "two": 0}
+
+    def held(kind, launch, plain):
+        def checked(*args):
+            out = launch(*args)
+            check(torch.equal(out, plain(*args)), f"paper (e): {kind} "
+                  f"launch {seen[kind]} differs from its plain version")
+            seen[kind] += 1
+            if kind == "gather":
+                mode, sib0, sib1 = args[4], args[7], args[8]
+                opt = (mode >= MODE_OPT0) & (mode < MODE_REDIRECT)
+                seen["degraded"] += int(opt.sum())
+                seen["two"] += int((opt & (sib0 >= 0) & (sib1 >= 0)).sum())
+            return out
+        return checked
+
+    saved = gops.gather_decode_cuda, eops.encode_parities_cuda
+    gops.gather_decode_cuda = held("gather", saved[0], gather_decode_plain)
+    eops.encode_parities_cuda = held("encode", saved[1],
+                                     encode_parities_plain)
+    try:
+        got = run_points(batch.points, device="cuda")
+    finally:
+        gops.gather_decode_cuda, eops.encode_parities_cuda = saved
+    check(got == [res[i][1] for i in batch.indices],
+          f"paper (e): rerun {got} vs the phase's results")
+    check(seen["two"] > 0 and seen["encode"] > 0,
+          f"paper (e): no two-sibling degraded read or no encode: {seen}")
+    return (f"fig18 batch scheme_iii alpha {[p.alpha for p in batch.points]}"
+            f" rerun, results equal: all {seen['gather']} xor_gather and "
+            f"{seen['encode']} xor_encode launches bit-exact vs plain on "
+            f"their own operands ({seen['degraded']} degraded reads, "
+            f"{seen['two']} of them parity ^ two siblings)")
+
+
+# Phases in the order they run, and the earlier phases each one needs.
+PHASES = ("kernel", "serve", "decode", "cross", "kvstate", "simkernel",
+          "simulate", "stream", "sweep", "paper")
+NEEDS = {"decode": ("serve",), "stream": ("simulate",),
+         "sweep": ("simulate", "stream"), "paper": ("simulate",)}
+
+
+def selected_phases(only) -> tuple:
+    """The phases to run: all of them, or ``only`` (a comma-separated
+    list) and the phases they need."""
+    if only is None:
+        return PHASES
+    want = set(only.split(","))
+    check(want <= set(PHASES), f"--only: unknown phases "
+          f"{sorted(want - set(PHASES))}; have {', '.join(PHASES)}")
+    for name in reversed(PHASES):
+        if name in want:
+            want.update(NEEDS.get(name, ()))
+    return tuple(p for p in PHASES if p in want)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    t_start = time.perf_counter()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=None, metavar="PHASE[,PHASE...]",
+                    help="run the build and only these phases (and those "
+                    "they need), print no kernel table and no result line; "
+                    f"phases: {', '.join(PHASES)}")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import build
 
-    cpu_side = CpuSide()
+    phases = selected_phases(args.only)
+    cpu_side = CpuSide(tuple(s for s in CPU_STAGES
+                             if STAGE_PHASE[s] in phases))
     try:
-        return _main(torch, build, cpu_side)
+        return _main(torch, build, cpu_side, phases, t_start)
     finally:
         cpu_side.close()
 
 
-def _main(torch, build, cpu_side) -> int:
+def _main(torch, build, cpu_side, phases, t_start) -> int:
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    print(f"phases: {', '.join(phases)}")
     t0 = time.perf_counter()
     built = build.build_all(sorted(f.stem for f in build.CSRC.glob("*.cu")))
     print(f"build: {len(built)} sources with parallel nvcc in "
@@ -2542,32 +2863,74 @@ def _main(torch, build, cpu_side) -> int:
 
     from repro_torch.configs.base import get_config
 
+    mark = [t_start]
+
+    def lap(name: str) -> None:
+        """Print the wall seconds since the last lap: each phase's share."""
+        now = time.perf_counter()
+        print(f"phase {name}: {now - mark[0]:.1f} s")
+        mark[0] = now
+
+    lap("build")
     cpu_side.pause()                    # timed phases: the worker waits
-    kern = kernel_phase(torch)
-    launches, ring_kv = serve_phase(torch)
-    serving = [("serving", get_config("qwen2.5-3b").n_heads, ring_kv)]
-    for arch in DENSE_ARCHS:
-        n, kv = serve_phase(torch, arch, SERVE_RUNS[:2])
-        launches += n
-        serving.append((f"serving_{arch}", get_config(arch).n_heads,
-                        {0: kv[0]}))
-    decode, decode_launches = decode_phase(
-        torch, serving, next(r for r in built if r.name == "coded_kv_decode"))
-    del serving, ring_kv, kv
-    torch.cuda.empty_cache()
+    if "kernel" in phases:
+        kern = kernel_phase(torch)
+        lap("kernel")
+    if "serve" in phases:
+        launches, ring_kv = serve_phase(torch)
+        serving = [("serving", get_config("qwen2.5-3b").n_heads, ring_kv)]
+        for arch in DENSE_ARCHS:
+            n, kv = serve_phase(torch, arch, SERVE_RUNS[:2])
+            launches += n
+            serving.append((f"serving_{arch}", get_config(arch).n_heads,
+                            {0: kv[0]}))
+        lap("serve")
+    if "decode" in phases:
+        decode, decode_launches = decode_phase(
+            torch, serving,
+            next(r for r in built if r.name == "coded_kv_decode"))
+        lap("decode")
+    if "serve" in phases:
+        del serving, ring_kv, kv
+        torch.cuda.empty_cache()
     cpu_side.resume()                   # untimed phases: the worker runs
-    for arch in ("qwen2.5-3b",) + DENSE_ARCHS:
-        cross_device_phase(torch, arch)
-    kvstate_phase(torch)
+    if "cross" in phases:
+        for arch in ("qwen2.5-3b",) + DENSE_ARCHS:
+            cross_device_phase(torch, arch)
+        lap("cross")
+    if "kvstate" in phases:
+        kvstate_phase(torch)
+        lap("kvstate")
     cpu_side.pause()
-    sim_kern = sim_kernel_phase(torch)
-    sim_launches, sim_results, sim_rate, sim_busy_ms = simulate_phase(torch)
-    stream_launches, stream_single = stream_phase(torch,
-                                                  sim_results[GOLDEN_RUN])
-    sweep_launches = sweep_phase(torch, sim_results[GOLDEN_RUN], sim_rate,
-                                 sim_busy_ms, stream_single, cpu_side)
+    if "simkernel" in phases:
+        sim_kern = sim_kernel_phase(torch)
+        lap("simkernel")
+    if "simulate" in phases:
+        sim_launches, sim_results, sim_rate, sim_busy_ms = simulate_phase(
+            torch)
+        lap("simulate")
+    if "stream" in phases:
+        stream_launches, stream_cold = stream_phase(
+            torch, sim_results[GOLDEN_RUN])
+        lap("stream")
+    if "sweep" in phases:
+        sweep_launches = sweep_phase(torch, sim_results[GOLDEN_RUN],
+                                     sim_rate, sim_busy_ms, stream_cold,
+                                     cpu_side)
+        lap("sweep")
+    if "paper" in phases:
+        paper_launches = paper_phase(torch, sim_results, cpu_side)
+        lap("paper")
+    if phases != PHASES:
+        print(f"chip_smoke: phases {', '.join(phases)} passed in "
+              f"{time.perf_counter() - t_start:.1f} s (--only: no kernel "
+              "table, no result line)")
+        return 0
     print(f"launches by phase: simulate {sim_launches}, stream "
-          f"{stream_launches}, sweep {sweep_launches}")
+          f"{stream_launches}, sweep {sweep_launches}, paper "
+          f"{paper_launches}")
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     main_case = kern["bf16_coded"]
     table = {"kernels": [{
@@ -2594,7 +2957,7 @@ def _main(torch, build, cpu_side) -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces,
             "launches": (sim_launches[name] + stream_launches[name]
-                         + sweep_launches[name]),
+                         + sweep_launches[name] + paper_launches[name]),
             "max_abs_err": max(v["max_abs_err"] for (k, _), v in
                                sim_kern.items() if k == name),
             "ms": case["ms"],

@@ -59,7 +59,9 @@ from repro_torch.core.state import (INT32_MAX, MemParams, MemState,
                                     batch_of_one, batch_tunables,
                                     init_states, make_tunables, point_of)
 from repro_torch.kernels.common import resolve_device
-from repro_torch.kernels.xor_gather.ops import gather_decode, plan_columns
+# The module, not its names: the gather's ops import ``codes``, ``controller``
+# and ``state``, so either package may be imported first.
+from repro_torch.kernels.xor_gather import ops as gather_ops
 
 
 class Trace(NamedTuple):
@@ -311,11 +313,12 @@ class CodedMemorySystem:
         coded row gather (the CUDA ``xor_gather`` kernel on the card, one
         launch for the batch), on the banks viewed as (…, L, 1) int32
         rows."""
-        cols = plan_columns(self.t, plan, cb, ci, m.region_slot,
-                            self.p.region_size, m.fresh_loc, rs_active=rs_a)
-        return gather_decode(m.banks_data[..., None],
-                             m.parity_data[..., None],
-                             cols)[:, 0].view(cb.shape)
+        cols = gather_ops.plan_columns(self.t, plan, cb, ci, m.region_slot,
+                                       self.p.region_size, m.fresh_loc,
+                                       rs_active=rs_a)
+        return gather_ops.gather_decode(m.banks_data[..., None],
+                                        m.parity_data[..., None],
+                                        cols)[:, 0].view(cb.shape)
 
     # ------------------------------------------------------- write datapath
     def _commit_writes(self, m: MemState, plan: ctl.WritePlan, cb, ci_, ca,

@@ -26,7 +26,9 @@ from repro_torch.core.controller import (MODE_OPT0, MODE_REDIRECT, ReadPlan,
 from repro_torch.core.state import batch_of_one
 from repro_torch.kernels.common import as_lanes
 from repro_torch.kernels.xor_gather.kernel import gather_decode_cuda
-from repro_torch.kernels.xor_gather.ref import gather_decode_plain
+# The module, not its name: ``ref`` imports ``core.codes``, whose package
+# imports the system and so this module.
+from repro_torch.kernels.xor_gather import ref
 
 calls = 0
 
@@ -112,7 +114,7 @@ def gather_decode(banks: torch.Tensor, parities: torch.Tensor,
     if dev == "cuda":
         out = gather_decode_cuda(banks, parities, *cols)
     elif dev == "cpu":
-        out = gather_decode_plain(banks, parities, *cols)
+        out = ref.gather_decode_plain(banks, parities, *cols)
     else:
         raise ValueError(f"gather_decode: no datapath for device {dev}")
     return out if out.dtype == value_dtype else out.view(value_dtype)

@@ -2,10 +2,13 @@
 §V-B), port of ``repro/sim/ramulator.py``.
 
 ``simulate`` runs one (scheme, α, r) configuration over a trace and returns
-a ``SimResult``; it runs on the CUDA card unless given ``device="cpu"``.
-``compare_schemes`` loops ``simulate`` over schemes (the JAX package
-batches the same points through its sweep engine, which its own tests hold
-bit-identical to this looped path; the batched engine is not ported yet).
+a ``SimResult`` — the looped per-point reference path. ``compare_schemes``
+and ``sweep_alpha`` reproduce the paper's figure axes (CPU cycles and
+dynamic-coding region switches vs α, per scheme, against the uncoded
+baseline) and are thin wrappers over the batched ``repro_torch.sweep``
+engine: points sharing a static shape run lock-step as one batch, each
+equal to its looped ``simulate``. All of them run on the CUDA card unless
+given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -59,6 +62,36 @@ def simulate(
     return (res, st) if return_state else res
 
 
+def sweep_point(
+    scheme: str,
+    trace: Trace,
+    n_rows: int,
+    alpha: float = 1.0,
+    r: float = 0.05,
+    n_data: int = 8,
+    n_cycles: Optional[int] = None,
+    select_period: int = 256,
+    wq_hi: int = 8,
+    wq_lo: int = 2,
+    **kw,
+):
+    """Map ``simulate``-style kwargs + a materialized trace to a SweepPoint.
+
+    ``**kw`` forwards the remaining ``make_params`` knobs (queue_depth,
+    coalesce, recode_cap, max_syms, encode_rows_per_cycle, recode_budget),
+    which are all SweepPoint fields.
+    """
+    from repro_torch.sweep.grid import SweepPoint
+    n_cores, length = (int(d) for d in trace.bank.shape)
+    return SweepPoint(
+        scheme=scheme, n_rows=n_rows, alpha=alpha, r=r, n_data=n_data,
+        n_cores=n_cores, length=length,
+        n_cycles=n_cycles if n_cycles is not None else default_n_cycles(trace),
+        trace="custom", select_period=select_period, wq_hi=wq_hi, wq_lo=wq_lo,
+        **kw,
+    )
+
+
 def compare_schemes(
     trace: Trace,
     n_rows: int,
@@ -66,10 +99,34 @@ def compare_schemes(
     r: float = 0.05,
     schemes: Iterable[str] = ("uncoded", "scheme_i", "scheme_ii",
                               "scheme_iii"),
+    device=None,
     **kw,
 ) -> Dict[str, SimResult]:
-    return {s: simulate(s, trace, n_rows, alpha=alpha, r=r, **kw)
-            for s in schemes}
+    """Each scheme over ``trace`` at one (α, r), through ``run_points``."""
+    from repro_torch.sweep.engine import run_points
+    schemes = list(schemes)
+    pts = [sweep_point(s, trace, n_rows, alpha=alpha, r=r, **kw)
+           for s in schemes]
+    return dict(zip(schemes, run_points(pts, traces=[trace] * len(pts),
+                                        device=device)))
+
+
+def sweep_alpha(
+    scheme: str,
+    trace: Trace,
+    n_rows: int,
+    alphas: Iterable[float] = (0.05, 0.1, 0.25, 0.5, 1.0),
+    r: float = 0.05,
+    device=None,
+    **kw,
+) -> Dict[float, SimResult]:
+    """One scheme over ``trace`` at each α, through ``run_points``."""
+    from repro_torch.sweep.engine import run_points
+    alphas = list(alphas)
+    pts = [sweep_point(scheme, trace, n_rows, alpha=a, r=r, **kw)
+           for a in alphas]
+    return dict(zip(alphas, run_points(pts, traces=[trace] * len(pts),
+                                       device=device)))
 
 
 def cycle_reduction(baseline: SimResult, coded: SimResult) -> float:

@@ -204,6 +204,20 @@ def run_points(points: Sequence[SweepPoint],
     return (results, states) if return_state else results
 
 
+def run_sweep(points: Sequence[SweepPoint],
+              traces: Optional[Sequence[Trace]] = None,
+              *, shard: bool = False,
+              region_priors: Optional[Sequence] = None,
+              device=None, on_cycle=None):
+    """Evaluate a sweep (``run_points``, on the card unless ``device`` names
+    another) and wrap it in a ``SweepResultSet`` (results store)."""
+    from repro_torch.sweep.results import SweepRecord, SweepResultSet
+    res = run_points(points, traces=traces, shard=shard,
+                     region_priors=region_priors, device=device,
+                     on_cycle=on_cycle)
+    return SweepResultSet([SweepRecord(pt, r) for pt, r in zip(points, res)])
+
+
 def clear_caches():
     """Drop memoized systems — mainly for tests."""
     _SYSTEMS.clear()

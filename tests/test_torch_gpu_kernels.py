@@ -621,3 +621,50 @@ def test_run_batch_on_the_card_equals_the_cpu(cuda):
     assert card == cpu and sum(r.switches for r in card) > 0
     for a, b in zip(card_st, cpu_st):
         assert _same_sim_state(a, b)
+
+
+
+@pytest.mark.parametrize("scheme", ["scheme_ii", "scheme_iii"])
+def test_sim_kernels_on_live_batched_states(cuda, scheme, monkeypatch):
+    """Both sim kernels against their plain versions on the live inputs of
+    a scheme II / scheme III sweep on the card whose α x r points share one
+    batch (traced geometry): every ``xor_gather`` and ``xor_encode`` launch
+    of the run is recorded with its operands and held against the plain
+    version on them. The plans serve degraded reads, and scheme III's XOR
+    two siblings."""
+    from repro_torch.core.controller import MODE_OPT0, MODE_REDIRECT
+    from repro_torch.kernels.xor_encode import ops as enc_ops
+    from repro_torch.kernels.xor_gather import ops as g_ops
+    from repro_torch.sweep import SweepPoint, grid, partition, run_points
+    from repro_torch.sweep.engine import mixed_geometry
+
+    def record(store, launch):
+        def recorded(*args):
+            out = launch(*args)
+            store.append(([a.clone() for a in args], out.clone()))
+            return out
+        return recorded
+
+    gathers, encodes = [], []
+    monkeypatch.setattr(g_ops, "gather_decode_cuda",
+                        record(gathers, g_ops.gather_decode_cuda))
+    monkeypatch.setattr(enc_ops, "encode_parities_cuda",
+                        record(encodes, enc_ops.encode_parities_cuda))
+    pts = grid(SweepPoint(scheme=scheme, n_rows=64, n_cores=8, length=32,
+                          write_frac=0.1, select_period=4),
+               alpha=(0.25, 0.5), r=(0.125, 0.25))
+    assert len(partition(pts)) == 1 and mixed_geometry(pts)
+    res = run_points(pts, device=cuda)
+    assert len(gathers) >= 10 and len(encodes) >= 1
+    assert sum(r.switches for r in res) >= 1
+    degraded = two_sibling = 0
+    for args, out in gathers:
+        assert torch.equal(out, gather_decode_plain(*args))
+        mode, sib0, sib1 = args[4], args[7], args[8]
+        opt = (mode >= MODE_OPT0) & (mode < MODE_REDIRECT)
+        degraded += int(opt.sum())
+        two_sibling += int((opt & (sib0 >= 0) & (sib1 >= 0)).sum())
+    for args, out in encodes:
+        assert torch.equal(out, encode_parities_plain(*args))
+    assert degraded > 0
+    assert (two_sibling > 0) == (scheme == "scheme_iii")
