@@ -7,7 +7,8 @@
 
 Phases, each of which fails the run (nonzero exit, no result line). With
 ``--only`` (names: kernel, serve, decode, cross, kvstate, simkernel,
-simulate, stream, sweep, paper) it runs the build and the named phases
+simulate, stream, sweep, paper, faults) it runs the build and the named
+phases
 with the phases they need (decode needs serve; stream and paper need
 simulate; sweep needs simulate and stream), and prints no kernel table and
 no result line; with no flag it runs every phase:
@@ -97,8 +98,8 @@ no result line; with no flag it runs every phase:
 9. stream: streamed trace replay (``repro_torch.traces.stream_replay``,
    which leaves each chunk's loop at quiescence) on the card and the CPU.
    (a) bench_stream's workload (8 cores x 2,048 banded requests, 8 banks x
-   512 rows, scheme_i, alpha 0.25, r 0.05, select period 256) at chunk
-   256: every SimResult field (window series included) and final state
+   512 rows, scheme_i, alpha 0.25, r 0.05, select period 256) on its first
+   1,024 requests a core, at chunk 256: every SimResult field (window series included) and final state
    leaf equal, every served read returns the committed value, each
    kernel's launches equal its wrapper's calls; cycles run against
    ``drain_bound``, ms/cycle, requests/s; then a busy and a drained
@@ -113,7 +114,8 @@ no result line; with no flag it runs every phase:
 10. sweep: the simulator's point axis (``repro_torch.sweep.run_points``,
    B points lock-step, one ``xor_gather`` and at most one ``xor_encode``
    launch a batched cycle) on the card and the CPU. (a) paper_fig19's
-   grid at the figures' geometry (split-band trace of 8 bands, 8 x 320,
+   grid through the Fig 19 harness (``repro_torch.harness.fig19_split.
+   run``, its table printed; card rows = CPU rows) at the figures' geometry (split-band trace of 8 bands, 8 x 320,
    8 cores x 96, seed 0, select period 64; uncoded and scheme_i over r
    {0.05, 0.125, 0.25} x alpha {0.1, 0.25, 0.5, 1}): 13 points in 3
    batches, each leaving its loop when every point is quiescent; every
@@ -135,12 +137,15 @@ no result line; with no flag it runs every phase:
    profiled windows of seed-axis batches of 1 and 8 points and of
    (a)'s traced batch: ms and launches per batched cycle, host syncs,
    copies and the device idle share. The phase's CPU side (the CPU runs
-   of (a)-(c) and (a)'s looped runs), and after it the paper phase's, is
-   computed by a worker process the script starts first and kills on
-   every way out. The worker runs only while no time is taken: through
-   the build and the cross-device and kvstate phases, after (a)'s card
-   run, through (c)'s kill-and-resume pass and (d), and after the paper
-   phase's card runs; it is stopped (SIGSTOP) through every phase that
+   of (a)-(c) and, in a lane of their own, (a)'s looped runs), the paper
+   phase's and the faults phase's are computed by four worker processes
+   side by side that the script starts first and kills on every way out.
+   They
+   run only while no time is taken:
+   through the build and the cross-device and kvstate phases, after (a)'s
+   card run, through (c)'s kill-and-resume pass and (d), after the paper
+   phase's card runs (through its live checks) and through the faults
+   phase's (c); they are stopped (SIGSTOP) through every phase that
    reports a time;
 11. paper: the paper's Fig 18 through the port's harness
    (``repro_torch.harness.fig18_dedup.run``: ``paper_fig18`` ->
@@ -158,13 +163,29 @@ no result line; with no flag it runs every phase:
    serves must return its committed value; each kernel's launches must
    equal its wrapper's calls; and both sim kernels must equal their plain
    versions bit for bit on live card states of every Fig 18 batch
-   (schemes II and III included), as in the sweep phase's (d).
+   (schemes II and III included), as in the sweep phase's (d). Then the
+   Fig 20 harness at its defaults (3 drifts x uncoded + scheme_i alpha
+   0.1, 0.25; 8 x 320, 8 cores x 96) and the §III-B scheme table
+   (``tab_schemes``: six schemes on a uniform trace, the best case through
+   the read builder), card rows = CPU rows;
+12. faults: bank faults through the batched core on the card and the CPU.
+   (a) the availability gate (``repro_torch.harness.fig_faults.run`` at
+   its defaults: banded, split-band and ramp traces at 128 rows x 96
+   requests a core, alpha 1, r 0.25, one dead bank per parity group, for
+   scheme_i, scheme_iii and uncoded): card rows = CPU rows, coded rows
+   serve 100% of reads, uncoded rows do not; (b) one batch of mixed plans
+   (a bank failing at 20 and rebuilding from 120, no plan, a dead bank
+   beside a stuttering parity port) equal to the CPU in every field and
+   leaf (the fault leaf included), bank 0 rebuilt, every point quiescent;
+   (c) outside the counts, scheme III's batch of (a) rerun with every
+   ``xor_gather`` launch held against its plain version on its own
+   operands; it must serve reads degraded because their bank is down.
 
 Each kernel's launches are counted from 0 over its own main path (the
 serve runs for ``gather_pool``, the decode-attention calls for
-``coded_kv_decode``, the simulate runs and the stream, sweep and paper
-phases for the simulator's kernels, whose table entries add the four; a
-line before the table gives the split).
+``coded_kv_decode``, the simulate runs and the stream, sweep, paper and
+faults phases for the simulator's kernels, whose table entries add the
+five; a line before the table gives the split).
 The third-to-last line is the card's name and power limit, the
 second-to-last the kernel table as JSON, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -1496,12 +1517,31 @@ class GoldenCheck:
         return int(self.bad), int(self.served)
 
 
+def _state_leaves(tree):
+    """The leaves of a state (nested NamedTuples, the fault leaf's
+    included), None kept, in field order."""
+    if isinstance(tree, tuple):
+        for x in tree:
+            yield from _state_leaves(x)
+    else:
+        yield tree
+
+
+def _map_state(fn, tree):
+    """``tree`` (nested NamedTuples) with every non-None leaf ``x`` as
+    ``fn(x)``."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_map_state(fn, x) for x in tree))
+    return None if tree is None else fn(tree)
+
+
 def _same_state(torch, a, b) -> bool:
-    leaves = list(zip(a.mem, b.mem)) + [(a.core_ptr, b.core_ptr),
-                                        (a.done_cycle, b.done_cycle)]
-    return all((x is None and y is None) or (
-        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()))
-        for x, y in leaves)
+    la, lb = list(_state_leaves(a)), list(_state_leaves(b))
+    return len(la) == len(lb) and all(
+        (x is None and y is None) or (
+            x is not None and y is not None and x.dtype == y.dtype
+            and torch.equal(x.cpu(), y.cpu()))
+        for x, y in zip(la, lb))
 
 
 def simulate_phase(torch):
@@ -1692,6 +1732,7 @@ STREAM_CHUNK = 256
 SIM_STREAM_CHUNKS = (32, 96)     # the simulate phase's trace, streamed
 STREAM_HEAD = 512                # (d) and the sweep's (c): requests a
                                  # core of the trace's head replayed
+STREAM_A_LENGTH = 1024           # (a): requests a core replayed (of 2,048)
 # tests/data fixtures, dealt over 2 cores onto 8 banks x 64 rows
 FILE_TRACES = (("tiny_ramulator.trace", {}),
                ("tiny_gem5.gem5", {"line_bytes": 64}))
@@ -1835,7 +1876,7 @@ def check_live_kernels(torch, sys_, tn, states, label) -> str:
 
 def stream_phase(torch, sim_single):
     """Streamed trace replay on the card against the CPU: (a) bench_stream's
-    workload at full size, (b) the simulate phase's trace streamed at
+    workload on its first ``STREAM_A_LENGTH`` requests a core, (b) the simulate phase's trace streamed at
     chunks 32 and 96 against its single-shot result ``sim_single``, (c)
     the file fixtures through ``load_trace`` and ``stream_file``, (d)
     region priors from the trace's profile. Returns each sim kernel's
@@ -1850,12 +1891,14 @@ def stream_phase(torch, sim_single):
                                     strip_windows)
 
     gk.launches = ek.launches = 0                   # main path starts here
-    # (a) full size
-    tr_cpu = trace.banded_trace(trace.TraceSpec(**STREAM_TRACE), device="cpu")
+    # (a) the first STREAM_A_LENGTH requests a core of the full trace
+    tr_full = trace.banded_trace(trace.TraceSpec(**STREAM_TRACE),
+                                 device="cpu")
+    tr_cpu = Trace(*(x[:, :STREAM_A_LENGTH].contiguous() for x in tr_full))
     traces = {"cpu": tr_cpu, "cuda": Trace(*(x.to("cuda") for x in tr_cpu))}
     n_req = int(tr_cpu.valid.sum())
-    nc, length, n_rows = (STREAM_TRACE[k] for k in ("n_cores", "length",
-                                                    "n_rows"))
+    nc, n_rows = STREAM_TRACE["n_cores"], STREAM_TRACE["n_rows"]
+    length = STREAM_A_LENGTH
     bound = drain_bound(nc, length)
     point = (STREAM_POINT["scheme"], n_rows, STREAM_POINT["alpha"],
              STREAM_POINT["r"], STREAM_POINT["select_period"], nc)
@@ -1890,7 +1933,8 @@ def stream_phase(torch, sim_single):
           f"stream (a): {bad} of {served} served reads did not return the "
           "committed value")
     check(cycles < bound, f"stream (a): {cycles} cycles, bound {bound}")
-    print(f"stream (a) bench_stream's workload ({n_req} requests, 8 x 512, "
+    print(f"stream (a) bench_stream's workload, its first {length} "
+          f"requests a core ({n_req} requests, 8 x 512, "
           f"{point[0]} alpha={point[2]} r={point[3]} select {point[4]}) at "
           f"chunk {STREAM_CHUNK}: {cycles} cycles run against drain_bound "
           f"{bound} ({cycles / bound:.1%}), drained at cycle {res.cycles}, "
@@ -1942,7 +1986,8 @@ def stream_phase(torch, sim_single):
               f"{got['cuda'][0].cycles} cycles")
     # (d) region priors from the whole trace's profile, replayed over its
     # first STREAM_HEAD requests a core, beside that head replayed cold
-    prof = profile_trace(tr_cpu, STREAM_TRACE["n_banks"], n_rows, window=512)
+    prof = profile_trace(tr_full, STREAM_TRACE["n_banks"], n_rows,
+                         window=512)
     heads = {dev: stream_head(traces[dev]) for dev in traces}
     primed = {}
     for dev in ("cuda", "cpu"):
@@ -2089,47 +2134,109 @@ def stream_points():
                                         "n_rows")}) for a in STREAM_ALPHAS]
 
 
+class FinalStates:
+    """``run_points``' ``on_cycle(batch, before, after, out)``: keeps each
+    batch's latest state after a cycle (its final state once the run is
+    over; a reference, no copy)."""
+
+    def __init__(self):
+        self.final = {}
+
+    def __call__(self, batch, before, after, out):
+        self.final[tuple(batch.indices)] = (batch, after)
+
+
+def per_point(final: dict, n: int):
+    """Each point's SimResult and final state, by point index, from the
+    batches' final states (``FinalStates.final`` / ``SweepHook.final``)."""
+    from repro_torch.core.state import point_of
+    from repro_torch.core.system import summarize_batch
+
+    res, states = [None] * n, [None] * n
+    for batch, st in final.values():
+        for k, (i, r) in enumerate(zip(batch.indices, summarize_batch(st))):
+            res[i], states[i] = r, point_of(st, k)
+    return res, states
+
+
+@contextlib.contextmanager
+def quiet_harness():
+    """A harness run on the worker's CPU side: its printed table dropped
+    and its artefact, with an empty manifest, written to a temporary
+    directory (the card's run writes ``experiments/torch/``)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.harness import common
+
+    from repro_torch.obs import runlog
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_harness_")
+    saved = common.ART_DIR, runlog.run_manifest
+    # the artefact's manifest asks git, nvidia-smi and the card: not here
+    common.ART_DIR, runlog.run_manifest = tmp, lambda **kw: {}
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            yield
+    finally:
+        common.ART_DIR, runlog.run_manifest = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def sweep_cpu_side() -> dict:
-    """The sweep phase's CPU side for (a) and (b): ``run_points`` (results,
-    each point's final state as numpy leaves, seconds, wrapper calls) and
-    each (a) point's looped ``simulate``. It runs in a worker process
-    started with the script (``CpuSide``) while the card does untimed
-    work: the card's loop is
+    """The sweep phase's CPU side for (a) and (b): (a) the Fig 19 harness
+    (its rows, each point's result and final state as numpy leaves,
+    seconds, wrapper calls), (b) ``run_points`` (the same but rows). It
+    runs in a worker process started with the script (``CpuSide``) while
+    the card does untimed work: the card's loop is
     host-bound, so this CPU work would otherwise add to the script's wall
     time. Its seconds are the worker's CPU time (``time.process_time``,
     over its 2 threads): its wall clock runs on while it is stopped."""
     import torch
 
-    from repro_torch.core.state import MemState
-    from repro_torch.core.system import SimState
+    from repro_torch.harness import fig19_split
     from repro_torch.kernels.xor_encode import ops as eops
     from repro_torch.kernels.xor_gather import ops as gops
-    from repro_torch.sim import ramulator
-    from repro_torch.sweep import build_trace, run_points
+    from repro_torch.sweep import run_points
 
     torch.set_num_threads(2)
 
-    def host(st):
-        return SimState(MemState(*(None if x is None else x.numpy()
-                                   for x in st.mem)),
-                        st.core_ptr.numpy(), st.done_cycle.numpy())
-
     out = {}
-    for key, pts in (("a", fig19_points()), ("b", seed_points(SEED_AXIS))):
-        c0, t0 = (gops.calls, eops.calls), time.process_time()
-        res, states = run_points(pts, device="cpu", return_state=True)
-        out[key] = (res, [host(st) for st in states],
-                    time.process_time() - t0,
-                    (gops.calls - c0[0], eops.calls - c0[1]))
+    c0, t0 = (gops.calls, eops.calls), time.process_time()
+    fig = FinalStates()
+    with quiet_harness():
+        rows = fig19_split.run(device="cpu", on_cycle=fig)
+    res, states = per_point(fig.final, len(fig19_points()))
+    out["a"] = (res, [_host_state(st) for st in states],
+                time.process_time() - t0,
+                (gops.calls - c0[0], eops.calls - c0[1]), rows)
+    c0, t0 = (gops.calls, eops.calls), time.process_time()
+    res, states = run_points(seed_points(SEED_AXIS), device="cpu",
+                             return_state=True)
+    out["b"] = (res, [_host_state(st) for st in states],
+                time.process_time() - t0,
+                (gops.calls - c0[0], eops.calls - c0[1]))
+    return out
+
+
+def sweep_looped_cpu_side() -> dict:
+    """Each point of the sweep phase's (a) through the looped ``simulate``
+    on the CPU (all ``drain_bound`` cycles), with the worker's CPU
+    seconds: a lane of its own, beside ``sweep_cpu_side``'s."""
+    import torch
+
+    from repro_torch.sim import ramulator
+    from repro_torch.sweep import build_trace
+
+    torch.set_num_threads(1)
     t0 = time.process_time()
-    out["looped"] = [ramulator.simulate(
+    looped = [ramulator.simulate(
         pt.scheme, build_trace(pt, device="cpu"), pt.n_rows,
         alpha=pt.alpha, r=pt.r, n_data=pt.n_data,
         n_cycles=pt.resolved_cycles(), select_period=pt.select_period,
         wq_hi=pt.wq_hi, wq_lo=pt.wq_lo, queue_depth=pt.queue_depth,
         device="cpu") for pt in fig19_points()]
-    out["looped_s"] = time.process_time() - t0
-    return out
+    return {"looped": looped, "looped_s": time.process_time() - t0}
 
 
 def sweep_stream_cpu_side() -> dict:
@@ -2154,40 +2261,93 @@ def sweep_stream_cpu_side() -> dict:
 
 
 def paper_cpu_side() -> dict:
-    """The paper phase's CPU side: the Fig 18 harness's rows and the
-    quickstart's results on the CPU, with the worker's CPU seconds for the
-    grid. Their printed tables are dropped, and the CPU run's artefact goes
-    to a temporary directory (the card run writes
-    ``experiments/torch/fig18_dedup.json``)."""
-    import shutil
-    import tempfile
-
+    """The paper phase's CPU side: the Fig 18, Fig 20 and scheme-table
+    harnesses' rows and the quickstart's results on the CPU, with the
+    worker's CPU seconds for the grids (``quiet_harness``: no table, a
+    temporary artefact directory)."""
     import torch
 
-    from repro_torch.harness import common, fig18_dedup, quickstart
+    from repro_torch.harness import (fig18_dedup, fig20_ramp, quickstart,
+                                     tab_schemes)
 
     torch.set_num_threads(2)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_paper_")
-    common.ART_DIR = tmp
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            t0 = time.process_time()
-            rows = fig18_dedup.run(device="cpu")
-            secs = time.process_time() - t0
-            quick = quickstart.main(device="cpu")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return {"fig18": rows, "fig18_s": secs, "quickstart": quick}
+    with quiet_harness():
+        t0 = time.process_time()
+        rows = fig18_dedup.run(device="cpu")
+        secs = time.process_time() - t0
+        quick = quickstart.main(device="cpu")
+        t0 = time.process_time()
+        fig20 = fig20_ramp.run(device="cpu")
+        tab = tab_schemes.run(device="cpu")
+        secs20 = time.process_time() - t0
+    return {"fig18": rows, "fig18_s": secs, "quickstart": quick,
+            "fig20": fig20, "tab_schemes": tab, "fig20_tab_s": secs20}
 
 
-CPU_STAGES = {"sweep": sweep_cpu_side, "sweep_c": sweep_stream_cpu_side,
-              "paper": paper_cpu_side}
-STAGE_PHASE = {"sweep": "sweep", "sweep_c": "sweep", "paper": "paper"}
+# ------------------------------------------------------------- phase 12
+# (b): one faulted batch at the availability gate's geometry (128 rows,
+# banded 8 cores x 96, scheme_i, alpha 1, r 0.25, select period 32): a
+# bank that fails at cycle 20 and rebuilds from 120, a point with no plan
+# (on the faulted system: nothing ever fails), and a dead bank beside a
+# stuttering parity port
+FAULT_BATCH = dict(scheme="scheme_i", alpha=1.0, r=0.25, n_rows=128,
+                   n_banks=8, n_cores=8, length=96, seed=0, write_frac=0.3,
+                   select_period=32, trace="banded")
+FAULT_PLANS = ((("bank", 0, 20, 120),), (),
+               (("bank", 3, 0), ("stutter", 8, 5, 2)))
+
+
+def fault_batch():
+    """(b)'s batch, built by hand: ``partition`` would give the no-plan
+    point a batch of its own (an empty spec is the faults-off system); in
+    this one it runs on the faulted system with the never-fails
+    schedule."""
+    from repro_torch.sweep import GridBatch, SweepPoint, static_signature
+
+    base = SweepPoint(**FAULT_BATCH)
+    pts = [base.replace(faults=sp, seed=k)
+           for k, sp in enumerate(FAULT_PLANS)]
+    return GridBatch(static_signature(pts[0]), list(range(len(pts))), pts)
+
+
+def faults_cpu_side() -> dict:
+    """The faults phase's CPU side: the availability gate's rows at
+    ``--smoke`` geometry and at its defaults (with the gate's messages
+    there, and the worker's CPU seconds for both) and (b)'s results and
+    final batched state as numpy leaves."""
+    import torch
+
+    from repro_torch.harness import fig_faults
+    from repro_torch.sweep import run_batch
+
+    torch.set_num_threads(2)
+    with quiet_harness():
+        t0 = time.process_time()
+        smoke = fig_faults.run(smoke=True, device="cpu")
+        rows, violations, _ = fig_faults.availability(device="cpu")
+        secs = time.process_time() - t0
+    res, st = run_batch(fault_batch(), device="cpu", return_state=True)
+    return {"smoke": smoke, "rows": rows, "violations": violations,
+            "rows_s": secs, "b": (res, _host_state(st))}
+
+
+CPU_STAGES = {"sweep": sweep_cpu_side, "sweep_l": sweep_looped_cpu_side,
+              "sweep_c": sweep_stream_cpu_side, "paper": paper_cpu_side,
+              "faults": faults_cpu_side}
+STAGE_PHASE = {"sweep": "sweep", "sweep_l": "sweep", "sweep_c": "sweep",
+               "paper": "paper", "faults": "faults"}
+# one worker process per lane, each running its stages in order; the lanes
+# run side by side whenever the script lets the CPU side run
+CPU_LANES = (("sweep", "sweep_c"), ("sweep_l",), ("paper",), ("faults",))
 
 
 def _cpu_worker(conn, stages) -> None:
     """Worker process: for each stage in turn send ``(stage, "ok",
-    result)``, or the traceback of its failure, through ``conn``."""
+    result)``, or the traceback of its failure, through ``conn``. It runs
+    on the CPU alone and hides the card before torch is imported: the
+    main process stops it (SIGSTOP) at any point, which must never be
+    inside the CUDA driver."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
     try:
         for stage in stages:
             try:
@@ -2201,9 +2361,8 @@ def _cpu_worker(conn, stages) -> None:
 
 
 class CpuSide:
-    """The CPU sides of the sweep and paper phases (``CPU_STAGES``, in that
-    order: the sweep's (a) and (b), its (c), the paper's) in a spawned
-    worker process that runs only while the script
+    """Stages of the CPU side (``CPU_STAGES``, run in the order given) in
+    a spawned worker process that runs only while the script
     takes no time: ``pause`` stops it (SIGSTOP) before a phase that reports
     a time, ``resume`` lets it go on (SIGCONT), ``receive`` lets it finish
     the next stage and returns its result (and stops it again while stages
@@ -2280,15 +2439,51 @@ class CpuSide:
             self.worker.join()
 
 
+class CpuSides:
+    """The CPU sides of the sweep, paper and faults phases: one
+    ``CpuSide`` worker per lane of ``CPU_LANES`` (the sweep's (a), (b)
+    then (c); (a)'s looped runs; the paper's; the faults'), paused and
+    resumed together, so
+    each lane's stages run in every window the script leaves to the CPU
+    side rather than one after another. ``receive`` lets every worker run
+    while it waits for one stage, and stops them all again."""
+
+    def __init__(self, stages=tuple(CPU_STAGES)):
+        self.lanes = [CpuSide(tuple(s for s in lane if s in stages))
+                      for lane in CPU_LANES]
+
+    def pause(self) -> None:
+        for lane in self.lanes:
+            lane.pause()
+
+    def resume(self) -> None:
+        for lane in self.lanes:
+            lane.resume()
+
+    def receive(self, stage: str) -> dict:
+        owner = [lane for lane in self.lanes if lane.stages[:1] == [stage]]
+        check(len(owner) == 1, f"{stage}: the CPU workers owe "
+              f"{[lane.stages for lane in self.lanes]}")
+        for lane in self.lanes:
+            if lane is not owner[0]:
+                lane.resume()
+        data = owner[0].receive(stage)
+        self.pause()
+        return data
+
+    def close(self) -> None:
+        for lane in self.lanes:
+            lane.close()
+
+
+def _host_state(st):
+    """A CPU SimState as numpy leaves (to cross from the worker)."""
+    return _map_state(lambda x: x.numpy(), st)
+
+
 def _as_tensors(torch, host):
     """A SimState of numpy leaves (from the worker) as CPU tensors."""
-    from repro_torch.core.state import MemState
-    from repro_torch.core.system import SimState
-
-    return SimState(MemState(*(None if x is None else torch.from_numpy(x)
-                               for x in host.mem)),
-                    torch.from_numpy(host.core_ptr),
-                    torch.from_numpy(host.done_cycle))
+    return _map_state(torch.from_numpy, host)
 
 
 class SweepHook:
@@ -2357,6 +2552,38 @@ def _sweep_run(torch, points, hook=None):
     check(launched == calls,
           f"sweep: launches {launched}, wrapper calls {calls} on the card")
     return res, states, secs, calls
+
+
+def _fig19_run(torch, points, hook):
+    """Sweep (a): the Fig 19 harness (``repro_torch.harness.fig19_split``,
+    its table printed) on the card with ``hook``: (rows, each point's
+    SimResult and final state, seconds, (xor_gather, xor_encode) wrapper
+    calls). The harness's points must be ``points``, and each kernel's
+    launches must equal its wrapper's calls."""
+    from repro_torch.harness import fig19_split
+    from repro_torch.kernels.xor_encode import kernel as ek
+    from repro_torch.kernels.xor_encode import ops as eops
+    from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.kernels.xor_gather import ops as gops
+
+    g0, e0, gc0, ec0 = gk.launches, ek.launches, gops.calls, eops.calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = fig19_split.run(device="cuda", on_cycle=hook)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    calls = (gops.calls - gc0, eops.calls - ec0)
+    launched = (gk.launches - g0, ek.launches - e0)
+    check(launched == calls,
+          f"sweep (a): launches {launched}, wrapper calls {calls} on the card")
+    ran = [None] * len(points)
+    for batch, _ in hook.final.values():
+        for i, pt in zip(batch.indices, batch.points):
+            ran[i] = pt
+    check(ran == points, "sweep (a): the Fig 19 harness ran other points "
+          "than paper_fig19's grid")
+    res, states = per_point(hook.final, len(points))
+    return rows, res, states, secs, calls
 
 
 def profile_batch(torch, points, label, start: int = 20, n: int = 20):
@@ -2470,10 +2697,13 @@ def sweep_phase(torch, sim_single, looped_rate, looped_busy_ms,
                   if p.scheme == "scheme_i" and p.alpha == FIG19_GOLDEN[
                       "alpha"] and p.r == FIG19_GOLDEN["r"])
     hook = SweepHook(golden, LIVE_EVERY)
-    res, st, secs, calls = _sweep_run(torch, pts, hook)
+    rows, res, st, secs, calls = _fig19_run(torch, pts, hook)
     cpu = cpu_side.receive("sweep")
-    res_c, st_c, secs_c, calls_c = cpu["a"]
+    cpu.update(cpu_side.receive("sweep_l"))
+    res_c, st_c, secs_c, calls_c, rows_c = cpu["a"]
     st_c = [_as_tensors(torch, h) for h in st_c]
+    check(rows == rows_c, f"sweep (a): Fig 19 card rows {rows} vs CPU rows "
+          f"{rows_c}")
     check(res == res_c, f"sweep (a): card {res} vs CPU {res_c}")
     check(all(_same_state(torch, a, b) for a, b in zip(st, st_c)),
           "sweep (a): final state leaves differ card vs CPU")
@@ -2517,7 +2747,8 @@ def sweep_phase(torch, sim_single, looped_rate, looped_busy_ms,
           f"each point = looped simulate on the CPU ({looped_cpu_s:.1f} s "
           "of worker CPU time); "
           f"all {served} served reads of scheme_i alpha=0.25 r=0.05 "
-          f"returned committed values; switches {[r.switches for r in res]}")
+          f"returned committed values; switches {[r.switches for r in res]}"
+          f"; the Fig 19 harness's {len(rows)} rows card = CPU")
     # (b) a seed axis: one untraced batch of 8
     seeds = seed_points(SEED_AXIS)
     check(len(partition(seeds)) == 1, "sweep (b): the seed axis split")
@@ -2646,7 +2877,8 @@ def paper_phase(torch, sim_results, cpu_side):
     over the phase's two counted runs."""
     from repro_torch.configs.paper_memsys import PAPER_ALPHAS, PAPER_SCHEMES
     from repro_torch.core.system import summarize_batch
-    from repro_torch.harness import fig18_dedup, quickstart
+    from repro_torch.harness import (fig18_dedup, fig20_ramp, quickstart,
+                                     tab_schemes)
     from repro_torch.kernels.xor_encode import kernel as ek
     from repro_torch.kernels.xor_encode import ops as eops
     from repro_torch.kernels.xor_gather import kernel as gk
@@ -2664,6 +2896,12 @@ def paper_phase(torch, sim_results, cpu_side):
     quick = quickstart.main(device="cuda")
     torch.cuda.synchronize()
     quick_s = time.perf_counter() - t0
+    fig20 = fig20_ramp.run(device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tab = tab_schemes.run(device="cuda")
+    torch.cuda.synchronize()
+    tab_s = time.perf_counter() - t0
     launches = {"xor_gather": gk.launches, "xor_encode": ek.launches}
     # main path ends here
     calls = (gops.calls - c0[0], eops.calls - c0[1])
@@ -2719,6 +2957,12 @@ def paper_phase(torch, sim_results, cpu_side):
           f"paper: Fig 18 card rows {rows} vs CPU rows {cpu['fig18']}")
     check(quick == cpu["quickstart"],
           f"paper: quickstart card {quick} vs CPU {cpu['quickstart']}")
+    check(fig20 == cpu["fig20"],
+          f"paper: Fig 20 card rows {fig20} vs CPU rows {cpu['fig20']}")
+    check(tab == cpu["tab_schemes"], f"paper: scheme table card rows {tab} "
+          f"vs CPU rows {cpu['tab_schemes']}")
+    check(all(r["coded_cycles"] < r["uncoded_cycles"] for r in fig20),
+          f"paper: a Fig 20 coded row is not faster than uncoded: {fig20}")
     print(f"paper fig18: card rows = CPU rows, every field ({len(rows)} "
           f"rows; CPU {cpu['fig18_s']:.1f} s of worker CPU time); the "
           f"simulate phase's {len(sim_results)} looped points = their "
@@ -2730,8 +2974,20 @@ def paper_phase(torch, sim_results, cpu_side):
     print(f"paper quickstart: card {quick_s:.2f} s = CPU in every field; "
           f"cycles {[(k, v.cycles) for k, v in quick.items()]}; launches "
           f"xor_gather {launches['xor_gather']}, xor_encode "
-          f"{launches['xor_encode']} over the phase (fig18 + quickstart)")
-    # the kernels on live batched card states of every Fig 18 batch
+          f"{launches['xor_encode']} over the phase (fig18 + quickstart + "
+          "fig20 + tab_schemes)")
+    print(f"paper fig20: card rows = CPU rows ({len(fig20)} rows; CPU "
+          f"{cpu['fig20_tab_s']:.1f} s of worker CPU time with the scheme "
+          "table); reduction % / switches: " + ", ".join(
+              f"{r['trace']} {r['alpha']}: {r['reduction_%']} / "
+              f"{r['switches']}" for r in fig20))
+    print(f"paper tab_schemes: card {tab_s:.2f} s, rows = CPU rows; best "
+          "case / uniform cycles: " + ", ".join(
+              f"{r['scheme']}: {r['best_case_served']} / "
+              f"{r['uniform_cycles']}" for r in tab))
+    # the kernels on live batched card states of every Fig 18 batch;
+    # untimed, so the CPU worker runs its next stage meanwhile
+    cpu_side.resume()
     for batch, _ in hook.final.values():
         _live_batch(torch, batch.points,
                     [s_ for b, s_ in hook.states
@@ -2739,6 +2995,7 @@ def paper_phase(torch, sim_results, cpu_side):
                     f"paper (d) fig18 batch {batch.points[0].scheme} alpha "
                     f"{[pt.alpha for pt in batch.points]}")
     print(f"paper (e) {_recorded_batch(torch, hook, res)}")
+    cpu_side.pause()
     return launches
 
 
@@ -2791,9 +3048,159 @@ def _recorded_batch(torch, hook, res) -> str:
             f"{seen['two']} of them parity ^ two siblings)")
 
 
+def faults_phase(torch, cpu_side):
+    """Bank faults on the card against the CPU: (a) the availability gate
+    (``repro_torch.harness.fig_faults``, 9 points in 3 batches) at
+    ``--smoke`` geometry, where it must hold (coded rows at 100%, uncoded
+    below), and at its defaults (128 rows x 96 requests a core), where the
+    JAX package's gate fails on a few dropped reads of the coded rows: the
+    card's rows and the gate's messages must equal the CPU's at both; (b) one faulted batch of mixed plans (``fault_batch``)
+    equal to the CPU in every field and leaf, bank 0 rebuilt and every
+    point quiescent; (c) outside the counts, scheme III's batch of (a) run
+    again with every ``xor_gather`` launch held against the plain version
+    on its own operands. Returns each sim kernel's launches over (a) and
+    (b)."""
+    from repro_torch.core.system import quiescent
+    from repro_torch.harness import fig_faults
+    from repro_torch.kernels.xor_encode import kernel as ek
+    from repro_torch.kernels.xor_encode import ops as eops
+    from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.kernels.xor_gather import ops as gops
+    from repro_torch.sweep import run_batch
+
+    hook = FinalStates()
+    gk.launches = ek.launches = 0                   # main path starts here
+    c0 = (gops.calls, eops.calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        smoke = fig_faults.run(smoke=True, device="cuda")
+    except SystemExit as e:
+        check(False, f"faults (a): the availability gate failed at --smoke "
+              f"(exit {e.code})")
+    torch.cuda.synchronize()
+    secs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows, violations, _ = fig_faults.availability(device="cuda",
+                                                  on_cycle=hook)
+    torch.cuda.synchronize()
+    secs_a = time.perf_counter() - t0
+    batch = fault_batch()
+    t0 = time.perf_counter()
+    res_b, st_b = run_batch(batch, device="cuda", return_state=True)
+    torch.cuda.synchronize()
+    secs_b = time.perf_counter() - t0
+    launches = {"xor_gather": gk.launches, "xor_encode": ek.launches}
+    # main path ends here
+    calls = (gops.calls - c0[0], eops.calls - c0[1])
+    check(tuple(launches.values()) == calls,
+          f"faults: launches {launches}, wrapper calls {calls} on the card")
+    check(launches["xor_gather"] > 0,
+          f"faults: xor_gather never launched: {launches}")
+    res_a, _ = per_point(hook.final, len(rows))
+    for row in smoke:
+        coded = row["scheme"] != "uncoded"
+        check((row["availability_%"] == 100.0) == coded
+              and (row["unserved"] == row["lost_writes"] == 0) == coded,
+              f"faults (a): the gate does not hold on {row}")
+    cyc_b = int(st_b.mem.cycle[0])
+    check(bool(quiescent(st_b).all()) and cyc_b < batch.points[
+        0].resolved_cycles(), f"faults (b): not quiescent at cycle {cyc_b}")
+    check(bool(st_b.mem.fault.rebuilt[0, 0]),
+          "faults (b): bank 0 was not rebuilt")
+    check(res_b[1].dead_bank_cycles == res_b[1].unserved_reads == 0
+          and res_b[2].dead_bank_cycles > 0
+          and all(r.completed for r in res_b), f"faults (b): {res_b}")
+    # untimed from here: the CPU worker runs meanwhile
+    cpu_side.resume()
+    rerun = _recorded_fault_batch(torch, hook, res_a)
+    cpu = cpu_side.receive("faults")
+    check(smoke == cpu["smoke"], f"faults (a): --smoke card rows {smoke} "
+          f"vs CPU rows {cpu['smoke']}")
+    check(rows == cpu["rows"] and violations == cpu["violations"],
+          f"faults (a): card rows {rows} {violations} vs CPU rows "
+          f"{cpu['rows']} {cpu['violations']}")
+    res_c, st_c = cpu["b"]
+    check(res_b == res_c, f"faults (b): card {res_b} vs CPU {res_c}")
+    check(_same_state(torch, st_b, _as_tensors(torch, st_c)),
+          "faults (b): final state leaves differ card vs CPU")
+    print(f"faults (a) the availability gate (fig_faults, 9 points, alpha "
+          f"1, r 0.25) at --smoke (64 rows x 48 requests a core): held, card "
+          f"{secs_s:.2f} s, rows card = CPU; availability %: " + ", ".join(
+              f"{r['suite']} {r['scheme']} {r['availability_%']}"
+              for r in smoke))
+    print(f"faults (a) at its defaults (128 rows x 96 requests a core): card "
+          f"{secs_a:.2f} s (CPU {cpu['rows_s']:.1f} s of worker CPU time for "
+          "both geometries); rows and the gate's messages card = CPU; "
+          "availability %: " + ", ".join(
+              f"{r['suite']} {r['scheme']} {r['availability_%']}"
+              for r in rows) + "; fault-degraded reads "
+          f"{[r['degraded_fault'] for r in rows]}; the gate there: "
+          f"{violations or 'held'}")
+    print(f"faults (b) one batch of {len(batch)} plans {list(FAULT_PLANS)}: "
+          f"{cyc_b} batched cycles in {secs_b:.2f} s; card = CPU in every "
+          f"field and leaf (the fault leaf included); bank 0 rebuilt, every "
+          f"point quiescent; dead-bank cycles "
+          f"{[r.dead_bank_cycles for r in res_b]}, fault-degraded reads "
+          f"{[r.fault_degraded_reads for r in res_b]}, cycles "
+          f"{[r.cycles for r in res_b]}")
+    print(f"faults (c) {rerun}")
+    print(f"faults: launches xor_gather {launches['xor_gather']}, xor_encode "
+          f"{launches['xor_encode']} over (a) and (b) (alpha 1: no region "
+          "switch, so no encode)")
+    return launches
+
+
+def _recorded_fault_batch(torch, hook, res) -> str:
+    """Scheme III's batch of the availability gate run once more on the
+    card with every ``xor_gather`` launch held against the plain version on
+    that launch's own operands (reads degraded around the dead bank, parity
+    ^ two siblings), and its results against the gate's. Outside the
+    counts."""
+    from repro_torch.core.controller import MODE_OPT0, MODE_REDIRECT
+    from repro_torch.kernels.xor_gather import ops as gops
+    from repro_torch.kernels.xor_gather.ref import gather_decode_plain
+    from repro_torch.sweep import run_points
+
+    batch = next(b for b, _ in hook.final.values()
+                 if b.points[0].scheme == "scheme_iii")
+    seen = {"gather": 0, "degraded": 0, "two": 0}
+    launch = gops.gather_decode_cuda
+
+    def checked(*args):
+        out = launch(*args)
+        check(torch.equal(out, gather_decode_plain(*args)), f"faults (c): "
+              f"xor_gather launch {seen['gather']} differs from its plain "
+              "version")
+        seen["gather"] += 1
+        mode, sib0, sib1 = args[4], args[7], args[8]
+        opt = (mode >= MODE_OPT0) & (mode < MODE_REDIRECT)
+        seen["degraded"] += int(opt.sum())
+        seen["two"] += int((opt & (sib0 >= 0) & (sib1 >= 0)).sum())
+        return out
+
+    gops.gather_decode_cuda = checked
+    try:
+        got = run_points(batch.points, device="cuda")
+    finally:
+        gops.gather_decode_cuda = launch
+    check(got == [res[i] for i in batch.indices],
+          f"faults (c): rerun {got} vs the gate's results")
+    fault_degraded = sum(r.fault_degraded_reads for r in got)
+    check(fault_degraded > 0 and seen["two"] > 0,
+          f"faults (c): no fault-degraded or two-sibling read: {seen}")
+    return (f"scheme_iii batch of the gate (dead banks "
+            f"{[p.faults for p in batch.points][0]}) rerun, results equal: "
+            f"all {seen['gather']} xor_gather launches bit-exact vs plain on "
+            f"their own operands ({seen['degraded']} degraded reads, "
+            f"{seen['two']} of them parity ^ two siblings); "
+            f"{fault_degraded} reads served degraded because their bank was "
+            "down")
+
+
 # Phases in the order they run, and the earlier phases each one needs.
 PHASES = ("kernel", "serve", "decode", "cross", "kvstate", "simkernel",
-          "simulate", "stream", "sweep", "paper")
+          "simulate", "stream", "sweep", "paper", "faults")
 NEEDS = {"decode": ("serve",), "stream": ("simulate",),
          "sweep": ("simulate", "stream"), "paper": ("simulate",)}
 
@@ -2829,8 +3236,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
 
     phases = selected_phases(args.only)
-    cpu_side = CpuSide(tuple(s for s in CPU_STAGES
-                             if STAGE_PHASE[s] in phases))
+    cpu_side = CpuSides(tuple(s for s in CPU_STAGES
+                              if STAGE_PHASE[s] in phases))
     try:
         return _main(torch, build, cpu_side, phases, t_start)
     finally:
@@ -2921,6 +3328,9 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
     if "paper" in phases:
         paper_launches = paper_phase(torch, sim_results, cpu_side)
         lap("paper")
+    if "faults" in phases:
+        faults_launches = faults_phase(torch, cpu_side)
+        lap("faults")
     if phases != PHASES:
         print(f"chip_smoke: phases {', '.join(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s (--only: no kernel "
@@ -2928,7 +3338,7 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
         return 0
     print(f"launches by phase: simulate {sim_launches}, stream "
           f"{stream_launches}, sweep {sweep_launches}, paper "
-          f"{paper_launches}")
+          f"{paper_launches}, faults {faults_launches}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
 
@@ -2957,7 +3367,8 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces,
             "launches": (sim_launches[name] + stream_launches[name]
-                         + sweep_launches[name] + paper_launches[name]),
+                         + sweep_launches[name] + paper_launches[name]
+                         + faults_launches[name]),
             "max_abs_err": max(v["max_abs_err"] for (k, _), v in
                                sim_kern.items() if k == name),
             "ms": case["ms"],

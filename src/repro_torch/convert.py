@@ -8,9 +8,10 @@ the same nesting, the same ``(d_in, d_out)`` layout (the port computes
 ``sim_state_from_numpy(host, device)`` takes a JAX ``SimState`` with numpy
 leaves (``jax.device_get(st)``) and returns the port's ``SimState``;
 ``sim_state_to_numpy(st)`` goes back. The field order is the same on both
-sides; the wide (lo, hi) uint32 counter pairs of JAX are int64 in the port.
-Both take one point's state or a batch's (a leading point axis on every
-leaf).
+sides; the wide (lo, hi) uint32 counter pairs of JAX are int64 in the port,
+and so is the fault leaf's uint32 ``dead_cycles``. Both take one point's
+state or a batch's (a leading point axis on every leaf), with or without
+the fault leaf; the telemetry leaf is not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.state import WIDE_FIELDS, MemState
 from repro_torch.core.system import SimState
+from repro_torch.faults.plan import FaultState
 from repro_torch.models import lm
 
 
@@ -48,14 +50,21 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
 
 def sim_state_from_numpy(host, device) -> SimState:
     """A JAX ``SimState`` with numpy leaves as the port's state on
-    ``device``. Telemetry and fault leaves must be absent (not ported)."""
+    ``device``. The telemetry leaf must be absent (not ported)."""
     m = host.mem
     leaves = {}
     for name in MemState._fields:
         a = getattr(m, name)
-        if name in ("tele", "fault"):
+        if name == "tele":
             if a is not None:
-                raise NotImplementedError(f"the {name} leaf is not ported")
+                raise NotImplementedError("the tele leaf is not ported")
+            continue
+        if name == "fault":
+            if a is not None:
+                leaves[name] = FaultState(*(
+                    _tensor(np.asarray(x, np.int64) if f == "dead_cycles"
+                            else x, device)
+                    for f, x in zip(FaultState._fields, a)))
             continue
         a = np.asarray(a)
         if name in WIDE_FIELDS:
@@ -73,6 +82,11 @@ def sim_state_to_numpy(st: SimState) -> SimState:
     for name in MemState._fields:
         a = getattr(st.mem, name)
         if a is None:
+            continue
+        if name == "fault":
+            leaves[name] = FaultState(*(
+                x.cpu().numpy().astype(np.uint32) if f == "dead_cycles"
+                else x.cpu().numpy() for f, x in zip(FaultState._fields, a)))
             continue
         a = a.cpu().numpy()
         if name in WIDE_FIELDS:

@@ -56,6 +56,34 @@ class CodeScheme:
         """Worst-case degraded-read locality (banks touched per read)."""
         return max((len(m) for m in self.members), default=1)
 
+    # --------------------------------------------------- erasure tolerance
+    def serving_recoverable(self, lost) -> bool:
+        """True when every data bank in ``lost`` stays readable under the
+        controller's degraded serving rule: one parity option per read, all
+        of whose other members are alive (parity banks never fail in the
+        fault model). This is the single-decode rule the pattern builders
+        implement, not full GF(2) elimination, so a loss set rejected here
+        is what ``repro_torch.faults`` fail-fast-drops."""
+        ls = frozenset(lost)
+        for b in ls:
+            if not 0 <= b < self.n_data:
+                raise ValueError(f"lost bank {b} out of range "
+                                 f"[0, {self.n_data})")
+            if not any(b in ms and not (frozenset(ms) - {b}) & ls
+                       for ms in self.members):
+                return False
+        return True
+
+    def erasure_tolerance(self, max_losses: int = 2):
+        """{k: tuple of k-subsets of data banks that remain fully readable}
+        for k = 1 .. ``max_losses``, under ``serving_recoverable``."""
+        return {
+            k: tuple(lost for lost
+                     in itertools.combinations(range(self.n_data), k)
+                     if self.serving_recoverable(lost))
+            for k in range(1, max_losses + 1)
+        }
+
 
 def scheme_i(n_data: int = 8) -> CodeScheme:
     assert n_data % 4 == 0, "Scheme I groups data banks by 4"

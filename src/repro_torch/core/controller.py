@@ -313,10 +313,16 @@ def build_write_patterns(
     down=None,
 ) -> WritePlan:
     """B points' write plans; shapes as in ``build_read_patterns``, plus
-    ``parked_count`` (B, n_regions) and the recode ring (B, RC)."""
-    if down is not None:
-        raise NotImplementedError("fault injection (down banks) is not "
-                                  "ported yet")
+    ``parked_count`` (B, n_regions) and the recode ring (B, RC).
+
+    ``down`` (B, n_data), fault injection: each point's down data banks
+    (degraded-write mode, as JAX's builder). A candidate is *sticky* when
+    its own bank is down or a parity option covering it has a down
+    member: its park stays parked (no recode request) until the rebuild
+    sweep drains it, and it waives the recode-space requirement. Scores
+    prefer (a) normal parks, (b) parks into parities whose members are all
+    alive, (c) parks into down-covering parities, (d) a direct write,
+    strictly last for a sticky candidate."""
     dev = cand_bank.device
     B, n = cand_bank.shape
     K = MAX_OPTS
@@ -386,9 +392,18 @@ def build_write_patterns(
         inv = torch.cat([opt_code[:, :, None],
                          opt_code[:, :, None] & (optjj[..., :, None]
                                                  == optjj[..., None, :])], 2)
+        scores = torch.arange(1, K + 2, device=dev)             # 1, 2 + k
+        if down is not None:
+            # degraded-write mode: per-candidate scores and recode requests
+            opt_down = (mem_other & down.gather(1, mem.clamp(min=0).flatten(
+                1)).view(mem.shape)).any(3)                     # (B, T, K)
+            sticky = down.gather(1, b) | (opt_code & opt_down).any(2)
+            scores = torch.cat([
+                torch.where(sticky, 2 + 2 * K + 2, 1)[..., None],
+                scores[1:] + torch.where(opt_down, K + 2, 0)], 2)
+            need_rc[..., 1:] &= ~sticky[..., None]
         table = torch.cat([ports_g, new_fl, need_rc.long()],
                           2).view(B, n_trips, 3, K + 1)
-        scores = torch.arange(1, K + 2, device=dev)             # 1, 2 + k
         no = torch.zeros((B, 1), dtype=torch.bool, device=dev)
         sinkp = torch.full((B,), P, dtype=torch.int64, device=dev)
         if pb_off is not None:
@@ -398,16 +413,21 @@ def build_write_patterns(
          pv_idx, b32, i32) = map(_trip_major, (
              cell, reg, mem_other, mem_fl, parked_at, ports_g, base, table,
              inv, pv_idx, b32, i32))
+        if down is not None:
+            scores, sticky = _trip_major(scores), _trip_major(sticky)
         acts = []
         for k in range(n_trips):
             ck = cell[k]                                        # (B,)
             flc = fresh[ck]
             rc_full = ring_v[:, :cap].all(1, True)
+            if down is not None:         # a sticky park needs no ring space
+                rc_full = rc_full & ~sticky[k][:, None]
             occ = (mem_other[k].flatten(1)
                    & (fresh[mem_fl[k]] == parked_at[k])).view(B, K, 3).any(2)
             blocked = torch.cat([no, occ | rc_full], 1)
             feas = base[k] & ~(port_busy[ports_g[k]] | blocked)
-            val, act = torch.where(feas, scores, INF_SCORE).min(1, True)
+            val, act = torch.where(feas, scores if down is None
+                                   else scores[k], INF_SCORE).min(1, True)
             found = val < INF_SCORE                             # (B, 1)
             row = table[k].gather(2, act[:, None].expand(B, 3, 1))[..., 0]
             port_busy.index_fill_(0, torch.where(found[:, 0], row[:, 0],

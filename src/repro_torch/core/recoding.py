@@ -20,7 +20,8 @@ ring, so every write is one scatter for the batch, masked writes landing
 on sink entries), and each trip reads one flag per point to the host
 (one sync per trip for the batch). The loop stops when no point has both
 budget left and a feasible entry. An empty ring does no trip (a trip over
-it changes nothing). Bit-identical to the JAX unit.
+it changes nothing). Bit-identical to the JAX unit, fault blocking
+(``down``) included.
 """
 from __future__ import annotations
 
@@ -69,10 +70,14 @@ def recode_steps(
 ) -> RecodeOut:
     """Retire up to ``recode_budget`` ring entries per point whose ports
     are all idle, for B points (every input has a leading (B,) axis; the
-    inputs are not modified)."""
-    if down is not None:
-        raise NotImplementedError("fault injection (down banks) is not "
-                                  "ported yet")
+    inputs are not modified).
+
+    ``down`` (B, n_data), fault injection: each point's hard-down data
+    banks. A parity recompute that would read a hard-down member is
+    blocked (on a parked retire the parity is invalidated instead, as for
+    a parked member), and an entry whose own bank is hard-down is moot and
+    dropped; the rebuild sweep pushes its cell again once the bank
+    recovers."""
     dev = rc_bank.device
     B, cap = rc_valid.shape
     n_recoded = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -134,6 +139,11 @@ def recode_steps(
                    else poff[..., None])                    # (B, E, K)
     memc_o = add_offset(memc, None if poff is None
                   else poff[..., None, None]).flatten(2)    # (B, E, 3K)
+    if down is not None:
+        # down membership does not change within a cycle
+        blocked_f = (mem_other & down.gather(1, memc.flatten(1)).view(
+            memc.shape)).any(3)                             # (B, E, K)
+        self_down = down.gather(1, b)                       # (B, E)
     epos = torch.arange(cap, device=dev)
     cursor = torch.full((B, 1), -1, dtype=torch.int64, device=dev)
     while any(v > 0 for v in budget):
@@ -142,9 +152,13 @@ def recode_steps(
         parked = fl > 0
         holder = (fl.long() - 1).clamp(min=0)
         blocked = (mem_other & (fresh[mem_cell] == parked_at)).any(3)
+        if down is not None:
+            blocked = blocked | blocked_f
         need = opt_code & (~pv[pflat] | parked[..., None])
         recompute = need & ~blocked
         has_work = parked | recompute.any(2)
+        if down is not None:
+            has_work = has_work & ~self_down
         pending = rc_valid & (epos > cursor)
         work = pending & coded & has_work
         moot = pending & ~(coded & has_work)

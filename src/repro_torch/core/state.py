@@ -29,9 +29,11 @@ Differences from the JAX state, all of representation only:
     (lo, hi) uint32 limb pairs; ``repro_torch.convert`` maps between them;
   * an unbatched ``TunableParams`` holds python ints.
 
-This slice carries no telemetry planes and no fault schedule: those flags
-and fault plans raise ``NotImplementedError`` and the ``tele``/``fault``
-leaves stay ``None``.
+With ``make_params(faults=True)`` the state carries a fault schedule and
+its progress in the ``fault`` leaf (``repro_torch.faults.FaultState``,
+batched like every other leaf); with the flag off the leaf is ``None``.
+Telemetry planes are not ported: ``telemetry=True`` raises
+``NotImplementedError`` and the ``tele`` leaf stays ``None``.
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.codes import CodeTables
+from repro_torch.faults.plan import (FaultPlan, FaultState,
+                                     init_fault_state, stack_fault_states)
 
 INT32_MAX = int(np.iinfo(np.int32).max)
 
@@ -185,10 +189,9 @@ def make_params(
     (each at least the derived value; ``n_slots_alloc`` must not change
     full-coverage status); ``traced_geometry`` makes region indexing use
     each point's ``TunableParams.*_active`` geometry."""
-    for flag, name in ((telemetry, "telemetry"), (faults, "faults")):
-        if flag:
-            raise NotImplementedError(f"make_params({name}=True) is not "
-                                      "ported yet")
+    if telemetry:
+        raise NotImplementedError("make_params(telemetry=True) is not "
+                                  "ported yet")
     if max_syms < tables.n_ports:
         raise ValueError(
             f"max_syms={max_syms} < n_ports={tables.n_ports}: the symbol "
@@ -233,6 +236,7 @@ def make_params(
         coalesce=coalesce if tables.n_parities > 0 else False,
         encode_rows_per_cycle=encode_rows_per_cycle,
         traced_geometry=traced_geometry,
+        faults=faults,
     )
 
 
@@ -275,28 +279,56 @@ class MemState(NamedTuple):
     stall_cycles: torch.Tensor       # () int64
     rc_dropped: torch.Tensor     # () int32
     tele: None = None
-    fault: None = None
+    fault: Optional[FaultState] = None   # None unless MemParams.faults
 
 
 WIDE_FIELDS = ("read_latency_sum", "write_latency_sum", "stall_cycles")
 
 
+def fault_states(p: MemParams, plans: Sequence[Optional[FaultPlan]],
+                 device="cpu") -> Optional[FaultState]:
+    """Each point's schedule (None: the no-fault one) as one batched
+    ``FaultState`` on ``device``; None for a faults-off system. A plan
+    given to a faults-off system, or of another geometry, raises JAX's
+    errors."""
+    for plan in plans:
+        if plan is not None and not p.faults:
+            raise ValueError("init_state got a fault_plan but the system "
+                             "was built without make_params(faults=True) "
+                             "— the schedule would be silently ignored")
+        if plan is not None and (plan.n_data != p.n_data
+                                 or plan.n_ports != p.n_ports):
+            raise ValueError(
+                f"FaultPlan geometry ({plan.n_data} data banks, "
+                f"{plan.n_ports} ports) does not match MemParams "
+                f"({p.n_data}, {p.n_ports})")
+    if not p.faults:
+        return None
+    return stack_fault_states([
+        plan.state(device) if plan is not None
+        else init_fault_state(p.n_data, p.n_ports, device)
+        for plan in plans])
+
+
 def init_state(p: MemParams, tn: Optional[TunableParams] = None,
-               region_priors=None, n_cores: int = 8, fault_plan=None,
+               region_priors=None, n_cores: int = 8,
+               fault_plan: Optional[FaultPlan] = None,
                device="cpu") -> MemState:
     """One point's initial controller state on ``device``: ``init_states``
     on a batch of one (``n_cores`` only sized the telemetry planes in JAX
-    and is unused here)."""
-    if fault_plan is not None:
-        raise NotImplementedError("fault plans are not ported yet")
+    and is unused here). ``fault_plan`` installs an erasure/stutter
+    schedule (``make_params(faults=True)`` only); with the flag on and no
+    plan, nothing ever fails."""
+    fault = fault_states(p, [fault_plan], device)
     tn_b = batch_tunables([tn if tn is not None else make_tunables()],
                           device)
     pri = None if region_priors is None else [region_priors]
-    return point_of(init_states(p, tn_b, pri, device), 0)
+    return point_of(init_states(p, tn_b, pri, device, fault), 0)
 
 
 def init_states(p: MemParams, tn: TunableParams, region_priors=None,
-                device="cpu") -> MemState:
+                device="cpu", fault: Optional[FaultState] = None
+                ) -> MemState:
     """Initial controller states of a batch of points on ``device``; ``tn``
     is batched (``batch_tunables``). Each point's active geometry shapes its
     region map and parity validity inside the allocation: padded regions
@@ -304,7 +336,12 @@ def init_states(p: MemParams, tn: TunableParams, region_priors=None,
     point equals an exactly allocated one. ``region_priors`` (a
     sub-coverage system only) is a (B, K) ranked array of hot region ids,
     -1 padded, pre-mapped into each point's parity slots
-    (``dynamic.priors_layout``)."""
+    (``dynamic.priors_layout``). ``fault`` is the batch's ``FaultState``
+    (``fault_states``); on a faults system it defaults to the no-fault
+    schedule of every point."""
+    if fault is not None and not p.faults:
+        raise ValueError("init_states got a fault schedule but the system "
+                         "was built without make_params(faults=True)")
     dev = torch.device(device)
     host = torch.stack(list(tn)).T.tolist()        # (B, 6) python ints
     B = len(host)
@@ -396,4 +433,6 @@ def init_states(p: MemParams, tn: TunableParams, region_priors=None,
         write_latency_sum=wide(),
         stall_cycles=wide(),
         rc_dropped=z(),
+        fault=(fault if fault is not None
+               else fault_states(p, [None] * B, dev)),
     )

@@ -41,7 +41,14 @@ flat buffers with one trailing sink entry that is sliced off
 (``_set_flat``); scatters with duplicate indices only ever write one value
 per cell apart from the sink.
 
-Not ported in this slice: telemetry and faults (they raise).
+Fault injection (``make_params(faults=True)``, ``repro_torch.faults``):
+the ``fault`` leaf carries each point's schedule, so one batch runs
+points with different plans. Each cycle derives the down, rebuilding and
+stuttering masks per point, fail-fast-drops unservable requests, seeds
+the builders' busy ports, counts fault-degraded reads, blocks recomputes
+on hard-down members and advances the rebuild sweep, as JAX's cycle
+does. With the flag off none of it runs. Not ported: telemetry (it
+raises).
 """
 from __future__ import annotations
 
@@ -57,7 +64,10 @@ from repro_torch.core.recoding import recode_steps
 from repro_torch.core.state import (INT32_MAX, MemParams, MemState,
                                     TunableParams, active_geometry,
                                     batch_of_one, batch_tunables,
+                                    fault_states,
                                     init_states, make_tunables, point_of)
+from repro_torch.faults import inject as finject
+from repro_torch.faults import plan as fplan
 from repro_torch.kernels.common import resolve_device
 # The module, not its names: the gather's ops import ``codes``, ``controller``
 # and ``state``, so either package may be imported first.
@@ -91,10 +101,15 @@ class SimState(NamedTuple):
 def quiescent(st: SimState) -> torch.Tensor:
     """Workload drained, encoder idle, recode ring empty: after it every
     cycle is an observable no-op, which makes every early exit equal to
-    running the bound out. One point's 0-d flag, or (B,) for a batch."""
+    running the bound out. One point's 0-d flag, or (B,) for a batch.
+    With faults on, a point is also not quiescent while a scheduled fault
+    event can still change its state (``quiescent_fault_pending``)."""
     m = st.mem
-    return ((st.done_cycle >= 0) & (m.enc_region < 0)
-            & ~m.rc_valid.any(-1))
+    q = ((st.done_cycle >= 0) & (m.enc_region < 0)
+         & ~m.rc_valid.any(-1))
+    if m.fault is not None:
+        q = q & ~finject.quiescent_fault_pending(m.fault, m.cycle)
+    return q
 
 
 class CycleOut(NamedTuple):
@@ -132,21 +147,37 @@ def summarize_batch(st: SimState,
                     n_points: Optional[int] = None) -> List[SimResult]:
     """A batched SimState's per-point SimResults, with one device-to-host
     copy (``n_points`` keeps the first points only)."""
-    m = st.mem
-    rows = torch.stack([
-        st.done_cycle.long(), m.cycle.long(), m.served_reads.long(),
-        m.served_writes.long(), m.degraded_reads.long(),
-        m.parked_writes.long(), m.switches.long(), m.rc_valid.sum(-1),
-        m.stall_cycles, m.read_latency_sum, m.write_latency_sum,
-        m.rc_dropped.long()], 1)[:n_points].tolist()
+    m, f = st.mem, st.mem.fault
+    cols = [st.done_cycle.long(), m.cycle.long(), m.served_reads.long(),
+            m.served_writes.long(), m.degraded_reads.long(),
+            m.parked_writes.long(), m.switches.long(), m.rc_valid.sum(-1),
+            m.stall_cycles, m.read_latency_sum, m.write_latency_sum,
+            m.rc_dropped.long()]
+    if f is not None:
+        cols += [f.unserved_reads.long(), f.lost_writes.long(),
+                 f.fault_degraded.long(), f.dead_cycles.sum(-1)]
+    rows = torch.stack(cols, 1)[:n_points].tolist()
     return [SimResult(
         cycles=dc if dc >= 0 else cyc, completed=dc >= 0,
         served_reads=sr, served_writes=sw, degraded_reads=deg,
         parked_writes=pw, switches=swi, recode_backlog=rc,
         stall_cycles=stall, avg_read_latency=rl / max(sr, 1),
-        avg_write_latency=wl / max(sw, 1), rc_dropped=drop)
-        for (dc, cyc, sr, sw, deg, pw, swi, rc, stall, rl, wl, drop)
+        avg_write_latency=wl / max(sw, 1), rc_dropped=drop,
+        **dict(zip(("unserved_reads", "lost_writes",
+                    "fault_degraded_reads", "dead_bank_cycles"), rest)))
+        for (dc, cyc, sr, sw, deg, pw, swi, rc, stall, rl, wl, drop, *rest)
         in rows]
+
+
+def _pick(mask: torch.Tensor, x, y):
+    """Per point, ``x`` where ``mask`` (B,) else ``y``, leaf by leaf (the
+    same object passes through; None stays None)."""
+    if x is y:
+        return x
+    if isinstance(x, tuple):
+        leaves = (_pick(mask, a, b) for a, b in zip(x, y))
+        return type(x)(*leaves) if hasattr(x, "_fields") else tuple(leaves)
+    return torch.where(mask.view(-1, *[1] * (x.dim() - 1)), x, y)
 
 
 def _set_flat(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
@@ -199,21 +230,25 @@ class CodedMemorySystem:
     def init(self, tn: Optional[TunableParams] = None, region_priors=None,
              fault_plan=None) -> SimState:
         """One point's initial state (``init_batch`` on a batch of one;
-        without ``tn`` the allocation is the geometry, as in JAX)."""
-        if fault_plan is not None:
-            raise NotImplementedError("fault plans are not ported yet")
+        without ``tn`` the allocation is the geometry, as in JAX).
+        ``fault_plan`` installs a ``repro_torch.faults.FaultPlan``
+        erasure/stutter schedule (``make_params(faults=True)`` only)."""
+        fault = fault_states(self.p, [fault_plan], self.device)
         pri = None if region_priors is None else [region_priors]
         tn_b = batch_tunables([tn if tn is not None else make_tunables()],
                               self.device)
-        return point_of(self.init_batch(tn_b, pri), 0)
+        return point_of(self.init_batch(tn_b, pri, fault), 0)
 
-    def init_batch(self, tn: TunableParams, region_priors=None) -> SimState:
+    def init_batch(self, tn: TunableParams, region_priors=None,
+                   fault=None) -> SimState:
         """Initial states of a batch of points (``tn`` batched); each
-        point's active geometry masks the shared allocation, and
+        point's active geometry masks the shared allocation,
         ``region_priors`` (B, K) warm-starts each point's dynamic coding
-        unit (see ``state.init_states``)."""
+        unit, and ``fault`` is the batch's fault schedule
+        (``state.fault_states``; default: nothing fails). See
+        ``state.init_states``."""
         dev = self.device
-        mem = init_states(self.p, tn, region_priors, dev)
+        mem = init_states(self.p, tn, region_priors, dev, fault)
         B = mem.cycle.shape[0]
         return SimState(
             mem=mem,
@@ -364,9 +399,13 @@ class CodedMemorySystem:
         return banks_data, parity_data, golden
 
     # ------------------------------------------------------------ branches
-    def _do_reads(self, m: MemState, rs_a, active=None):
+    def _do_reads(self, m: MemState, rs_a, active=None, port_busy0=None,
+                  down=None):
         """The read branch for every point; ``active`` (B,) masks the
-        candidates of points that take the other branch."""
+        candidates of points that take the other branch. With faults on,
+        ``port_busy0`` (B, n_ports + 1) holds the ports busy before the
+        walk (default: all idle) and ``down`` (B, n_data) counts the reads
+        served degraded because their bank is down."""
         p, t = self.p, self.t
         B = m.cycle.shape[0]
         cb = self._bank_ids.expand(B, -1)
@@ -376,22 +415,35 @@ class CodedMemorySystem:
         if active is not None:
             cv = cv & active[:, None]
         plan = ctl.build_read_patterns(
-            p, t, cb, ci_, ca, cv, self._idle_ports(B), m.fresh_loc,
+            p, t, cb, ci_, ca, cv,
+            self._idle_ports(B) if port_busy0 is None else port_busy0,
+            m.fresh_loc,
             m.parity_valid, m.region_slot, rs_a)
         vals = self._read_values(m, plan, cb, ci_, rs_a)
         lat = torch.where(plan.served, m.cycle[:, None] - ca, 0).sum(1)
+        fault = m.fault
+        if down is not None:
+            deg_f = plan.served & down[:, self._bank_ids] & (
+                (plan.mode == ctl.MODE_FROM_SYM)
+                | ((plan.mode >= ctl.MODE_OPT0)
+                   & (plan.mode < ctl.MODE_REDIRECT)))
+            fault = fault._replace(fault_degraded=fault.fault_degraded
+                                   + deg_f.sum(1, dtype=torch.int32))
         m = m._replace(
             rq_valid=m.rq_valid & ~plan.served.view_as(m.rq_valid),
             served_reads=m.served_reads + plan.n_served,
             degraded_reads=m.degraded_reads + plan.n_degraded,
             read_latency_sum=m.read_latency_sum + lat,
+            fault=fault,
         )
         return m, plan.port_busy, CycleOut(plan.served, cb, ci_, vals,
                                            plan.n_served)
 
-    def _do_writes(self, m: MemState, rs_a, active=None):
-        """The write branch for every point; ``active`` as in
-        ``_do_reads``."""
+    def _do_writes(self, m: MemState, rs_a, active=None, port_busy0=None,
+                   down=None):
+        """The write branch for every point; ``active`` and ``port_busy0``
+        as in ``_do_reads``, ``down`` each point's down banks
+        (degraded-write mode) with faults on."""
         p, t = self.p, self.t
         B = m.cycle.shape[0]
         cb = self._bank_ids.expand(B, -1)
@@ -401,9 +453,11 @@ class CodedMemorySystem:
         if active is not None:
             cv = cv & active[:, None]
         plan = ctl.build_write_patterns(
-            p, t, cb, ci_, ca, cv, self._idle_ports(B), m.fresh_loc,
+            p, t, cb, ci_, ca, cv,
+            self._idle_ports(B) if port_busy0 is None else port_busy0,
+            m.fresh_loc,
             m.parity_valid, m.region_slot, m.parked_count, m.rc_bank,
-            m.rc_row, m.rc_valid, rs_a)
+            m.rc_row, m.rc_valid, rs_a, down=down)
         banks_data, parity_data, golden = self._commit_writes(
             m, plan, cb, ci_, ca, cv, m.wq_data.flatten(1), rs_a)
         lat = torch.where(plan.served, m.cycle[:, None] - ca, 0).sum(1)
@@ -439,10 +493,36 @@ class CodedMemorySystem:
         """One cycle of B points lock-step: batched state and trace, batched
         ``tn``, ``stream_end`` (B, n_cores) or None."""
         p, t = self.p, self.t
-        rs_a, _ = active_geometry(p, tn)
+        rs_a, nr_a = active_geometry(p, tn)
         was_done = st.done_cycle >= 0
         st = self._arbiter(st, trace, rs_a, stream_end)
         m = st.mem
+        fk = {}                        # the branches' fault arguments
+
+        # fault injection: this cycle's fault masks, dead cycles, the
+        # fail-fast drops (after the arbiter counted the request, before
+        # the hysteresis reads occupancy) and the builders' busy ports: a
+        # down bank's port busy, a stuttering port busy this cycle
+        if p.faults:
+            fs = m.fault
+            down = fplan.bank_down(fs, m.cycle)
+            rebuilding = fplan.bank_rebuilding(fs, m.cycle)
+            down_hard = down & ~rebuilding
+            stut = fplan.stutter_busy(fs, m.cycle)
+            # counted until the workload drains, so that a dead bank does
+            # not keep a drained point from its quiescent fixed point
+            dead_inc = (down & ~was_done[:, None]).long()
+            rq_v, wq_v, n_uns, n_lost = finject.drop_unservable(
+                p, t, down_hard, m.rq_row, m.rq_valid, m.wq_row, m.wq_valid,
+                m.fresh_loc, m.parity_valid, m.region_slot, rs_a)
+            fs = fs._replace(
+                dead_cycles=fs.dead_cycles + dead_inc,
+                unserved_reads=fs.unserved_reads + n_uns,
+                lost_writes=fs.lost_writes + n_lost)
+            m = m._replace(rq_valid=rq_v, wq_valid=wq_v, fault=fs)
+            fk = dict(down=down, port_busy0=torch.cat(
+                [down | stut[:, :p.n_data], stut[:, p.n_data:],
+                 torch.zeros_like(stut[:, :1])], 1))   # + the idle sink
 
         # write-drain hysteresis; one host read picks the branches
         wq_occ = m.wq_valid.sum(2).amax(1)
@@ -452,33 +532,42 @@ class CodedMemorySystem:
         serve_writes = (wm | (~any_r & any_w)) & any_w
         sw = serve_writes.tolist()
         if all(sw):
-            m, port_busy, out = self._do_writes(m, rs_a)
+            m, port_busy, out = self._do_writes(m, rs_a, **fk)
         elif not any(sw):
-            m, port_busy, out = self._do_reads(m, rs_a)
+            m, port_busy, out = self._do_reads(m, rs_a, **fk)
         else:
             # the points disagree: both builders on masked candidates, and
             # each point takes its own branch's result, as JAX's ``pick``
-            m_r, pb_r, out_r = self._do_reads(m, rs_a, ~serve_writes)
-            m_w, pb_w, out_w = self._do_writes(m, rs_a, serve_writes)
-
-            def pick(x, y):
-                return x if x is y else torch.where(
-                    serve_writes.view(-1, *[1] * (x.dim() - 1)), x, y)
-
-            m = MemState(*map(pick, m_w, m_r))
-            out = CycleOut(*map(pick, out_w, out_r))
-            port_busy = pick(pb_w, pb_r)
+            m_r, pb_r, out_r = self._do_reads(m, rs_a, ~serve_writes, **fk)
+            m_w, pb_w, out_w = self._do_writes(m, rs_a, serve_writes, **fk)
+            m, out, port_busy = _pick(serve_writes, (m_w, out_w, pb_w),
+                                      (m_r, out_r, pb_r))
         m = m._replace(write_mode=wm)
 
-        # recoding unit uses leftover ports
+        # recoding unit uses leftover ports; a rebuilding bank's port is
+        # granted back to it here (and only here), stutter aside
+        rc_pb = port_busy
+        if p.faults:
+            rc_pb = torch.cat([torch.where(rebuilding, stut[:, :p.n_data],
+                                           port_busy[:, :p.n_data]),
+                               port_busy[:, p.n_data:]], 1)
         rc = recode_steps(
-            p, t, port_busy, m.fresh_loc, m.parity_valid, m.parked_count,
+            p, t, rc_pb, m.fresh_loc, m.parity_valid, m.parked_count,
             m.rc_bank, m.rc_row, m.rc_valid, m.region_slot, m.banks_data,
-            m.parity_data, rs_a)
+            m.parity_data, rs_a, down=down_hard if p.faults else None)
         m = m._replace(
             fresh_loc=rc.fresh_loc, parity_valid=rc.parity_valid,
             parked_count=rc.parked_count, rc_valid=rc.rc_valid,
             banks_data=rc.banks_data, parity_data=rc.parity_data)
+        # online rebuild: sweep cells into the recode ring while a bank
+        # rebuilds; latch ``rebuilt`` (the bank rejoins) on completion
+        if p.faults:
+            rb_bank, rb_row, rb_valid, fs2 = finject.rebuild_scan(
+                p, t, m.fault, m.cycle, rebuilding, down_hard, m.fresh_loc,
+                m.parity_valid, m.region_slot, m.rc_bank, m.rc_row,
+                m.rc_valid, rs_a, nr_a)
+            m = m._replace(rc_bank=rb_bank, rc_row=rb_row,
+                           rc_valid=rb_valid, fault=fs2)
         # dynamic coding unit; it starts nothing new once the workload drained
         dy = dynamic_step(
             p, t, tn, m.cycle, m.region_slot, m.slot_region, m.access_count,
@@ -544,7 +633,9 @@ class CodedMemorySystem:
             st: Optional[SimState] = None, fault_plan=None,
             on_cycle: Optional[Callable] = None) -> SimResult:
         """Single-shot replay of all ``n_cycles`` cycles; ``st`` carries in
-        an explicit initial state."""
+        an explicit initial state. ``fault_plan`` installs an
+        erasure/stutter schedule on the fresh initial state (ignored when
+        ``st`` is given: put the plan in that state)."""
         tn = tn if tn is not None else self.tunables
         st, _ = self._run(
             st if st is not None else self.init(tn, fault_plan=fault_plan),

@@ -19,38 +19,12 @@ between the two hot bands (many switches), α=0.1 (two slots) codes both.
 from __future__ import annotations
 
 import argparse
-import time
-
-import torch
 
 from repro_torch.configs.paper_memsys import PAPER_ALPHAS, PAPER_SCHEMES
-from repro_torch.harness.common import emit, table
+from repro_torch.harness.common import emit, report_batches, run_grid, table
 from repro_torch.kernels.common import resolve_device
-from repro_torch.obs.runlog import card_lines
-from repro_torch.sweep import SweepPoint, partition, run_sweep
-from repro_torch.sweep.engine import mixed_geometry
+from repro_torch.sweep import SweepPoint
 from repro_torch.sweep.workloads import paper_fig18
-
-
-class BatchCycles:
-    """``run_sweep``'s ``on_cycle``: counts each batch's batched cycles,
-    then calls ``inner`` (the caller's hook) when given."""
-
-    def __init__(self, inner=None):
-        self.inner, self.cycles = inner, {}
-
-    def __call__(self, batch, before, after, out):
-        key = tuple(batch.indices)
-        self.cycles[key] = self.cycles.get(key, 0) + 1
-        if self.inner is not None:
-            self.inner(batch, before, after, out)
-
-
-def _where(dev: torch.device) -> str:
-    if dev.type != "cuda":
-        return f"the {dev.type.upper()}"
-    cards = card_lines()
-    return cards[0] if cards else torch.cuda.get_device_name(dev)
 
 
 def run(length: int = 96, n_rows: int = 320, r: float = 0.05,
@@ -64,14 +38,7 @@ def run(length: int = 96, n_rows: int = 320, r: float = 0.05,
                       n_cores=8, n_banks=8, seed=seed, write_frac=0.3,
                       select_period=select_period)
     pts = paper_fig18(base, schemes=schemes, alphas=alphas, r=r)
-    counter = BatchCycles(on_cycle)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    rs = run_sweep(pts, device=dev, on_cycle=counter)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    secs = time.perf_counter() - t0
+    rs, counter, secs = run_grid(pts, dev, on_cycle)
     rows = []
     for row in rs.rows():
         uncoded = row["scheme"] == "uncoded"
@@ -85,22 +52,7 @@ def run(length: int = 96, n_rows: int = 320, r: float = 0.05,
         })
     print("\n== Fig 18: dedup-like banded trace, cycles & switches vs α ==")
     print(table(rows, list(rows[0].keys())))
-    bound = pts[0].resolved_cycles()
-    batches = []
-    for b in partition(pts):
-        n = counter.cycles.get(tuple(b.indices), 0)
-        scheme = b.points[0].scheme
-        slots = ("" if scheme == "uncoded" else ", parity slots "
-                 f"{[pt.derived_slots()[2] for pt in b.points]}")
-        geometry = "traced" if mixed_geometry(b.points) else "uniform"
-        print(f"batch {scheme} alpha {[pt.alpha for pt in b.points]} "
-              f"(B={len(b)}{slots}, {geometry} region geometry): {n} "
-              f"batched cycles against drain_bound {bound}")
-        batches.append({"points": b.indices, "batched_cycles": n})
-    n_batched = sum(b["batched_cycles"] for b in batches)
-    print(f"grid: {len(pts)} points in {len(batches)} batches, {n_batched} "
-          f"batched cycles ({len(pts)} x {bound} looped), wall {secs:.2f} s "
-          f"on {_where(dev)}")
+    batches = report_batches(pts, counter, secs, dev)
     emit("fig18_dedup", rows, {"r": r, "length": length, "n_rows": n_rows,
                                "device": str(dev), "batches": batches},
          timings={"grid_s": secs})

@@ -30,10 +30,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.codes import get_tables
-from repro_torch.core.state import (TunableParams, batch_tunables,
+from repro_torch.core.state import (MemParams, TunableParams,
+                                    batch_tunables, fault_states,
                                     make_params, make_tunables, point_of)
 from repro_torch.core.system import (CodedMemorySystem, SimResult, SimState,
                                      Trace, summarize_batch)
+from repro_torch.faults.plan import FaultState, plan_from_spec
 from repro_torch.kernels.common import resolve_device
 from repro_torch.sweep import workloads
 from repro_torch.sweep.grid import (GridBatch, SweepPoint,
@@ -59,8 +61,6 @@ def system_for(pt: SweepPoint,
     key = (static_signature(pt), alloc, traced_geometry, str(dev))
     sys_ = _SYSTEMS.get(key)
     if sys_ is None:
-        if pt.faults:
-            raise NotImplementedError("fault plans are not ported yet")
         rs_alloc, nr_alloc, ns_alloc = alloc
         tables = get_tables(pt.scheme, n_data=pt.n_data)
         params = make_params(tables, n_rows=pt.n_rows, alpha=pt.alpha, r=pt.r,
@@ -72,7 +72,8 @@ def system_for(pt: SweepPoint,
                              region_size_alloc=rs_alloc,
                              n_regions_alloc=nr_alloc,
                              traced_geometry=traced_geometry,
-                             telemetry=pt.telemetry)
+                             telemetry=pt.telemetry,
+                             faults=bool(pt.faults))
         sys_ = CodedMemorySystem(tables, params, n_cores=pt.n_cores,
                                  device=dev)
         _SYSTEMS[key] = sys_
@@ -93,6 +94,17 @@ def stack_tunables(points: Sequence[SweepPoint], queue_depth: int,
                                  region_size_active=rs,
                                  n_regions_active=nr))
     return batch_tunables(tns, device)
+
+
+def _stack_faults(points: Sequence[SweepPoint], p: MemParams,
+                  device) -> Optional[FaultState]:
+    """Each point's fault schedule (its ``faults`` spec; the no-fault one
+    for an empty spec) as one batched ``FaultState`` on ``device``, None
+    on a faults-off system. The schedule is state, so points with
+    different plans share a batch."""
+    return fault_states(
+        p, [plan_from_spec(pt.faults, p.n_data, p.n_ports) for pt in points],
+        device)
 
 
 def _stack_priors(priors: Sequence, n_points: int):
@@ -159,7 +171,7 @@ def run_batch(batch: GridBatch, traces: Optional[Sequence[Trace]] = None,
     tn_b = stack_tunables(pts, sys_.p.queue_depth, dev)
     priors_b = (_stack_priors(region_priors, len(pts))
                 if region_priors is not None else None)
-    st_b = sys_.init_batch(tn_b, priors_b)
+    st_b = sys_.init_batch(tn_b, priors_b, _stack_faults(pts, sys_.p, dev))
     st = sys_.run_chunk_batch(st_b, trace_b, None, pts[0].resolved_cycles(),
                               tn_b, on_cycle)
     results = summarize_batch(st)

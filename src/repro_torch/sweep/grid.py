@@ -59,10 +59,12 @@ class SweepPoint:
     n_banks: int = 8
     length: int = 96
     n_cycles: Optional[int] = None   # None = drain bound from length/n_cores
-    # ---- static: observability and fault injection. Neither is ported
-    # yet (ROADMAP queue 1 item 4): ``telemetry=True`` and a non-empty
-    # ``faults`` spec raise when their system is built. The fields stay so
-    # the signature equals the JAX package's.
+    # ---- static: observability (not ported yet: ``telemetry=True`` raises
+    # when its system is built) and fault injection: a flat spec of
+    # ("bank", b, fail_at[, recover_at]) and ("stutter", port, period[,
+    # phase]) entries, () = no faults. Only the *presence* of a plan is
+    # static (the system carries the fault leaf); points with different
+    # plans share one batch, their schedules stacked per point.
     telemetry: bool = False
     faults: Tuple[Tuple, ...] = ()
     # ---- batchable: trace contents

@@ -190,9 +190,9 @@ def stream_replay_points(points: Sequence, sources: Sequence,
     path: see ``repro_torch.sweep.engine.check_shard``).
     ``on_cycle(before, after, out)`` sees the batched states of every
     cycle of every chunk."""
-    from repro_torch.sweep.engine import (_stack_priors, check_shard,
-                                          mixed_geometry, stack_tunables,
-                                          system_for)
+    from repro_torch.sweep.engine import (_stack_faults, _stack_priors,
+                                          check_shard, mixed_geometry,
+                                          stack_tunables, system_for)
     from repro_torch.sweep.grid import batch_geometry_alloc, static_signature
 
     if len(sources) != len(points):
@@ -216,7 +216,10 @@ def stream_replay_points(points: Sequence, sources: Sequence,
     tn_b = stack_tunables(points, system.p.queue_depth, dev)
     pri_b = (_stack_priors(region_priors, n_pts)
              if region_priors is not None else None)
-    st_b = system.init_batch(tn_b, pri_b)
+    # each point's fault schedule (the fault leaf is saved and restored
+    # with the rest of the state)
+    st_b = system.init_batch(tn_b, pri_b,
+                             _stack_faults(points, system.p, dev))
     pos = np.zeros((n_pts, nc), np.int64)
     bound = chunk_bound(system, chunk_len)
     win_r: List[List[tuple]] = [[] for _ in range(n_pts)]

@@ -668,3 +668,60 @@ def test_sim_kernels_on_live_batched_states(cuda, scheme, monkeypatch):
         assert torch.equal(out, encode_parities_plain(*args))
     assert degraded > 0
     assert (two_sibling > 0) == (scheme == "scheme_iii")
+
+
+# ------------------------------------------------------------ bank faults
+def test_sim_kernels_on_a_faulted_batch(cuda, monkeypatch):
+    """A scheme III batch with bank faults (no plan, a dead bank, a bank
+    that fails and rebuilds, a dead bank with a stuttering port) at α < 1,
+    64 rows x 32 requests a core, on the card: every ``xor_gather`` and
+    ``xor_encode`` launch is recorded with its operands and held against
+    the plain version on them; the plans serve reads degraded because
+    their bank is down (parity ^ two siblings), and the results and final
+    states equal the CPU's."""
+    from repro_torch.core.controller import MODE_OPT0, MODE_REDIRECT
+    from repro_torch.kernels.xor_encode import ops as enc_ops
+    from repro_torch.kernels.xor_gather import ops as g_ops
+    from repro_torch.sweep import SweepPoint, partition, run_points
+
+    def record(store, launch):
+        def recorded(*args):
+            out = launch(*args)
+            store.append(([a.clone() for a in args], out.clone()))
+            return out
+        return recorded
+
+    specs = [(), (("bank", 0, 0),), (("bank", 4, 5, 30),),
+             (("bank", 2, 0), ("stutter", 12, 3, 1))]
+    base = SweepPoint(scheme="scheme_iii", n_data=9, n_banks=9, n_rows=64,
+                      n_cores=8, length=32, write_frac=0.3, alpha=0.25,
+                      r=0.125, select_period=4)
+    pts = [base.replace(faults=sp, alpha=a, seed=k)
+           for k, sp in enumerate(specs) for a in (0.25, 0.5)]
+    assert [len(b) for b in partition(pts)] == [2, 6]
+    gathers, encodes = [], []
+    monkeypatch.setattr(g_ops, "gather_decode_cuda",
+                        record(gathers, g_ops.gather_decode_cuda))
+    monkeypatch.setattr(enc_ops, "encode_parities_cuda",
+                        record(encodes, enc_ops.encode_parities_cuda))
+    card, card_st = run_points(pts, device=cuda, return_state=True)
+    assert len(gathers) >= 10 and len(encodes) >= 1
+    two_sibling = 0
+    for args, out in gathers:
+        assert torch.equal(out, gather_decode_plain(*args))
+        mode, sib0, sib1 = args[4], args[7], args[8]
+        opt = (mode >= MODE_OPT0) & (mode < MODE_REDIRECT)
+        two_sibling += int((opt & (sib0 >= 0) & (sib1 >= 0)).sum())
+    for args, out in encodes:
+        assert torch.equal(out, encode_parities_plain(*args))
+    assert two_sibling > 0
+    assert sum(r.fault_degraded_reads for r in card) > 0
+    cpu, cpu_st = run_points(pts, device="cpu", return_state=True)
+    assert card == cpu
+    for a, b in zip(card_st, cpu_st):
+        assert _same_sim_state(a._replace(mem=a.mem._replace(fault=None)),
+                               b._replace(mem=b.mem._replace(fault=None)))
+        fa, fb = a.mem.fault, b.mem.fault
+        assert (fa is None) == (fb is None)
+        assert fa is None or all(torch.equal(x.cpu(), y.cpu())
+                                 for x, y in zip(fa, fb))

@@ -120,17 +120,20 @@ def test_init_state_matches_jax(scheme, alpha):
 
 
 def test_flags_not_ported_raise():
+    """Telemetry is not ported and raises; faults are (tests/
+    test_torch_faults.py), and a fault plan given to a faults-off system
+    raises JAX's ValueError."""
     t = codes.get_tables("scheme_i")
-    for flag in ("telemetry", "faults"):
-        with pytest.raises(NotImplementedError):
-            state.make_params(t, 64, 0.25, 0.125, **{flag: True})
+    with pytest.raises(NotImplementedError):
+        state.make_params(t, 64, 0.25, 0.125, telemetry=True)
+    assert state.make_params(t, 64, 0.25, 0.125, faults=True).faults
     assert state.make_params(t, 64, 0.25, 0.125,
                              traced_geometry=True).traced_geometry
     p = state.make_params(t, 64, 0.25, 0.125)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="faults=True"):
         state.init_state(p, fault_plan=object())
     sys_ = system.CodedMemorySystem(t, p, n_cores=2, device=CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="faults=True"):
         sys_.init(fault_plan=object())
 
 
