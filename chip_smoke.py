@@ -7,7 +7,7 @@
 
 Phases, each of which fails the run (nonzero exit, no result line). With
 ``--only`` (names: kernel, serve, decode, cross, kvstate, simkernel,
-simulate, stream, sweep, paper, faults) it runs the build and the named
+simulate, stream, sweep, paper, faults, obs) it runs the build and the named
 phases
 with the phases they need (decode needs serve; stream and paper need
 simulate; sweep needs simulate and stream), and prints no kernel table and
@@ -47,7 +47,8 @@ no result line; with no flag it runs every phase:
    (coded embedding, untied head, head_dim 160) and granite-20b
    (LayerNorm, GELU MLP, MQA: 48 heads on one kv head) are then served
    the same way at full width, bf16, params drawn on the card one layer
-   at a time: coded and uncoded pool (same checks: identical tokens,
+   at a time, on 8 requests (one wave of the 8 slots): coded and uncoded
+   pool (same checks: identical tokens,
    banks, fresh parity, the gather against its plain version at the
    config's pool shape, degraded reads, launches = steps x layers, finite
    prefill logits), a profiled window, then the ring cache. Every run's
@@ -179,13 +180,32 @@ no result line; with no flag it runs every phase:
    leaf (the fault leaf included), bank 0 rebuilt, every point quiescent;
    (c) outside the counts, scheme III's batch of (a) rerun with every
    ``xor_gather`` launch held against its plain version on its own
-   operands; it must serve reads degraded because their bank is down.
+   operands; it must serve reads degraded because their bank is down;
+13. obs: the simulator's telemetry planes (``repro_torch.obs``) on the
+   card and the CPU. (a) the stall report's ``--smoke`` suite (paper_fig18
+   on 8 cores x 32 banded requests, 64 rows: uncoded, scheme_i alpha 0.25)
+   through ``run_points`` with telemetry off and on: results and every
+   other state leaf equal, the card's planes equal the CPU's at every
+   point; (b) ``stall_report("paper_fig18")`` at its defaults (8 cores x
+   96 requests, 128 rows, 16 points in 4 batches), whose own check refuses
+   planes that disagree with the aggregates, printing the grid's wall
+   time and the coded exemplar's critical-word read and write latency
+   histograms against uncoded's; (c) ``availability_report`` (bank 0 dead
+   from cycle 0) at ``--smoke`` and at full coverage (alpha 1, r 0.125),
+   results and planes card = CPU, dead-bank cycles counted and reads
+   served degraded because their bank is down (read class 4); (d) the
+   timeline at its CLI defaults, events card = CPU. Outside the counts:
+   (e) a busy B = 1 batched cycle profiled with telemetry off (1,056-1,079
+   launches, as the sweep phase's B = 1 window counts them) and on, and
+   timed off, on, on, off; (f) both sim kernels bit for bit against
+   their plain versions on live telemetry-on states of (b)'s scheme_i
+   batch. Its CPU side runs after the paper phase's in that worker.
 
 Each kernel's launches are counted from 0 over its own main path (the
 serve runs for ``gather_pool``, the decode-attention calls for
 ``coded_kv_decode``, the simulate runs and the stream, sweep, paper and
-faults phases for the simulator's kernels, whose table entries add the
-five; a line before the table gives the split).
+faults and obs phases for the simulator's kernels, whose table entries
+add the six; a line before the table gives the split).
 The third-to-last line is the card's name and power limit, the
 second-to-last the kernel table as JSON, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -214,6 +234,7 @@ KERNEL_SHAPE = dict(nb=8, slots=64, page=64, hkv=2, d=128, b=8, mp=32)
 SERVE = dict(n_slots=8, max_prompt=128, max_seq=2048, max_new_tokens=32,
              page=64)
 N_REQUESTS = 16
+N_REQUESTS_DENSE = 8             # yi, stablelm, granite: one wave (cut (5))
 CHURN_SEED = 5                   # the placement permutation of every run
 # the other dense configs, served at full width on the coded and the
 # uncoded pool and on the ring cache
@@ -563,11 +584,12 @@ SERVE_RUNS = (("coded_fused", {}), ("uncoded", {"coded": False}),
 SNAP_STEP = 12                   # decode steps before the mid-stream snapshot
 
 
-def serve_phase(torch, arch: str = "qwen2.5-3b", serve_runs=SERVE_RUNS):
+def serve_phase(torch, arch: str = "qwen2.5-3b", serve_runs=SERVE_RUNS,
+                n_requests: int = N_REQUESTS):
     """Serve ``arch`` at full width through each pool run of
-    ``serve_runs``, then from the ring cache. Returns the pool gather's
-    launches over the pool runs and the ring run's K/V of its first and
-    last layers."""
+    ``serve_runs``, then from the ring cache, ``n_requests`` requests a
+    run. Returns the pool gather's launches over the pool runs and the
+    ring run's K/V of its first and last layers."""
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
@@ -606,7 +628,7 @@ def serve_phase(torch, arch: str = "qwen2.5-3b", serve_runs=SERVE_RUNS):
         before = srv.serve_snapshot()
         srv.permute_pool(np.random.default_rng(CHURN_SEED).permutation(
             srv.kvcfg.pool_pages))
-        reqs = _requests(Request, cfg.vocab, seed=7, n=N_REQUESTS)
+        reqs = _requests(Request, cfg.vocab, seed=7, n=n_requests)
         snap = {}
 
         def take_snapshot(step, s_):
@@ -684,7 +706,7 @@ def serve_phase(torch, arch: str = "qwen2.5-3b", serve_runs=SERVE_RUNS):
           f"{cfg.name}: the pool runs served different tokens")
     print(f"serve {cfg.name}: {', '.join(names)} served identical tokens "
           f"(first request: {runs[names[0]][0][:8]}...)")
-    ring_kv = _ring_run(torch, cfg, params, runs[names[0]])
+    ring_kv = _ring_run(torch, cfg, params, runs[names[0]], n_requests)
     del params, ref_banks
     torch.cuda.empty_cache()
     return total_launches, ring_kv
@@ -745,7 +767,7 @@ def _telemetry_checks(torch, cfg, params, srv, before, reads, steps, snap,
     return launches
 
 
-def _ring_run(torch, cfg, params, pool_tokens):
+def _ring_run(torch, cfg, params, pool_tokens, n_requests):
     """The config with kv_banks=0 serves from the ring cache: the same
     requests must get the pool runs' tokens. Returns its K/V of the first
     and last layers (B, max_seq, Hkv, D)."""
@@ -759,7 +781,7 @@ def _ring_run(torch, cfg, params, pool_tokens):
     srv.submit(Request(rid=10_000, prompt=list(range(1, 17))))
     srv.run_until_drained()
     warm_steps = srv.steps_run
-    reqs = _requests(Request, cfg.vocab, seed=7, n=N_REQUESTS)
+    reqs = _requests(Request, cfg.vocab, seed=7, n=n_requests)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     decode_s = _drive(srv, reqs)
@@ -2161,9 +2183,9 @@ def per_point(final: dict, n: int):
 
 @contextlib.contextmanager
 def quiet_harness():
-    """A harness run on the worker's CPU side: its printed table dropped
-    and its artefact, with an empty manifest, written to a temporary
-    directory (the card's run writes ``experiments/torch/``)."""
+    """A harness or report run on the worker's CPU side: its printed table
+    dropped and its artefacts, with a stub manifest, written to a
+    temporary directory (yielded; the card's runs write ``experiments/``)."""
     import shutil
     import tempfile
 
@@ -2174,10 +2196,13 @@ def quiet_harness():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_harness_")
     saved = common.ART_DIR, runlog.run_manifest
     # the artefact's manifest asks git, nvidia-smi and the card: not here
-    common.ART_DIR, runlog.run_manifest = tmp, lambda **kw: {}
+    common.ART_DIR = tmp
+    runlog.run_manifest = lambda **kw: {
+        "git_sha": "cpu-worker", "created_iso": "",
+        "devices": {"backend": "cpu"}}
     try:
         with contextlib.redirect_stdout(io.StringIO()):
-            yield
+            yield tmp
     finally:
         common.ART_DIR, runlog.run_manifest = saved
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2331,14 +2356,71 @@ def faults_cpu_side() -> dict:
             "rows_s": secs, "b": (res, _host_state(st))}
 
 
+# ------------------------------------------------------------- phase 13
+# (c): the availability report at --smoke geometry once more at alpha 1, r
+# 0.125 (full coverage), where the dead bank's reads are served degraded
+# (read class 4); at --smoke's own alpha 0.25, r 0.05 they are failed fast
+OBS_FULL_COVERAGE = dict(alphas=(1.0,), r=0.125)
+# (d): the timeline CLI's defaults
+OBS_TIMELINE = dict(scheme="scheme_i", trace="banded", alpha=0.25, r=0.05,
+                    n_rows=128, length=96, select_period=32)
+OBS_TIMELINE_CHUNK = 32
+OBS_TIMELINE_MAX = 4096
+# (e): launches of a busy B = 1 batched cycle with telemetry off, as the
+# sweep phase's B = 1 profile window has measured them on the H100
+OBS_OFF_LAUNCHES = (1056, 1079)
+
+
+def obs_smoke_points(telemetry: bool):
+    """(a)'s points: the stall report's ``--smoke`` suite (paper_fig18 on
+    8 cores x 32 requests, 64 rows: uncoded and scheme_i alpha 0.25)."""
+    from repro_torch.obs import report
+
+    return [pt.replace(telemetry=telemetry)
+            for pt in report.suite_points("paper_fig18", smoke=True)]
+
+
+def obs_timeline(device):
+    """(d): ``record_timeline`` at the timeline CLI's defaults."""
+    from repro_torch.obs import timeline
+    from repro_torch.sweep import SweepPoint
+
+    return timeline.timeline_of(SweepPoint(**OBS_TIMELINE),
+                                chunk_len=OBS_TIMELINE_CHUNK,
+                                max_cycles=OBS_TIMELINE_MAX, device=device)
+
+
+def obs_cpu_side() -> dict:
+    """The obs phase's CPU side: (a)'s telemetry-on results and snapshots,
+    (c)'s availability reports' (at ``--smoke`` and at full coverage) and
+    (d)'s timeline events, on the CPU."""
+    import torch
+
+    from repro_torch.obs import report
+    from repro_torch.sweep import run_points
+
+    torch.set_num_threads(2)
+    out = {"a": run_points(obs_smoke_points(True), device="cpu",
+                           collect_telemetry=True)}
+    with quiet_harness() as tmp:
+        for key, kw in (("c", {}), ("c_full", OBS_FULL_COVERAGE)):
+            got = report.availability_report(
+                "paper_fig18", smoke=True, device="cpu",
+                out_dir=os.path.join(tmp, key), **kw)
+            out[key] = (got["results"], got["snapshots"])
+    out["d"] = obs_timeline("cpu")
+    return out
+
+
 CPU_STAGES = {"sweep": sweep_cpu_side, "sweep_l": sweep_looped_cpu_side,
               "sweep_c": sweep_stream_cpu_side, "paper": paper_cpu_side,
-              "faults": faults_cpu_side}
+              "faults": faults_cpu_side, "obs": obs_cpu_side}
 STAGE_PHASE = {"sweep": "sweep", "sweep_l": "sweep", "sweep_c": "sweep",
-               "paper": "paper", "faults": "faults"}
+               "paper": "paper", "faults": "faults", "obs": "obs"}
 # one worker process per lane, each running its stages in order; the lanes
 # run side by side whenever the script lets the CPU side run
-CPU_LANES = (("sweep", "sweep_c"), ("sweep_l",), ("paper",), ("faults",))
+CPU_LANES = (("sweep", "sweep_c"), ("sweep_l",), ("paper", "obs"),
+             ("faults",))
 
 
 def _cpu_worker(conn, stages) -> None:
@@ -2586,39 +2668,55 @@ def _fig19_run(torch, points, hook):
     return rows, res, states, secs, calls
 
 
-def profile_batch(torch, points, label, start: int = 20, n: int = 20):
-    """Where a batched cycle's time goes: ``n`` busy cycles of the batch
-    (from cycle ``start``, queues loaded) through ``run_chunk_batch``, timed
-    on the host clock, then under torch.profiler for device busy time,
-    kernel launches, host syncs and copies per batched cycle."""
-    from torch.profiler import ProfilerActivity, profile
-
+def _busy_batch(torch, points, start: int = 20):
+    """The system, batched trace and tunables ``run_batch`` gives
+    ``points`` on the card, and their state after ``start`` batched
+    cycles (queues loaded)."""
     from repro_torch.sweep import build_trace, stack_traces
     from repro_torch.sweep.engine import (mixed_geometry, stack_tunables,
                                           system_for)
     from repro_torch.sweep.grid import batch_geometry_alloc
 
-    # the system, batched trace and tunables run_batch gives the batch
     sys_ = system_for(points[0], batch_geometry_alloc(points),
                       mixed_geometry(points), device="cuda")
     trace_b = stack_traces([build_trace(p, device="cuda") for p in points])
     tn_b = stack_tunables(points, sys_.p.queue_depth, "cuda")
     st = sys_.run_chunk_batch(sys_.init_batch(tn_b), trace_b, None, start,
                               tn_b)
-    out = {}
-    for window in ("timed", "profiled"):
-        c0 = int(st.mem.cycle[0])
+    return [sys_, trace_b, tn_b, st]
+
+
+def _busy_window(torch, run, label, n: int, prof=None) -> float:
+    """``n`` more batched cycles of ``run`` (``_busy_batch``'s list, its
+    state advanced in place) inside ``prof`` (a profiler) or timed on the
+    host clock after a garbage collection: the ms per batched cycle."""
+    import gc
+
+    sys_, trace_b, tn_b, st = run
+    c0 = int(st.mem.cycle[0])
+    if prof is None:
+        gc.collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prof if prof is not None else contextlib.nullcontext():
+        st = sys_.run_chunk_batch(st, trace_b, None, n, tn_b)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with (profile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA])
-              if window == "profiled" else contextlib.nullcontext()) as prof:
-            st = sys_.run_chunk_batch(st, trace_b, None, n, tn_b)
-            torch.cuda.synchronize()
-        out[window] = (time.perf_counter() - t0) * 1e3 / n
-        check(int(st.mem.cycle[0]) == c0 + n,
-              f"profile {label}: {int(st.mem.cycle[0]) - c0} of {n} cycles "
-              "ran (the batch went quiescent)")
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    check(int(st.mem.cycle[0]) == c0 + n,
+          f"profile {label}: {int(st.mem.cycle[0]) - c0} of {n} cycles "
+          "ran (the batch went quiescent)")
+    run[3] = st
+    return ms
+
+
+def _profiled_window(torch, run, label, n: int) -> dict:
+    """``n`` batched cycles of ``run`` under torch.profiler: device busy
+    ms, kernel launches, host syncs and copies per batched cycle (empty
+    when the trace holds no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    profiled_ms = _busy_window(torch, run, label, n, prof)
     path = ROOT / "build" / f"chip_smoke_sweep_{label}_trace.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
@@ -2626,22 +2724,34 @@ def profile_batch(torch, points, label, start: int = 20, n: int = 20):
     dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
            ("kernel", "gpu_memcpy", "gpu_memset")]
     runtime = [e["name"] for e in events if e.get("cat") == "cuda_runtime"]
-    wall = out["timed"]
     if not dev:
-        print(f"profile sweep {label}: the trace holds no device activity; "
-              "device busy share not measured")
-        return dict(wall_ms=wall)
-    busy_ms = sum(e["dur"] for e in dev) / 1e3 / n
-    stats = dict(
-        wall_ms=wall, busy_ms=busy_ms, idle=1 - busy_ms / wall,
+        return {"profiled_ms": profiled_ms}
+    return dict(
+        profiled_ms=profiled_ms, busy_ms=sum(e["dur"] for e in dev) / 1e3 / n,
         launches=sum(e["cat"] == "kernel" for e in dev) / n,
         syncs=sum("Synchronize" in e for e in runtime) / n,
         copies=sum("Memcpy" in e for e in runtime) / n)
+
+
+def profile_batch(torch, points, label, start: int = 20, n: int = 20):
+    """Where a batched cycle's time goes: ``n`` busy cycles of the batch
+    (from cycle ``start``, queues loaded) through ``run_chunk_batch``, timed
+    on the host clock, then under torch.profiler for device busy time,
+    kernel launches, host syncs and copies per batched cycle."""
+    run = _busy_batch(torch, points, start)
+    wall = _busy_window(torch, run, label, n)
+    stats = _profiled_window(torch, run, label, n)
+    stats["wall_ms"] = wall
+    if "launches" not in stats:
+        print(f"profile sweep {label}: the trace holds no device activity; "
+              "device busy share not measured")
+        return stats
+    stats["idle"] = 1 - stats["busy_ms"] / wall
     print(f"profile sweep {label} (B={len(points)}) batched cycles "
           f"{start}..{start + n}: wall {wall:.3f} ms/cycle "
-          f"({out['profiled']:.3f} under the profiler) = "
+          f"({stats['profiled_ms']:.3f} under the profiler) = "
           f"{wall / len(points):.3f} ms per point-cycle, device busy "
-          f"{busy_ms:.3f} ms/cycle (idle {stats['idle']:.1%} of the "
+          f"{stats['busy_ms']:.3f} ms/cycle (idle {stats['idle']:.1%} of the "
           f"unprofiled wall), {stats['launches']:.0f} kernel launches, "
           f"{stats['syncs']:.1f} host syncs and {stats['copies']:.1f} copies "
           "per batched cycle")
@@ -3198,9 +3308,192 @@ def _recorded_fault_batch(torch, hook, res) -> str:
             "down")
 
 
+def _same_planes(a, b) -> bool:
+    """Two ``TelemetrySnapshot``s (card, CPU) equal plane for plane, the
+    queue slots' core ids included."""
+    import numpy as np
+
+    from repro_torch.obs.planes import Telemetry
+
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in Telemetry._fields)
+
+
+def _hist_text(h) -> str:
+    """A log2 latency histogram as its bins up to the last non-empty one."""
+    nz = [k for k, v in enumerate(h) if v]
+    return "/".join(str(int(v)) for v in h[:nz[-1] + 1]) if nz else "0"
+
+
+def obs_phase(torch, cpu_side):
+    """The simulator's telemetry planes on the card against the CPU: (a)
+    the stall report's ``--smoke`` suite (``obs_smoke_points``) through
+    ``run_points`` with telemetry off and on: results and every other
+    leaf equal, the card's planes = the CPU worker's at every point; (b)
+    ``stall_report("paper_fig18")`` at its defaults (96 requests a core on
+    128 rows, 16 points in 4 batches), whose own check holds the planes
+    against the aggregates, printing the coded exemplar's read and write
+    latency histograms against uncoded and the grid's wall time; (c)
+    ``availability_report`` at ``--smoke`` and at full coverage
+    (``OBS_FULL_COVERAGE``): results and planes (dead cycles, read class 4)
+    card = CPU, class 4 served; (d) the timeline at its CLI defaults, the
+    card's events = the CPU's. Then, outside the counts: (e) a busy B = 1
+    batched cycle profiled with telemetry off and on (off within
+    ``OBS_OFF_LAUNCHES``); (f) both sim kernels against their plain
+    versions on live telemetry-on states of (b)'s scheme_i alpha < 1
+    batch. Returns each sim kernel's launches over (a)-(d)."""
+    from repro_torch.kernels.xor_encode import kernel as ek
+    from repro_torch.kernels.xor_encode import ops as eops
+    from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.kernels.xor_gather import ops as gops
+    from repro_torch.obs import report
+    from repro_torch.sweep import run_points
+
+    out_dir = ROOT / "experiments" / "obs"
+    hook = SweepHook(-1, LIVE_EVERY)
+    gk.launches = ek.launches = 0                   # main path starts here
+    c0 = (gops.calls, eops.calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_off, st_off = run_points(obs_smoke_points(False), device="cuda",
+                                 return_state=True)
+    res_on, snaps_a, st_on = run_points(
+        obs_smoke_points(True), device="cuda", collect_telemetry=True,
+        return_state=True)
+    torch.cuda.synchronize()
+    secs_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = report.stall_report("paper_fig18", device="cuda",
+                              out_dir=str(out_dir), on_cycle=hook)
+    torch.cuda.synchronize()
+    secs_b = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    avail = {key: report.availability_report(
+        "paper_fig18", smoke=True, device="cuda",
+        out_dir=str(out_dir / key), **kw)
+        for key, kw in (("c", {}), ("c_full", OBS_FULL_COVERAGE))}
+    torch.cuda.synchronize()
+    secs_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = obs_timeline("cuda")
+    secs_d = time.perf_counter() - t0
+    launches = {"xor_gather": gk.launches, "xor_encode": ek.launches}
+    # main path ends here
+    calls = (gops.calls - c0[0], eops.calls - c0[1])
+    check(tuple(launches.values()) == calls,
+          f"obs: launches {launches}, wrapper calls {calls} on the card")
+    check(all(v > 0 for v in launches.values()),
+          f"obs: a kernel of the path never launched: {launches}")
+    check(res_off == res_on, f"obs (a): telemetry off {res_off} vs on "
+          f"{res_on}")
+    for k, (a, b) in enumerate(zip(st_off, st_on)):
+        check(a.mem.tele is None and b.mem.tele is not None
+              and _same_state(torch, a._replace(mem=a.mem._replace(
+                  tele=None)), b._replace(mem=b.mem._replace(tele=None))),
+              f"obs (a): point {k}'s leaves differ telemetry off vs on")
+    pts_b, res_b, snaps_b = rep["points"], rep["results"], rep["snapshots"]
+    check(len(pts_b) == 16 and all(r.completed for r in res_b),
+          f"obs (b): {len(pts_b)} points, completed "
+          f"{[r.completed for r in res_b]}")
+    full = avail["c_full"]
+    check(sum(s.fault_degraded_reads() for s in full["snapshots"]) > 0
+          and all(r.dead_bank_cycles > 0 for r in full["results"]),
+          f"obs (c): no read served as class 4 at full coverage: "
+          f"{full['results']}")
+    n_events = sum(e["ph"] != "M" for e in events)
+    check(n_events > 0, "obs (d): the timeline recorded no event")
+    ex, u = rep["exemplar"], rep["uncoded"]
+    cycles_b = dict(hook.cycles)
+    print(f"obs (a) the stall report's --smoke suite "
+          f"({len(res_on)} points) telemetry off and on: {secs_a:.2f} s, "
+          "results and every other leaf equal")
+    print(f"obs (b) stall_report paper_fig18 at 96 requests a core x 128 "
+          f"rows: {len(pts_b)} points in {len(cycles_b)} batches of "
+          f"{sorted(cycles_b.values())} batched cycles in {secs_b:.2f} s "
+          f"(the report's own check: planes = aggregates); "
+          f"{rep['md_path']}")
+    for side in ("read", "write"):
+        hist = f"lat_hist_{side}"
+        print(f"obs (b) critical-word {side} latency, log2 bins 0.. "
+              f"(0 / 1 / 2-3 / 4-7 / ... cycles): coded "
+              f"{pts_b[ex].scheme} alpha {pts_b[ex].alpha} "
+              f"{_hist_text(getattr(snaps_b[ex], hist))} (avg "
+              f"{getattr(res_b[ex], f'avg_{side}_latency'):.3f}) vs uncoded "
+              f"{_hist_text(getattr(snaps_b[u], hist))} (avg "
+              f"{getattr(res_b[u], f'avg_{side}_latency'):.3f})")
+    # outside the counts from here: (e) each flag's busy B = 1 batch timed
+    # over cycles 20..40 (off, on), profiled over 40..60 (the window of
+    # the sweep phase's profiles) and timed again over 60..80 (on, off)
+    runs, prof, wall = {}, {}, {False: [], True: []}
+    for tele in (False, True):
+        runs[tele] = _busy_batch(
+            torch, [seed_points(1)[0].replace(telemetry=tele)])
+        wall[tele].append(_busy_window(torch, runs[tele],
+                                       f"obs_B1_telemetry_{tele}", 20))
+    for tele in (False, True):
+        prof[tele] = _profiled_window(torch, runs[tele],
+                                      f"obs_B1_telemetry_{tele}", 20)
+    for tele in (True, False):
+        wall[tele].append(_busy_window(torch, runs[tele],
+                                       f"obs_B1_telemetry_{tele}", 20))
+    if "launches" not in prof[False] or "launches" not in prof[True]:
+        print("obs (e): the trace holds no device activity; launches not "
+              "measured")
+    else:
+        lo, hi = OBS_OFF_LAUNCHES
+        check(lo <= prof[False]["launches"] <= hi,
+              f"obs (e): {prof[False]['launches']:.0f} launches per busy "
+              f"B = 1 batched cycle with telemetry off, not in {lo}-{hi}")
+        print("obs (e) a busy B = 1 batched cycle (cycles 40..60 profiled, "
+              "20..40 and 60..80 timed off, on, on, off): " + "; ".join(
+                  f"telemetry {'on' if tele else 'off'} "
+                  f"{prof[tele]['launches']:.0f} launches, "
+                  f"{prof[tele]['syncs']:.1f} host syncs, "
+                  f"{prof[tele]['copies']:.1f} copies, device busy "
+                  f"{prof[tele]['busy_ms']:.3f} ms, wall "
+                  f"{' / '.join(f'{w:.3f}' for w in wall[tele])} ms"
+                  for tele in (False, True)))
+    cpu_side.resume()                   # untimed: the worker runs
+    batch = next(b for b, _ in hook.final.values()
+                 if b.points[0].scheme == "scheme_i" and len(b) > 1)
+    _live_batch(torch, batch.points,
+                [s_ for b, s_ in hook.states if b.indices == batch.indices],
+                f"obs (f) telemetry-on batch scheme_i alpha "
+                f"{[p.alpha for p in batch.points]}")
+    cpu = cpu_side.receive("obs")
+    res_c, snaps_c = cpu["a"]
+    check(res_on == res_c and all(_same_planes(a, b) for a, b in
+                                  zip(snaps_a, snaps_c)),
+          f"obs (a): card {res_on} vs CPU {res_c}, or their planes")
+    for key in ("c", "c_full"):
+        got = avail[key]
+        want_res, want_snaps = cpu[key]
+        check(got["results"] == want_res and all(
+            _same_planes(a, b) for a, b in zip(got["snapshots"],
+                                                want_snaps)),
+              f"obs (c) {key}: card {got['results']} vs CPU {want_res}, or "
+              "their planes")
+    check(events == cpu["d"], f"obs (d): {n_events} card events vs "
+          f"{sum(e['ph'] != 'M' for e in cpu['d'])} on the CPU")
+    print(f"obs (a) the card's planes = the CPU's at each of "
+          f"{len(snaps_a)} points")
+    runs_c = [(r, s_) for k in ("c", "c_full")
+              for r, s_ in zip(avail[k]["results"], avail[k]["snapshots"])]
+    print(f"obs (c) availability at --smoke and at full coverage (alpha 1, "
+          f"r 0.125): {secs_c:.2f} s, results and planes card = CPU; "
+          "fault-degraded (class 4) reads "
+          f"{[s_.fault_degraded_reads() for _, s_ in runs_c]}, dead-bank "
+          f"cycles {[r.dead_bank_cycles for r, _ in runs_c]}")
+    print(f"obs (d) the timeline at its CLI defaults: {n_events} events "
+          f"over {events[-1]['ts']} cycles in {secs_d:.2f} s, card = CPU")
+    print(f"obs: launches xor_gather {launches['xor_gather']}, xor_encode "
+          f"{launches['xor_encode']} over (a)-(d)")
+    return launches
+
+
 # Phases in the order they run, and the earlier phases each one needs.
 PHASES = ("kernel", "serve", "decode", "cross", "kvstate", "simkernel",
-          "simulate", "stream", "sweep", "paper", "faults")
+          "simulate", "stream", "sweep", "paper", "faults", "obs")
 NEEDS = {"decode": ("serve",), "stream": ("simulate",),
          "sweep": ("simulate", "stream"), "paper": ("simulate",)}
 
@@ -3287,7 +3580,8 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
         launches, ring_kv = serve_phase(torch)
         serving = [("serving", get_config("qwen2.5-3b").n_heads, ring_kv)]
         for arch in DENSE_ARCHS:
-            n, kv = serve_phase(torch, arch, SERVE_RUNS[:2])
+            n, kv = serve_phase(torch, arch, SERVE_RUNS[:2],
+                                N_REQUESTS_DENSE)
             launches += n
             serving.append((f"serving_{arch}", get_config(arch).n_heads,
                             {0: kv[0]}))
@@ -3331,6 +3625,9 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
     if "faults" in phases:
         faults_launches = faults_phase(torch, cpu_side)
         lap("faults")
+    if "obs" in phases:
+        obs_launches = obs_phase(torch, cpu_side)
+        lap("obs")
     if phases != PHASES:
         print(f"chip_smoke: phases {', '.join(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s (--only: no kernel "
@@ -3338,7 +3635,7 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
         return 0
     print(f"launches by phase: simulate {sim_launches}, stream "
           f"{stream_launches}, sweep {sweep_launches}, paper "
-          f"{paper_launches}, faults {faults_launches}")
+          f"{paper_launches}, faults {faults_launches}, obs {obs_launches}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
 
@@ -3368,7 +3665,7 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
             "replaces": replaces,
             "launches": (sim_launches[name] + stream_launches[name]
                          + sweep_launches[name] + paper_launches[name]
-                         + faults_launches[name]),
+                         + faults_launches[name] + obs_launches[name]),
             "max_abs_err": max(v["max_abs_err"] for (k, _), v in
                                sim_kern.items() if k == name),
             "ms": case["ms"],

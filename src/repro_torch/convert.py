@@ -9,9 +9,11 @@ the same nesting, the same ``(d_in, d_out)`` layout (the port computes
 leaves (``jax.device_get(st)``) and returns the port's ``SimState``;
 ``sim_state_to_numpy(st)`` goes back. The field order is the same on both
 sides; the wide (lo, hi) uint32 counter pairs of JAX are int64 in the port,
-and so is the fault leaf's uint32 ``dead_cycles``. Both take one point's
-state or a batch's (a leading point axis on every leaf), with or without
-the fault leaf; the telemetry leaf is not ported.
+and so are the fault leaf's uint32 ``dead_cycles`` and the telemetry
+planes' uint32 counters (``obs.planes.COUNTER_FIELDS``; the high-water
+marks and the queue slots' core ids are int32 on both sides). Both take
+one point's state or a batch's (a leading point axis on every leaf), with
+or without the fault and telemetry leaves.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.core.state import WIDE_FIELDS, MemState
 from repro_torch.core.system import SimState
 from repro_torch.faults.plan import FaultState
 from repro_torch.models import lm
+from repro_torch.obs.planes import COUNTER_FIELDS, Telemetry
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -50,14 +53,17 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
 
 def sim_state_from_numpy(host, device) -> SimState:
     """A JAX ``SimState`` with numpy leaves as the port's state on
-    ``device``. The telemetry leaf must be absent (not ported)."""
+    ``device``."""
     m = host.mem
     leaves = {}
     for name in MemState._fields:
         a = getattr(m, name)
         if name == "tele":
             if a is not None:
-                raise NotImplementedError("the tele leaf is not ported")
+                leaves[name] = Telemetry(*(
+                    _tensor(np.asarray(x, np.int64) if f in COUNTER_FIELDS
+                            else x, device)
+                    for f, x in zip(Telemetry._fields, a)))
             continue
         if name == "fault":
             if a is not None:
@@ -87,6 +93,11 @@ def sim_state_to_numpy(st: SimState) -> SimState:
             leaves[name] = FaultState(*(
                 x.cpu().numpy().astype(np.uint32) if f == "dead_cycles"
                 else x.cpu().numpy() for f, x in zip(FaultState._fields, a)))
+            continue
+        if name == "tele":
+            leaves[name] = Telemetry(*(
+                x.cpu().numpy().astype(np.uint32) if f in COUNTER_FIELDS
+                else x.cpu().numpy() for f, x in zip(Telemetry._fields, a)))
             continue
         a = a.cpu().numpy()
         if name in WIDE_FIELDS:

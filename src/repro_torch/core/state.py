@@ -32,8 +32,10 @@ Differences from the JAX state, all of representation only:
 With ``make_params(faults=True)`` the state carries a fault schedule and
 its progress in the ``fault`` leaf (``repro_torch.faults.FaultState``,
 batched like every other leaf); with the flag off the leaf is ``None``.
-Telemetry planes are not ported: ``telemetry=True`` raises
-``NotImplementedError`` and the ``tele`` leaf stays ``None``.
+With ``make_params(telemetry=True)`` the ``tele`` leaf carries each
+point's metric planes (``repro_torch.obs.planes.Telemetry``, batched
+likewise; its counters int64 where JAX's are uint32); with the flag off it
+is ``None``.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ import torch
 from repro_torch.core.codes import CodeTables
 from repro_torch.faults.plan import (FaultPlan, FaultState,
                                      init_fault_state, stack_fault_states)
+from repro_torch.obs.planes import Telemetry, init_telemetries
 
 INT32_MAX = int(np.iinfo(np.int32).max)
 
@@ -189,9 +192,6 @@ def make_params(
     (each at least the derived value; ``n_slots_alloc`` must not change
     full-coverage status); ``traced_geometry`` makes region indexing use
     each point's ``TunableParams.*_active`` geometry."""
-    if telemetry:
-        raise NotImplementedError("make_params(telemetry=True) is not "
-                                  "ported yet")
     if max_syms < tables.n_ports:
         raise ValueError(
             f"max_syms={max_syms} < n_ports={tables.n_ports}: the symbol "
@@ -236,6 +236,7 @@ def make_params(
         coalesce=coalesce if tables.n_parities > 0 else False,
         encode_rows_per_cycle=encode_rows_per_cycle,
         traced_geometry=traced_geometry,
+        telemetry=telemetry,
         faults=faults,
     )
 
@@ -278,7 +279,7 @@ class MemState(NamedTuple):
     write_latency_sum: torch.Tensor  # () int64
     stall_cycles: torch.Tensor       # () int64
     rc_dropped: torch.Tensor     # () int32
-    tele: None = None
+    tele: Optional[Telemetry] = None     # None unless MemParams.telemetry
     fault: Optional[FaultState] = None   # None unless MemParams.faults
 
 
@@ -315,20 +316,21 @@ def init_state(p: MemParams, tn: Optional[TunableParams] = None,
                fault_plan: Optional[FaultPlan] = None,
                device="cpu") -> MemState:
     """One point's initial controller state on ``device``: ``init_states``
-    on a batch of one (``n_cores`` only sized the telemetry planes in JAX
-    and is unused here). ``fault_plan`` installs an erasure/stutter
-    schedule (``make_params(faults=True)`` only); with the flag on and no
-    plan, nothing ever fails."""
+    on a batch of one (``n_cores`` sizes the telemetry planes' provenance;
+    the telemetry-off state does not depend on it). ``fault_plan``
+    installs an erasure/stutter schedule (``make_params(faults=True)``
+    only); with the flag on and no plan, nothing ever fails."""
     fault = fault_states(p, [fault_plan], device)
     tn_b = batch_tunables([tn if tn is not None else make_tunables()],
                           device)
     pri = None if region_priors is None else [region_priors]
-    return point_of(init_states(p, tn_b, pri, device, fault), 0)
+    return point_of(init_states(p, tn_b, pri, device, fault,
+                                n_cores=n_cores), 0)
 
 
 def init_states(p: MemParams, tn: TunableParams, region_priors=None,
-                device="cpu", fault: Optional[FaultState] = None
-                ) -> MemState:
+                device="cpu", fault: Optional[FaultState] = None,
+                n_cores: int = 8) -> MemState:
     """Initial controller states of a batch of points on ``device``; ``tn``
     is batched (``batch_tunables``). Each point's active geometry shapes its
     region map and parity validity inside the allocation: padded regions
@@ -338,7 +340,8 @@ def init_states(p: MemParams, tn: TunableParams, region_priors=None,
     -1 padded, pre-mapped into each point's parity slots
     (``dynamic.priors_layout``). ``fault`` is the batch's ``FaultState``
     (``fault_states``); on a faults system it defaults to the no-fault
-    schedule of every point."""
+    schedule of every point. ``n_cores`` sizes the telemetry planes
+    (``make_params(telemetry=True)`` only)."""
     if fault is not None and not p.faults:
         raise ValueError("init_states got a fault schedule but the system "
                          "was built without make_params(faults=True)")
@@ -433,6 +436,8 @@ def init_states(p: MemParams, tn: TunableParams, region_priors=None,
         write_latency_sum=wide(),
         stall_cycles=wide(),
         rc_dropped=z(),
+        tele=(init_telemetries(B, p.n_data, n_cores, p.queue_depth, dev)
+              if p.telemetry else None),
         fault=(fault if fault is not None
                else fault_states(p, [None] * B, dev)),
     )

@@ -39,7 +39,8 @@ candidates JAX's would, so the results are the same (and a batch of one
 runs one branch). Scatters that JAX does with ``mode="drop"`` go through
 flat buffers with one trailing sink entry that is sliced off
 (``_set_flat``); scatters with duplicate indices only ever write one value
-per cell apart from the sink.
+per cell apart from the sink, and JAX's accumulating ``.add`` scatters
+become one ``scatter_add_`` (``_add_ones``).
 
 Fault injection (``make_params(faults=True)``, ``repro_torch.faults``):
 the ``fault`` leaf carries each point's schedule, so one batch runs
@@ -47,8 +48,18 @@ points with different plans. Each cycle derives the down, rebuilding and
 stuttering masks per point, fail-fast-drops unservable requests, seeds
 the builders' busy ports, counts fault-degraded reads, blocks recomputes
 on hard-down members and advances the rebuild sweep, as JAX's cycle
-does. With the flag off none of it runs. Not ported: telemetry (it
-raises).
+does. With the flag off none of it runs.
+
+Telemetry (``make_params(telemetry=True)``, ``repro_torch.obs.planes``):
+the ``tele`` leaf's planes are updated where JAX's cycle updates them:
+stall causes and the queue slots' core ids in the arbiter, the queue
+high-water marks after it, dead-bank cycles in the fault block, each
+branch's provenance classes (class 4 for reads degraded because their
+bank is down), latency histograms and wait causes, and the recode unit's
+retirements and pending entries. A branch run on masked candidates counts
+nothing for the points it is masked for, and ``_pick`` keeps each point's
+own branch's planes, as JAX's ``pick`` does. With the flag off none of it
+runs.
 """
 from __future__ import annotations
 
@@ -69,6 +80,7 @@ from repro_torch.core.state import (INT32_MAX, MemParams, MemState,
 from repro_torch.faults import inject as finject
 from repro_torch.faults import plan as fplan
 from repro_torch.kernels.common import resolve_device
+from repro_torch.obs import planes as obs
 # The module, not its names: the gather's ops import ``codes``, ``controller``
 # and ``state``, so either package may be imported first.
 from repro_torch.kernels.xor_gather import ops as gather_ops
@@ -189,6 +201,28 @@ def _set_flat(x: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     return buf[:-1].view_as(x)
 
 
+def _add_ones(planes, idxs):
+    """Each tensor of ``planes`` with one added at ``plane.flatten()[i]``
+    for every ``i`` of its index tensor in ``idxs`` (duplicates
+    accumulate; the index ``plane.numel()`` is dropped): JAX's
+    ``.at[...].add(1, mode="drop")``, one ``scatter_add_`` for all the
+    planes (of one dtype), each followed by its own sink in the buffer."""
+    zero = planes[0].new_zeros(1)
+    bufs, parts, off = [], [], 0
+    for x, idx in zip(planes, idxs):
+        bufs += [x.flatten(), zero]
+        parts.append(idx.flatten() + off if off else idx.flatten())
+        off += x.numel() + 1
+    buf = torch.cat(bufs)
+    idx = torch.cat(parts)
+    buf.scatter_add_(0, idx, buf.new_ones(()).expand_as(idx))
+    out, off = [], 0
+    for x in planes:
+        out.append(buf[off:off + x.numel()].view_as(x))
+        off += x.numel() + 1
+    return out
+
+
 class CodedMemorySystem:
     """Facade owning the static tables/params and the device."""
 
@@ -211,6 +245,12 @@ class CodedMemorySystem:
         self._older = torch.ones((n_cores, n_cores), dtype=torch.bool,
                                  device=dev).tril(-1)
         self._port_busy0 = {}
+        if p.telemetry:
+            # read provenance class by plan mode + 1: unserved (dropped),
+            # from_sym 1, direct 0, each option 2, redirect 3
+            self._read_class = torch.tensor(
+                [2, 1, 0] + [2] * (ctl.MODE_REDIRECT - ctl.MODE_OPT0) + [3],
+                dtype=torch.int64, device=dev)
 
     def _idle_ports(self, B: int) -> torch.Tensor:
         """(B, n_ports + 1) idle port mask (read only, kept per B)."""
@@ -248,7 +288,8 @@ class CodedMemorySystem:
         (``state.fault_states``; default: nothing fails). See
         ``state.init_states``."""
         dev = self.device
-        mem = init_states(self.p, tn, region_priors, dev, fault)
+        mem = init_states(self.p, tn, region_priors, dev, fault,
+                          n_cores=self.n_cores)
         B = mem.cycle.shape[0]
         return SimState(
             mem=mem,
@@ -327,6 +368,20 @@ class CodedMemorySystem:
                                     point_offsets(B, n_regions, dev)),
                          B * n_regions),),
             torch.ones((), dtype=torch.int32, device=dev), accumulate=True)
+        tele = m.tele
+        if p.telemetry:
+            # the full-queue rejection is the only core-stall source, so
+            # this plane sums to stall_cycles; the core ids land in the
+            # slots the request scatter below picks
+            nd = p.n_data
+            stall_cell = add_offset(b * 2 + isw.long(),
+                                    point_offsets(B, nd * 2, dev))
+            stall_cause, = _add_ones([tele.stall_cause], [torch.where(
+                v & full, stall_cell, B * nd * 2)])
+            cores = self._cores.int().expand(B, -1)
+            tele = tele._replace(stall_cause=stall_cause,
+                                 rq_core=_set_flat(tele.rq_core, fr_, cores),
+                                 wq_core=_set_flat(tele.wq_core, fw_, cores))
         mem = m._replace(
             rq_row=_set_flat(m.rq_row, fr_, i),
             rq_age=_set_flat(m.rq_age, fr_, cyc),
@@ -337,6 +392,7 @@ class CodedMemorySystem:
             wq_data=_set_flat(m.wq_data, fw_, payload),
             access_count=access[:-1].view_as(m.access_count),
             stall_cycles=m.stall_cycles + (v & full).sum(1),
+            tele=tele,
         )
         ptr = pos + (in_range & (push | ~v)).int()
         return st._replace(mem=mem, core_ptr=ptr)
@@ -420,21 +476,36 @@ class CodedMemorySystem:
             m.fresh_loc,
             m.parity_valid, m.region_slot, rs_a)
         vals = self._read_values(m, plan, cb, ci_, rs_a)
-        lat = torch.where(plan.served, m.cycle[:, None] - ca, 0).sum(1)
+        age = m.cycle[:, None] - ca
+        lat = torch.where(plan.served, age, 0).sum(1)
         fault = m.fault
         if down is not None:
-            deg_f = plan.served & down[:, self._bank_ids] & (
+            # a from_sym or parity-decoded serve of a down bank's read
+            down_deg = down[:, self._bank_ids] & (
                 (plan.mode == ctl.MODE_FROM_SYM)
                 | ((plan.mode >= ctl.MODE_OPT0)
                    & (plan.mode < ctl.MODE_REDIRECT)))
+            deg_f = plan.served & down_deg
             fault = fault._replace(fault_degraded=fault.fault_degraded
                                    + deg_f.sum(1, dtype=torch.int32))
+        tele = m.tele
+        if p.telemetry:
+            # provenance class from the plan's mode (class 4: degraded
+            # because the bank is down; a redirect stays class 3), the
+            # latency histogram over served candidates, and a read-conflict
+            # wait on the bank of each valid candidate left unserved
+            cls = self._read_class[plan.mode.long() + 1]
+            if down is not None:
+                cls = torch.where(down_deg, 4, cls)
+            tele = tele._replace(**self._branch_planes(
+                tele, "read", plan.served, cv, cb, age, tele.rq_core, cls))
         m = m._replace(
             rq_valid=m.rq_valid & ~plan.served.view_as(m.rq_valid),
             served_reads=m.served_reads + plan.n_served,
             degraded_reads=m.degraded_reads + plan.n_degraded,
             read_latency_sum=m.read_latency_sum + lat,
             fault=fault,
+            tele=tele,
         )
         return m, plan.port_busy, CycleOut(plan.served, cb, ci_, vals,
                                            plan.n_served)
@@ -460,7 +531,13 @@ class CodedMemorySystem:
             m.rc_row, m.rc_valid, rs_a, down=down)
         banks_data, parity_data, golden = self._commit_writes(
             m, plan, cb, ci_, ca, cv, m.wq_data.flatten(1), rs_a)
-        lat = torch.where(plan.served, m.cycle[:, None] - ca, 0).sum(1)
+        age = m.cycle[:, None] - ca
+        lat = torch.where(plan.served, age, 0).sum(1)
+        tele = m.tele
+        if p.telemetry:
+            cls = (plan.mode >= ctl.WMODE_PARK0).long()
+            tele = tele._replace(**self._branch_planes(
+                tele, "write", plan.served, cv, cb, age, tele.wq_core, cls))
         m = m._replace(
             wq_valid=m.wq_valid & ~plan.served.view_as(m.wq_valid),
             fresh_loc=plan.fresh_loc,
@@ -472,10 +549,41 @@ class CodedMemorySystem:
             rc_dropped=m.rc_dropped + plan.n_rc_dropped,
             write_latency_sum=m.write_latency_sum + lat,
             banks_data=banks_data, parity_data=parity_data, golden=golden,
+            tele=tele,
         )
         zeros = torch.zeros(cb.shape, dtype=torch.int32, device=cb.device)
         out = CycleOut(zeros.bool(), cb, ci_, zeros, plan.n_served)
         return m, plan.port_busy, out
+
+    def _branch_planes(self, tele, side: str, served, cv, cb, age,
+                       slot_core, cls) -> dict:
+        """One branch's planes: ``{side}_mode_core`` by each served
+        candidate's core (``slot_core``, its queue slots' core ids) and
+        class ``cls``, ``lat_hist_{side}`` over the served candidates'
+        ages, and a wait of cause ``side`` on the bank of each valid
+        candidate left unserved. Candidates masked out of this branch are
+        not valid, so they count nothing."""
+        B = served.shape[0]
+        dev = served.device
+        nc, nd, hb = self.n_cores, self.p.n_data, obs.HIST_BINS
+        nw = len(obs.WAIT_CAUSES)
+        mode_plane = getattr(tele, f"{side}_mode_core")
+        n_cls = mode_plane.shape[-1]
+        core = add_offset(slot_core.flatten(1).long(),
+                          point_offsets(B, nc, dev))
+        wait = obs.WAIT_READ if side == "read" else obs.WAIT_WRITE
+        planes = _add_ones(
+            [mode_plane, getattr(tele, f"lat_hist_{side}"), tele.wait_cause],
+            [torch.where(served, core * n_cls + cls, B * nc * n_cls),
+             torch.where(served, add_offset(obs.lat_bin(age),
+                                            point_offsets(B, hb, dev)),
+                         B * hb),
+             torch.where(cv & ~served,
+                         add_offset(cb.long() * nw + wait,
+                                    point_offsets(B, nd * nw, dev)),
+                         B * nd * nw)])
+        return dict(zip((f"{side}_mode_core", f"lat_hist_{side}",
+                         "wait_cause"), planes))
 
     # ------------------------------------------------------------- one cycle
     def cycle_fn(self, st: SimState, trace: Trace,
@@ -497,6 +605,15 @@ class CodedMemorySystem:
         was_done = st.done_cycle >= 0
         st = self._arbiter(st, trace, rs_a, stream_end)
         m = st.mem
+        if p.telemetry:
+            # post-arbiter occupancy is the cycle's peak (slots only free
+            # up in the branches below)
+            tele = m.tele
+            m = m._replace(tele=tele._replace(
+                rq_hwm=torch.maximum(tele.rq_hwm, m.rq_valid.sum(
+                    2, dtype=torch.int32)),
+                wq_hwm=torch.maximum(tele.wq_hwm, m.wq_valid.sum(
+                    2, dtype=torch.int32))))
         fk = {}                        # the branches' fault arguments
 
         # fault injection: this cycle's fault masks, dead cycles, the
@@ -520,6 +637,9 @@ class CodedMemorySystem:
                 unserved_reads=fs.unserved_reads + n_uns,
                 lost_writes=fs.lost_writes + n_lost)
             m = m._replace(rq_valid=rq_v, wq_valid=wq_v, fault=fs)
+            if p.telemetry:
+                m = m._replace(tele=m.tele._replace(
+                    dead_cycles=m.tele.dead_cycles + dead_inc))
             fk = dict(down=down, port_busy0=torch.cat(
                 [down | stut[:, :p.n_data], stut[:, p.n_data:],
                  torch.zeros_like(stut[:, :1])], 1))   # + the idle sink
@@ -559,6 +679,20 @@ class CodedMemorySystem:
             fresh_loc=rc.fresh_loc, parity_valid=rc.parity_valid,
             parked_count=rc.parked_count, rc_valid=rc.rc_valid,
             banks_data=rc.banks_data, parity_data=rc.parity_data)
+        if p.telemetry:
+            # ring entries still pending after the recode unit charge a
+            # recode-pending wait to their bank
+            tele = m.tele
+            nw = len(obs.WAIT_CAUSES)
+            B = m.cycle.shape[0]
+            cell = add_offset(m.rc_bank.long().clamp(min=0) * nw
+                              + obs.WAIT_RECODE,
+                              point_offsets(B, p.n_data * nw, m.cycle.device))
+            wait_cause, = _add_ones([tele.wait_cause], [torch.where(
+                m.rc_valid, cell, B * p.n_data * nw)])
+            m = m._replace(tele=tele._replace(
+                recode_retired=tele.recode_retired + rc.n_recoded,
+                wait_cause=wait_cause))
         # online rebuild: sweep cells into the recode ring while a bank
         # rebuilds; latch ``rebuilt`` (the bank rejoins) on completion
         if p.faults:

@@ -18,7 +18,10 @@ The schedule and its progress ride the state as the ``FaultState`` leaf of
 None and the cycle runs exactly as before faults existed. The schedule
 being state, not code, is what lets one batch carry points with different
 plans. One point's leaf has the shapes noted below; a batch's has a
-leading (B,) axis on every tensor.
+leading (B,) axis on every tensor. With ``MemParams.telemetry`` on too,
+the planes' ``dead_cycles`` (``repro_torch.obs.planes``) count the same
+cycles as this leaf's, and reads served degraded because their bank is
+down are the planes' read class 4.
 
 This module imports nothing of ``repro_torch`` (``core.state`` imports
 it for the leaf type).

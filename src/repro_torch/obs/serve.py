@@ -22,19 +22,11 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.obs.planes import HIST_BINS, lat_bin
+
 # Chrome-trace thread ids of the serving rows
 TID_SERVE_QUEUE = 10       # admission waits
 TID_SERVE_SLOT0 = 11       # decode slots: TID_SERVE_SLOT0 + slot index
-HIST_BINS = 16             # repro/obs/planes.py:62
-
-
-def lat_bin(lat: torch.Tensor) -> torch.Tensor:
-    """log2 histogram bin of a latency (``repro/obs/planes.py:101``):
-    0 -> 0, 1 -> 1, [2, 3] -> 2, [4, 7] -> 3, ..., clamped into the
-    open-ended last bin; a threshold count, integer-exact."""
-    thresholds = 2 ** torch.arange(HIST_BINS - 1, dtype=lat.dtype,
-                                   device=lat.device)   # no host copy
-    return (lat[..., None] >= thresholds).sum(-1)
 
 
 class ServeTelemetry(NamedTuple):

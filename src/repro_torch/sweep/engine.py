@@ -37,6 +37,7 @@ from repro_torch.core.system import (CodedMemorySystem, SimResult, SimState,
                                      Trace, summarize_batch)
 from repro_torch.faults.plan import FaultState, plan_from_spec
 from repro_torch.kernels.common import resolve_device
+from repro_torch.obs.planes import Telemetry, TelemetrySnapshot, snapshot
 from repro_torch.sweep import workloads
 from repro_torch.sweep.grid import (GridBatch, SweepPoint,
                                     batch_geometry_alloc, partition,
@@ -148,12 +149,12 @@ def run_batch(batch: GridBatch, traces: Optional[Sequence[Trace]] = None,
               return_state: bool = False,
               on_cycle=None):
     """Evaluate one shape-compatible batch lock-step on ``device`` (the
-    card unless the caller names another): the per-point SimResults, and
-    with ``return_state`` also the final batched ``SimState``.
-    ``on_cycle(before, after, out)`` sees the batched states after every
-    cycle when given."""
-    if collect_telemetry:
-        raise NotImplementedError("telemetry planes are not ported yet")
+    card unless the caller names another): the per-point SimResults; with
+    ``collect_telemetry`` also the points' ``TelemetrySnapshot``s (None
+    for a telemetry-off batch; one more device-to-host copy of the small
+    planes), and with ``return_state`` the final batched ``SimState``
+    last: ``(results[, snapshots][, state])``. ``on_cycle(before, after,
+    out)`` sees the batched states after every cycle when given."""
     pts = batch.points
     sys_ = system_for(pts[0], geometry_alloc=batch_geometry_alloc(pts),
                       traced_geometry=mixed_geometry(pts), device=device)
@@ -174,8 +175,24 @@ def run_batch(batch: GridBatch, traces: Optional[Sequence[Trace]] = None,
     st_b = sys_.init_batch(tn_b, priors_b, _stack_faults(pts, sys_.p, dev))
     st = sys_.run_chunk_batch(st_b, trace_b, None, pts[0].resolved_cycles(),
                               tn_b, on_cycle)
-    results = summarize_batch(st)
-    return (results, st) if return_state else results
+    out = (summarize_batch(st),)
+    if collect_telemetry:
+        out += (telemetry_snapshots(st),)
+    if return_state:
+        out += (st,)
+    return out if len(out) > 1 else out[0]
+
+
+def telemetry_snapshots(st: SimState) -> List[Optional[TelemetrySnapshot]]:
+    """Each point's ``TelemetrySnapshot`` of a batched state (the planes
+    copied to the host once), or None for each point of a telemetry-off
+    state."""
+    tele = st.mem.tele
+    B = st.done_cycle.shape[0]
+    if tele is None:
+        return [None] * B
+    host = Telemetry(*(x.cpu() for x in tele))
+    return [snapshot(host, point=b) for b in range(B)]
 
 
 def run_points(points: Sequence[SweepPoint],
@@ -192,13 +209,17 @@ def run_points(points: Sequence[SweepPoint],
     ``return_state`` also each point's final ``SimState`` (views into its
     batch's state, allocated at the batch's geometry).
     ``on_cycle(batch, before, after, out)`` sees each batch's states after
-    every cycle when given."""
+    every cycle when given. ``collect_telemetry`` returns ``(results,
+    snapshots)``: each point's ``TelemetrySnapshot``, None for a
+    telemetry-off point (``run_batch``); ``return_state`` appends the
+    states."""
     if traces is not None and len(traces) != len(points):
         raise ValueError("traces must align 1:1 with points")
     if region_priors is not None and len(region_priors) != len(points):
         raise ValueError("region_priors must align 1:1 with points")
     results: List[Optional[SimResult]] = [None] * len(points)
     states: List[Optional[SimState]] = [None] * len(points)
+    snaps: List[Optional[TelemetrySnapshot]] = [None] * len(points)
     for batch in partition(points):
         btraces = ([traces[i] for i in batch.indices]
                    if traces is not None else None)
@@ -207,13 +228,20 @@ def run_points(points: Sequence[SweepPoint],
         hook = None if on_cycle is None else functools.partial(on_cycle,
                                                                batch)
         res, st = run_batch(batch, btraces, shard=shard,
-                            region_priors=bpriors,
-                            collect_telemetry=collect_telemetry,
-                            device=device, return_state=True, on_cycle=hook)
+                            region_priors=bpriors, device=device,
+                            return_state=True, on_cycle=hook)
+        bsnaps = (telemetry_snapshots(st) if collect_telemetry
+                  else [None] * len(batch))
         for k, i in enumerate(batch.indices):
             results[i] = res[k]
             states[i] = point_of(st, k)
-    return (results, states) if return_state else results
+            snaps[i] = bsnaps[k]
+    out = (results,)
+    if collect_telemetry:
+        out += (snaps,)
+    if return_state:
+        out += (states,)
+    return out if len(out) > 1 else results
 
 
 def run_sweep(points: Sequence[SweepPoint],

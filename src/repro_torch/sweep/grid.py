@@ -59,8 +59,8 @@ class SweepPoint:
     n_banks: int = 8
     length: int = 96
     n_cycles: Optional[int] = None   # None = drain bound from length/n_cores
-    # ---- static: observability (not ported yet: ``telemetry=True`` raises
-    # when its system is built) and fault injection: a flat spec of
+    # ---- static: observability (the telemetry planes,
+    # ``repro_torch.obs.planes``) and fault injection: a flat spec of
     # ("bank", b, fail_at[, recover_at]) and ("stutter", port, period[,
     # phase]) entries, () = no faults. Only the *presence* of a plan is
     # static (the system carries the fault leaf); points with different

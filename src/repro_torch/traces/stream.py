@@ -22,7 +22,10 @@ latency-sum differences between boundaries give the per-window read and
 write latency series in ``SimResult.window_read_latency`` /
 ``window_write_latency``. The port's latency sums are native int64, so the
 differences are taken directly, and each window's averages come from the
-same integers as JAX's.
+same integers as JAX's. With ``MemParams.telemetry`` each window entry
+carries a third element, the window's delta of the latency histogram
+(``repro_torch.obs.planes``, log2 bins); without it the entries keep
+their 2-tuple shape.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 from repro_torch.core.state import TunableParams
 from repro_torch.core.system import (CodedMemorySystem, SimResult, SimState,
                                      drain_bound, quiescent, summarize_batch)
+from repro_torch.obs.planes import HIST_BINS
 from repro_torch.traces.source import as_source, stage_batch
 
 DEFAULT_CHUNK_LEN = 256
@@ -54,20 +58,33 @@ def chunk_bound(system: CodedMemorySystem, chunk_len: int) -> int:
 
 
 def _window_stats(prev, now) -> Tuple[tuple, tuple]:
-    """((n_reads, avg_read_lat), (n_writes, avg_write_lat)) of one window,
-    from two ``_snapshot`` readings as ints."""
+    """((n_reads, avg_read_lat[, hist]), (n_writes, avg_write_lat[, hist]))
+    of one window, from two ``_snapshot`` readings as ints; ``hist``, the
+    window's delta of the latency histogram, only with telemetry on."""
     dr = now[0] - prev[0]
     dw = now[1] - prev[1]
-    return (dr, (now[2] - prev[2]) / max(dr, 1)), \
-        (dw, (now[3] - prev[3]) / max(dw, 1))
+    wr: tuple = (dr, (now[2] - prev[2]) / max(dr, 1))
+    ww: tuple = (dw, (now[3] - prev[3]) / max(dw, 1))
+    if len(now) > 4:
+        hb = HIST_BINS
+        delta = [a - b for a, b in zip(now[4:], prev[4:])]
+        wr += (tuple(delta[:hb]),)
+        ww += (tuple(delta[hb:]),)
+    return wr, ww
 
 
 def _snapshot(st: SimState) -> torch.Tensor:
     """(served_reads, served_writes, read_latency_sum, write_latency_sum)
-    as one int64 tensor: (4,) for one point, (B, 4) for a batch."""
+    and, with telemetry on, the read and write latency histograms, as one
+    int64 tensor: (4[+ 2 HIST_BINS],) for one point, (B, ...) for a
+    batch."""
     m = st.mem
-    return torch.stack([m.served_reads.long(), m.served_writes.long(),
+    cols = torch.stack([m.served_reads.long(), m.served_writes.long(),
                         m.read_latency_sum, m.write_latency_sum], -1)
+    if m.tele is None:
+        return cols
+    return torch.cat([cols, m.tele.lat_hist_read, m.tele.lat_hist_write],
+                     -1)
 
 
 def stream_replay(system: CodedMemorySystem, source,
@@ -244,8 +261,8 @@ def stream_replay_points(points: Sequence, sources: Sequence,
                          "checkpoint_every")
     host = torch.cat([_snapshot(st_b), st_b.mem.cycle.long()[:, None]],
                      1).tolist()
-    prev = [h[:4] for h in host]
-    prev_cycle = np.array([h[4] for h in host], np.int64)
+    prev = [h[:-1] for h in host]
+    prev_cycle = np.array([h[-1] for h in host], np.int64)
     while True:
         trace_b, stream_end_b = stage_batch(srcs, pos, chunk_len, dev)
         st_b = st_b._replace(core_ptr=torch.zeros_like(st_b.core_ptr))

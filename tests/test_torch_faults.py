@@ -5,9 +5,11 @@ flag-off identity, the seeded fault storms of ``tests/test_faults.py``
 leaf for leaf, online rebuild and quiescence, the chunk exits, batches of
 mixed plans, and streamed replay of faulted points with kill-and-resume.
 
-The JAX systems run with ``make_params(faults=True)`` and telemetry off
-(the port has no telemetry planes); inputs are made with numpy from a
-seed and handed to both sides."""
+The JAX systems run with ``make_params(faults=True)``, and the storms and
+the mixed-plan batches with telemetry off and on, as JAX's storms run
+(their planes, class 4 and ``dead_cycles`` included, equal to JAX's and
+to the oracle's); inputs are made with numpy from a seed and handed to
+both sides."""
 import functools
 
 import jax
@@ -17,6 +19,7 @@ import pytest
 import torch
 from conftest import oracle_twin, rand_trace
 from test_faults import _storm_plan
+from test_torch_obs import assert_planes_match_oracle, assert_snapshots_equal
 from test_torch_sim import _jtrace_to_port, assert_states_equal
 
 import repro.faults as jfaults
@@ -31,6 +34,7 @@ from repro_torch import convert
 from repro_torch import faults
 from repro_torch.core import codes, state, system
 from repro_torch.faults import FaultPlan, plan_from_spec
+from repro_torch.obs.planes import snapshot as tobs_snapshot
 from repro_torch.sweep import SweepPoint, partition, run_points
 from repro_torch.sweep.workloads import build_trace
 from repro_torch.traces import stream_replay_points, strip_windows
@@ -49,17 +53,19 @@ def _error(fn):
 
 @functools.lru_cache(maxsize=None)
 def _systems(scheme="scheme_i", n_rows=32, alpha=1.0, r=0.25, n_cores=3,
-             faults_on=True, recode_cap=8):
+             faults_on=True, recode_cap=8, telemetry=False):
     """A JAX system and the port's twin (select period 16), built once."""
     jt = jcodes.get_tables(scheme)
     jp = jstate.make_params(jt, n_rows=n_rows, alpha=alpha, r=r,
-                            recode_cap=recode_cap, faults=faults_on)
+                            recode_cap=recode_cap, faults=faults_on,
+                            telemetry=telemetry)
     js = jsys.CodedMemorySystem(jt, jp, n_cores=n_cores,
                                 tunables=jstate.make_tunables(
                                     select_period=16))
     tt = codes.get_tables(scheme)
     tp = state.make_params(tt, n_rows=n_rows, alpha=alpha, r=r,
-                           recode_cap=recode_cap, faults=faults_on)
+                           recode_cap=recode_cap, faults=faults_on,
+                           telemetry=telemetry)
     ts = system.CodedMemorySystem(tt, tp, n_cores=n_cores, device=CPU,
                                   tunables=state.make_tunables(
                                       select_period=16))
@@ -190,14 +196,24 @@ def test_sweep_partitions_on_the_flag_only():
 
 
 # ------------------------------------------------------------ fault storms
-@pytest.mark.parametrize("seed", [101, 102])
-@pytest.mark.parametrize("scheme,alpha,r", [("scheme_i", 1.0, 0.25),
-                                            ("scheme_iii", 0.25, 0.125)])
-def test_fault_storm_matches_jax_and_oracle(scheme, alpha, r, seed):
+STORMS = [(scheme, alpha, r, seed)
+          for scheme, alpha, r in (("scheme_i", 1.0, 0.25),
+                                   ("scheme_iii", 0.25, 0.125))
+          for seed in (101, 102)]
+
+
+@pytest.mark.parametrize("scheme,alpha,r,seed,telemetry", [
+    pytest.param(*c, tele, id="-".join(map(str, c))
+                 + ("-telemetry" if tele else ""))
+    for c in STORMS for tele in (False, True)])
+def test_fault_storm_matches_jax_and_oracle(scheme, alpha, r, seed,
+                                            telemetry):
     """JAX's seeded storm (``_storm_plan``) cycle by cycle on both sides:
     every state leaf, the fault leaf's included, equal at cycles 20, 60
-    and 120, and the result equal to JAX's and to the oracle's."""
-    js, ts = _systems(scheme, alpha=alpha, r=r)
+    and 120, and the result equal to JAX's and to the oracle's; with
+    telemetry on (as JAX's storms run) the planes too, against the
+    oracle's, with ``dead_cycles`` equal to the fault leaf's."""
+    js, ts = _systems(scheme, alpha=alpha, r=r, telemetry=telemetry)
     om = oracle_twin(js)
     rng = np.random.default_rng(seed)
     spec = _storm_plan(rng, js)
@@ -219,6 +235,13 @@ def test_fault_storm_matches_jax_and_oracle(scheme, alpha, r, seed):
     assert_fault_states_equal(jst, tst, label)
     res = ts.summarize(tst)
     assert res == js.summarize(jst) == om.result(ost), label
+    if telemetry:
+        assert_planes_match_oracle(tst.mem.tele, ost, label)
+        assert torch.equal(tst.mem.tele.dead_cycles,
+                           tst.mem.fault.dead_cycles)
+        snap = tobs_snapshot(tst)
+        assert snap.fault_degraded_reads() == res.fault_degraded_reads
+        assert snap.degraded_reads() == res.degraded_reads
 
 
 @pytest.mark.parametrize("scheme,alpha,r", [("scheme_i", 0.25, 0.125),
@@ -360,16 +383,19 @@ BATCH_SPECS = [(("bank", 0, 0),), (("bank", 3, 8, 40),),
                (("bank", 1, 2), ("stutter", 2, 5, 1))]
 
 
-@pytest.mark.parametrize("kw", [
-    dict(scheme="scheme_i", alpha=1.0, r=0.25),
-    dict(scheme="scheme_iii", alpha=0.5),        # traced geometry: r axis
-])
-def test_batch_of_mixed_plans_equals_jax_and_looped(kw):
+@pytest.mark.parametrize("kw,telemetry", [
+    pytest.param(kw, tele, id=f"kw{k}" + ("-telemetry" if tele else ""))
+    for k, kw in enumerate([
+        dict(scheme="scheme_i", alpha=1.0, r=0.25),
+        dict(scheme="scheme_iii", alpha=0.5)])   # traced geometry: r axis
+    for tele in (False, True)])
+def test_batch_of_mixed_plans_equals_jax_and_looped(kw, telemetry):
     """Faulted points with different plans run as one batch; each point
     equals JAX's ``run_points`` in every field, and the port's looped
-    faulted ``run`` of it."""
+    faulted ``run`` of it; with telemetry on each point's snapshot equals
+    JAX's plane for plane (class 4 and the dead cycles included)."""
     common = dict(n_rows=32, n_cores=3, n_banks=8, length=10,
-                  select_period=16, recode_cap=8)
+                  select_period=16, recode_cap=8, telemetry=telemetry)
     rs = (0.125, 0.25) if "r" not in kw else (kw["r"],)
     coords = [(i, sp, r) for i, sp in enumerate(BATCH_SPECS) for r in rs]
     tpts = [SweepPoint(**common, **kw, r=r, seed=i, faults=sp)
@@ -378,14 +404,25 @@ def test_batch_of_mixed_plans_equals_jax_and_looped(kw):
             for i, sp, r in coords]
     jpts = [JPoint(**{f: getattr(pt, f) for f in (
         "scheme", "n_rows", "alpha", "r", "n_cores", "n_banks", "length",
-        "select_period", "recode_cap", "seed", "faults")}) for pt in tpts]
+        "select_period", "recode_cap", "seed", "faults", "telemetry")})
+        for pt in tpts]
     assert len(partition(tpts)) == 1
-    got = run_points(tpts, device=CPU)
-    assert got == jrun_points(jpts)
+    if telemetry:
+        got, snaps = run_points(tpts, device=CPU, collect_telemetry=True)
+        want, jsnaps = jrun_points(jpts, collect_telemetry=True)
+        for k, (g, w) in enumerate(zip(snaps, jsnaps)):
+            assert_snapshots_equal(g, w, f"point {k}")
+        assert sum(s.fault_degraded_reads() for s in snaps) == sum(
+            r.fault_degraded_reads for r in got)
+        if kw["scheme"] == "scheme_i":          # class 4 is exercised
+            assert sum(s.fault_degraded_reads() for s in snaps) > 0
+    else:
+        got, want = run_points(tpts, device=CPU), jrun_points(jpts)
+    assert got == want
     for pt, res in zip(tpts, got):
         t = codes.get_tables(pt.scheme)
         p = state.make_params(t, pt.n_rows, pt.alpha, pt.r, recode_cap=8,
-                              faults=True)
+                              faults=True, telemetry=telemetry)
         sys_ = system.CodedMemorySystem(t, p, n_cores=3, device=CPU)
         tn = state.make_tunables(select_period=pt.select_period)
         plan = plan_from_spec(pt.faults, p.n_data, p.n_ports)

@@ -43,7 +43,8 @@ def _jtrace_to_port(tr) -> system.Trace:
 
 def assert_states_equal(jst, tst, label=""):
     """Every leaf of a JAX SimState equals the port's (wide counters through
-    ``convert.sim_state_to_numpy``'s (lo, hi) pairs)."""
+    ``convert.sim_state_to_numpy``'s (lo, hi) pairs, the telemetry planes'
+    counters through its uint32), the telemetry leaf's planes included."""
     host = jax.device_get(jst)
     port = convert.sim_state_to_numpy(tst)
     for name in jstate.MemState._fields:
@@ -52,9 +53,12 @@ def assert_states_equal(jst, tst, label=""):
             assert getattr(tst.mem, name) is None, f"{label}: {name}"
             continue
         got = getattr(port.mem, name)
-        assert got.dtype == np.asarray(want).dtype, f"{label}: {name} dtype"
-        np.testing.assert_array_equal(got, np.asarray(want),
-                                      err_msg=f"{label}: leaf {name!r}")
+        pairs = (zip((f"{name}.{f}" for f in want._fields), want, got)
+                 if name == "tele" else ((name, want, got),))
+        for leaf, w, g in pairs:
+            assert g.dtype == np.asarray(w).dtype, f"{label}: {leaf} dtype"
+            np.testing.assert_array_equal(g, np.asarray(w),
+                                          err_msg=f"{label}: leaf {leaf!r}")
     np.testing.assert_array_equal(port.core_ptr, host.core_ptr,
                                   err_msg=f"{label}: core_ptr")
     assert int(port.done_cycle) == int(host.done_cycle), f"{label}: done"
@@ -120,12 +124,11 @@ def test_init_state_matches_jax(scheme, alpha):
 
 
 def test_flags_not_ported_raise():
-    """Telemetry is not ported and raises; faults are (tests/
-    test_torch_faults.py), and a fault plan given to a faults-off system
-    raises JAX's ValueError."""
+    """Every flag is ported: telemetry (tests/test_torch_obs.py) and
+    faults (tests/test_torch_faults.py) build their systems, and a fault
+    plan given to a faults-off system raises JAX's ValueError."""
     t = codes.get_tables("scheme_i")
-    with pytest.raises(NotImplementedError):
-        state.make_params(t, 64, 0.25, 0.125, telemetry=True)
+    assert state.make_params(t, 64, 0.25, 0.125, telemetry=True).telemetry
     assert state.make_params(t, 64, 0.25, 0.125, faults=True).faults
     assert state.make_params(t, 64, 0.25, 0.125,
                              traced_geometry=True).traced_geometry

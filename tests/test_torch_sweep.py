@@ -50,7 +50,8 @@ def _tpt(jpt) -> tgrid.SweepPoint:
 
 def assert_states_equal(jst, tst, label=""):
     """Every leaf of a (batched) JAX SimState equals the port's, dtypes
-    included (wide counters through ``convert``'s (lo, hi) pairs)."""
+    included (wide counters through ``convert``'s (lo, hi) pairs, the
+    telemetry planes leaf by leaf)."""
     host = jax.device_get(jst)
     port = convert.sim_state_to_numpy(tst)
     for name in jstate.MemState._fields:
@@ -59,9 +60,12 @@ def assert_states_equal(jst, tst, label=""):
             assert getattr(tst.mem, name) is None, f"{label}: {name}"
             continue
         got = getattr(port.mem, name)
-        assert got.dtype == np.asarray(want).dtype, f"{label}: {name} dtype"
-        np.testing.assert_array_equal(got, np.asarray(want),
-                                      err_msg=f"{label}: leaf {name!r}")
+        pairs = (zip((f"{name}.{f}" for f in want._fields), want, got)
+                 if name == "tele" else ((name, want, got),))
+        for leaf, w, g in pairs:
+            assert g.dtype == np.asarray(w).dtype, f"{label}: {leaf} dtype"
+            np.testing.assert_array_equal(g, np.asarray(w),
+                                          err_msg=f"{label}: leaf {leaf!r}")
     for name in ("core_ptr", "done_cycle"):
         np.testing.assert_array_equal(getattr(port, name),
                                       np.asarray(getattr(host, name)),
@@ -391,15 +395,20 @@ def test_build_trace_errors_match_jax(tmp_path):
 
 
 def test_engine_rejects_what_is_not_ported():
-    """Telemetry is not ported and raises; a faulted point runs (its fault
-    leaf compared with JAX in tests/test_torch_faults.py)."""
+    """Every point kind runs: a faulted point (its fault leaf compared with
+    JAX in tests/test_torch_faults.py) and a telemetry-on one, whose
+    snapshot ``collect_telemetry`` returns (None for a telemetry-off
+    point; the planes compared with JAX in tests/test_torch_obs.py);
+    misaligned traces raise."""
     pt = _tpt(JBASE)
     faulted = pt.replace(faults=(("bank", 0, 4),))
     assert engine.run_points([faulted], device=CPU)[0].dead_bank_cycles > 0
-    with pytest.raises(NotImplementedError):
-        engine.run_points([pt.replace(telemetry=True)], device=CPU)
-    with pytest.raises(NotImplementedError):
-        engine.run_points([pt], device=CPU, collect_telemetry=True)
+    on = engine.run_points([pt.replace(telemetry=True)], device=CPU)
+    assert on == engine.run_points([pt], device=CPU)
+    res, snaps = engine.run_points([pt, pt.replace(telemetry=True)],
+                                   device=CPU, collect_telemetry=True)
+    assert snaps[0] is None and res == on * 2
+    assert snaps[1].served_reads() == res[1].served_reads
     with pytest.raises(ValueError, match="align"):
         engine.run_points([pt], traces=[], device=CPU)
 
