@@ -7,8 +7,8 @@
 
 Phases, each of which fails the run (nonzero exit, no result line). With
 ``--only`` (names: kernel, serve, decode, cross, kvstate, simkernel,
-simulate, stream, sweep, paper, faults, obs) it runs the build and the named
-phases
+simulate, stream, sweep, paper, faults, obs, train) it runs the build and
+the named phases
 with the phases they need (decode needs serve; stream and paper need
 simulate; sweep needs simulate and stream), and prints no kernel table and
 no result line; with no flag it runs every phase:
@@ -200,6 +200,26 @@ no result line; with no flag it runs every phase:
    timed off, on, on, off; (f) both sim kernels bit for bit against
    their plain versions on live telemetry-on states of (b)'s scheme_i
    batch. Its CPU side runs after the paper phase's in that worker.
+14. train: the training path (``runtime.trainer.Trainer`` ->
+   ``make_train_step`` -> ``lm.loss_fn`` with the coded embedding's
+   backward and per-layer recompute -> the in-place ``adamw_update``) on
+   the card. (a) full-width qwen2.5-3b (3.09 B params, f32 master params
+   and moments, bf16 compute, coded embedding, remat "full"), global
+   batch 8 x 256 tokens, 8 steps, no checkpoint, a fresh temporary
+   checkpoint directory: ms/step (step 0 excluded), tokens/s, peak
+   allocated (<= 76 GB), every step's loss and grad norm (all finite, the
+   mean of the last three below step 0's), then one more step under
+   torch.profiler (launches, device busy ms, idle share); (b) each dense
+   config reduced at f32 compute (TF32 off), 3 steps on the card and on
+   the CPU from one init drawn on the CPU: loss and grad norm to 1e-5
+   relative, every param leaf within 1e-4; qwen also at bf16 compute
+   (loss within 5e-3, grad norm 5e-2 relative, params within 2 x the
+   summed learning rates); (c) with deterministic algorithms (and
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, set before torch starts), reduced
+   qwen for 6 steps with a checkpoint every 2 and a fault injected at
+   step 3 restores step 2, replays, and ends with the params and
+   ``OptState`` of an uninterrupted run bit for bit; (d) ``n_micro=2``
+   equals ``n_micro=1`` on the card (reduced granite, f32).
 
 Each kernel's launches are counted from 0 over its own main path (the
 serve runs for ``gather_pool``, the decode-attention calls for
@@ -2709,10 +2729,19 @@ def _busy_window(torch, run, label, n: int, prof=None) -> float:
     return ms
 
 
+def _launch_calls(events) -> int:
+    """The host's kernel launch calls in a trace (runtime and driver API).
+    They count launches; the kernel records do not quite: a trace of the
+    same 20 busy cycles, profiled again and again, held 21,169 launch
+    calls every time and 0-3 fewer kernel records (a probe on the H100)."""
+    return sum("LaunchKernel" in e.get("name", "") for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver"))
+
+
 def _profiled_window(torch, run, label, n: int) -> dict:
     """``n`` batched cycles of ``run`` under torch.profiler: device busy
-    ms, kernel launches, host syncs and copies per batched cycle (empty
-    when the trace holds no device activity)."""
+    ms, kernel launches (the host's launch calls), host syncs and copies
+    per batched cycle (empty when the trace holds no device activity)."""
     from torch.profiler import ProfilerActivity, profile
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -2728,7 +2757,7 @@ def _profiled_window(torch, run, label, n: int) -> dict:
         return {"profiled_ms": profiled_ms}
     return dict(
         profiled_ms=profiled_ms, busy_ms=sum(e["dur"] for e in dev) / 1e3 / n,
-        launches=sum(e["cat"] == "kernel" for e in dev) / n,
+        launches=_launch_calls(events) / n,
         syncs=sum("Synchronize" in e for e in runtime) / n,
         copies=sum("Memcpy" in e for e in runtime) / n)
 
@@ -3491,9 +3520,264 @@ def obs_phase(torch, cpu_side):
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_FULL = dict(steps=8, global_batch=8, seq_len=256)   # (a)
+TRAIN_FULL_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
+TRAIN_PEAK_LIMIT_GB = 76.0       # (a): peak allocated of the full step
+TRAIN_SMALL = dict(global_batch=4, seq_len=32)            # (b)-(d)
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=10)
+TRAIN_STEPS = 3                  # (b): steps on each device
+TRAIN_LOSS_TOL = dict(rtol=1e-5, atol=1e-6)   # f32 card vs CPU, TF32 off
+TRAIN_PARAM_TOL = 1e-4           # f32 card vs CPU, every param leaf
+# bf16 compute: the loss to 5e-3, the grad norm to 5e-2 relative, params
+# within 2 x the summed learning rates (an Adam step moves a param by at
+# most ~lr, whichever way rounding tips a near-zero moment)
+TRAIN_BF16_LOSS_TOL = 5e-3
+
+
+def _max_leaf_diff(torch, a, b) -> float:
+    from repro_torch.optim.adamw import tree_leaves
+    return max(float((x.detach().cpu().float()
+                      - y.detach().cpu().float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def profile_train_step(torch, tr, params, opt, step: int,
+                       ms_step: float) -> dict:
+    """One more full-width step (the stream's ``step``) under
+    torch.profiler: device busy ms and its idle share of ``ms_step`` (the
+    unprofiled step), kernel launches, host syncs and copies, the
+    heaviest kernels."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import make_batch
+
+    batch = {"tokens": torch.from_numpy(
+        make_batch(tr.data_cfg, step)["tokens"]).to("cuda")}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = tr.train_step(params, opt, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    path = ROOT / "build" / "chip_smoke_train_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    check(np.isfinite(loss), f"train profile: loss {loss}")
+    if not dev:
+        print("profile train: the trace holds no device activity; device "
+              "busy share not measured")
+        return {"wall_ms": wall_ms}
+    by_name = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    runtime = [e["name"] for e in events if e.get("cat") == "cuda_runtime"]
+    stats = dict(wall_ms=wall_ms, busy_ms=sum(by_name.values()) / 1e3,
+                 launches=_launch_calls(events),
+                 kernel_records=sum(e["cat"] == "kernel" for e in dev),
+                 syncs=sum("Synchronize" in n for n in runtime),
+                 copies=sum("Memcpy" in n for n in runtime))
+    stats["idle"] = 1 - stats["busy_ms"] / ms_step
+    print(f"profile train {tr.cfg.name} step {step} (B={tr.tc.global_batch}"
+          f", S={tr.tc.seq_len}): wall {wall_ms:.1f} ms under the profiler, "
+          f"device busy {stats['busy_ms']:.1f} ms (idle {stats['idle']:.1%} "
+          f"of the unprofiled {ms_step:.1f} ms/step, "
+          f"{1 - stats['busy_ms'] / wall_ms:.1%} of the profiled wall), "
+          f"{stats['launches']} kernel launch calls ({stats['kernel_records']}"
+          f" kernel records), {stats['syncs']} host syncs, "
+          f"{stats['copies']} copies")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {us / 1e3:8.2f} ms  {name[:90]}")
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    for a in host[:8]:
+        print(f"    host {a.self_cpu_time_total / 1e3:8.2f} ms  {a.key[:60]} x "
+              f"{a.count}")
+    return stats
+
+
+def _small_runs(torch, cfg, init, devices, n_micro=1, steps=TRAIN_STEPS):
+    """``steps`` of ``make_train_step`` from ``init`` (CPU tensors) on each
+    device, on the pipeline's batches: {device: (params, opt, metrics)}."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim.adamw import OptConfig, adamw_init, tree_map
+    from repro_torch.runtime.steps import make_train_step
+
+    dcfg = DataConfig(vocab=cfg.vocab, batch=TRAIN_SMALL["global_batch"],
+                      seq_len=TRAIN_SMALL["seq_len"], seed=0)
+    out = {}
+    for dev in devices:
+        params = tree_map(lambda a: a.to(dev, copy=True), init)
+        opt = adamw_init(params)
+        step = make_train_step(cfg, OptConfig(**TRAIN_OPT), n_micro=n_micro)
+        ms = []
+        for s in range(steps):
+            toks = torch.from_numpy(make_batch(dcfg, s)["tokens"]).to(dev)
+            params, opt, m = step(params, opt, {"tokens": toks})
+            ms.append({k: float(v) for k, v in m.items()})
+        out[dev] = (params, opt, ms)
+    return out
+
+
+def train_phase(torch) -> dict:
+    """Training through the port's ``Trainer`` and ``make_train_step`` on
+    the card: (a) full width, (b) card = CPU reduced, (c) fault recovery
+    bit for bit, (d) microbatches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import (OptConfig, cosine_schedule,
+                                         tree_leaves)
+    from repro_torch.runtime.trainer import FaultPlan, TrainConfig, Trainer
+
+    torch.cuda.empty_cache()
+    # (a) full width: f32 master params, bf16 compute, coded embedding
+    cfg = get_config(TRAIN_ARCH)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, TrainConfig(**TRAIN_FULL, log_every=TRAIN_FULL[
+            "steps"], ckpt_every=0, ckpt_dir=ckdir), opt_cfg=OptConfig(
+            **TRAIN_FULL_OPT), device="cuda")
+        out = tr.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log = tr.metrics_log
+        losses = [m["loss"] for m in log]
+        n_params = sum(p.numel() for p in tree_leaves(out["params"]))
+        ms_step = 1e3 * sum(m["wall_s"] for m in log[1:]) / (len(log) - 1)
+        tokens = TRAIN_FULL["global_batch"] * TRAIN_FULL["seq_len"]
+        print(f"train (a) {cfg.name} full width ({n_params / 1e9:.3f} B "
+              f"params, {cfg.param_dtype} master, {cfg.compute_dtype} "
+              f"compute, remat {cfg.remat_policy}), batch "
+              f"{TRAIN_FULL['global_batch']} x {TRAIN_FULL['seq_len']}: "
+              f"{ms_step:.1f} ms/step (steps 1-{len(log) - 1}; step 0 "
+              f"{1e3 * log[0]['wall_s']:.1f} ms), {tokens / ms_step * 1e3:.0f}"
+              f" tokens/s, peak allocated {peak_gb:.2f} GB, run {run_s:.1f} s "
+              "(init included)")
+        for m in log:
+            print(f"    step {m['step']}: loss {m['loss']:.4f} grad_norm "
+                  f"{m['grad_norm']:.4f} lr_step {m['lr_step']:.0f} "
+                  f"{1e3 * m['wall_s']:.1f} ms")
+        check(all(np.isfinite(x) for x in losses), f"train (a): loss {losses}")
+        check(sum(losses[-3:]) / 3 < losses[0], "train (a): the mean of the "
+              f"last three losses {losses[-3:]} is not below step 0's "
+              f"{losses[0]}")
+        check(peak_gb <= TRAIN_PEAK_LIMIT_GB, f"train (a): peak allocated "
+              f"{peak_gb:.2f} GB > {TRAIN_PEAK_LIMIT_GB} GB")
+        prof = profile_train_step(torch, tr, out["params"], out["opt"],
+                                  len(log), ms_step)
+        del tr, out
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (b) card = CPU: the four dense configs reduced, f32 compute (TF32
+    # off), from one init drawn on the CPU; qwen also at bf16 compute
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lr_sum = sum(float(cosine_schedule(OptConfig(**TRAIN_OPT), s))
+                 for s in range(1, TRAIN_STEPS + 1))
+    cases = [(a, "float32") for a in (TRAIN_ARCH,) + DENSE_ARCHS] \
+        + [(TRAIN_ARCH, "bfloat16")]
+    for arch, cd in cases:
+        small = dataclasses.replace(get_config(arch).reduced(),
+                                    compute_dtype=cd)
+        init = lm.init_params(small, seed=0, device="cpu",
+                              dtype=torch.float32)
+        runs = _small_runs(torch, small, init, ("cuda", "cpu"))
+        (pc, _, mc), (pp, _, mp) = runs["cuda"], runs["cpu"]
+        dl = max(abs(a["loss"] - b["loss"]) for a, b in zip(mc, mp))
+        dg = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                 for a, b in zip(mc, mp))
+        dp = _max_leaf_diff(torch, pc, pp)
+        print(f"train (b) {small.name} {cd}: {TRAIN_STEPS} steps card vs "
+              f"CPU: loss {[round(m['loss'], 5) for m in mc]}, max |loss "
+              f"diff| {dl:.2e}, grad norm rel diff {dg:.2e}, max |param "
+              f"diff| {dp:.2e}")
+        if cd == "float32":
+            for a, b in zip(mc, mp):
+                for k in ("loss", "grad_norm"):
+                    tol = TRAIN_LOSS_TOL["atol"] + TRAIN_LOSS_TOL["rtol"] \
+                        * abs(b[k])
+                    check(abs(a[k] - b[k]) <= tol, f"train (b) {small.name}"
+                          f": {k} card {a[k]} vs CPU {b[k]}")
+            check(dp <= TRAIN_PARAM_TOL, f"train (b) {small.name}: params "
+                  f"differ by {dp} > {TRAIN_PARAM_TOL}")
+        else:
+            check(dl <= TRAIN_BF16_LOSS_TOL and dg <= 5e-2
+                  and dp <= 2 * lr_sum, f"train (b) {small.name} bf16: "
+                  f"loss {dl}, grad norm {dg}, params {dp} beyond tolerance")
+        check(all(a["lr_step"] == b["lr_step"] for a, b in zip(mc, mp)),
+              f"train (b) {small.name}: lr_step differs")
+
+    # (c) fault recovery, bit for bit, with deterministic algorithms
+    small = get_config(TRAIN_ARCH).reduced()
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        outs = []
+        for name, plan in (("uninterrupted", None),
+                           ("fault at 3", FaultPlan([3]))):
+            d = tempfile.mkdtemp(prefix="chip_smoke_train_")
+            try:
+                tc = TrainConfig(steps=6, log_every=100, ckpt_every=2, keep=2,
+                                 ckpt_dir=d, **TRAIN_SMALL)
+                tr = Trainer(small, tc, opt_cfg=OptConfig(**TRAIN_OPT),
+                             device="cuda")
+                outs.append((tr.run(fault_plan=plan), tr))
+            finally:
+                shutil.rmtree(d, ignore_errors=True)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (a, ta), (b, tb) = outs
+    same = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(a["params"]) + tree_leaves(a["opt"].m)
+        + tree_leaves(a["opt"].v),
+        tree_leaves(b["params"]) + tree_leaves(b["opt"].m)
+        + tree_leaves(b["opt"].v)))
+    print(f"train (c) {small.name} {small.compute_dtype}: 6 steps, "
+          f"checkpoint every 2, fault at step 3: events {b['events']}; "
+          f"steps run {[m['step'] for m in tb.metrics_log]}; final params "
+          f"and OptState {'bit-identical' if same else 'DIFFER'}")
+    check("restored step 2" in b["events"], f"train (c): events "
+          f"{b['events']} name no restore")
+    check(same and int(a["opt"].step) == int(b["opt"].step) == 6,
+          "train (c): the restored run differs from the uninterrupted one")
+
+    # (d) microbatches: n_micro=2 against n_micro=1 on the card, f32
+    small = dataclasses.replace(get_config("granite-20b").reduced(),
+                                compute_dtype="float32")
+    init = lm.init_params(small, seed=2, device="cpu", dtype=torch.float32)
+    (p1, _, m1), (p2, _, m2) = (
+        _small_runs(torch, small, init, ("cuda",), n_micro=n,
+                    steps=1)["cuda"] for n in (1, 2))
+    dp = _max_leaf_diff(torch, p1, p2)
+    print(f"train (d) {small.name}: n_micro 2 vs 1: loss {m2[0]['loss']:.6f}"
+          f" vs {m1[0]['loss']:.6f}, grad norm {m2[0]['grad_norm']:.6f} vs "
+          f"{m1[0]['grad_norm']:.6f}, max |param diff| {dp:.2e}")
+    for k in ("loss", "grad_norm"):
+        tol = TRAIN_LOSS_TOL["atol"] + TRAIN_LOSS_TOL["rtol"] * abs(m1[0][k])
+        check(abs(m2[0][k] - m1[0][k]) <= tol,
+              f"train (d): {k} {m2[0][k]} vs {m1[0][k]}")
+    check(dp <= TRAIN_PARAM_TOL, f"train (d): params differ by {dp}")
+    return {"ms_step": ms_step, "tokens_s": tokens / ms_step * 1e3,
+            "peak_gb": peak_gb, **prof}
+
+
 # Phases in the order they run, and the earlier phases each one needs.
 PHASES = ("kernel", "serve", "decode", "cross", "kvstate", "simkernel",
-          "simulate", "stream", "sweep", "paper", "faults", "obs")
+          "simulate", "stream", "sweep", "paper", "faults", "obs", "train")
 NEEDS = {"decode": ("serve",), "stream": ("simulate",),
          "sweep": ("simulate", "stream"), "paper": ("simulate",)}
 
@@ -3522,6 +3806,9 @@ def main(argv=None) -> int:
                     "they need), print no kernel table and no result line; "
                     f"phases: {', '.join(PHASES)}")
     args = ap.parse_args(argv)
+    # the train phase's recovery check runs with deterministic algorithms,
+    # which need cuBLAS's workspace fixed before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3628,6 +3915,9 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
     if "obs" in phases:
         obs_launches = obs_phase(torch, cpu_side)
         lap("obs")
+    if "train" in phases:
+        train_phase(torch)
+        lap("train")
     if phases != PHASES:
         print(f"chip_smoke: phases {', '.join(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s (--only: no kernel "

@@ -1,12 +1,15 @@
-"""Atomic, asynchronous checkpoints of a tree of tensors and numpy arrays;
-the part of ``repro/checkpoint/checkpoint.py`` that the batched streamed
-replay (``repro_torch.traces.stream_replay_points``) uses.
+"""Atomic, asynchronous checkpoints of a tree of tensors and numpy arrays
+(``repro/checkpoint/checkpoint.py`` counterpart): the batched streamed
+replay's carry (``repro_torch.traces.stream_replay_points``) and the
+trainer's params and optimizer state.
 
-Layout per step::
+Layout per step, the JAX package's (one host), so either package
+restores the other's checkpoints::
 
     <dir>/step_000123/
-        manifest.json        # leaf paths, shapes, dtypes, step
-        leaves.npz           # every leaf as a numpy array
+        manifest.json        # leaf paths, shapes, dtypes, step, n_hosts
+        host_000.npz         # every leaf as a numpy array; bfloat16
+                             # leaves as their uint16 bits
     <dir>/step_000123.tmp…   # staging dir, atomically renamed on commit
 
   * **Atomicity** — a step is written into a fresh staging directory and
@@ -17,10 +20,15 @@ Layout per step::
     memory synchronously (a consistent view), then writes on a background
     thread; ``wait`` joins it and raises what the writer raised.
 
+  * **Retention** — the manager keeps the newest ``keep`` steps.
+
 A tree is nested dicts, tuples, lists and NamedTuples with tensor, array
-or None leaves. ``restore`` rebuilds the structure of a ``like`` tree:
-tensor leaves come back as tensors on the ``like`` leaf's device and in
-its dtype, arrays as arrays.
+or None leaves; a leaf's path is its keys joined by ``/`` (a NamedTuple's
+field names, a sequence's indices), as JAX names them. ``restore``
+rebuilds the structure of a ``like`` tree: tensor leaves come back as
+tensors on the ``like`` leaf's device (or on ``device``) and in its
+dtype, arrays as arrays. Without ``like`` it rebuilds nested dicts from
+the paths, every leaf a tensor on ``device`` in its stored dtype.
 """
 from __future__ import annotations
 
@@ -38,30 +46,43 @@ import torch
 _STEP_RE = re.compile(r"^step_(\d{9})$")
 
 
+def _join(path: str, key) -> str:
+    return f"{path}/{key}" if path else str(key)
+
+
 def _walk(fn: Callable[[str, Any], Any], tree: Any, path: str = "") -> Any:
     """``tree`` with every tensor or array leaf ``x`` at ``path`` replaced
     by ``fn(path, x)``."""
     if isinstance(tree, (torch.Tensor, np.ndarray)):
         return fn(path, tree)
     if isinstance(tree, dict):
-        return {k: _walk(fn, v, f"{path}/{k}") for k, v in tree.items()}
+        return {k: _walk(fn, v, _join(path, k)) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_walk(fn, v, f"{path}/{k}")
+        return type(tree)(*(_walk(fn, v, _join(path, k))
                             for k, v in zip(tree._fields, tree)))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_walk(fn, v, f"{path}/{i}")
+        return type(tree)(_walk(fn, v, _join(path, i))
                           for i, v in enumerate(tree))
     if tree is None:
         return None
     raise TypeError(f"checkpoint leaf {path!r}: unsupported {type(tree)}")
 
 
-def _to_host(tree: Any) -> List[Tuple[str, np.ndarray]]:
-    leaves: List[Tuple[str, np.ndarray]] = []
+def _to_host(tree: Any) -> List[Tuple[str, np.ndarray, str]]:
+    """(path, stored array, logical dtype) of every leaf: a copy in host
+    memory, bfloat16 as its uint16 bits (numpy has no bfloat16)."""
+    leaves: List[Tuple[str, np.ndarray, str]] = []
 
     def take(path, x):
-        leaves.append((path, x.detach().cpu().numpy().copy()
-                       if isinstance(x, torch.Tensor) else np.array(x)))
+        if not isinstance(x, torch.Tensor):
+            a = np.array(x)
+            leaves.append((path, a, str(a.dtype)))
+        elif x.dtype == torch.bfloat16:
+            a = x.detach().cpu().view(torch.int16).numpy().view(np.uint16)
+            leaves.append((path, a.copy(), "bfloat16"))
+        else:
+            a = x.detach().cpu().numpy().copy()
+            leaves.append((path, a, str(a.dtype)))
 
     _walk(take, tree)
     return leaves
@@ -72,11 +93,11 @@ def _write(step: int, leaves, directory: str) -> str:
     final = os.path.join(directory, f"step_{step:09d}")
     tmp = tempfile.mkdtemp(prefix=f"step_{step:09d}.tmp", dir=directory)
     try:
-        np.savez(os.path.join(tmp, "leaves.npz"),
-                 **{f"leaf_{i:05d}": a for i, (_, a) in enumerate(leaves)})
-        manifest = {"step": step, "names": [n for n, _ in leaves],
-                    "shapes": [list(a.shape) for _, a in leaves],
-                    "dtypes": [str(a.dtype) for _, a in leaves]}
+        np.savez(os.path.join(tmp, "host_000.npz"),
+                 **{f"leaf_{i:05d}": a for i, (_, a, _) in enumerate(leaves)})
+        manifest = {"step": step, "names": [n for n, _, _ in leaves],
+                    "shapes": [list(a.shape) for _, a, _ in leaves],
+                    "dtypes": [dt for _, _, dt in leaves], "n_hosts": 1}
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):            # idempotent re-save
@@ -105,26 +126,46 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(directory: str, like: Any, step: Optional[int] = None) -> Any:
+def _tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def restore(directory: str, like: Any = None, step: Optional[int] = None,
+            device=None) -> Any:
     """Step ``step`` (default the latest) restored into the structure of
-    ``like``."""
+    ``like``, tensors onto ``device`` when it is given (else each onto
+    its ``like`` leaf's device); without ``like``, as nested dicts of
+    tensors on ``device`` (default the CPU)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {directory}")
     d = os.path.join(directory, f"step_{step:09d}")
     with open(os.path.join(d, "manifest.json")) as f:
-        names = json.load(f)["names"]
-    with np.load(os.path.join(d, "leaves.npz")) as z:
-        by_name = {n: z[f"leaf_{i:05d}"] for i, n in enumerate(names)}
+        manifest = json.load(f)
+    with np.load(os.path.join(d, "host_000.npz")) as z:
+        by_name = {n: (z[f"leaf_{i:05d}"], dt) for i, (n, dt) in
+                   enumerate(zip(manifest["names"], manifest["dtypes"]))}
+
+    if like is None:
+        out: dict = {}
+        for name, (arr, dt) in by_name.items():
+            *keys, last = name.split("/")
+            node = out
+            for k in keys:
+                node = node.setdefault(k, {})
+            node[last] = _tensor(arr, dt).to(device or "cpu")
+        return out
 
     def load(path, proto):
         if path not in by_name:
             raise KeyError(f"checkpoint {d} has no leaf {path!r}")
-        arr = by_name[path]
+        arr, dt = by_name[path]
         if isinstance(proto, torch.Tensor):
-            return torch.from_numpy(arr).to(device=proto.device,
-                                            dtype=proto.dtype)
+            return _tensor(arr, dt).to(device=device or proto.device,
+                                       dtype=proto.dtype)
         return arr.astype(proto.dtype, copy=False)
 
     return _walk(load, like)

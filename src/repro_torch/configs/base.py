@@ -1,6 +1,6 @@
 """Model configuration for the port: the fields of ``repro.configs.base``
-that the serving slice reads, with the same names, defaults and
-``reduced()`` so a test can build the same model in both packages."""
+that the serving and training slices read, with the same names, defaults
+and ``reduced()`` so a test can build the same model in both packages."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,9 +33,14 @@ class ModelConfig:
     embed_banks: int = 8        # data banks for the coded vocab table
     kv_banks: int = 0           # >0: banked+parity KV cache in serving path
     kv_page: int = 64
-    # dtype of the served params and activations (the port draws and keeps
-    # its params in it; a JAX tree is cast to it once, at load)
+    # dtypes: training keeps master params in ``param_dtype`` and casts
+    # them to ``compute_dtype`` inside the step; serving draws and keeps
+    # its params in the compute dtype (a JAX tree is cast once, at load)
+    param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # training's per-layer recompute: "full" saves only each layer's
+    # input, "dots" also keeps the projection matmuls' outputs
+    remat_policy: str = "full"
 
     def __post_init__(self):
         if self.head_dim is None:

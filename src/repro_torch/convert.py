@@ -5,6 +5,12 @@ arrays (``jax.tree.map(np.asarray, params)``) and returns the port's tree:
 the same nesting, the same ``(d_in, d_out)`` layout (the port computes
 ``x @ W`` as JAX does, so nothing is transposed), the same dtypes.
 
+``opt_state_from_jax(cfg, opt, device)`` takes the JAX ``OptState``
+with numpy leaves and returns the port's (moments on ``device``, the step
+on the CPU); ``params_to_numpy`` and ``opt_state_to_numpy`` go back (the
+JAX trees' leaves, in the port's types), so both packages can start a
+training step from the same state.
+
 ``sim_state_from_numpy(host, device)`` takes a JAX ``SimState`` with numpy
 leaves (``jax.device_get(st)``) and returns the port's ``SimState``;
 ``sim_state_to_numpy(st)`` goes back. The field order is the same on both
@@ -28,6 +34,7 @@ from repro_torch.core.system import SimState
 from repro_torch.faults.plan import FaultState
 from repro_torch.models import lm
 from repro_torch.obs.planes import COUNTER_FIELDS, Telemetry
+from repro_torch.optim.adamw import OptState
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -49,6 +56,32 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
         return _tensor(np.asarray(node), device)
 
     return conv(tree)
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's params (training's f32 master params, say) as numpy
+    leaves, copies."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return node.detach().cpu().numpy().copy()
+
+    return conv(params)
+
+
+def opt_state_from_jax(cfg: ModelConfig, opt, device) -> OptState:
+    """A JAX ``OptState`` (numpy leaves) as the port's: the f32 moments on
+    ``device``, the int32 step on the CPU."""
+    return OptState(torch.from_numpy(np.array(opt.step, np.int32)),
+                    params_from_jax(cfg, opt.m, device),
+                    params_from_jax(cfg, opt.v, device))
+
+
+def opt_state_to_numpy(opt: OptState) -> OptState:
+    """The port's ``OptState`` with numpy leaves in JAX's layout (build
+    ``repro.optim.adamw.OptState(*opt_state_to_numpy(st))`` from it)."""
+    return OptState(np.array(int(opt.step), np.int32),
+                    params_to_numpy(opt.m), params_to_numpy(opt.v))
 
 
 def sim_state_from_numpy(host, device) -> SimState:

@@ -1,11 +1,12 @@
 """Vocab embeddings — plain table or the paper's coded banks
-(``repro.models.embedding`` counterpart, forward only).
+(``repro.models.embedding`` counterpart).
 
 Coded layout: row ``v`` lives in bank ``v % NB``, bank row ``v // NB``;
 bank pairs ``(2g, 2g+1)`` carry an XOR parity bank. Within each sequence
 every second lookup that lands on a bank is served as a degraded read
-(pair sibling ^ parity), bit-exact. The backward pass (an
-``autograd.Function``) comes with the training slice.
+(pair sibling ^ parity), bit-exact. Training differentiates the lookup
+through ``CodedLookup`` (JAX's ``custom_vjp``): the forward runs the coded
+datapath, the backward is the plain scatter-add into the bank layout.
 """
 from __future__ import annotations
 
@@ -47,22 +48,50 @@ def _plan_use_parity(bank_of: torch.Tensor, nb: int) -> torch.Tensor:
     return (my_rank % 2) == 1
 
 
-def coded_lookup(banks: torch.Tensor, tokens: torch.Tensor,
-                 par: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Coded-bank gather of ``tokens`` (..., T) -> (..., T, D) in
-    ``banks.dtype``. ``par`` is ``coded_parity(banks)`` when the caller
-    keeps it; otherwise it is computed here."""
+def _coded_gather(banks: torch.Tensor, tokens: torch.Tensor,
+                  par: Optional[torch.Tensor]) -> torch.Tensor:
     nb = banks.shape[0]
     u = as_lanes(banks)
     if par is None:
         par = coded_parity(banks)
-    tokens = tokens.long()
     bank_of = tokens % nb
     brow = tokens // nb
     use_par = _plan_use_parity(bank_of, nb)
     direct = u[bank_of, brow]
     degraded = u[bank_of ^ 1, brow] ^ par[bank_of // 2, brow]
     return torch.where(use_par[..., None], degraded, direct).view(banks.dtype)
+
+
+class CodedLookup(torch.autograd.Function):
+    """``repro`` embedding.py:68-91. Forward: the coded gather, degraded
+    reads included. Backward: ``g`` scatter-added into a zero (NB, Vb, D)
+    at (token % NB, token // NB) in the banks' dtype (duplicate tokens
+    accumulate in that dtype, as JAX's ``.at[].add`` does); no gradient
+    to the tokens or the parity."""
+
+    @staticmethod
+    def forward(ctx, banks, tokens, par):
+        ctx.save_for_backward(tokens)
+        ctx.bank_shape, ctx.bank_dtype = banks.shape, banks.dtype
+        return _coded_gather(banks, tokens, par)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        nb = ctx.bank_shape[0]
+        d_banks = g.new_zeros(ctx.bank_shape, dtype=ctx.bank_dtype)
+        d_banks.index_put_((tokens % nb, tokens // nb),
+                           g.to(ctx.bank_dtype), accumulate=True)
+        return d_banks, None, None
+
+
+def coded_lookup(banks: torch.Tensor, tokens: torch.Tensor,
+                 par: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Coded-bank gather of ``tokens`` (..., T) -> (..., T, D) in
+    ``banks.dtype``, differentiable in ``banks``. ``par`` is
+    ``coded_parity(banks)`` when the caller keeps it; otherwise it is
+    computed here."""
+    return CodedLookup.apply(banks, tokens.long(), par)
 
 
 def embed_lookup(cfg: ModelConfig, p: Params, tokens: torch.Tensor,

@@ -1,9 +1,11 @@
-"""Transformer layers of the serving slice (``repro.models.layers``
-counterparts): RMS norm and LayerNorm, half-split RoPE, GQA attention
-with optional QKV bias (full-sequence, and one-token decode over a ring
-cache), the SwiGLU MLP and the ungated GELU MLP. Plain functions over
-parameter dicts in the JAX package's ``(d_in, d_out)`` layout, so
-``x @ W`` needs no transpose."""
+"""Transformer layers of the serving and training slices
+(``repro.models.layers`` counterparts): RMS norm and LayerNorm, half-split
+RoPE, GQA attention with optional QKV bias (full-sequence, in query
+chunks, and one-token decode over a ring cache), the SwiGLU MLP and the
+ungated GELU MLP. Plain functions over parameter dicts in the JAX
+package's ``(d_in, d_out)`` layout, so ``x @ W`` needs no transpose.
+Everything but ``attention_decode`` (which writes its caches in place)
+is out of place, so autograd can differentiate it."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -116,6 +118,36 @@ def mha(q: torch.Tensor,            # (B, Tq, H, dh)
     return out.reshape(b, tq, h, dh).to(q.dtype)
 
 
+def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                window: int = 0, q_chunk: int = 1024) -> torch.Tensor:
+    """Causal (+ sliding window) attention computed ``q_chunk`` queries at
+    a time (``repro`` layers.py:114), so the logits' working set is
+    (B, ., q_chunk, Tk) instead of (B, ., Tq, Tk). The same math as
+    ``mha`` under ``causal_mask``; JAX's ``unroll`` is an XLA scan knob
+    with no meaning here."""
+    b, tq, h, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    if q_chunk <= 0 or q_chunk >= tq:
+        return mha(q, k, v, causal_mask(tq, tk, q.device, 0, window))
+    if tq % q_chunk:
+        raise ValueError(f"mha_chunked: {tq} queries are not a multiple "
+                         f"of q_chunk={q_chunk}")
+    kf, vf = k.float(), v.float()
+    qc = q.float().reshape(b, tq // q_chunk, q_chunk, h // hkv, hkv, dh)
+    ki = torch.arange(tk, device=q.device)[None, :]
+    outs = []
+    for c in range(tq // q_chunk):
+        qi = c * q_chunk + torch.arange(q_chunk, device=q.device)[:, None]
+        m = ki <= qi
+        if window > 0:
+            m = m & (ki > qi - window)
+        logits = torch.einsum("bqgkd,btkd->bkgqt", qc[:, c], kf) \
+            * (dh ** -0.5)
+        w = torch.softmax(logits.masked_fill(~m, -1e30), dim=-1)
+        outs.append(torch.einsum("bkgqt,btkd->bqgkd", w, vf))
+    return torch.cat(outs, 1).reshape(b, tq, h, dh).to(q.dtype)
+
+
 def causal_mask(tq: int, tk: int, device, offset: int = 0,
                 window: int = 0) -> torch.Tensor:
     """(1,1,1,Tq,Tk) causal (+ optional sliding window) mask. ``offset``
@@ -126,6 +158,23 @@ def causal_mask(tq: int, tk: int, device, offset: int = 0,
     if window > 0:
         m = m & (ki > qi - window)
     return m[None, None, None]
+
+
+def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                    positions: torch.Tensor, window: int = 0,
+                    q_chunk: int = 0) -> torch.Tensor:
+    """Full-sequence causal self attention of the training path
+    (``repro`` layers.py:177): x (B,T,D) -> (B,T,D) after the output
+    projection; ``q_chunk`` > 0 streams the queries (``mha_chunked``)."""
+    b, t, _ = x.shape
+    q, k, v = qkv_proj(cfg, p, x)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if q_chunk and q_chunk < t:
+        out = mha_chunked(q, k, v, window=window, q_chunk=q_chunk)
+    else:
+        out = mha(q, k, v, causal_mask(t, t, x.device, 0, window))
+    return out.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["wo"]
 
 
 def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,

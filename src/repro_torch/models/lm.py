@@ -1,22 +1,31 @@
-"""Language model of the serving slice (``repro.models.lm`` counterpart):
-the dense decoder family, prompt prefill, the decode step over a ring
-cache (``cache_spec``/``decode_step``) and the decode step over the coded
-KV page pool (``decode_step_pooled``).
+"""Language model of the serving and training slices (``repro.models.lm``
+counterpart): the dense decoder family; training's ``forward``/``loss_fn``
+over the layer loop with per-layer recompute (``backbone``); prompt
+prefill, the decode step over a ring cache (``cache_spec``/
+``decode_step``) and the decode step over the coded KV page pool
+(``decode_step_pooled``).
 
 Params are nested dicts in the JAX package's layout: per-layer leaves
 stacked on axis 0 under ``"blocks"``, matrices ``(d_in, d_out)``, an
-``"lm_head"`` ``(d_model, V_pad)`` when the head is untied. The JAX
-package casts the f32 params to the compute dtype inside every step; here
-``cast_params`` does it once at load (serving never changes them), and
-``prefill``/``decode_step_pooled`` take the cast params. ``init_params``
-draws straight into the compute dtype, one layer at a time, so a
-full-width model never has an f32 copy.
+``"lm_head"`` ``(d_model, V_pad)`` when the head is untied.
+
+Training keeps master params in ``cfg.param_dtype`` and, as JAX does,
+runs every op on their compute-dtype cast: the embedding, head and final
+norm are cast once a step, each layer's weights inside its (recomputed)
+body, so a full-width step never holds a cast copy of the whole stack.
+Serving never changes its params: ``cast_params`` casts them once at
+load, ``init_params`` draws straight into the compute dtype one layer at
+a time, and ``prefill``/``decode_step_pooled`` take the cast params.
+JAX's ``unroll``/``chunk_unroll`` are XLA scan knobs with no torch
+meaning; the port has no such arguments.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.coded_kv_decode import ops as ckd_ops
@@ -39,7 +48,7 @@ def check_slice(cfg: ModelConfig) -> None:
             or cfg.pos != "rope":
         raise NotImplementedError(
             f"{cfg.name}: only the dense RoPE decoder is ported (ROADMAP.md, "
-            "queue 1: 'Other model families and training')")
+            "queue 1 item 4: the other model families)")
 
 
 def _map(fn: Callable, tree):
@@ -53,21 +62,40 @@ def layer_params(blocks: Params, i: int) -> Params:
     return _map(lambda a: a[i], blocks)
 
 
+def unstack_layers(blocks: Params) -> List[Params]:
+    """Every layer's params, by one ``torch.unbind`` per stacked leaf.
+    Under autograd this is what a layer loop should take apart: the
+    gradients of the slices are stacked once, where ``a[i]`` per layer
+    would write a full-size zero gradient of the leaf for every layer."""
+    if not isinstance(blocks, dict):
+        return list(torch.unbind(blocks))
+    parts = {k: unstack_layers(v) for k, v in blocks.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _cast(tree, dtype):
+    """Float leaves of ``tree`` in ``dtype`` (no copy when they are)."""
+    return _map(lambda a: a.to(dtype) if a.is_floating_point() else a,
+                tree)
+
+
 # ======================================================================
 # init / load
 # ======================================================================
-def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> Params:
-    """Random params in ``cfg.compute_dtype`` from a seeded
-    ``torch.Generator`` on ``device`` (the card unless named), drawn in
-    f32 one layer's leaf at a time and stored in the compute dtype. The
-    port's own init: the JAX package's ``jax.random`` bits are not
-    reproduced; ``convert.params_from_jax`` carries a JAX tree across
-    instead."""
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
+                dtype: Optional[torch.dtype] = None) -> Params:
+    """Random params in ``dtype`` (serving's default: ``cfg.compute_dtype``;
+    training passes ``cfg.param_dtype``) from a seeded ``torch.Generator``
+    on ``device`` (the card unless named), drawn in f32 one layer's leaf
+    at a time. The port's own init: the JAX package's ``jax.random`` bits
+    are not reproduced; ``convert.params_from_jax`` carries a JAX tree
+    across instead."""
     check_slice(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    cd = getattr(torch, cfg.compute_dtype)
+    cd = dtype or getattr(torch, cfg.compute_dtype)
     lead = (cfg.n_layers,)
     params = {
         "embed": embed_init(cfg, gen, cd),
@@ -106,8 +134,84 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor):
         logits = tied_logits(cfg, params["embed"], x).float()
     else:
         logits = (x @ params["lm_head"].to(x.dtype)).float()
-    logits[..., cfg.vocab:] = -1e30
-    return logits
+    if cfg.vocab_pad == cfg.vocab:
+        return logits
+    pad = torch.arange(cfg.vocab_pad, device=x.device) >= cfg.vocab
+    return logits.masked_fill(pad, -1e30)      # out of place: autograd
+
+
+def _dense_block(cfg, bp, x, positions, q_chunk):
+    """One pre-norm decoder layer of the training path (``repro`` lm.py:
+    193), its weights cast to ``x``'s dtype here, inside the (recomputed)
+    body."""
+    bp = _cast(bp, x.dtype)
+    h = ly.apply_norm(cfg, bp["norm1"], x)
+    x = x + ly.attention_block(cfg, bp["attn"], h, positions,
+                               cfg.sliding_window, q_chunk)
+    h = ly.apply_norm(cfg, bp["norm2"], x)
+    return x + ly.mlp_block(cfg, bp["mlp"], h)
+
+
+# the dots policy keeps what JAX's dots_with_no_batch_dims_saveable keeps:
+# the outputs of the projections (x @ W lowers to mm), not of the batched
+# attention products (bmm)
+_SAVED_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat(cfg: ModelConfig, body: Callable, remat: bool) -> Callable:
+    """``body`` recomputed in the backward pass (``repro`` lm.py:216):
+    ``"full"`` saves only the layer's inputs, ``"dots"`` also the
+    projection matmuls' outputs."""
+    if not remat:
+        return body
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _SAVED_DOTS)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: full or dots")
+    return lambda *args: checkpoint(body, *args, **kw)
+
+
+def backbone(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
+             remat: bool = True, q_chunk: int = 0) -> torch.Tensor:
+    """Every layer over x (B,S,D) in the compute dtype, then the final
+    norm (``repro`` lm.py:232, the dense branch). ``params`` are the
+    master params; ``q_chunk`` > 0 streams each layer's queries."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    layer = _remat(cfg, lambda xc, bp: _dense_block(cfg, bp, xc, positions,
+                                                    q_chunk), remat)
+    for bp in unstack_layers(params["blocks"]):
+        x = layer(x, bp)
+    return ly.apply_norm(cfg, _cast(params["final_norm"], x.dtype), x)
+
+
+def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, remat: bool = True, q_chunk: int = 0) -> torch.Tensor:
+    """Full-sequence logits (B, S, V_pad) f32 (``repro`` lm.py:320), from
+    the master params: the embedding (the coded lookup runs on the
+    compute-dtype bits, as JAX casts before it looks up) and head cast
+    once, each layer inside its body."""
+    cd = getattr(torch, cfg.compute_dtype)
+    top = {k: _cast(v, cd) for k, v in params.items() if k != "blocks"}
+    x = embed_lookup(cfg, top["embed"], batch["tokens"], cd)
+    x = backbone(cfg, params, x, remat=remat, q_chunk=q_chunk)
+    return _logits(cfg, top, x)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, remat: bool = True, q_chunk: int = 0) -> torch.Tensor:
+    """Next-token cross entropy (``repro`` lm.py:340): logsumexp over the
+    padded vocab minus the target's logit, mean over B x (S-1). The
+    target's logit is indexed, not JAX's where-masked sum over the vocab
+    (its sharding trick): the same value, without a (B, S, V) mask."""
+    logits = forward(cfg, params, batch, remat=remat, q_chunk=q_chunk)
+    lg = logits[:, :-1]
+    targets = batch["tokens"][:, 1:].long()
+    bi = torch.arange(lg.shape[0], device=lg.device)[:, None]
+    si = torch.arange(lg.shape[1], device=lg.device)[None, :]
+    pick = lg[bi, si, targets]
+    return (torch.logsumexp(lg, dim=-1) - pick).mean()
 
 
 def _block_tail(cfg, bp, x, o):

@@ -1,15 +1,71 @@
-"""Serving step functions (``repro.runtime.steps`` counterparts): prompt
-prefill, the greedy decode step over a ring cache, and the greedy decode
-step over the coded KV page pool."""
+"""Step functions (``repro.runtime.steps`` counterparts): the training
+step (forward, backward, AdamW), prompt prefill, the greedy decode step
+over a ring cache, and the greedy decode step over the coded KV page
+pool."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.optim.adamw import (OptConfig, OptState, adamw_update,
+                                     tree_leaves, tree_unflatten)
 from repro_torch.runtime import kvbank as kb
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
+                    remat: bool = True, q_chunk: int = 0, n_micro: int = 1):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss's gradients (summed in f32 over ``n_micro``
+    microbatches of the batch, then divided by ``n_micro``, the loss their
+    mean), then ``adamw_update``. Params and optimizer state are updated
+    IN PLACE and returned; ``metrics`` are 0-d tensors ``loss``,
+    ``grad_norm`` (before clipping) and ``lr_step`` (the step count after
+    the update)."""
+
+    def grads_of(leaves, params, batch):
+        with torch.enable_grad():
+            loss = lm.loss_fn(cfg, params, batch, remat=remat,
+                              q_chunk=q_chunk)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def train_step(params, opt_state: OptState,
+                   batch: Dict[str, torch.Tensor]):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        if n_micro <= 1:
+            loss, grads = grads_of(leaves, params, batch)
+            grads = list(grads)
+        else:
+            b = batch["tokens"].shape[0]
+            if b % n_micro:
+                raise ValueError(f"batch {b} is not a multiple of "
+                                 f"n_micro={n_micro}")
+            micro = [{k: v[i * (b // n_micro):(i + 1) * (b // n_micro)]
+                      for k, v in batch.items()} for i in range(n_micro)]
+            loss, grads = None, None
+            for mb in micro:
+                mb_loss, g = grads_of(leaves, params, mb)
+                if grads is None:          # 0 + g: JAX's zero-init sum
+                    loss, grads = mb_loss, [x.float() for x in g]
+                else:
+                    loss = loss + mb_loss
+                    for acc, x in zip(grads, g):
+                        acc.add_(x)
+                del g
+            for acc in grads:
+                acc.div_(n_micro)
+            loss = loss / n_micro
+        params, opt_state, gnorm = adamw_update(
+            opt_cfg, tree_unflatten(params, grads), opt_state, params)
+        del grads
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
+                                   "lr_step": opt_state.step.float()}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):
