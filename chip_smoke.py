@@ -23,7 +23,7 @@ no result line; with no flag it runs every phase:
    degraded), with its time per launch (CUDA events), its byte bound, the
    plain version's time and ``torch.index_select`` as the library yardstick;
 3. serve: full-width qwen2.5-3b (36 layers, bf16, random params from a
-   seeded generator on the card) serving 16 requests through the coded KV
+   seeded generator on the card) serving 8 requests through the coded KV
    pool four times (coded with fused encode, uncoded, coded with
    recode_budget=2, coded with the serve planes on). Every request must
    finish, the runs must serve identical tokens, and the kernel's launch
@@ -51,8 +51,14 @@ no result line; with no flag it runs every phase:
    pool (same checks: identical tokens,
    banks, fresh parity, the gather against its plain version at the
    config's pool shape, degraded reads, launches = steps x layers, finite
-   prefill logits), a profiled window, then the ring cache. Every run's
-   peak allocated memory must stay within 50 GB;
+   prefill logits), a profiled window, then the ring cache. olmoe-1b-7b
+   (MoE: 16 layers, 64 experts top-8, d_model 2048) is served the same
+   way on 8 requests, with each run's share of MoE assignments dropped in
+   a decode step's group of 8 tokens and in a prefill's group of 128;
+   then phi-3-vision-4.2b (the vision prefix) from the ring cache, 8
+   requests at max_prompt 640 (576 zero patch positions), all finished,
+   finite prefill logits, random patches moving them, a profiled window.
+   Every run's peak allocated memory must stay within 50 GB;
 4. decode attention: ``coded_kv_decode`` through ``ops.coded_kv_decode``
    (after ``ops.pack_kv_banks``) at each serving width (K/V of qwen's ring
    run's layers 0 and 35 and of each other config's layer 0: B=8, T=2048,
@@ -76,6 +82,14 @@ no result line; with no flag it runs every phase:
    port cycles, degraded reads and critical-word p50/p99 (``read_latencies``
    under the coded plan and an all-direct one) are printed; a card
    snapshot restored on the CPU finishes with the card's tokens and planes;
+   olmoe-1b-7b reduced the same way (coded pool), reporting the smallest
+   router margin (k-th to (k+1)-th logit) the runs saw; one full-width
+   olmoe layer's MoE block at f32 on the 8-token decode group and a
+   128-token prefill group, the card's router logits copied to the CPU:
+   experts and keep mask identical, outputs within 1e-4 of their largest
+   magnitude; mixtral-8x7b (window 16) and phi-3-vision-4.2b (seeded
+   random patches) reduced from the ring cache: identical tokens, the
+   prefill and first decode step's logits within 1e-4;
 6. BankedKVState: the per-sequence state API at bench_kvbank's five cases
    on the card and on the CPU: plans, ``gather_kv`` (``gather_pool_cuda``
    on the card) and every leaf equal, before and after appends and
@@ -235,6 +249,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
 import io
 import itertools
 import json
@@ -253,12 +268,21 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 KERNEL_SHAPE = dict(nb=8, slots=64, page=64, hkv=2, d=128, b=8, mp=32)
 SERVE = dict(n_slots=8, max_prompt=128, max_seq=2048, max_new_tokens=32,
              page=64)
-N_REQUESTS = 16
-N_REQUESTS_DENSE = 8             # yi, stablelm, granite: one wave (cut (5))
+# one wave of the 8 slots for every config: yi, stablelm, granite since
+# cut (5), qwen2.5-3b since cut (6)
+N_REQUESTS = 8
 CHURN_SEED = 5                   # the placement permutation of every run
 # the other dense configs, served at full width on the coded and the
 # uncoded pool and on the ring cache
 DENSE_ARCHS = ("yi-6b", "stablelm-12b", "granite-20b")
+# the MoE config served at full width on the pool and the ring; the
+# vision-prefix one on the ring (prompts padded past its 576 patches);
+# mixtral-8x7b (93 GB of bf16 params) runs reduced only
+MOE_ARCH = "olmoe-1b-7b"
+VLM_ARCH = "phi-3-vision-4.2b"
+VLM_SERVE = dict(SERVE, max_prompt=640)
+RING_ARCHS = ("mixtral-8x7b", VLM_ARCH)       # reduced card = CPU, ring
+MOE_LAYER_GROUPS = (("decode", (8, 1)), ("prefill", (1, 128)))
 PEAK_LIMIT_GB = 50.0             # peak allocated of a served config
 LOGITS_TOL = 1e-4                # card vs CPU at f32: summation order
 # the simulator at the geometry of benchmarks/fig18_dedup.py (select period
@@ -480,26 +504,72 @@ def counting_reads():
         kvbank.pool_plan = plan_fn
 
 
+@contextlib.contextmanager
+def watching_routes(torch, margins: bool = False):
+    """Collect every MoE dispatch's routing while the block runs: by
+    group size, the assignments kept (device sums, no host sync) and
+    routed; with ``margins``, each dispatch's smallest gap between a
+    token's k-th and (k+1)-th router logit (the nearest a top-k choice
+    came to flipping)."""
+    from repro_torch.models import moe
+    route = moe.route
+    seen = {"kept": {}, "routed": {}, "margin": []}
+
+    def watched(cfg, logits, cap):
+        r = route(cfg, logits, cap)
+        g = logits.shape[1]
+        seen["kept"].setdefault(g, []).append(r.keep.sum())
+        seen["routed"][g] = seen["routed"].get(g, 0) + r.keep.numel()
+        if margins:
+            top = logits.topk(cfg.top_k + 1, dim=-1).values
+            seen["margin"].append((top[..., -2] - top[..., -1]).min())
+        return r
+
+    moe.route = watched
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def drop_shares(torch, seen) -> dict:
+    """Group size -> (share of its assignments dropped, assignments)."""
+    return {g: (1 - float(torch.stack(seen["kept"][g]).sum()) / n, n)
+            for g, n in sorted(seen["routed"].items())}
+
+
+def min_margin(torch, seen):
+    """The smallest margin ``watching_routes`` saw (None: no dispatch)."""
+    if not seen["margin"]:
+        return None
+    return float(torch.stack([m.cpu() for m in seen["margin"]]).min())
+
+
 def keep_logits(torch, lm, srv, store: list) -> None:
-    """Route ``srv``'s prefill and decode steps through versions that also
-    keep the f32 logits of the occupied slots on the host (the server's
-    own steps return tokens only)."""
-    cfg, kvcfg, budget = srv.cfg, srv.kvcfg, srv.sc.recode_budget
+    """Route ``srv``'s prefill and decode steps (pool or ring) through
+    versions that also keep the f32 logits of the occupied slots on the
+    host (the server's own steps return tokens only)."""
+    cfg, budget = srv.cfg, srv.sc.recode_budget
+    kvcfg = srv.kvcfg if srv.pooled else None
 
     @torch.no_grad()
-    def prefill(params, tokens):
-        logits, cache = lm.prefill(cfg, params, tokens)
+    def prefill(params, tokens, patches=None):
+        logits, cache = lm.prefill(cfg, params, tokens, patches=patches)
         store.append(logits.float().cpu())
         return torch.argmax(logits, -1), cache
 
     @torch.no_grad()
     def decode(params, token, cache):
-        logits, pool, tele = lm.decode_step_pooled(
-            cfg, kvcfg, params, token, cache["pool"], cache["tele"],
-            recode_budget=budget)
+        if kvcfg is None:
+            logits, cache = lm.decode_step(cfg, params, token, cache)
+        else:
+            logits, pool, tele = lm.decode_step_pooled(
+                cfg, kvcfg, params, token, cache["pool"], cache["tele"],
+                recode_budget=budget)
+            cache = {"pool": pool, "tele": tele}
         live = [i for i, s in enumerate(srv.slots) if s is not None]
         store.append(logits[live].float().cpu())
-        return torch.argmax(logits, -1), {"pool": pool, "tele": tele}
+        return torch.argmax(logits, -1), cache
 
     srv.prefill, srv.decode = prefill, decode
 
@@ -662,7 +732,7 @@ def serve_phase(torch, arch: str = "qwen2.5-3b", serve_runs=SERVE_RUNS,
                                  for r in s_.queue]
                 snap["steps_run"] = s_.steps_run
 
-        with counting_reads() as reads:
+        with counting_reads() as reads, watching_routes(torch) as routes:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             decode_s = _drive(srv, reqs, take_snapshot)
@@ -713,6 +783,21 @@ def serve_phase(torch, arch: str = "qwen2.5-3b", serve_runs=SERVE_RUNS,
               f"equal the first run's, {n_fresh} fresh parity rows checked; "
               f"pool {pool_mb:.0f} MB; peak allocated {peak_gb:.2f} GB; "
               f"{gathered}")
+        if cfg.family == "moe":
+            from repro_torch.models import moe
+            shares = drop_shares(torch, routes)
+            # a decode step routes one group of the slots' tokens, a
+            # prefill one group of the padded prompt's
+            check(set(shares) == {SERVE["n_slots"], SERVE["max_prompt"]},
+                  f"{name}: MoE dispatch groups of {sorted(shares)} tokens")
+            print(f"serve {cfg.name} {name} MoE routing ({cfg.n_experts} "
+                  f"experts top-{cfg.top_k}, {cfg.n_layers} layers): "
+                  + "; ".join(f"{kind} groups of {g} tokens (capacity "
+                              f"{moe.groups(cfg, g)[2]}) dropped "
+                              f"{shares[g][0]:.1%} of {shares[g][1]} "
+                              "assignments" for kind, g in
+                              (("decode", SERVE["n_slots"]),
+                               ("prefill", SERVE["max_prompt"]))))
         if before is not None:
             total_launches += _telemetry_checks(torch, cfg, params, srv,
                                                 before, reads, steps, snap,
@@ -821,6 +906,90 @@ def _ring_run(torch, cfg, params, pool_tokens, n_requests):
           for layer in (0, cfg.n_layers - 1)}
     del srv
     return kv
+
+
+def vlm_serve_phase(torch) -> None:
+    """phi-3-vision-4.2b at full width from the ring cache (the server
+    keeps a vision prefix off the pool): 8 requests whose prompts are
+    left-padded to 640 positions, the first 576 overwritten by the
+    server's zero patch embeddings; every request finishes, the prefill
+    logits are finite, a prefill with seeded random patches differs from
+    one with zero patches (the frontend is live); then a profiled window."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Request, ServeConfig, Server
+
+    cfg = get_config(VLM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in _leaves(params))
+    print(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"heads {cfg.n_heads}/{cfg.n_kv} x {cfg.head_dim} vocab "
+          f"{cfg.vocab_pad}, {cfg.n_patches} patch positions, "
+          f"{n_params / 1e9:.2f} B random {cfg.compute_dtype} params (seed "
+          f"0) made on the card in {time.perf_counter() - t0:.1f} s")
+    srv = Server(cfg, ServeConfig(**VLM_SERVE), params, device="cuda")
+    check(not srv.pooled, f"{cfg.name}: the vision prefix took the pool")
+    cache_mb = sum(srv.cache[f].numel() * srv.cache[f].element_size()
+                   for f in ("k", "v")) / 1e6
+    before = ckd_kernel.launches
+    warm = Request(rid=10_000, prompt=list(range(1, 17)))
+    srv.submit(warm)
+    srv.run_until_drained()
+    warm_steps = srv.steps_run
+    reqs = _requests(Request, cfg.vocab, seed=7, n=N_REQUESTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_s = _drive(srv, reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(peak_gb <= PEAK_LIMIT_GB,
+          f"{cfg.name}: peak allocated {peak_gb:.2f} GB > {PEAK_LIMIT_GB}")
+    check(ckd_kernel.launches == before, f"{cfg.name}: the pool gather "
+          "launched on the ring")
+    check(all(r.done and len(r.out) == SERVE["max_new_tokens"]
+              for r in reqs + [warm]), f"{cfg.name}: a request did not "
+          "finish")
+    prompt = reqs[0].prompt
+    toks = torch.tensor([[0] * (VLM_SERVE["max_prompt"] - len(prompt))
+                         + prompt], device="cuda")
+    shape = (1, cfg.n_patches, cfg.d_model)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cd = getattr(torch, cfg.compute_dtype)
+    patches = {"zero": torch.zeros(shape, dtype=cd, device="cuda"),
+               "random": torch.randn(shape, generator=gen, device="cuda")
+               .to(cd)}
+    logits = {}
+    with torch.no_grad():
+        for key, p in patches.items():
+            logits[key], _ = lm.prefill(cfg, srv.params, toks, patches=p)
+    check(all(tuple(v.shape) == (1, cfg.vocab_pad)
+              and bool(torch.isfinite(v[:, :cfg.vocab]).all())
+              for v in logits.values()),
+          f"{cfg.name}: prefill logits not finite of shape (1, vocab_pad)")
+    moved = float((logits["random"] - logits["zero"])[:, :cfg.vocab]
+                  .abs().max())
+    check(moved > 0, f"{cfg.name}: random patches left the logits as "
+          "zero patches do")
+    summ = srv.log.summary(rids={r.rid for r in reqs})
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"serve {cfg.name} ring: {len(reqs)} requests (max_prompt "
+          f"{VLM_SERVE['max_prompt']}), {n_tok} tokens in {dt:.3f} s = "
+          f"{n_tok / dt:.1f} tok/s steady-state; "
+          f"{srv.steps_run - warm_steps} decode steps, "
+          f"{1e3 * sum(decode_s) / len(decode_s):.2f} ms/step mean, "
+          f"{1e3 * sorted(decode_s)[len(decode_s) // 2]:.2f} ms/step p50; "
+          f"TTFT p50 {1e3 * summ['ttft_p50_s']:.1f} ms; ring cache "
+          f"{cache_mb:.0f} MB; peak allocated {peak_gb:.2f} GB; random "
+          f"patches move the prefill logits by up to {moved:.3g} "
+          f"(first request: {reqs[0].out[:8]}...)")
+    profile_decode(torch, srv, Request)
+    del srv, params
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 5
@@ -983,6 +1152,130 @@ def cross_device_phase(torch, arch: str):
     print(f"{tag}: card snapshot after {BENCH_SNAP_STEP} "
           f"decode steps restored on the CPU; {len(moved)} requests "
           f"finished there with the card's tokens, planes and tables")
+
+
+def with_margin(torch, fn, *args) -> float:
+    """Run ``fn(*args)`` watching the MoE routing; a failure is reported
+    with the smallest router margin the run saw. Returns that margin."""
+    with watching_routes(torch, margins=True) as seen:
+        try:
+            fn(*args)
+        except RuntimeError as exc:
+            raise RuntimeError(f"{exc} (smallest router margin of the run: "
+                               f"{min_margin(torch, seen)})") from exc
+    return min_margin(torch, seen)
+
+
+def moe_layer_phase(torch) -> None:
+    """One full-width olmoe-1b-7b layer's MoE block (64 experts top-8,
+    d_model 2048, d_ff 1024) in f32 (TF32 off), on the card and the CPU,
+    for the 8-token decode group and one 128-token prefill group: the
+    card's router logits, copied to the CPU, route alike there (experts
+    and keep mask identical), and the outputs agree within ``LOGITS_TOL``
+    of their largest magnitude."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p = moe.moe_init(cfg, gen, torch.float32)
+    p_cpu = {k: v.cpu() for k, v in p.items()}
+    for label, (b, t) in MOE_LAYER_GROUPS:
+        x = torch.randn(b, t, cfg.d_model, generator=gen, device="cuda")
+        _, _, cap = moe.groups(cfg, b * t)
+        with torch.no_grad():
+            logits = moe.router_logits(cfg, p, x)
+            r = moe.route(cfg, logits, cap)
+            y = moe.experts(cfg, p, x, r, cap).cpu()
+            r_cpu = moe.route(cfg, logits.cpu(), cap)
+            y_cpu = moe.experts(cfg, p_cpu, x.cpu(), r_cpu, cap)
+            own = moe.router_logits(cfg, p_cpu, x.cpu())
+        top = logits.topk(cfg.top_k + 1, dim=-1).values
+        margin = float((top[..., -2] - top[..., -1]).min())
+        tag = f"moe layer {cfg.name} {label} ({b * t} tokens, capacity {cap})"
+        check(torch.equal(r.idx.cpu(), r_cpu.idx)
+              and torch.equal(r.keep.cpu(), r_cpu.keep),
+              f"{tag}: the card and the CPU route the card's logits apart")
+        err = float((y - y_cpu).abs().max())
+        scale = float(y_cpu.abs().max())
+        check(bool(torch.isfinite(y).all()) and err <= LOGITS_TOL * scale,
+              f"{tag}: outputs differ by {err:.3g} of {scale:.3g} (smallest "
+              f"router margin {margin:.3g})")
+        print(f"{tag}: at f32 (TF32 off) experts and keep mask identical "
+              f"card vs CPU; {1 - float(r.keep.float().mean()):.1%} of "
+              f"{r.keep.numel()} assignments dropped; output max abs diff "
+              f"{err:.3g} of max {scale:.3g} (tol {LOGITS_TOL} relative); "
+              f"smallest k-th to (k+1)-th router logit gap {margin:.3g}; "
+              f"the CPU's own router logits within "
+              f"{float((logits.cpu() - own).abs().max()):.3g} of the card's")
+    del p, p_cpu
+    torch.cuda.empty_cache()
+
+
+def _random_patches(torch, srv) -> None:
+    """Give ``srv``'s prefills seeded random patch embeddings (the k-th
+    admission's drawn on the CPU from seed k) in place of the server's
+    zero ones, alike on every device."""
+    step, count = srv.prefill, [0]
+
+    def prefill(params, tokens, patches=None):
+        gen = torch.Generator().manual_seed(count[0])
+        count[0] += 1
+        rnd = torch.randn(patches.shape, generator=gen)
+        return step(params, tokens, rnd.to(patches.device, patches.dtype))
+
+    srv.prefill = prefill
+
+
+def ring_cross_phase(torch, arch: str) -> None:
+    """``arch`` (a ring-cache config) reduced at f32 (TF32 off) with
+    bench_serve's slots and requests, on the card and the CPU (a vision
+    prefix with seeded random patches): identical tokens; the first
+    wave's prefill logits and the first decode step's within
+    ``LOGITS_TOL``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Request, ServeConfig, Server
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              compute_dtype="float32")
+    tag = f"cross-device {cfg.name}"
+    params = lm.init_params(cfg, seed=1, device="cpu")
+    sc = ServeConfig(**BENCH_SERVE)
+    out, logits = {}, {}
+    for dev in ("cuda", "cpu"):
+        srv = Server(cfg, sc, params, device=dev)
+        check(not srv.pooled, f"{tag}: took the pool, not the ring")
+        logits[dev] = []
+        keep_logits(torch, lm, srv, logits[dev])
+        if cfg.frontend == "vision_stub":
+            _random_patches(torch, srv)
+        reqs = _bench_requests(Request, cfg.vocab)
+        for r in reqs:
+            srv.submit(r)
+        srv.run_until_drained()
+        out[dev] = [r.out for r in reqs]
+    check(len(logits["cuda"]) == len(logits["cpu"]),
+          f"{tag}: the card and the CPU ran different step counts")
+    first = BENCH_SERVE["n_slots"] + 1      # the first wave's prefills
+    errs = [float((a - b).abs().max())      # and the first decode step
+            for a, b in zip(logits["cuda"], logits["cpu"])]
+    check(all(torch.allclose(a, b, rtol=LOGITS_TOL, atol=LOGITS_TOL)
+              for a, b in zip(logits["cuda"][:first], logits["cpu"][:first])),
+          f"{tag}: prefill or first-step logits differ by "
+          f"{max(errs[:first]):.3g}")
+    check(out["cuda"] == out["cpu"],
+          f"{tag}: card {out['cuda']} vs CPU {out['cpu']}")
+    window = f", window {cfg.sliding_window}" if cfg.sliding_window else ""
+    print(f"{tag} (ring{window}"
+          + (", random patches" if cfg.frontend == "vision_stub" else "")
+          + f"): at f32 (TF32 off) {len(out['cpu'])} requests x "
+          f"{BENCH_SERVE['max_new_tokens']} tokens on {BENCH_SERVE['n_slots']}"
+          f" slots served identical tokens on the card and the CPU; prefill "
+          f"and first-step logits within rtol=atol={LOGITS_TOL} (max abs "
+          f"diff {max(errs[:first]):.3g}; over all {len(errs)} steps "
+          f"{max(errs):.3g})")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2450,6 +2743,9 @@ def _cpu_worker(conn, stages) -> None:
     main process stops it (SIGSTOP) at any point, which must never be
     inside the CUDA driver."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    # the main process asks for every thread's stack (to stderr) before it
+    # gives up on a worker that stopped answering
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     try:
         for stage in stages:
             try:
@@ -2462,6 +2758,11 @@ def _cpu_worker(conn, stages) -> None:
         conn.close()
 
 
+WORKER_EXIT_S = 30               # a worker's exit after its last result
+RECEIVE_S = 180                  # a stage's result, once the worker runs
+WATCHDOG_S = 1000                # past it, every thread's stack to stderr
+
+
 class CpuSide:
     """Stages of the CPU side (``CPU_STAGES``, run in the order given) in
     a spawned worker process that runs only while the script
@@ -2469,7 +2770,10 @@ class CpuSide:
     a time, ``resume`` lets it go on (SIGCONT), ``receive`` lets it finish
     the next stage and returns its result (and stops it again while stages
     remain), ``close`` kills it (SIGKILL ends a stopped process too) on
-    every way out of ``main``. With no stages it starts no process."""
+    every way out of ``main``. With no stages it starts no process. A
+    worker that gives no result within ``RECEIVE_S`` of being let run
+    prints its threads' stacks and is killed; its stages then run in the
+    main process (the same functions, so the same checks)."""
 
     def __init__(self, stages=tuple(CPU_STAGES)):
         import multiprocessing
@@ -2478,6 +2782,7 @@ class CpuSide:
         self.ran = 0.0                  # seconds it was let run (this stage)
         self._since = None
         self.worker = None
+        self.lost = False               # the worker stopped answering
         if not self.stages:
             return
         ctx = multiprocessing.get_context("spawn")
@@ -2501,7 +2806,7 @@ class CpuSide:
             self._since = None
 
     def resume(self) -> None:
-        if self._since is None and self.stages:
+        if self._since is None and self.stages and not self.lost:
             self._signal(signal.SIGCONT)
             self._since = time.perf_counter()
 
@@ -2514,25 +2819,57 @@ class CpuSide:
         ran, self.ran = self.ran, 0.0
         self.resume()
         t0 = time.perf_counter()
-        try:
-            got, status, data = self.recv.recv()
-        except EOFError:
-            got, status, data = stage, "error", ("the worker exited "
-                                                 "without a result")
+        if self.lost or not self.recv.poll(RECEIVE_S):
+            got, status, data = stage, "ok", self._run_here(stage)
+        else:
+            try:
+                got, status, data = self.recv.recv()
+            except EOFError:
+                got, status, data = stage, "error", ("the worker exited "
+                                                     "without a result")
         waited = time.perf_counter() - t0
         check(got == stage and status == "ok",
               f"{stage}: the CPU side failed:\n{data}")
         self.stages.pop(0)
-        if self.stages:
+        if self.lost:
+            pass                        # nothing left to stop or join
+        elif self.stages:
             self.pause()
             self.ran = 0.0              # the next stage starts now
         else:
-            self.worker.join()
+            # its results are in: a worker that does not exit is killed,
+            # never waited on
+            self.worker.join(WORKER_EXIT_S)
+            if self.worker.is_alive():
+                print(f"{stage}: the CPU worker had not exited "
+                      f"{WORKER_EXIT_S} s after its last result: killed")
+                self._signal(signal.SIGKILL)
+                self.worker.join()
             self._since = None
         print(f"{stage}: the CPU side (a worker process, stopped through "
               f"every timed phase) had run {ran:.1f} s beside the untimed "
               f"phases and was ready after {waited:.1f} s more")
         return data
+
+    def _run_here(self, stage: str):
+        """``stage``'s CPU side in this process, after the worker (asked
+        for its stacks first, once) is killed."""
+        import torch
+
+        if not self.lost:
+            print(f"{stage}: the CPU worker gave no result within "
+                  f"{RECEIVE_S} s of running; its threads' stacks follow on "
+                  "stderr; it is killed and its stages run here")
+            self._signal(signal.SIGUSR1)
+            time.sleep(2)
+            self._signal(signal.SIGKILL)
+            self.worker.join()
+            self.lost, self._since = True, None
+        n = torch.get_num_threads()
+        try:
+            return CPU_STAGES[stage]()
+        finally:
+            torch.set_num_threads(n)
 
     def close(self) -> None:
         if self.worker is not None and self.worker.is_alive():
@@ -3816,11 +4153,16 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
 
     phases = selected_phases(args.only)
+    # a run stopped from outside leaves a log that ends where it stopped,
+    # and one still running at WATCHDOG_S shows where it waits
+    sys.stdout.reconfigure(line_buffering=True)
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=False)
     cpu_side = CpuSides(tuple(s for s in CPU_STAGES
                               if STAGE_PHASE[s] in phases))
     try:
         return _main(torch, build, cpu_side, phases, t_start)
     finally:
+        faulthandler.cancel_dump_traceback_later()
         cpu_side.close()
 
 
@@ -3867,11 +4209,16 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
         launches, ring_kv = serve_phase(torch)
         serving = [("serving", get_config("qwen2.5-3b").n_heads, ring_kv)]
         for arch in DENSE_ARCHS:
-            n, kv = serve_phase(torch, arch, SERVE_RUNS[:2],
-                                N_REQUESTS_DENSE)
+            n, kv = serve_phase(torch, arch, SERVE_RUNS[:2])
             launches += n
             serving.append((f"serving_{arch}", get_config(arch).n_heads,
                             {0: kv[0]}))
+        t_families = time.perf_counter()
+        n, _ = serve_phase(torch, MOE_ARCH, SERVE_RUNS[:2])
+        launches += n
+        vlm_serve_phase(torch)
+        print(f"serve: {MOE_ARCH} and {VLM_ARCH} took "
+              f"{time.perf_counter() - t_families:.1f} s of the phase")
         lap("serve")
     if "decode" in phases:
         decode, decode_launches = decode_phase(
@@ -3885,6 +4232,15 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
     if "cross" in phases:
         for arch in ("qwen2.5-3b",) + DENSE_ARCHS:
             cross_device_phase(torch, arch)
+        margin = with_margin(torch, cross_device_phase, torch, MOE_ARCH)
+        print(f"cross-device {MOE_ARCH}-reduced: smallest router margin "
+              f"{margin:.3g}")
+        moe_layer_phase(torch)
+        for arch in RING_ARCHS:
+            margin = with_margin(torch, ring_cross_phase, torch, arch)
+            if get_config(arch).family == "moe":
+                print(f"cross-device {arch}-reduced: smallest router margin "
+                      f"{margin:.3g}")
         lap("cross")
     if "kvstate" in phases:
         kvstate_phase(torch)

@@ -1,8 +1,10 @@
-"""Architecture configs of the port (the dense decoders the port serves).
+"""Architecture configs of the port (the decoders the port serves: the
+dense ones, the MoE ones and the vision-prefix one).
 Importing ``load_all()`` populates the registry."""
 import importlib
 
-_MODULES = ("qwen2_5_3b", "yi_6b", "stablelm_12b", "granite_20b")
+_MODULES = ("qwen2_5_3b", "yi_6b", "stablelm_12b", "granite_20b",
+            "mixtral_8x7b", "olmoe_1b_7b", "phi3_vision_4_2b")
 
 
 def load_all():

@@ -1,6 +1,8 @@
 """Model configuration for the port: the fields of ``repro.configs.base``
-that the serving and training slices read, with the same names, defaults
-and ``reduced()`` so a test can build the same model in both packages."""
+that the serving and training slices read (the MoE and vision-stub fields
+included; ``moe_ep``, a sharding hint, waits for sharding), with the same
+names, defaults and ``reduced()`` so a test can build the same model in
+both packages."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,9 +27,15 @@ class ModelConfig:
     norm: str = "rmsnorm"       # rmsnorm | layernorm
     act: str = "silu"           # silu | gelu
     tie_embeddings: bool = False
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_group: int = 2048       # tokens per dispatch group
     sliding_window: int = 0
     enc_layers: int = 0
     frontend: str = "none"      # none | audio_stub | vision_stub
+    n_patches: int = 0          # vision_stub prefix length
     # coded-memory integration (the paper's technique)
     coded_embedding: bool = False
     embed_banks: int = 8        # data banks for the coded vocab table
@@ -71,9 +79,13 @@ class ModelConfig:
             head_dim=32,
             d_ff=256,
             vocab=512,
+            n_experts=min(self.n_experts, 4),
+            top_k=min(self.top_k, 2),
+            moe_group=64,
             sliding_window=min(self.sliding_window, 16)
             if self.sliding_window else 0,
             enc_layers=min(self.enc_layers, 2),
+            n_patches=min(self.n_patches, 8) if self.n_patches else 0,
         )
 
 

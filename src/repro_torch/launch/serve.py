@@ -5,8 +5,13 @@ CUDA card unless ``--device`` names another.
       [--reduced] [--device cpu] --requests 8 --slots 4 [--telemetry] \
       [--kv-banks 0]
 
-``--arch`` is one of the dense configs the port serves: qwen2.5-3b,
-yi-6b, stablelm-12b, granite-20b.
+``--arch`` is one of the configs the port serves: the dense qwen2.5-3b,
+yi-6b, stablelm-12b and granite-20b, the MoE olmoe-1b-7b (on the pool)
+and mixtral-8x7b (sliding window: the ring; it needs more than one card
+at full width, so serve it ``--reduced``), and the vision-prefix
+phi-3-vision-4.2b (the ring; zero patch embeddings over each prompt's
+first ``n_patches`` positions, so ``--max-prompt`` must reach 576 at full
+width, 8 reduced).
 
 Reports steady-state decode throughput (a warm-up request runs first, so
 the timed run excludes first-call set-up and the kernel build),
@@ -72,6 +77,10 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.kv_banks is not None:
         cfg = dataclasses.replace(cfg, kv_banks=args.kv_banks)
+    if cfg.frontend == "vision_stub" and args.max_prompt < cfg.n_patches:
+        ap.error(f"{cfg.name} writes {cfg.n_patches} patch embeddings over "
+                 f"each prompt: pass --max-prompt >= {cfg.n_patches} (and "
+                 "--max-seq above it)")
     params = lm.init_params(cfg, seed=args.seed, device=device)
     sc = ServeConfig(n_slots=args.slots, max_prompt=args.max_prompt,
                      max_seq=args.max_seq, max_new_tokens=args.max_new,

@@ -5,12 +5,14 @@
       [--ckpt DIR] [--fail-at 7]
 
 ``--arch`` is one of the dense configs: qwen2.5-3b, yi-6b, stablelm-12b,
-granite-20b. ``--reduced`` trains the CPU-sized variant. Without
-``--ckpt`` the run checkpoints into a fresh temporary directory; with it,
-the run resumes from the newest step committed there. Deterministic
-algorithms are on (``CUBLAS_WORKSPACE_CONFIG=:4096:8`` is set before
-cuBLAS starts), so a run restarted by ``--fail-at`` ends bit-identical to
-an uninterrupted one. ``--mesh-data``/``--mesh-model`` above 1 are not
+granite-20b (the MoE and vision-prefix configs serve but do not train
+yet: they raise ``NotImplementedError``). ``--reduced`` trains the
+CPU-sized variant. Without ``--ckpt`` the run checkpoints into a fresh
+temporary directory; with it, the run resumes from the newest step
+committed there. Deterministic algorithms are on
+(``CUBLAS_WORKSPACE_CONFIG=:4096:8`` is set before cuBLAS starts), so a
+run restarted by ``--fail-at`` ends bit-identical to an uninterrupted
+one. ``--mesh-data``/``--mesh-model`` above 1 are not
 ported (one device; ROADMAP.md queue 1 item 5).
 """
 from __future__ import annotations

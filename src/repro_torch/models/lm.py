@@ -1,9 +1,12 @@
 """Language model of the serving and training slices (``repro.models.lm``
-counterpart): the dense decoder family; training's ``forward``/``loss_fn``
-over the layer loop with per-layer recompute (``backbone``); prompt
-prefill, the decode step over a ring cache (``cache_spec``/
-``decode_step``) and the decode step over the coded KV page pool
-(``decode_step_pooled``).
+counterpart): the dense decoder family, which training covers, and, for
+serving, the MoE family (``models/moe.py`` in place of the MLP) and the
+vision-prefix family (the dense stack, patch embeddings written over the
+prompt's first positions by ``apply_frontend``); training's
+``forward``/``loss_fn`` over the layer loop with per-layer recompute
+(``backbone``); prompt prefill, the decode step over a ring cache
+(``cache_spec``/``decode_step``) and the decode step over the coded KV
+page pool (``decode_step_pooled``).
 
 Params are nested dicts in the JAX package's layout: per-layer leaves
 stacked on axis 0 under ``"blocks"``, matrices ``(d_in, d_out)``, an
@@ -31,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.coded_kv_decode import ops as ckd_ops
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as ly
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.embedding import (coded_parity, embed_init,
                                           embed_lookup, tied_logits)
 from repro_torch.obs import serve as obs_serve
@@ -39,16 +43,22 @@ from repro_torch.runtime import kvbank as kb
 Params = Dict[str, Any]
 
 
-def check_slice(cfg: ModelConfig) -> None:
+def check_slice(cfg: ModelConfig, *, training: bool = False) -> None:
     """Raise ``NotImplementedError`` for a config outside the ported
-    slice: the dense RoPE decoder (RMSNorm or LayerNorm, SwiGLU or an
-    ungated GELU MLP, a tied or untied head), global or sliding-window
-    attention."""
-    if cfg.family != "dense" or cfg.is_encdec or cfg.frontend != "none" \
-            or cfg.pos != "rope":
+    slice: the RoPE decoder (RMSNorm or LayerNorm, SwiGLU or an ungated
+    GELU MLP, a tied or untied head, global or sliding-window attention)
+    of the dense family; for serving also the MoE family and the vision
+    prefix (``vlm`` with ``frontend="vision_stub"``)."""
+    served = {"dense": "none", "moe": "none", "vlm": "vision_stub"}
+    if cfg.family not in served or cfg.frontend != served[cfg.family] \
+            or cfg.is_encdec or cfg.pos != "rope":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense RoPE decoder is ported (ROADMAP.md, "
+            f"{cfg.name}: the {cfg.family} family is not ported (ROADMAP.md, "
             "queue 1 item 4: the other model families)")
+    if training and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family is not ported "
+            "(ROADMAP.md, queue 1 item 4); the port serves it")
 
 
 def _map(fn: Callable, tree):
@@ -97,14 +107,16 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     gen.manual_seed(seed)
     cd = dtype or getattr(torch, cfg.compute_dtype)
     lead = (cfg.n_layers,)
-    params = {
-        "embed": embed_init(cfg, gen, cd),
-        "final_norm": ly.norm_init(cfg, cd, device),
-        "blocks": {"norm1": ly.norm_init(cfg, cd, device, lead),
-                   "norm2": ly.norm_init(cfg, cd, device, lead),
-                   "attn": ly.attn_init(cfg, gen, cd, lead),
-                   "mlp": ly.mlp_init(cfg, gen, cd, lead)},
-    }
+    blocks = {"norm1": ly.norm_init(cfg, cd, device, lead),
+              "norm2": ly.norm_init(cfg, cd, device, lead),
+              "attn": ly.attn_init(cfg, gen, cd, lead)}
+    if cfg.family == "moe":
+        blocks["moe"] = moe_mod.moe_init(cfg, gen, cd, lead)
+    else:
+        blocks["mlp"] = ly.mlp_init(cfg, gen, cd, lead)
+    params = {"embed": embed_init(cfg, gen, cd),
+              "final_norm": ly.norm_init(cfg, cd, device),
+              "blocks": blocks}
     if not cfg.tie_embeddings:
         params["lm_head"] = ly.normal_init(
             gen, (cfg.d_model, cfg.vocab_pad), cfg.d_model ** -0.5, cd)
@@ -148,8 +160,15 @@ def _dense_block(cfg, bp, x, positions, q_chunk):
     h = ly.apply_norm(cfg, bp["norm1"], x)
     x = x + ly.attention_block(cfg, bp["attn"], h, positions,
                                cfg.sliding_window, q_chunk)
-    h = ly.apply_norm(cfg, bp["norm2"], x)
-    return x + ly.mlp_block(cfg, bp["mlp"], h)
+    return x + _ffn(cfg, bp, ly.apply_norm(cfg, bp["norm2"], x))
+
+
+def _ffn(cfg, bp, h):
+    """The block's feed-forward half: the MoE block where the layer has
+    one (``repro`` lm.py:197), else the MLP."""
+    if "moe" in bp:
+        return moe_mod.moe_block(cfg, bp["moe"], h)
+    return ly.mlp_block(cfg, bp["mlp"], h)
 
 
 # the dots policy keeps what JAX's dots_with_no_batch_dims_saveable keeps:
@@ -215,11 +234,11 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
 
 
 def _block_tail(cfg, bp, x, o):
-    """Attention output projection + residual, then the MLP half."""
+    """Attention output projection + residual, then the feed-forward
+    half."""
     b, t = o.shape[:2]
     x = x + o.reshape(b, t, cfg.n_heads * cfg.head_dim) @ bp["attn"]["wo"]
-    h = ly.apply_norm(cfg, bp["norm2"], x)
-    return x + ly.mlp_block(cfg, bp["mlp"], h)
+    return x + _ffn(cfg, bp, ly.apply_norm(cfg, bp["norm2"], x))
 
 
 # ======================================================================
@@ -253,21 +272,39 @@ def _ring(kv: torch.Tensor, cap_full: int, window: int) -> torch.Tensor:
     return out
 
 
+def apply_frontend(cfg: ModelConfig, x: torch.Tensor,
+                   patches: Optional[torch.Tensor]) -> torch.Tensor:
+    """vision_stub: the patch embeddings (B, P, D) written over positions
+    [0, P) of the token embeddings x (B, S, D), out of place (``repro``
+    lm.py:310). Other frontends, or no patches, leave x as it is."""
+    if cfg.frontend != "vision_stub" or patches is None:
+        return x
+    n = patches.shape[1]
+    if n > x.shape[1]:
+        raise ValueError(f"{cfg.name}: {n} patch embeddings do not fit a "
+                         f"prompt of {x.shape[1]} positions")
+    return torch.cat([patches.to(x.dtype), x[:, n:]], 1)
+
+
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            max_seq: Optional[int] = None
+            max_seq: Optional[int] = None,
+            patches: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the prompt (B, S); return (last-token logits (B, V) f32,
     cache {"pos": (B,) = S, "k", "v": (L, B, C, Hkv, Dh)}). Causal (and,
     under a sliding window, windowed) attention over every position, pads
     included, as in the JAX package. The K/V are placed as a ring of
-    capacity ``max(max_seq or S, S)``, cut to the window."""
+    capacity ``max(max_seq or S, S)``, cut to the window. ``patches``
+    (B, P, D), for a vision_stub config, overwrite the first P positions'
+    embeddings (``apply_frontend``)."""
     cd = getattr(torch, cfg.compute_dtype)
     b, s = tokens.shape
     cap_full = max(max_seq or s, s)
     window = cfg.sliding_window
     positions = torch.arange(s, device=tokens.device)[None, :]
     mask = ly.causal_mask(s, s, tokens.device, 0, window)
-    x = embed_lookup(cfg, params["embed"], tokens, cd)
+    x = apply_frontend(cfg, embed_lookup(cfg, params["embed"], tokens, cd),
+                       patches)
     ks, vs = [], []
     for i in range(cfg.n_layers):
         bp = layer_params(params["blocks"], i)
@@ -300,8 +337,7 @@ def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
                                       cache["k"][i], cache["v"][i],
                                       cfg.sliding_window)
         x = x + o
-        h = ly.apply_norm(cfg, bp["norm2"], x)
-        x = x + ly.mlp_block(cfg, bp["mlp"], h)
+        x = x + _ffn(cfg, bp, ly.apply_norm(cfg, bp["norm2"], x))
     x = ly.apply_norm(cfg, params["final_norm"], x)
     cache["pos"] = pos + 1
     return _logits(cfg, params, x)[:, 0], cache

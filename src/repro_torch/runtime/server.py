@@ -6,16 +6,22 @@ prompt left-padded with token 0 to ``max_prompt``) -> decode slot (joins the
 batched decode step) -> finished (EOS / ``max_new_tokens``). Slots are
 fixed (``n_slots``); free slots decode garbage that is ignored.
 
-Storage: when the config declares KV banks (``cfg.kv_banks > 0``) and
-uses global attention, decode runs over the coded KV page pool. Admission
-assigns physical pages from a FIFO free list (freed pages recycle at the
-tail, so a long-running server churns placement), appends mark the
-code-status table, reads follow the planner's degraded-read plan through the
-pool gather, and the ReCoding unit refreshes parity between steps.
+Models: the dense and MoE decoders, and the vision-prefix decoder, whose
+prompts get zero patch embeddings over their first ``n_patches``
+positions at admission (as the JAX ``Server`` gives them).
+
+Storage: when the config declares KV banks (``cfg.kv_banks > 0``), uses
+global attention and has no frontend, decode runs over the coded KV page
+pool. Admission assigns physical pages from a FIFO free list (freed pages
+recycle at the tail, so a long-running server churns placement), appends
+mark the code-status table, reads follow the planner's degraded-read plan
+through the pool gather, and the ReCoding unit refreshes parity between
+steps.
 ``ServeConfig.coded=False`` serves from the uncoded pool (no parity), and
 ``ServeConfig.telemetry=True`` keeps the device metric planes in the decode
 cache (``serve_snapshot()`` reads them). Otherwise (``kv_banks == 0`` or a
-sliding window) decode runs over a ring cache (``lm.cache_spec``).
+sliding window, or a vision prefix) decode runs over a ring cache
+(``lm.cache_spec``).
 
 Fault tolerance: ``snapshot()`` copies the server state (cache, slot table,
 page accounting) to host numpy arrays and ``restore_snapshot()`` builds
@@ -81,6 +87,12 @@ class Server:
             # prefill and decode caches must agree on the ring slots
             raise ValueError(f"window {cfg.sliding_window} exceeds "
                              f"max_prompt {sc.max_prompt}")
+        self.n_patches = cfg.n_patches \
+            if cfg.frontend == "vision_stub" else 0
+        if self.n_patches > sc.max_prompt:
+            # the patches fill the (left-padded) prompt's first positions
+            raise ValueError(f"{cfg.name}: max_prompt {sc.max_prompt} is "
+                             f"below its {self.n_patches} patch positions")
         self.cfg, self.sc = cfg, sc
         self.params = lm.cast_params(cfg, params, self.device)
         self.prefill = steps_mod.make_prefill_step(cfg)
@@ -136,7 +148,13 @@ class Server:
             pad = self.sc.max_prompt - len(prompt)
             toks = torch.tensor([[0] * pad + prompt], dtype=torch.int64,
                                 device=self.device)
-            tok, cache1 = self.prefill(self.params, toks)
+            patches = None
+            if self.n_patches:
+                patches = torch.zeros(
+                    1, self.n_patches, self.cfg.d_model,
+                    dtype=getattr(torch, self.cfg.compute_dtype),
+                    device=self.device)
+            tok, cache1 = self.prefill(self.params, toks, patches)
             self._install(i, tok, cache1)
             req.out.append(int(tok[0]))
             self.log.prefill_done(req.rid)

@@ -23,7 +23,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
     mean), then ``adamw_update``. Params and optimizer state are updated
     IN PLACE and returned; ``metrics`` are 0-d tensors ``loss``,
     ``grad_norm`` (before clipping) and ``lr_step`` (the step count after
-    the update)."""
+    the update). A family the port does not train raises here."""
+    lm.check_slice(cfg, training=True)
 
     def grads_of(leaves, params, batch):
         with torch.enable_grad():
@@ -69,11 +70,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """``prefill_step(params, tokens (B, S)) -> (next token (B,), cache)``."""
+    """``prefill_step(params, tokens (B, S), patches=None) -> (next token
+    (B,), cache)``; ``patches`` (B, P, D) for a vision_stub config."""
 
     @torch.no_grad()
-    def prefill_step(params, tokens: torch.Tensor):
-        logits, cache = lm.prefill(cfg, params, tokens)
+    def prefill_step(params, tokens: torch.Tensor,
+                     patches: Optional[torch.Tensor] = None):
+        logits, cache = lm.prefill(cfg, params, tokens, patches=patches)
         return torch.argmax(logits, -1), cache
 
     return prefill_step

@@ -95,7 +95,7 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainConfig,
                  mesh: Optional[Tuple[int, ...]] = None,
                  opt_cfg: Optional[OptConfig] = None, *, device=None):
-        lm.check_slice(cfg)
+        lm.check_slice(cfg, training=True)
         check_mesh(mesh)
         self.cfg, self.tc = cfg, tc
         self.device = resolve_device(device)

@@ -254,14 +254,16 @@ def test_server_without_device_needs_a_card(params):
 
 
 def test_unported_paths_raise(params):
-    """What the port still leaves out raises: the other families; the
-    pooled step refuses a sliding window (that config takes the ring)."""
+    """What the port still leaves out raises: the ssm, hybrid and audio
+    families (MoE and the vision prefix serve now); the pooled step
+    refuses a sliding window (that config takes the ring)."""
     arch, _, tp = params
     _, tc = _cfgs(arch, "bfloat16")
     sc = tserver.ServeConfig(**SC)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserver.Server(dataclasses.replace(tc, family="moe"), sc, tp,
-                       device="cpu")
+    for family in ("ssm", "hybrid", "audio"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tserver.Server(dataclasses.replace(tc, family=family), sc, tp,
+                           device="cpu")
     srv = tserver.Server(tc, sc, tp, device="cpu")
     with pytest.raises(ValueError, match="sliding window"):
         tlm.decode_step_pooled(dataclasses.replace(tc, sliding_window=4),
