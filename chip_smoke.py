@@ -57,8 +57,18 @@ no result line; with no flag it runs every phase:
    a decode step's group of 8 tokens and in a prefill's group of 128;
    then phi-3-vision-4.2b (the vision prefix) from the ring cache, 8
    requests at max_prompt 640 (576 zero patch positions), all finished,
-   finite prefill logits, random patches moving them, a profiled window.
-   Every run's peak allocated memory must stay within 50 GB;
+   finite prefill logits, random patches moving them, a profiled window;
+   then the recurrent families from the ring cache, which holds each
+   slot's conv tails and f32 states: mamba2-2.7b (64 SSD mixers, d_model
+   2560) on 8 requests of 64-512 random tokens at max_prompt 512 (four
+   SSD chunks of 128), and recurrentgemma-9b (38 layers of (rec, rec,
+   local attention), d_model 4096, window 2048, vocab 256k) on 8 requests
+   of 1,024-2,048 tokens at max_prompt 2048, so decode starts at position
+   2048 and writes through the wrapped ring; each with 32 new tokens,
+   every request finished, finite prefill logits and states, ms/step,
+   tok/s, TTFT, the weight floor (param bytes / 3.35 TB/s, the drawn
+   param count within 5% of the config's ``n_params``) and a profiled
+   window. Every run's peak allocated memory must stay within 50 GB;
 4. decode attention: ``coded_kv_decode`` through ``ops.coded_kv_decode``
    (after ``ops.pack_kv_banks``) at each serving width (K/V of qwen's ring
    run's layers 0 and 35 and of each other config's layer 0: B=8, T=2048,
@@ -87,9 +97,14 @@ no result line; with no flag it runs every phase:
    olmoe layer's MoE block at f32 on the 8-token decode group and a
    128-token prefill group, the card's router logits copied to the CPU:
    experts and keep mask identical, outputs within 1e-4 of their largest
-   magnitude; mixtral-8x7b (window 16) and phi-3-vision-4.2b (seeded
-   random patches) reduced from the ring cache: identical tokens, the
-   prefill and first decode step's logits within 1e-4;
+   magnitude; one full-width layer of each recurrent mixer at f32
+   (mamba2's ``ssm_block``, recurrentgemma's ``rglru_block``) over a
+   512-token prompt and 4 decode steps from its cache: outputs and final
+   states within 1e-4 of their largest magnitude; mixtral-8x7b (window
+   16), phi-3-vision-4.2b (seeded random patches), mamba2-2.7b and
+   recurrentgemma-9b (local window 16) reduced from the ring cache:
+   identical tokens, the prefill and first decode step's logits within
+   1e-4;
 6. BankedKVState: the per-sequence state API at bench_kvbank's five cases
    on the card and on the CPU: plans, ``gather_kv`` (``gather_pool_cuda``
    on the card) and every leaf equal, before and after appends and
@@ -213,7 +228,11 @@ no result line; with no flag it runs every phase:
    launches, as the sweep phase's B = 1 window counts them) and on, and
    timed off, on, on, off; (f) both sim kernels bit for bit against
    their plain versions on live telemetry-on states of (b)'s scheme_i
-   batch. Its CPU side runs after the paper phase's in that worker.
+   batch. Counted for ``gather_pool``: (g) ``serve_report`` at its CLI
+   defaults (reduced qwen2.5-3b on the coded pool, 10 requests), whose
+   gates hold the code-status table against the oracle's replay after
+   every step and the planes against its totals; its planes equal the
+   CPU's. Its CPU side runs after the paper phase's in that worker.
 14. train: the training path (``runtime.trainer.Trainer`` ->
    ``make_train_step`` -> ``lm.loss_fn`` with the coded embedding's
    backward and per-layer recompute -> the in-place ``adamw_update``) on
@@ -236,7 +255,7 @@ no result line; with no flag it runs every phase:
    equals ``n_micro=1`` on the card (reduced granite, f32).
 
 Each kernel's launches are counted from 0 over its own main path (the
-serve runs for ``gather_pool``, the decode-attention calls for
+serve runs and the obs phase's serving report for ``gather_pool``, the decode-attention calls for
 ``coded_kv_decode``, the simulate runs and the stream, sweep, paper and
 faults and obs phases for the simulator's kernels, whose table entries
 add the six; a line before the table gives the split).
@@ -281,7 +300,20 @@ DENSE_ARCHS = ("yi-6b", "stablelm-12b", "granite-20b")
 MOE_ARCH = "olmoe-1b-7b"
 VLM_ARCH = "phi-3-vision-4.2b"
 VLM_SERVE = dict(SERVE, max_prompt=640)
-RING_ARCHS = ("mixtral-8x7b", VLM_ARCH)       # reduced card = CPU, ring
+# the recurrent families at full width from the ring with their O(1)
+# state: (serve config, prompt lengths). mamba2's prefill runs four SSD
+# chunks of 128; recurrentgemma's prompt fills its local window, so decode
+# starts at position 2048 and every step writes through the wrapped ring
+RECURRENT_SERVE = {
+    "mamba2-2.7b": (dict(SERVE, max_prompt=512, max_seq=544), (64, 512)),
+    "recurrentgemma-9b": (dict(SERVE, max_prompt=2048, max_seq=2080),
+                          (1024, 2048)),
+}
+PARAMS_TOL = 0.05                # tree's params vs the analytic n_params
+RING_ARCHS = ("mixtral-8x7b", VLM_ARCH) + tuple(RECURRENT_SERVE)
+# one full-width layer of each recurrent mixer, card vs CPU at f32: a
+# (1, 512) prompt (four SSD chunks), then decode steps from its cache
+MIXER_LAYER = dict(t=512, decode_steps=4)
 MOE_LAYER_GROUPS = (("decode", (8, 1)), ("prefill", (1, 128)))
 PEAK_LIMIT_GB = 50.0             # peak allocated of a served config
 LOGITS_TOL = 1e-4                # card vs CPU at f32: summation order
@@ -821,6 +853,9 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
+    elif isinstance(tree, tuple):          # a NamedTuple cache
+        for v in tree:
+            yield from _leaves(v)
     else:
         yield tree
 
@@ -987,6 +1022,103 @@ def vlm_serve_phase(torch) -> None:
           f"{cache_mb:.0f} MB; peak allocated {peak_gb:.2f} GB; random "
           f"patches move the prefill logits by up to {moved:.3g} "
           f"(first request: {reqs[0].out[:8]}...)")
+    profile_decode(torch, srv, Request)
+    del srv, params
+    torch.cuda.empty_cache()
+
+
+def recurrent_serve_phase(torch, arch: str) -> None:
+    """``arch`` (mamba2-2.7b or recurrentgemma-9b) at full width from the
+    ring cache, which holds each slot's conv tails and f32 recurrent
+    states (and, for the hybrid, its local-attention ring): 8 requests of
+    ``RECURRENT_SERVE``'s prompt lengths on 8 slots, 32 new tokens each.
+    Every request finishes, the prefill logits are finite, no pool gather
+    launches; prints ms/step, tok/s, TTFT, peak allocated and the weight
+    floor (param bytes / HBM rate, the param count held against the
+    config's ``n_params``), then a profiled window."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Request, ServeConfig, Server
+
+    cfg = get_config(arch)
+    sc_kw, (lo, hi) = RECURRENT_SERVE[arch]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in _leaves(params))
+    n_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    floor_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    check(abs(n_params / cfg.n_params() - 1) <= PARAMS_TOL,
+          f"{cfg.name}: {n_params} params drawn, the config counts "
+          f"{cfg.n_params()}")
+    print(f"serve: {cfg.name} ({cfg.family}) {cfg.n_layers} layers d_model "
+          f"{cfg.d_model} vocab {cfg.vocab_pad}, {n_params / 1e9:.3f} B "
+          f"random {cfg.compute_dtype} params (seed 0; the config's "
+          f"n_params {cfg.n_params() / 1e9:.3f} B) made on the card in "
+          f"{time.perf_counter() - t0:.1f} s; weight floor "
+          f"{n_bytes / 1e9:.2f} GB / {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+          f"{floor_ms:.2f} ms/step")
+    srv = Server(cfg, ServeConfig(**sc_kw), params, device="cuda")
+    check(not srv.pooled, f"{cfg.name}: took the pool, not the ring")
+    state_mb = sum(t.numel() * t.element_size()
+                   for k, v in srv.cache.items() if k != "pos"
+                   for t in _leaves(v)) / 1e6
+    before = ckd_kernel.launches
+    warm = Request(rid=10_000, prompt=list(range(1, 17)))
+    srv.submit(warm)
+    srv.run_until_drained()
+    warm_steps = srv.steps_run
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, prompt=[int(t) for t in
+                                   rng.integers(1, cfg.vocab, size=int(k))])
+            for i, k in enumerate(rng.integers(lo, hi + 1,
+                                               size=N_REQUESTS))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_s = _drive(srv, reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(peak_gb <= PEAK_LIMIT_GB,
+          f"{cfg.name}: peak allocated {peak_gb:.2f} GB > {PEAK_LIMIT_GB}")
+    check(ckd_kernel.launches == before, f"{cfg.name}: the pool gather "
+          "launched on the ring")
+    check(all(r.done and len(r.out) == sc_kw["max_new_tokens"]
+              for r in reqs + [warm]), f"{cfg.name}: a request did not "
+          "finish")
+    pad = sc_kw["max_prompt"] - len(reqs[0].prompt)
+    with torch.no_grad():
+        logits, cache = lm.prefill(cfg, srv.params, torch.tensor(
+            [[0] * pad + reqs[0].prompt], device="cuda"))
+    check(tuple(logits.shape) == (1, cfg.vocab_pad)
+          and bool(torch.isfinite(logits[:, :cfg.vocab]).all())
+          and all(bool(torch.isfinite(t.float()).all())
+                  for t in _leaves(cache)),
+          f"{cfg.name}: prefill logits or state not finite")
+    del logits, cache
+    summ = srv.log.summary(rids={r.rid for r in reqs})
+    n_tok = sum(len(r.out) for r in reqs)
+    ring = ""
+    if "k" in srv.cache:
+        c = srv.cache["k"].shape[2]
+        ring = (f"; the attention ring of {c} positions wrapped "
+                f"(decode from position {sc_kw['max_prompt']})")
+    mean_ms = 1e3 * sum(decode_s) / len(decode_s)
+    print(f"serve {cfg.name} ring: {len(reqs)} requests of "
+          f"{min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)} prompt tokens (max_prompt "
+          f"{sc_kw['max_prompt']}), {n_tok} tokens in {dt:.3f} s = "
+          f"{n_tok / dt:.1f} tok/s steady-state; "
+          f"{srv.steps_run - warm_steps} decode steps, {mean_ms:.2f} "
+          f"ms/step mean, {1e3 * sorted(decode_s)[len(decode_s) // 2]:.2f} "
+          f"ms/step p50 (weight floor {floor_ms:.2f}); TTFT p50 "
+          f"{1e3 * summ['ttft_p50_s']:.1f} ms; cache {state_mb:.0f} MB "
+          f"(recurrent state and ring, {sc_kw['n_slots']} slots); peak "
+          f"allocated {peak_gb:.2f} GB{ring} (first request: "
+          f"{reqs[0].out[:8]}...)")
     profile_decode(torch, srv, Request)
     del srv, params
     torch.cuda.empty_cache()
@@ -1212,6 +1344,63 @@ def moe_layer_phase(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def mixer_layer_phase(torch) -> None:
+    """One full-width layer of each recurrent mixer at f32 (TF32 off) on
+    the card and the CPU, from one seeded init and input: mamba2-2.7b's
+    ``ssm_block`` (d_model 2560, 80 heads x 64, state 128) and
+    recurrentgemma-9b's ``rglru_block`` (d_model 4096) over a (1, 512)
+    prompt with its cache, then ``MIXER_LAYER["decode_steps"]`` decode
+    steps from that cache: every output and the final state within
+    ``LOGITS_TOL`` of its largest magnitude."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import rglru, ssm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch, mod in (("mamba2-2.7b", ssm), ("recurrentgemma-9b", rglru)):
+        cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        if mod is ssm:
+            p = ssm.ssm_init(cfg, gen, torch.float32)
+            p["A_log"].uniform_(-1.0, 1.5, generator=gen)
+            p["D"].normal_(1.0, 0.5, generator=gen)
+            p["dt_bias"].normal_(0.0, 1.0, generator=gen)
+            block, decode = ssm.ssm_block, ssm.ssm_decode
+        else:
+            p = rglru.rglru_init(cfg, gen, torch.float32)
+            p["lam"].normal_(0.5, 1.0, generator=gen)
+            block, decode = rglru.rglru_block, rglru.rglru_decode
+        xs = [torch.randn(1, MIXER_LAYER["t"], cfg.d_model, generator=gen,
+                          device="cuda")]
+        xs += [torch.randn(1, 1, cfg.d_model, generator=gen, device="cuda")
+               for _ in range(MIXER_LAYER["decode_steps"])]
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            pd = {k: v.to(dev) for k, v in p.items()}
+            with torch.no_grad():
+                y, cache = block(cfg, pd, xs[0].to(dev), return_cache=True)
+                ys = [y]
+                for x in xs[1:]:
+                    y, cache = decode(cfg, pd, x.to(dev), cache)
+                    ys.append(y)
+            outs[dev] = [t.cpu() for t in ys + list(cache)]
+        tag = (f"mixer layer {cfg.name} {mod.__name__.split('.')[-1]} "
+               f"(d_model {cfg.d_model}, prompt {MIXER_LAYER['t']}, "
+               f"{MIXER_LAYER['decode_steps']} decode steps)")
+        errs = []
+        for a, b in zip(outs["cuda"], outs["cpu"]):
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            check(bool(torch.isfinite(a).all())
+                  and err <= LOGITS_TOL * scale,
+                  f"{tag}: card and CPU differ by {err:.3g} of {scale:.3g}")
+            errs.append(err / scale)
+        print(f"{tag}: at f32 (TF32 off) the prompt's output, each decode "
+              f"step's and the final state card = CPU within "
+              f"{LOGITS_TOL} of their largest magnitude (worst "
+              f"{max(errs):.3g}, prompt {errs[0]:.3g})")
+        del p, outs
+    torch.cuda.empty_cache()
+
+
 def _random_patches(torch, srv) -> None:
     """Give ``srv``'s prefills seeded random patch embeddings (the k-th
     admission's drawn on the CPU from seed k) in place of the server's
@@ -1267,7 +1456,8 @@ def ring_cross_phase(torch, arch: str) -> None:
           f"{max(errs[:first]):.3g}")
     check(out["cuda"] == out["cpu"],
           f"{tag}: card {out['cuda']} vs CPU {out['cpu']}")
-    window = f", window {cfg.sliding_window}" if cfg.sliding_window else ""
+    w = cfg.sliding_window or cfg.local_window
+    window = f", window {w}" if w else ""
     print(f"{tag} (ring{window}"
           + (", random patches" if cfg.frontend == "vision_stub" else "")
           + f"): at f32 (TF32 off) {len(out['cpu'])} requests x "
@@ -2682,6 +2872,7 @@ OBS_TIMELINE_MAX = 4096
 # (e): launches of a busy B = 1 batched cycle with telemetry off, as the
 # sweep phase's B = 1 profile window has measured them on the H100
 OBS_OFF_LAUNCHES = (1056, 1079)
+OBS_SERVE_LAYERS = 2             # (g): reduced qwen2.5-3b's layers
 
 
 def obs_smoke_points(telemetry: bool):
@@ -2705,8 +2896,9 @@ def obs_timeline(device):
 
 def obs_cpu_side() -> dict:
     """The obs phase's CPU side: (a)'s telemetry-on results and snapshots,
-    (c)'s availability reports' (at ``--smoke`` and at full coverage) and
-    (d)'s timeline events, on the CPU."""
+    (c)'s availability reports' (at ``--smoke`` and at full coverage),
+    (d)'s timeline events and (g)'s serve planes and token counts, on the
+    CPU."""
     import torch
 
     from repro_torch.obs import report
@@ -2722,6 +2914,11 @@ def obs_cpu_side() -> dict:
                 out_dir=os.path.join(tmp, key), **kw)
             out[key] = (got["results"], got["snapshots"])
     out["d"] = obs_timeline("cpu")
+    with quiet_harness() as tmp:
+        rep = report.serve_report(device="cpu",
+                                  out_dir=os.path.join(tmp, "serve"))
+    out["g"] = (rep["snapshot"].as_dict(),
+                [sp["n_tokens"] for sp in rep["spans"]])
     return out
 
 
@@ -3750,6 +3947,24 @@ def obs_phase(torch, cpu_side):
           f"obs: launches {launches}, wrapper calls {calls} on the card")
     check(all(v > 0 for v in launches.values()),
           f"obs: a kernel of the path never launched: {launches}")
+    # (g) the serving report at its CLI defaults (10 requests x 16 tokens
+    # on reduced qwen2.5-3b's coded pool), its own gates: the code-status
+    # table = the oracle's replay after every step, the planes = the
+    # oracle's totals; the pool gather's launches join its row's count
+    from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
+    ckd_kernel.launches = 0                         # main path starts here
+    t0 = time.perf_counter()
+    serve_rep = report.serve_report(device="cuda",
+                                    out_dir=str(out_dir / "serve"))
+    torch.cuda.synchronize()
+    secs_g = time.perf_counter() - t0
+    launches_g = ckd_kernel.launches                # main path ends here
+    serve_snap = serve_rep["snapshot"]
+    check(launches_g == serve_snap.decode_steps * OBS_SERVE_LAYERS
+          and launches_g > 0 and serve_snap.degraded_reads > 0,
+          f"obs (g): {launches_g} gather launches for "
+          f"{serve_snap.decode_steps} decode steps x {OBS_SERVE_LAYERS} "
+          f"layers, {serve_snap.degraded_reads} degraded reads")
     check(res_off == res_on, f"obs (a): telemetry off {res_off} vs on "
           f"{res_on}")
     for k, (a, b) in enumerate(zip(st_off, st_on)):
@@ -3852,9 +4067,24 @@ def obs_phase(torch, cpu_side):
           f"cycles {[r.dead_bank_cycles for r, _ in runs_c]}")
     print(f"obs (d) the timeline at its CLI defaults: {n_events} events "
           f"over {events[-1]['ts']} cycles in {secs_d:.2f} s, card = CPU")
+    want_g = cpu["g"]
+    check(serve_snap.as_dict() == want_g[0]
+          and [sp["n_tokens"] for sp in serve_rep["spans"]] == want_g[1],
+          f"obs (g): the card's serve planes {serve_snap.as_dict()} vs the "
+          f"CPU's {want_g[0]}")
+    print(f"obs (g) serve_report (reduced qwen2.5-3b, coded pool, "
+          f"{len(serve_rep['spans'])} requests): {secs_g:.2f} s, its gates "
+          f"passed (status table = oracle replay every step, planes = "
+          f"oracle totals), planes card = CPU; "
+          f"{serve_snap.decode_steps} decode steps, "
+          f"{serve_snap.degraded_reads} of {serve_snap.served_pages} page "
+          f"reads degraded, port cycles {serve_snap.coded_cycles} coded / "
+          f"{serve_snap.uncoded_cycles} uncoded, {launches_g} gather_pool "
+          f"launches; {serve_rep['md_path']}")
     print(f"obs: launches xor_gather {launches['xor_gather']}, xor_encode "
-          f"{launches['xor_encode']} over (a)-(d)")
-    return launches
+          f"{launches['xor_encode']} over (a)-(d), gather_pool {launches_g} "
+          "over (g)")
+    return dict(launches, gather_pool=launches_g)
 
 
 # ---------------------------------------------------------------- phase 14
@@ -4219,6 +4449,11 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
         vlm_serve_phase(torch)
         print(f"serve: {MOE_ARCH} and {VLM_ARCH} took "
               f"{time.perf_counter() - t_families:.1f} s of the phase")
+        t_families = time.perf_counter()
+        for arch in RECURRENT_SERVE:
+            recurrent_serve_phase(torch, arch)
+        print(f"serve: {', '.join(RECURRENT_SERVE)} took "
+              f"{time.perf_counter() - t_families:.1f} s of the phase")
         lap("serve")
     if "decode" in phases:
         decode, decode_launches = decode_phase(
@@ -4236,6 +4471,7 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
         print(f"cross-device {MOE_ARCH}-reduced: smallest router margin "
               f"{margin:.3g}")
         moe_layer_phase(torch)
+        mixer_layer_phase(torch)
         for arch in RING_ARCHS:
             margin = with_margin(torch, ring_cross_phase, torch, arch)
             if get_config(arch).family == "moe":
@@ -4281,7 +4517,8 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
         return 0
     print(f"launches by phase: simulate {sim_launches}, stream "
           f"{stream_launches}, sweep {sweep_launches}, paper "
-          f"{paper_launches}, faults {faults_launches}, obs {obs_launches}")
+          f"{paper_launches}, faults {faults_launches}, obs {obs_launches}; "
+          f"gather_pool serve {launches}, obs {obs_launches['gather_pool']}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
 
@@ -4291,7 +4528,7 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/gather_pool.cu",
         "replaces": "src/repro/kernels/coded_kv_decode/kernel.py:182",
-        "launches": launches,
+        "launches": launches + obs_launches["gather_pool"],
         "max_abs_err": max(k["max_abs_err"] for k in kern.values()),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],

@@ -1,12 +1,12 @@
 """Model configuration for the port: the fields of ``repro.configs.base``
-that the serving and training slices read (the MoE and vision-stub fields
-included; ``moe_ep``, a sharding hint, waits for sharding), with the same
-names, defaults and ``reduced()`` so a test can build the same model in
-both packages."""
+that the serving and training slices read (the MoE, vision-stub, local
+attention, SSM and RG-LRU fields included; ``moe_ep``, a sharding hint,
+waits for sharding), with the same names, defaults, ``reduced()`` and
+``n_params()`` so a test can build the same model in both packages."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +32,15 @@ class ModelConfig:
     top_k: int = 0
     capacity_factor: float = 1.25
     moe_group: int = 2048       # tokens per dispatch group
-    sliding_window: int = 0
+    # attention windows
+    sliding_window: int = 0     # >0: SWA for all attention layers (mixtral)
+    local_window: int = 0       # >0: window of "local attention" layers
+    block_pattern: Tuple[str, ...] = ()  # e.g. ("rec","rec","attn") hybrid
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_conv: int = 4
     enc_layers: int = 0
     frontend: str = "none"      # none | audio_stub | vision_stub
     n_patches: int = 0          # vision_stub prefix length
@@ -46,6 +54,7 @@ class ModelConfig:
     # its params in the compute dtype (a JAX tree is cast once, at load)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    rg_scan_bf16: bool = False  # RG-LRU scan on bf16 (a, w)
     # training's per-layer recompute: "full" saves only each layer's
     # input, "dots" also keeps the projection matmuls' outputs
     remat_policy: str = "full"
@@ -66,13 +75,39 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.enc_layers > 0
 
+    def n_params(self) -> int:
+        """The JAX package's analytic parameter count (norms, biases, the
+        convolutions and the SSM's per-head scalars left out; the RG-LRU
+        block approximated as there)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        hd = self.head_dim
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv * hd \
+            + self.n_heads * hd * d
+        mlp = (3 if self.mlp_gated else 2) * d * f
+        if self.family == "moe":
+            mlp = self.n_experts * mlp
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            di = self.ssm_expand * d
+            nh = di // self.ssm_headdim
+            per = d * (2 * di + 2 * self.ssm_state + nh) + di * d + di
+            return self.n_layers * per + emb
+        if self.family == "hybrid":
+            pat = self.block_pattern
+            n_attn = sum(1 for i in range(self.n_layers)
+                         if pat[i % len(pat)] == "attn")
+            rec = 2 * d * d + d * d + 3 * d
+            return n_attn * (attn + mlp) + (self.n_layers - n_attn) \
+                * (rec + mlp) + emb
+        return (self.n_layers + self.enc_layers) * (attn + mlp) + emb
+
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU tests (same cuts as the JAX
         package's ``reduced()``)."""
         return dataclasses.replace(
             self,
             name=self.name + "-reduced",
-            n_layers=min(self.n_layers, 2),
+            n_layers=min(self.n_layers, len(self.block_pattern) or 2),
             d_model=128,
             n_heads=4,
             n_kv=2 if 0 < self.n_kv < self.n_heads else 4,
@@ -84,6 +119,10 @@ class ModelConfig:
             moe_group=64,
             sliding_window=min(self.sliding_window, 16)
             if self.sliding_window else 0,
+            local_window=min(self.local_window, 16)
+            if self.local_window else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_headdim=32 if self.ssm_state else 64,
             enc_layers=min(self.enc_layers, 2),
             n_patches=min(self.n_patches, 8) if self.n_patches else 0,
         )

@@ -8,10 +8,15 @@ CUDA card unless ``--device`` names another.
 ``--arch`` is one of the configs the port serves: the dense qwen2.5-3b,
 yi-6b, stablelm-12b and granite-20b, the MoE olmoe-1b-7b (on the pool)
 and mixtral-8x7b (sliding window: the ring; it needs more than one card
-at full width, so serve it ``--reduced``), and the vision-prefix
+at full width, so serve it ``--reduced``), the vision-prefix
 phi-3-vision-4.2b (the ring; zero patch embeddings over each prompt's
 first ``n_patches`` positions, so ``--max-prompt`` must reach 576 at full
-width, 8 reduced).
+width, 8 reduced), the SSM mamba2-2.7b (the ring holds its conv tails and
+f32 states; a prompt past 128 positions must be a multiple of the
+128-position SSD chunk, so ``--max-prompt`` 64 or 512, say) and the
+hybrid recurrentgemma-9b (RG-LRU states and a local-attention ring, whose
+window must fit the prompt: ``--max-prompt`` >= 2048 at full width, 16
+reduced).
 
 Reports steady-state decode throughput (a warm-up request runs first, so
 the timed run excludes first-call set-up and the kernel build),
@@ -81,6 +86,10 @@ def main(argv=None):
         ap.error(f"{cfg.name} writes {cfg.n_patches} patch embeddings over "
                  f"each prompt: pass --max-prompt >= {cfg.n_patches} (and "
                  "--max-seq above it)")
+    for w in (cfg.sliding_window, cfg.local_window):
+        if w > args.max_prompt:
+            ap.error(f"{cfg.name} attends over a window of {w}: pass "
+                     f"--max-prompt >= {w} (and --max-seq above it)")
     params = lm.init_params(cfg, seed=args.seed, device=device)
     sc = ServeConfig(n_slots=args.slots, max_prompt=args.max_prompt,
                      max_seq=args.max_seq, max_new_tokens=args.max_new,

@@ -1,9 +1,10 @@
 """Transformer layers of the serving and training slices
 (``repro.models.layers`` counterparts): RMS norm and LayerNorm, half-split
 RoPE, GQA attention with optional QKV bias (full-sequence, in query
-chunks, and one-token decode over a ring cache), the SwiGLU MLP and the
-ungated GELU MLP. Plain functions over parameter dicts in the JAX
-package's ``(d_in, d_out)`` layout, so ``x @ W`` needs no transpose.
+chunks, and one-token decode over a ring cache), the SwiGLU MLP, the
+ungated GELU MLP, and the recurrent mixers' short causal conv. Plain
+functions over parameter dicts in the JAX package's ``(d_in, d_out)``
+layout, so ``x @ W`` needs no transpose.
 Everything but ``attention_decode`` (which writes its caches in place)
 is out of place, so autograd can differentiate it."""
 from __future__ import annotations
@@ -207,6 +208,20 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     out = mha(q, k_cache, v_cache, valid[:, None, None, None, :])
     return (out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"],
             k_cache, v_cache)
+
+
+# ------------------------------------------------------- causal conv
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time (the SSM's and RG-LRU's short
+    conv): x (B,T,C), w (K,C), b (C,); the K taps added one at a time,
+    each rounded in ``x``'s dtype, as the JAX package adds them."""
+    k, t = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + pad[:, i:i + t] * w[i]
+    return out + b
 
 
 # ------------------------------------------------------------------- MLP

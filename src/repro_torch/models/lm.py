@@ -1,16 +1,22 @@
 """Language model of the serving and training slices (``repro.models.lm``
 counterpart): the dense decoder family, which training covers, and, for
-serving, the MoE family (``models/moe.py`` in place of the MLP) and the
+serving, the MoE family (``models/moe.py`` in place of the MLP), the
 vision-prefix family (the dense stack, patch embeddings written over the
-prompt's first positions by ``apply_frontend``); training's
+prompt's first positions by ``apply_frontend``), the attention-free SSM
+family (mamba2: ``models/ssm.py`` mixers) and the hybrid family
+(recurrentgemma: (rec, rec, local-attn) superblocks of ``models/rglru.py``
+blocks and windowed attention, ``hybrid_layout``); training's
 ``forward``/``loss_fn`` over the layer loop with per-layer recompute
-(``backbone``); prompt prefill, the decode step over a ring cache
-(``cache_spec``/``decode_step``) and the decode step over the coded KV
+(``backbone``); prompt prefill, the decode step over a ring cache, which
+for ssm and hybrid also holds their O(1) recurrent state
+(``cache_spec``/``decode_step``), and the decode step over the coded KV
 page pool (``decode_step_pooled``).
 
 Params are nested dicts in the JAX package's layout: per-layer leaves
-stacked on axis 0 under ``"blocks"``, matrices ``(d_in, d_out)``, an
-``"lm_head"`` ``(d_model, V_pad)`` when the head is untied.
+stacked on axis 0 under ``"blocks"`` (the hybrid family: ``"rec_blocks"``
+over its recurrent layers, ``"attn_blocks"`` over its attention layers),
+matrices ``(d_in, d_out)``, an ``"lm_head"`` ``(d_model, V_pad)`` when
+the head is untied.
 
 Training keeps master params in ``cfg.param_dtype`` and, as JAX does,
 runs every op on their compute-dtype cast: the embedding, head and final
@@ -18,7 +24,9 @@ norm are cast once a step, each layer's weights inside its (recomputed)
 body, so a full-width step never holds a cast copy of the whole stack.
 Serving never changes its params: ``cast_params`` casts them once at
 load, ``init_params`` draws straight into the compute dtype one layer at
-a time, and ``prefill``/``decode_step_pooled`` take the cast params.
+a time, and ``prefill``/``decode_step``/``decode_step_pooled`` take the
+cast params (the SSM's ``A_log``, ``D``, ``dt_bias`` and the RG-LRU's
+``lam`` included, as JAX casts every float leaf).
 JAX's ``unroll``/``chunk_unroll`` are XLA scan knobs with no torch
 meaning; the port has no such arguments.
 """
@@ -35,6 +43,8 @@ from repro_torch.kernels.coded_kv_decode import ops as ckd_ops
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as ly
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rg
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.embedding import (coded_parity, embed_init,
                                           embed_lookup, tied_logits)
 from repro_torch.obs import serve as obs_serve
@@ -47,9 +57,11 @@ def check_slice(cfg: ModelConfig, *, training: bool = False) -> None:
     """Raise ``NotImplementedError`` for a config outside the ported
     slice: the RoPE decoder (RMSNorm or LayerNorm, SwiGLU or an ungated
     GELU MLP, a tied or untied head, global or sliding-window attention)
-    of the dense family; for serving also the MoE family and the vision
-    prefix (``vlm`` with ``frontend="vision_stub"``)."""
-    served = {"dense": "none", "moe": "none", "vlm": "vision_stub"}
+    of the dense family; for serving also the MoE family, the vision
+    prefix (``vlm`` with ``frontend="vision_stub"``), the SSM family and
+    the hybrid (RG-LRU + local attention) family."""
+    served = {"dense": "none", "moe": "none", "vlm": "vision_stub",
+              "ssm": "none", "hybrid": "none"}
     if cfg.family not in served or cfg.frontend != served[cfg.family] \
             or cfg.is_encdec or cfg.pos != "rope":
         raise NotImplementedError(
@@ -84,6 +96,19 @@ def unstack_layers(blocks: Params) -> List[Params]:
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_superblocks, n_rem_rec, n_attn) for the repeating block pattern
+    (``repro`` lm.py:64): the remainder layers follow the pattern's
+    prefix, where only 'rec' occurs."""
+    pat = cfg.block_pattern or ("rec", "rec", "attn")
+    per = len(pat)
+    n_super = cfg.n_layers // per
+    rem = cfg.n_layers - n_super * per
+    n_rem_rec = sum(1 for b in pat[:rem] if b == "rec")
+    n_attn = n_super * sum(1 for b in pat if b == "attn")
+    return n_super, n_rem_rec, n_attn
+
+
 def _cast(tree, dtype):
     """Float leaves of ``tree`` in ``dtype`` (no copy when they are)."""
     return _map(lambda a: a.to(dtype) if a.is_floating_point() else a,
@@ -106,7 +131,35 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     cd = dtype or getattr(torch, cfg.compute_dtype)
-    lead = (cfg.n_layers,)
+    # the layers are drawn before the embedding (the draw order of the
+    # dense family since its first slice)
+    if cfg.family == "ssm":
+        lead = (cfg.n_layers,)
+        blocks = {"blocks": {"norm1": ly.norm_init(cfg, cd, device, lead),
+                             "ssm": ssm_mod.ssm_init(cfg, gen, cd, lead)}}
+    elif cfg.family == "hybrid":
+        n_attn = hybrid_layout(cfg)[2]
+        lead = (cfg.n_layers - n_attn,)
+        blocks = {"rec_blocks": {
+            "norm1": ly.norm_init(cfg, cd, device, lead),
+            "norm2": ly.norm_init(cfg, cd, device, lead),
+            "rglru": rg.rglru_init(cfg, gen, cd, lead),
+            "mlp": ly.mlp_init(cfg, gen, cd, lead)}}
+        blocks["attn_blocks"] = _dense_blocks(cfg, gen, cd, device,
+                                              (n_attn,))
+    else:
+        blocks = {"blocks": _dense_blocks(cfg, gen, cd, device,
+                                          (cfg.n_layers,))}
+    params = {"embed": embed_init(cfg, gen, cd),
+              "final_norm": ly.norm_init(cfg, cd, device), **blocks}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = ly.normal_init(
+            gen, (cfg.d_model, cfg.vocab_pad), cfg.d_model ** -0.5, cd)
+    return params
+
+
+def _dense_blocks(cfg, gen, cd, device, lead) -> Params:
+    """Stacked pre-norm attention layers with their MLP or MoE block."""
     blocks = {"norm1": ly.norm_init(cfg, cd, device, lead),
               "norm2": ly.norm_init(cfg, cd, device, lead),
               "attn": ly.attn_init(cfg, gen, cd, lead)}
@@ -114,13 +167,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
         blocks["moe"] = moe_mod.moe_init(cfg, gen, cd, lead)
     else:
         blocks["mlp"] = ly.mlp_init(cfg, gen, cd, lead)
-    params = {"embed": embed_init(cfg, gen, cd),
-              "final_norm": ly.norm_init(cfg, cd, device),
-              "blocks": blocks}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = ly.normal_init(
-            gen, (cfg.d_model, cfg.vocab_pad), cfg.d_model ** -0.5, cd)
-    return params
+    return blocks
 
 
 def cast_params(cfg: ModelConfig, params: Params, device) -> Params:
@@ -245,17 +292,71 @@ def _block_tail(cfg, bp, x, o):
 # serving: prefill, ring decode, pooled decode
 # ======================================================================
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, device
-               ) -> Dict[str, torch.Tensor]:
-    """An empty ring cache (``repro`` lm.py:359, the dense part): ``pos``
-    (B,) int32 and ``k``/``v`` (L, B, C, Hkv, dh) in the compute dtype,
-    with C = min(seq_len, window) under a sliding window, else seq_len."""
+               ) -> Dict[str, Any]:
+    """An empty ring cache (``repro`` lm.py:359): ``pos`` (B,) int32 and,
+    by family, ``k``/``v`` (L, B, C, Hkv, dh) in the compute dtype, with
+    C = min(seq_len, window) under a sliding (local) window, else seq_len;
+    ``ssm``: an ``SSMCache`` over the layers; ``rg``: an ``RGLRUCache``
+    over the recurrent layers beside ``k``/``v`` over the attention
+    layers."""
     cd = getattr(torch, cfg.compute_dtype)
-    w = cfg.sliding_window
-    clen = min(seq_len, w) if w else seq_len
-    shape = (cfg.n_layers, batch, clen, cfg.n_kv, cfg.head_dim)
-    return {"pos": torch.zeros(batch, dtype=torch.int32, device=device),
-            "k": torch.zeros(shape, dtype=cd, device=device),
-            "v": torch.zeros(shape, dtype=cd, device=device)}
+    c: Dict[str, Any] = {"pos": torch.zeros(batch, dtype=torch.int32,
+                                            device=device)}
+
+    def kv(n_layers, window):
+        clen = min(seq_len, window) if window else seq_len
+        shape = (n_layers, batch, clen, cfg.n_kv, cfg.head_dim)
+        return torch.zeros(shape, dtype=cd, device=device)
+
+    if cfg.family == "ssm":
+        c["ssm"] = ssm_mod.ssm_cache_init(cfg, batch, cd, device,
+                                          (cfg.n_layers,))
+        return c
+    if cfg.family == "hybrid":
+        n_attn = hybrid_layout(cfg)[2]
+        c["rg"] = rg.rglru_cache_init(cfg, batch, cd, device,
+                                      (cfg.n_layers - n_attn,))
+        c["k"], c["v"] = kv(n_attn, cfg.local_window), \
+            kv(n_attn, cfg.local_window)
+        return c
+    c["k"], c["v"] = kv(cfg.n_layers, cfg.sliding_window), \
+        kv(cfg.n_layers, cfg.sliding_window)
+    return c
+
+
+def _stack_caches(caches):
+    """A list of one-layer NamedTuple caches -> one stacked on axis 0."""
+    return type(caches[0])(*(torch.stack(x) for x in zip(*caches)))
+
+
+def _layer_cache(cache, i: int):
+    """Layer ``i``'s views of a stacked NamedTuple cache."""
+    return type(cache)(*(x[i] for x in cache))
+
+
+def _rec_layer(cfg, rp, x, rc=None):
+    """One recurrent layer of the hybrid family (``repro`` lm.py:204):
+    prefill when ``rc`` is None (returns its cache too), else one decode
+    step on ``rc`` in place."""
+    h = ly.apply_norm(cfg, rp["norm1"], x)
+    if rc is None:
+        o, rc = rg.rglru_block(cfg, rp["rglru"], h, return_cache=True)
+    else:
+        o, rc = rg.rglru_decode(cfg, rp["rglru"], h, rc)
+    x = x + o
+    return x + ly.mlp_block(cfg, rp["mlp"],
+                            ly.apply_norm(cfg, rp["norm2"], x)), rc
+
+
+def _hybrid_order(cfg):
+    """The hybrid stack in depth order: ("rec", index into the recurrent
+    layers) or ("attn", index into the attention layers); superblocks of
+    (rec, rec, attn), then the remainder recurrent layers."""
+    n_super, n_rem_rec, _ = hybrid_layout(cfg)
+    order = []
+    for i in range(n_super):
+        order += [("rec", 2 * i), ("rec", 2 * i + 1), ("attn", i)]
+    return order + [("rec", 2 * n_super + j) for j in range(n_rem_rec)]
 
 
 def _ring(kv: torch.Tensor, cap_full: int, window: int) -> torch.Tensor:
@@ -289,55 +390,110 @@ def apply_frontend(cfg: ModelConfig, x: torch.Tensor,
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             max_seq: Optional[int] = None,
             patches: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process the prompt (B, S); return (last-token logits (B, V) f32,
-    cache {"pos": (B,) = S, "k", "v": (L, B, C, Hkv, Dh)}). Causal (and,
-    under a sliding window, windowed) attention over every position, pads
-    included, as in the JAX package. The K/V are placed as a ring of
-    capacity ``max(max_seq or S, S)``, cut to the window. ``patches``
-    (B, P, D), for a vision_stub config, overwrite the first P positions'
-    embeddings (``apply_frontend``)."""
+    cache) with ``pos`` (B,) = S and the family's leaves (``cache_spec``).
+    Causal (and, under a sliding or local window, windowed) attention
+    over every position, pads included, as in the JAX package. The K/V
+    are placed as a ring of capacity ``max(max_seq or S, S)``, cut to the
+    window. ``patches`` (B, P, D), for a vision_stub config, overwrite the
+    first P positions' embeddings (``apply_frontend``). The SSM mixers
+    and RG-LRU blocks hand on their conv tails and f32 states."""
     cd = getattr(torch, cfg.compute_dtype)
     b, s = tokens.shape
     cap_full = max(max_seq or s, s)
-    window = cfg.sliding_window
     positions = torch.arange(s, device=tokens.device)[None, :]
-    mask = ly.causal_mask(s, s, tokens.device, 0, window)
     x = apply_frontend(cfg, embed_lookup(cfg, params["embed"], tokens, cd),
                        patches)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], i)
+    cache: Dict[str, Any] = {"pos": torch.full((b,), s, dtype=torch.int32,
+                                               device=tokens.device)}
+
+    def attn_layer(bp, x, mask, window):
         h = ly.apply_norm(cfg, bp["norm1"], x)
         q, k, v = ly.qkv_proj(cfg, bp["attn"], h)
         q = ly.rope(q, positions, cfg.rope_theta)
         k = ly.rope(k, positions, cfg.rope_theta)
         x = _block_tail(cfg, bp, x, ly.mha(q, k, v, mask))
-        ks.append(_ring(k, cap_full, window))
-        vs.append(_ring(v, cap_full, window))
+        return x, _ring(k, cap_full, window), _ring(v, cap_full, window)
+
+    ks, vs = [], []
+    if cfg.family == "ssm":
+        scs = []
+        for i in range(cfg.n_layers):
+            bp = layer_params(params["blocks"], i)
+            o, sc = ssm_mod.ssm_block(
+                cfg, bp["ssm"], ly.apply_norm(cfg, bp["norm1"], x),
+                return_cache=True)
+            x = x + o
+            scs.append(sc)
+        cache["ssm"] = _stack_caches(scs)
+    elif cfg.family == "hybrid":
+        window = cfg.local_window
+        mask = ly.causal_mask(s, s, tokens.device, 0, window)
+        rcs = []                      # _hybrid_order takes them in order
+        for kind, j in _hybrid_order(cfg):
+            if kind == "rec":
+                x, rc = _rec_layer(cfg, layer_params(params["rec_blocks"], j),
+                                   x)
+                rcs.append(rc)
+            else:
+                x, k, v = attn_layer(layer_params(params["attn_blocks"], j),
+                                     x, mask, window)
+                ks.append(k)
+                vs.append(v)
+        cache["rg"] = _stack_caches(rcs)
+    else:
+        window = cfg.sliding_window
+        mask = ly.causal_mask(s, s, tokens.device, 0, window)
+        for i in range(cfg.n_layers):
+            x, k, v = attn_layer(layer_params(params["blocks"], i), x, mask,
+                                 window)
+            ks.append(k)
+            vs.append(v)
+    if cfg.family != "ssm":
+        new = (b, min(cap_full, window) if window else cap_full, cfg.n_kv,
+               cfg.head_dim)
+        cache["k"] = torch.stack(ks) if ks else x.new_zeros((0,) + new)
+        cache["v"] = torch.stack(vs) if vs else x.new_zeros((0,) + new)
     x = ly.apply_norm(cfg, params["final_norm"], x)
-    cache = {"pos": torch.full((b,), s, dtype=torch.int32,
-                               device=tokens.device),
-             "k": torch.stack(ks), "v": torch.stack(vs)}
     return _logits(cfg, params, x[:, -1:])[:, 0], cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
-                cache: Dict[str, torch.Tensor]):
-    """One decode step over a ring cache (``repro`` lm.py:538, the dense
-    part): token (B,) -> (logits (B, V) f32, cache), the cache's K/V
-    updated IN PLACE and its ``pos`` advanced by one."""
+                cache: Dict[str, Any]):
+    """One decode step over a ring cache (``repro`` lm.py:538): token (B,)
+    -> (logits (B, V) f32, cache), the cache's K/V, conv tails and
+    recurrent states updated IN PLACE and its ``pos`` advanced by one."""
     cd = getattr(torch, cfg.compute_dtype)
     pos = cache["pos"]
     x = embed_lookup(cfg, params["embed"], token[:, None], cd)
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], i)
+
+    def attn_layer(bp, x, i, window):
         h = ly.apply_norm(cfg, bp["norm1"], x)
         o, _, _ = ly.attention_decode(cfg, bp["attn"], h, pos,
-                                      cache["k"][i], cache["v"][i],
-                                      cfg.sliding_window)
+                                      cache["k"][i], cache["v"][i], window)
         x = x + o
-        x = x + _ffn(cfg, bp, ly.apply_norm(cfg, bp["norm2"], x))
+        return x + _ffn(cfg, bp, ly.apply_norm(cfg, bp["norm2"], x))
+
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            bp = layer_params(params["blocks"], i)
+            o, _ = ssm_mod.ssm_decode(
+                cfg, bp["ssm"], ly.apply_norm(cfg, bp["norm1"], x),
+                _layer_cache(cache["ssm"], i))
+            x = x + o
+    elif cfg.family == "hybrid":
+        for kind, j in _hybrid_order(cfg):
+            if kind == "rec":
+                x, _ = _rec_layer(cfg, layer_params(params["rec_blocks"], j),
+                                  x, _layer_cache(cache["rg"], j))
+            else:
+                x = attn_layer(layer_params(params["attn_blocks"], j), x, j,
+                               cfg.local_window)
+    else:
+        for i in range(cfg.n_layers):
+            x = attn_layer(layer_params(params["blocks"], i), x, i,
+                           cfg.sliding_window)
     x = ly.apply_norm(cfg, params["final_norm"], x)
     cache["pos"] = pos + 1
     return _logits(cfg, params, x)[:, 0], cache

@@ -17,14 +17,21 @@ markdown report and its JSON twin into ``experiments/obs/``:
 and renders reads served against failed fast, lost writes, the
 fault-degraded share and the per-bank dead cycles.
 
-Both run on the card unless ``device`` names another. Not ported: the
-serving report (``serve_report``, ``drive_serve_with_oracle``), which
-needs a port-side copy of the JAX package's serving oracle.
+``serve_report`` serves a small continuous-batching workload over the
+coded KV pool with the serve planes on (``drive_serve_with_oracle``
+replays every decode step in the NumPy oracle ``repro_torch.oracle.
+kvpool``), holds the planes against the replay exactly, and writes the
+request-path report, its JSON twin and a Chrome trace of the request
+spans.
+
+All three run on the card unless ``device`` names another.
 
 CLI::
 
     PYTHONPATH=src python -m repro_torch.obs.report --suite paper_fig18 \\
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.obs.report --serve --smoke \\
+        --device cpu
 """
 from __future__ import annotations
 
@@ -339,6 +346,182 @@ def availability_report(suite_name: str = "paper_fig18", *,
             "results": results, "snapshots": snaps}
 
 
+def drive_serve_with_oracle(srv, reqs, max_steps: int = 1000,
+                            churn_every: int = 0, churn_rng=None):
+    """Drive a pooled server to drain while replaying every decode step in
+    the ``repro_torch.oracle.kvpool`` golden model. Returns the
+    accumulated ``PlaneTotals``; raises AssertionError when the device's
+    code-status table leaves the oracle's replay after a step.
+    ``churn_every`` applies a seeded physical-page permutation every k
+    steps (placement churn, where degraded reads pay off)."""
+    from repro_torch.oracle import kvpool
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    totals = kvpool.plane_totals(srv.kvcfg.n_banks)
+    for r in reqs:
+        srv.submit(r)
+    for step in range(max_steps):
+        srv._admit()
+        if churn_every and step and step % churn_every == 0:
+            srv.permute_pool(churn_rng.permutation(srv.kvcfg.pool_pages))
+        if not any(s is not None for s in srv.slots):
+            break
+        pool = srv.cache["pool"]
+        pt, length = host(pool.page_table), host(pool.length)
+        fresh = host(pool.parity_fresh) if pool.parity_fresh.shape[0] \
+            else None
+        active = (pt[:, 0] >= 0) & (length > 0)
+        exp = kvpool.expected_step(srv.kvcfg.n_banks, srv.kvcfg.page, pt,
+                                   length, fresh, active,
+                                   srv.sc.recode_budget)
+        totals.add(exp)
+        srv.step_decode()
+        if fresh is not None and not np.array_equal(
+                host(srv.cache["pool"].parity_fresh),
+                exp.parity_fresh_after):
+            raise AssertionError(
+                "code-status table diverged from the oracle replay")
+    return totals
+
+
+def _serve_lifecycle_table(spans) -> List[str]:
+    def ms(x):
+        return f"{1e3 * x:.1f}" if x is not None else "-"
+
+    rows = []
+    for s in spans:
+        itl = s["inter_token_s"]
+        rows.append([
+            str(s["rid"]), str(s["slot"]), str(s["prompt_len"]),
+            ms(s["admission_wait_s"]), ms(s["ttft_s"]), str(s["n_tokens"]),
+            ms(float(np.mean(itl)) if itl else None),
+        ])
+    return _md_table(
+        ["req", "slot", "prompt", "wait ms", "ttft ms", "tokens",
+         "mean itl ms"], rows)
+
+
+def serve_setup(*, smoke: bool = False, seed: int = 0, device=None):
+    """The report's server and requests: reduced qwen2.5-3b with page 4
+    on the coded pool (4 slots, prompts of 6..13 tokens cut to 16,
+    max_seq 64), 5 requests of 6 tokens (``smoke``) or 10 of 16, the
+    serve planes on, params drawn from ``seed`` on ``device``."""
+    import dataclasses as _dc
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.runtime.server import Request, ServeConfig, Server
+
+    cfg = _dc.replace(get_config("qwen2.5-3b").reduced(), kv_page=4)
+    n_req = 5 if smoke else 10
+    sc = ServeConfig(n_slots=4, max_prompt=16, max_seq=64,
+                     max_new_tokens=6 if smoke else 16, telemetry=True)
+    params = lm_mod.init_params(cfg, seed=seed, device=device)
+    srv = Server(cfg, sc, params, device=device)
+    if not srv.pooled:
+        raise AssertionError("serve_report needs the coded KV pool backend")
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i,
+                    prompt=[int(x) for x in
+                            rng.integers(1, cfg.vocab, size=6 + i % 8)])
+            for i in range(n_req)]
+    return srv, reqs
+
+
+def serve_report(*, out_dir: str = "experiments/obs", smoke: bool = False,
+                 seed: int = 0, device=None) -> Dict:
+    """Serve ``serve_setup``'s workload with a placement churn every 2
+    steps, hold every plane against the ``repro_torch.oracle.kvpool``
+    replay (exact equality: the report refuses to render numbers that
+    disagree), and write the request-path report: markdown, its JSON twin
+    and a Chrome trace of the request lifecycle spans. The planes depend
+    on the requests' lengths and the placement only, not on the weights.
+    Returns ``{"md_path", "json_path", "trace_path", "snapshot",
+    "totals", "spans", "summary"}``."""
+    from repro_torch.obs.runlog import run_manifest
+
+    srv, reqs = serve_setup(smoke=smoke, seed=seed, device=device)
+    sc, n_req = srv.sc, len(reqs)
+    totals = drive_serve_with_oracle(srv, reqs, churn_every=2,
+                                     churn_rng=np.random.default_rng(seed))
+    snap = srv.serve_snapshot()
+    if snap is None:
+        raise AssertionError("serve_report: the serve planes are off")
+    snap.check_against(totals)          # exact equality or AssertionError
+    spans = srv.log.spans()
+    summary = srv.log.summary()
+
+    manifest = run_manifest(config={
+        "model": srv.cfg.name, "smoke": smoke, "n_requests": n_req,
+        "n_slots": sc.n_slots, "page": srv.kvcfg.page,
+        "n_banks": srv.kvcfg.n_banks, "pool_pages": srv.kvcfg.pool_pages})
+    os.makedirs(out_dir, exist_ok=True)
+    trace_path = os.path.join(out_dir, "serve_trace.json")
+    srv.log.export_chrome_trace(trace_path, manifest=manifest)
+
+    lines = ["# Serving request path — coded KV pool", "",
+             f"git `{manifest['git_sha'][:12]}` · "
+             f"{manifest['created_iso']} · "
+             f"{manifest['devices']['backend']} backend · "
+             f"{n_req} requests, {sc.n_slots} slots, "
+             f"{srv.kvcfg.n_banks} banks, page {srv.kvcfg.page}"
+             + (" · smoke" if smoke else ""), "",
+             "Device planes cross-checked against the pure-NumPy "
+             "`repro_torch.oracle.kvpool` recompute — exact equality "
+             "asserted before rendering.", "", "## Serving planes", ""]
+    lines += _md_table(["metric", "value"], [
+        ["decode steps", str(snap.decode_steps)],
+        ["tokens appended", str(snap.appended_tokens)],
+        ["page reads", str(snap.served_pages)],
+        ["degraded reads", f"{snap.degraded_reads} "
+         f"({_pct(snap.degraded_reads, snap.served_pages)})"],
+        ["port cycles coded / uncoded",
+         f"{snap.coded_cycles} / {snap.uncoded_cycles} "
+         f"(saved {snap.cycles_saved})"],
+        ["recoded rows", str(snap.recoded_rows)],
+        ["stale backlog integral / high-water",
+         f"{snap.stale_backlog} / {snap.stale_hwm}"],
+    ])
+    lines += ["", "## Per-bank read provenance", ""]
+    vmax = int(max(snap.read_mode_bank.sum(axis=1).max(), 1))
+    lines += _md_table(
+        ["bank", "direct", "degraded", "load"],
+        [[str(b), str(int(snap.read_mode_bank[b, 0])),
+          str(int(snap.read_mode_bank[b, 1])),
+          _bar(int(snap.read_mode_bank[b].sum()), vmax)]
+         for b in range(snap.read_mode_bank.shape[0])])
+    lines += ["", "## Critical-word latency (log2 bins, port cycles)", ""]
+    agg = snap.port_lat_hist.sum(axis=0)
+    hmax = int(max(agg.max(), 1))
+    lines += ["| bin | latency | reads | |", "|---|---|---|---|"]
+    for k in range(planes.HIST_BINS):
+        if int(agg[k]) == 0:
+            continue
+        lo = 0 if k == 0 else 1 << (k - 1)
+        hi = "inf" if k == planes.HIST_BINS - 1 else (1 << k) - 1
+        span = str(lo) if hi != "inf" and lo == int(hi) else f"{lo}-{hi}"
+        lines.append(f"| {k} | {span} | {int(agg[k])} | "
+                     f"{_bar(int(agg[k]), hmax)} |")
+    lines += ["", "## Request lifecycle", ""]
+    lines += _serve_lifecycle_table(spans)
+    ttft = summary["ttft_p50_s"]
+    lines += ["", f"TTFT p50 {1e3 * ttft:.1f} ms · "
+              f"admission wait p50 "
+              f"{1e3 * (summary['admission_wait_p50_s'] or 0):.1f} ms · "
+              f"spans exported to `{trace_path}`"
+              if ttft is not None else "", ""]
+
+    blob = {"manifest": manifest, "planes": snap.as_dict(),
+            "lifecycle": {"summary": summary, "spans": spans},
+            "trace_path": trace_path}
+    md_path, json_path = _write(out_dir, "serve_report", lines, blob)
+    return {"md_path": md_path, "json_path": json_path,
+            "trace_path": trace_path, "snapshot": snap, "totals": totals,
+            "spans": spans, "summary": summary}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--suite", default="paper_fig18",
@@ -349,9 +532,19 @@ def main(argv=None) -> int:
     ap.add_argument("--availability", action="store_true",
                     help="the fault-availability report instead of stall "
                          "attribution")
+    ap.add_argument("--serve", action="store_true",
+                    help="the request-path report of the coded KV serving "
+                         "stack (obs.serve) instead of a sim suite")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
+    if args.serve:
+        out = serve_report(out_dir=args.out_dir, smoke=args.smoke,
+                           device=args.device)
+        print(f"wrote {out['md_path']}, {out['json_path']} and "
+              f"{out['trace_path']} ({len(out['spans'])} requests, "
+              "planes == oracle verified)")
+        return 0
     fn = availability_report if args.availability else stall_report
     out = fn(args.suite, out_dir=args.out_dir, smoke=args.smoke,
              device=args.device)

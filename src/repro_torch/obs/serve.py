@@ -152,9 +152,9 @@ class ServeSnapshot:
 
     def check_against(self, totals) -> None:
         """Exact conformance against an independent recompute with the
-        same plane and counter names (the JAX package's
-        ``oracle.kvpool.PlaneTotals``); raises AssertionError on the first
-        disagreeing counter."""
+        same plane and counter names (``repro_torch.oracle.kvpool.
+        PlaneTotals``, or the JAX package's); raises AssertionError on the
+        first disagreeing counter."""
         for field in ("bank_load_hist", "read_mode_bank", "port_lat_hist"):
             dev, exp = getattr(self, field), getattr(totals, field)
             if not np.array_equal(dev, np.asarray(exp)):

@@ -6,9 +6,11 @@ prompt left-padded with token 0 to ``max_prompt``) -> decode slot (joins the
 batched decode step) -> finished (EOS / ``max_new_tokens``). Slots are
 fixed (``n_slots``); free slots decode garbage that is ignored.
 
-Models: the dense and MoE decoders, and the vision-prefix decoder, whose
+Models: the dense and MoE decoders, the vision-prefix decoder, whose
 prompts get zero patch embeddings over their first ``n_patches``
-positions at admission (as the JAX ``Server`` gives them).
+positions at admission (as the JAX ``Server`` gives them), the SSM
+decoder and the RG-LRU + local-attention hybrid, whose ring cache also
+holds each slot's O(1) recurrent state (conv tails and f32 states).
 
 Storage: when the config declares KV banks (``cfg.kv_banks > 0``), uses
 global attention and has no frontend, decode runs over the coded KV page
@@ -20,8 +22,9 @@ steps.
 ``ServeConfig.coded=False`` serves from the uncoded pool (no parity), and
 ``ServeConfig.telemetry=True`` keeps the device metric planes in the decode
 cache (``serve_snapshot()`` reads them). Otherwise (``kv_banks == 0`` or a
-sliding window, or a vision prefix) decode runs over a ring cache
-(``lm.cache_spec``).
+sliding window, a vision prefix, or the ssm or hybrid family) decode
+runs over a ring cache (``lm.cache_spec``); admission copies every leaf
+of the one-request prefill cache into the slot, in place.
 
 Fault tolerance: ``snapshot()`` copies the server state (cache, slot table,
 page accounting) to host numpy arrays and ``restore_snapshot()`` builds
@@ -83,10 +86,11 @@ class Server:
                  device=None, clock=None):
         self.device = resolve_device(device)
         lm.check_slice(cfg)
-        if cfg.sliding_window > sc.max_prompt:
-            # prefill and decode caches must agree on the ring slots
-            raise ValueError(f"window {cfg.sliding_window} exceeds "
-                             f"max_prompt {sc.max_prompt}")
+        for w in (cfg.sliding_window, cfg.local_window):
+            if w > sc.max_prompt:
+                # prefill and decode caches must agree on the ring slots
+                raise ValueError(f"window {w} exceeds max_prompt "
+                                 f"{sc.max_prompt}")
         self.n_patches = cfg.n_patches \
             if cfg.frontend == "vision_stub" else 0
         if self.n_patches > sc.max_prompt:
@@ -168,14 +172,14 @@ class Server:
 
     @torch.no_grad()
     def _install_ring(self, i: int, tok, cache1):
-        """Copy a 1-batch prefill cache into slot i of the ring cache; the
-        rest of the slot's rows are zeroed."""
-        for f in ("k", "v"):
-            dst, src = self.cache[f], cache1[f]
-            c = src.shape[2]
-            dst[:, i, :c] = src[:, 0]
-            dst[:, i, c:] = 0
-        self.cache["pos"][i] = cache1["pos"][0]
+        """Copy every leaf of a 1-batch prefill cache into slot i of the
+        ring cache, in place: ``pos`` (B,), and the (layers, B, ...)
+        leaves (``k``/``v``, ``ssm.conv``/``ssm.state``, ``rg.conv``/
+        ``rg.h``), each zero-padded to the slot's capacity. The batch axis
+        is always axis 1 of a layer-stacked leaf, also for a stack of one
+        layer (the JAX ``Server`` guesses it from the shapes there, and
+        guesses wrong: its install of slot i >= 1 is dropped)."""
+        _put_slot(self.cache, cache1, i)
         self.tokens[i] = tok[0]
 
     @torch.no_grad()
@@ -283,9 +287,28 @@ class Server:
             self.slot_pages = [list(p) for p in snap["slot_pages"]]
 
 
+def _put_slot(dst, src, i: int) -> None:
+    """``src``'s batch-1 leaves into slot ``i`` of ``dst``'s (a cache
+    tree of dicts and NamedTuples)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _put_slot(dst[k], src[k], i)
+    elif isinstance(dst, tuple):
+        for d, s_ in zip(dst, src):
+            _put_slot(d, s_, i)
+    elif dst.dim() == 1:
+        dst[i] = src[0]
+    else:
+        if tuple(src.shape[2:]) != tuple(dst.shape[2:]):
+            dst[:, i] = 0
+        dst[(slice(None), i) + tuple(slice(0, n) for n in src.shape[2:])] \
+            = src[:, 0]
+
+
 def _to_host(x):
     """Tensors of a cache tree as numpy copies (bf16 as its int16 bits),
-    the pool and the planes as dicts of their fields."""
+    the pool and the planes (and the recurrent caches) as dicts of their
+    fields."""
     if x is None:
         return None
     if isinstance(x, torch.Tensor):
@@ -296,7 +319,7 @@ def _to_host(x):
     if isinstance(x, kb.PooledKV):
         return {f.name: _to_host(getattr(x, f.name))
                 for f in dataclasses.fields(x)}
-    if isinstance(x, obs_serve.ServeTelemetry):
+    if isinstance(x, tuple):            # a NamedTuple
         return {k: _to_host(v) for k, v in x._asdict().items()}
     return {k: _to_host(v) for k, v in x.items()}
 
@@ -313,8 +336,7 @@ def _from_host(like, host, device):
         return kb.PooledKV(**{f.name: _from_host(getattr(like, f.name),
                                                  host[f.name], device)
                               for f in dataclasses.fields(like)})
-    if isinstance(like, obs_serve.ServeTelemetry):
-        return obs_serve.ServeTelemetry(**{
-            k: _from_host(v, host[k], device)
-            for k, v in like._asdict().items()})
+    if isinstance(like, tuple):         # a NamedTuple
+        return type(like)(**{k: _from_host(v, host[k], device)
+                             for k, v in like._asdict().items()})
     return {k: _from_host(v, host[k], device) for k, v in like.items()}

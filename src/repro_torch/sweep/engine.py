@@ -17,7 +17,7 @@ host reads. This engine instead:
 
 Per-point results are bit-identical to the looped path and to the JAX
 engine (tests/test_torch_sweep.py). This is one card's path: sharding the
-point axis over several cards waits for ROADMAP queue 1 item 7, so
+point axis over several cards waits for ROADMAP queue 1 item 5, so
 ``shard=True`` raises where more than one card is visible
 (``check_shard``) and means nothing more than ``False`` on one.
 """
@@ -133,7 +133,7 @@ def mixed_geometry(points: Sequence[SweepPoint]) -> bool:
 def check_shard(shard: bool, device: torch.device) -> None:
     """``shard=True`` asks for JAX's sharding of the point axis over the
     local devices. On one card that pads and splits nothing; over several
-    it is not ported (ROADMAP queue 1 item 7), so it raises rather than
+    it is not ported (ROADMAP queue 1 item 5), so it raises rather than
     run on one card unasked."""
     if shard and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(

@@ -1,4 +1,5 @@
-"""The MoE and vision-prefix families on the card against the CPU.
+"""The MoE, vision-prefix, SSM and hybrid families and the serving report
+on the card against the CPU.
 
 Every test here needs a CUDA card; without one it skips (decided inside
 the ``cuda`` fixture, never at import). Run on the card:
@@ -7,12 +8,15 @@ the ``cuda`` fixture, never at import). Run on the card:
 
 (``--noconftest``: the repo's conftest imports JAX, which the card's
 machine does not have.) Reduced olmoe-1b-7b (the coded pool), mixtral-8x7b
-(the ring, window 16) and phi-3-vision-4.2b (the ring, random patches) at
-f32 with TF32 off, from one init drawn on the CPU: the served tokens are
-identical; the prefill logits and the first decode step's agree within
-``TOL``; a MoE block routes the same logits alike on both devices and its
-output agrees within ``TOL`` of its largest magnitude. The full-width
-one-layer MoE check is ``chip_smoke.py``'s cross phase.
+(the ring, window 16), phi-3-vision-4.2b (the ring, random patches),
+mamba2-2.7b (the ring with SSM states) and recurrentgemma-9b (the ring
+with RG-LRU states, local window 16) at f32 with TF32 off, from one init
+drawn on the CPU: the served tokens are identical; the prefill logits and
+the first decode step's agree within ``TOL``; a MoE block routes the same
+logits alike on both devices and its output agrees within ``TOL`` of its
+largest magnitude; ``serve_report`` passes its oracle gates on the card
+with the CPU run's planes. The full-width one-layer MoE, SSM and RG-LRU
+checks are ``chip_smoke.py``'s cross phase.
 """
 import dataclasses
 
@@ -29,7 +33,8 @@ from repro_torch.runtime.server import Request, ServeConfig, Server
 pytestmark = pytest.mark.gpu
 
 TOL = 1e-4
-FAMILIES = ("olmoe-1b-7b", "mixtral-8x7b", "phi-3-vision-4.2b")
+FAMILIES = ("olmoe-1b-7b", "mixtral-8x7b", "phi-3-vision-4.2b",
+            "mamba2-2.7b", "recurrentgemma-9b")
 SC = dict(n_slots=4, max_prompt=16, max_seq=64, max_new_tokens=8)
 
 
@@ -131,3 +136,16 @@ def test_moe_block_routes_alike_card_and_cpu(cuda):
         y = moe.experts(cfg, p, x, r, cap)
         yc = moe.experts(cfg, pc, x.to(cuda), rc, cap).cpu()
         assert float((yc - y).abs().max()) <= TOL * float(y.abs().max())
+
+
+def test_serve_report_card_equals_cpu(cuda, tmp_path):
+    """``serve_report`` at ``--smoke`` on the card passes both of its
+    exact-equality gates; its planes and totals equal the CPU run's."""
+    from repro_torch.obs import report
+
+    out = {dev: report.serve_report(out_dir=str(tmp_path / dev), smoke=True,
+                                    device=dev) for dev in ("cpu", "cuda")}
+    assert out["cuda"]["snapshot"].as_dict() == \
+        out["cpu"]["snapshot"].as_dict()
+    assert [s["n_tokens"] for s in out["cuda"]["spans"]] == \
+        [s["n_tokens"] for s in out["cpu"]["spans"]]

@@ -254,13 +254,13 @@ def test_server_without_device_needs_a_card(params):
 
 
 def test_unported_paths_raise(params):
-    """What the port still leaves out raises: the ssm, hybrid and audio
-    families (MoE and the vision prefix serve now); the pooled step
-    refuses a sliding window (that config takes the ring)."""
+    """What the port still leaves out raises: the audio family (MoE, the
+    vision prefix, ssm and hybrid serve now); the pooled step refuses a
+    sliding window (that config takes the ring)."""
     arch, _, tp = params
     _, tc = _cfgs(arch, "bfloat16")
     sc = tserver.ServeConfig(**SC)
-    for family in ("ssm", "hybrid", "audio"):
+    for family in ("audio",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserver.Server(dataclasses.replace(tc, family=family), sc, tp,
                            device="cpu")
