@@ -46,8 +46,9 @@ no result line; with no flag it runs every phase:
    cache, with the pool runs' tokens. yi-6b (untied head), stablelm-12b
    (coded embedding, untied head, head_dim 160) and granite-20b
    (LayerNorm, GELU MLP, MQA: 48 heads on one kv head) are then served
-   the same way at full width, bf16, params drawn on the card one layer
-   at a time, on 8 requests (one wave of the 8 slots): coded and uncoded
+   the same way at full width (stablelm at 10 of its 40 layers, granite
+   at 13 of its 52), bf16, params drawn on the card one layer at a
+   time, on 8 requests (one wave of the 8 slots): coded and uncoded
    pool (same checks: identical tokens,
    banks, fresh parity, the gather against its plain version at the
    config's pool shape, degraded reads, launches = steps x layers, finite
@@ -68,7 +69,14 @@ no result line; with no flag it runs every phase:
    every request finished, finite prefill logits and states, ms/step,
    tok/s, TTFT, the weight floor (param bytes / 3.35 TB/s, the drawn
    param count within 5% of the config's ``n_params``) and a profiled
-   window. Every run's peak allocated memory must stay within 50 GB;
+   window; then whisper-tiny (the audio encoder-decoder: 4 + 4 layers,
+   d_model 384, learned decoder positions, QKV bias) from the ring cache
+   on 8 requests at max_prompt 128, 32 new tokens, each admission
+   encoding the server's zero frames (1, 1,500, 384) and installing the
+   slot's cross-attention K/V: every request finished, finite prefill
+   logits, seeded random frames moving them, ms/step, tok/s, TTFT, the
+   cross K/V's size and a profiled window. Every run's peak allocated
+   memory must stay within 50 GB;
 4. decode attention: ``coded_kv_decode`` through ``ops.coded_kv_decode``
    (after ``ops.pack_kv_banks``) at each serving width (K/V of qwen's ring
    run's layers 0 and 35 and of each other config's layer 0: B=8, T=2048,
@@ -102,9 +110,10 @@ no result line; with no flag it runs every phase:
    512-token prompt and 4 decode steps from its cache: outputs and final
    states within 1e-4 of their largest magnitude; mixtral-8x7b (window
    16), phi-3-vision-4.2b (seeded random patches), mamba2-2.7b and
-   recurrentgemma-9b (local window 16) reduced from the ring cache:
-   identical tokens, the prefill and first decode step's logits within
-   1e-4;
+   recurrentgemma-9b (local window 16) and whisper-tiny (seeded random
+   frames) reduced from the ring cache: identical tokens, the prefill
+   and first decode step's logits within 1e-4; then whisper-tiny the
+   same way at full width (1,500 frames a prompt);
 6. BankedKVState: the per-sequence state API at bench_kvbank's five cases
    on the card and on the CPU: plans, ``gather_kv`` (``gather_pool_cuda``
    on the card) and every leaf equal, before and after appends and
@@ -252,7 +261,18 @@ no result line; with no flag it runs every phase:
    qwen for 6 steps with a checkpoint every 2 and a fault injected at
    step 3 restores step 2, replays, and ends with the params and
    ``OptState`` of an uninterrupted run bit for bit; (d) ``n_micro=2``
-   equals ``n_micro=1`` on the card (reduced granite, f32).
+   equals ``n_micro=1`` on the card (reduced granite, f32); (b) also
+   holds the six non-dense configs reduced card = CPU at f32 (olmoe,
+   mixtral, phi with seeded patches, mamba2, recurrentgemma, whisper
+   with seeded frames; whisper's k biases, whose gradient softmax
+   cancels, within the summed learning rates); (e) each non-dense family
+   at its published widths, f32 master params, bf16 compute, batch 8 x
+   256, 8 steps: whisper-tiny (full depth, seeded frames (8, 1,500, 384),
+   through ``make_train_step``), mamba2-2.7b and phi-3-vision-4.2b (full
+   depth, tokens only, through the ``Trainer``), olmoe-1b-7b (4 of 16
+   layers) and recurrentgemma-9b (one superblock, 3 of 38 layers)
+   through the ``Trainer``: ms/step, tokens/s, peak allocated (<= 76 GB),
+   every loss finite and the mean of the last three below step 0's.
 
 Each kernel's launches are counted from 0 over its own main path (the
 serve runs and the obs phase's serving report for ``gather_pool``, the decode-attention calls for
@@ -292,8 +312,11 @@ SERVE = dict(n_slots=8, max_prompt=128, max_seq=2048, max_new_tokens=32,
 N_REQUESTS = 8
 CHURN_SEED = 5                   # the placement permutation of every run
 # the other dense configs, served at full width on the coded and the
-# uncoded pool and on the ring cache
+# uncoded pool and on the ring cache; the two largest at a quarter of
+# their depth (cut (7), PERF.md section 4: their pools' host copies and
+# per-layer steps kept the script past 950 s on a slow host)
 DENSE_ARCHS = ("yi-6b", "stablelm-12b", "granite-20b")
+SERVE_DEPTH = {"stablelm-12b": 10, "granite-20b": 13}
 # the MoE config served at full width on the pool and the ring; the
 # vision-prefix one on the ring (prompts padded past its 576 patches);
 # mixtral-8x7b (93 GB of bf16 params) runs reduced only
@@ -310,7 +333,12 @@ RECURRENT_SERVE = {
                           (1024, 2048)),
 }
 PARAMS_TOL = 0.05                # tree's params vs the analytic n_params
-RING_ARCHS = ("mixtral-8x7b", VLM_ARCH) + tuple(RECURRENT_SERVE)
+# the audio encoder-decoder, as published, on the ring: each admission
+# encodes the server's zero frames (1, 1500, 384); its full width also
+# runs card = CPU at f32 in the cross phase (bench_serve's slots)
+AUDIO_ARCH = "whisper-tiny"
+RING_ARCHS = ("mixtral-8x7b", VLM_ARCH) + tuple(RECURRENT_SERVE) \
+    + (AUDIO_ARCH,)
 # one full-width layer of each recurrent mixer, card vs CPU at f32: a
 # (1, 512) prompt (four SSD chunks), then decode steps from its cache
 MIXER_LAYER = dict(t=512, decode_steps=4)
@@ -585,8 +613,9 @@ def keep_logits(torch, lm, srv, store: list) -> None:
     kvcfg = srv.kvcfg if srv.pooled else None
 
     @torch.no_grad()
-    def prefill(params, tokens, patches=None):
-        logits, cache = lm.prefill(cfg, params, tokens, patches=patches)
+    def prefill(params, tokens, patches=None, frames=None):
+        logits, cache = lm.prefill(cfg, params, tokens, patches=patches,
+                                   frames=frames)
         store.append(logits.float().cpu())
         return torch.argmax(logits, -1), cache
 
@@ -720,12 +749,17 @@ def serve_phase(torch, arch: str = "qwen2.5-3b", serve_runs=SERVE_RUNS,
     from repro_torch.runtime.server import Request, ServeConfig, Server
 
     cfg = get_config(arch)
+    depth = ""
+    if arch in SERVE_DEPTH:
+        depth = f" (depth cut from {cfg.n_layers})"
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[arch])
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    t_config = t0 = time.perf_counter()
     params = lm.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(a.numel() for a in _leaves(params))
-    print(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+    print(f"serve: {cfg.name} {cfg.n_layers} layers{depth} d_model "
+          f"{cfg.d_model} "
           f"heads {cfg.n_heads}/{cfg.n_kv} x {cfg.head_dim} vocab "
           f"{cfg.vocab_pad}, {n_params / 1e9:.2f} B random "
           f"{cfg.compute_dtype} params (seed 0) made on the card in "
@@ -846,6 +880,8 @@ def serve_phase(torch, arch: str = "qwen2.5-3b", serve_runs=SERVE_RUNS,
     ring_kv = _ring_run(torch, cfg, params, runs[names[0]], n_requests)
     del params, ref_banks
     torch.cuda.empty_cache()
+    print(f"serve: {cfg.name} took {time.perf_counter() - t_config:.1f} s "
+          "of the phase")
     return total_launches, ring_kv
 
 
@@ -1022,6 +1058,108 @@ def vlm_serve_phase(torch) -> None:
           f"{cache_mb:.0f} MB; peak allocated {peak_gb:.2f} GB; random "
           f"patches move the prefill logits by up to {moved:.3g} "
           f"(first request: {reqs[0].out[:8]}...)")
+    profile_decode(torch, srv, Request)
+    del srv, params
+    torch.cuda.empty_cache()
+
+
+def audio_serve_phase(torch) -> None:
+    """whisper-tiny at full width from the ring cache (an encoder-decoder
+    never takes the pool): 8 requests on 8 slots, 32 new tokens each;
+    every admission's prefill encodes the server's zero frames (1, 1,500,
+    384) and installs the slot's cross-attention K/V. Every request
+    finishes, the prefill logits are finite, seeded random frames move
+    them, no pool gather launches; prints ms/step, tok/s, TTFT, the
+    cross K/V's MB, peak allocated and the weight floor, then a profiled
+    window."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import Request, ServeConfig, Server
+
+    cfg = get_config(AUDIO_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in _leaves(params))
+    n_bytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    floor_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    print(f"serve: {cfg.name} ({cfg.family}) {cfg.enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers d_model {cfg.d_model} heads "
+          f"{cfg.n_heads} x {cfg.head_dim} vocab {cfg.vocab_pad}, "
+          f"{n_params / 1e6:.2f} M random {cfg.compute_dtype} params (seed "
+          f"0; the config's n_params {cfg.n_params() / 1e6:.2f} M leaves "
+          f"out cross-attention and the position table) made on the card "
+          f"in {time.perf_counter() - t0:.1f} s; weight floor "
+          f"{n_bytes / 1e6:.1f} MB / {HBM_BYTES_PER_S / 1e12:.2f} TB/s = "
+          f"{floor_ms:.3f} ms/step")
+    srv = Server(cfg, ServeConfig(**SERVE), params, device="cuda")
+    check(not srv.pooled, f"{cfg.name}: an encoder-decoder took the pool")
+    check(srv.n_frames == cfg.enc_frames, f"{cfg.name}: {srv.n_frames} "
+          f"frames at admission, not {cfg.enc_frames}")
+    xkv_mb = sum(srv.cache[f].numel() * srv.cache[f].element_size()
+                 for f in ("xk", "xv")) / 1e6
+    kv_mb = sum(srv.cache[f].numel() * srv.cache[f].element_size()
+                for f in ("k", "v")) / 1e6
+    before = ckd_kernel.launches
+    warm = Request(rid=10_000, prompt=list(range(1, 17)))
+    srv.submit(warm)
+    srv.run_until_drained()
+    warm_steps = srv.steps_run
+    reqs = _requests(Request, cfg.vocab, seed=7, n=N_REQUESTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_s = _drive(srv, reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(peak_gb <= PEAK_LIMIT_GB,
+          f"{cfg.name}: peak allocated {peak_gb:.2f} GB > {PEAK_LIMIT_GB}")
+    check(ckd_kernel.launches == before, f"{cfg.name}: the pool gather "
+          "launched on the ring")
+    check(all(r.done and len(r.out) == SERVE["max_new_tokens"]
+              for r in reqs + [warm]), f"{cfg.name}: a request did not "
+          "finish")
+    prompt = reqs[0].prompt
+    toks = torch.tensor([[0] * (SERVE["max_prompt"] - len(prompt))
+                         + prompt], device="cuda")
+    shape = (1, cfg.enc_frames, cfg.d_model)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cd = getattr(torch, cfg.compute_dtype)
+    frames = {"zero": torch.zeros(shape, dtype=cd, device="cuda"),
+              "random": torch.randn(shape, generator=gen, device="cuda")
+              .to(cd)}
+    logits = {}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for key, f in frames.items():
+            logits[key], _ = lm.prefill(cfg, srv.params, toks, frames=f)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t1) / len(frames)
+    check(all(tuple(v.shape) == (1, cfg.vocab_pad)
+              and bool(torch.isfinite(v[:, :cfg.vocab]).all())
+              for v in logits.values()),
+          f"{cfg.name}: prefill logits not finite of shape (1, vocab_pad)")
+    moved = float((logits["random"] - logits["zero"])[:, :cfg.vocab]
+                  .abs().max())
+    check(moved > 0, f"{cfg.name}: random frames left the logits as zero "
+          "frames do")
+    summ = srv.log.summary(rids={r.rid for r in reqs})
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"serve {cfg.name} ring: {len(reqs)} requests (max_prompt "
+          f"{SERVE['max_prompt']}, {cfg.enc_frames} frames each), {n_tok} "
+          f"tokens in {dt:.3f} s = {n_tok / dt:.1f} tok/s steady-state; "
+          f"{srv.steps_run - warm_steps} decode steps, "
+          f"{1e3 * sum(decode_s) / len(decode_s):.2f} ms/step mean, "
+          f"{1e3 * sorted(decode_s)[len(decode_s) // 2]:.2f} ms/step p50 "
+          f"(weight floor {floor_ms:.3f}); TTFT p50 "
+          f"{1e3 * summ['ttft_p50_s']:.1f} ms; one prefill with its "
+          f"encoder {prefill_ms:.1f} ms; ring K/V {kv_mb:.1f} MB, cross "
+          f"K/V {xkv_mb:.1f} MB ({SERVE['n_slots']} slots); peak allocated "
+          f"{peak_gb:.2f} GB; random frames move the prefill logits by up "
+          f"to {moved:.3g} (first request: {reqs[0].out[:8]}...)")
     profile_decode(torch, srv, Request)
     del srv, params
     torch.cuda.empty_cache()
@@ -1401,33 +1539,42 @@ def mixer_layer_phase(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def _random_patches(torch, srv) -> None:
-    """Give ``srv``'s prefills seeded random patch embeddings (the k-th
-    admission's drawn on the CPU from seed k) in place of the server's
-    zero ones, alike on every device."""
+def _random_inputs(torch, srv) -> None:
+    """Give ``srv``'s prefills seeded random patch or frame embeddings
+    (the k-th admission's drawn on the CPU from seed k) in place of the
+    server's zero ones, alike on every device."""
     step, count = srv.prefill, [0]
 
-    def prefill(params, tokens, patches=None):
+    def rnd(zeros):
+        if zeros is None:
+            return None
         gen = torch.Generator().manual_seed(count[0])
+        return torch.randn(zeros.shape, generator=gen).to(zeros.device,
+                                                          zeros.dtype)
+
+    def prefill(params, tokens, patches=None, **frames):
+        out = step(params, tokens, rnd(patches),
+                   **{k: rnd(v) for k, v in frames.items()})
         count[0] += 1
-        rnd = torch.randn(patches.shape, generator=gen)
-        return step(params, tokens, rnd.to(patches.device, patches.dtype))
+        return out
 
     srv.prefill = prefill
 
 
-def ring_cross_phase(torch, arch: str) -> None:
-    """``arch`` (a ring-cache config) reduced at f32 (TF32 off) with
-    bench_serve's slots and requests, on the card and the CPU (a vision
-    prefix with seeded random patches): identical tokens; the first
-    wave's prefill logits and the first decode step's within
+def ring_cross_phase(torch, arch: str, reduced: bool = True) -> None:
+    """``arch`` (a ring-cache config), reduced unless ``reduced`` is
+    False, at f32 (TF32 off) with bench_serve's slots and requests, on
+    the card and the CPU (a vision prefix with seeded random patches, an
+    encoder-decoder with seeded random frames): identical tokens; the
+    first wave's prefill logits and the first decode step's within
     ``LOGITS_TOL``."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import lm
     from repro_torch.runtime.server import Request, ServeConfig, Server
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch).reduced(),
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
                               compute_dtype="float32")
     tag = f"cross-device {cfg.name}"
     params = lm.init_params(cfg, seed=1, device="cpu")
@@ -1438,8 +1585,8 @@ def ring_cross_phase(torch, arch: str) -> None:
         check(not srv.pooled, f"{tag}: took the pool, not the ring")
         logits[dev] = []
         keep_logits(torch, lm, srv, logits[dev])
-        if cfg.frontend == "vision_stub":
-            _random_patches(torch, srv)
+        if cfg.frontend != "none":
+            _random_inputs(torch, srv)
         reqs = _bench_requests(Request, cfg.vocab)
         for r in reqs:
             srv.submit(r)
@@ -1458,8 +1605,9 @@ def ring_cross_phase(torch, arch: str) -> None:
           f"{tag}: card {out['cuda']} vs CPU {out['cpu']}")
     w = cfg.sliding_window or cfg.local_window
     window = f", window {w}" if w else ""
-    print(f"{tag} (ring{window}"
-          + (", random patches" if cfg.frontend == "vision_stub" else "")
+    inputs = {"vision_stub": ", random patches",
+              "audio_stub": f", random frames ({srv.n_frames} a prompt)"}
+    print(f"{tag} (ring{window}" + inputs.get(cfg.frontend, "")
           + f"): at f32 (TF32 off) {len(out['cpu'])} requests x "
           f"{BENCH_SERVE['max_new_tokens']} tokens on {BENCH_SERVE['n_slots']}"
           f" slots served identical tokens on the card and the CPU; prefill "
@@ -4101,6 +4249,15 @@ TRAIN_PARAM_TOL = 1e-4           # f32 card vs CPU, every param leaf
 # within 2 x the summed learning rates (an Adam step moves a param by at
 # most ~lr, whichever way rounding tips a near-zero moment)
 TRAIN_BF16_LOSS_TOL = 5e-3
+# (b) the non-dense families reduced, card = CPU at f32; (e) each at
+# TRAIN_FULL's batch through the Trainer (whisper, whose batches need
+# frames, through make_train_step with seeded frames), published widths,
+# the depth cut where noted (PERF.md section 4), 8 steps each
+TRAIN_FAMILIES = ("olmoe-1b-7b", "mixtral-8x7b", "phi-3-vision-4.2b",
+                  "mamba2-2.7b", "recurrentgemma-9b", AUDIO_ARCH)
+TRAIN_FAMILY_DEPTH = {"olmoe-1b-7b": 4, "recurrentgemma-9b": 3}
+TRAIN_FAMILY_FULL = (AUDIO_ARCH, "mamba2-2.7b", VLM_ARCH, "olmoe-1b-7b",
+                     "recurrentgemma-9b")
 
 
 def _max_leaf_diff(torch, a, b) -> float:
@@ -4110,27 +4267,36 @@ def _max_leaf_diff(torch, a, b) -> float:
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
-def profile_train_step(torch, tr, params, opt, step: int,
-                       ms_step: float) -> dict:
-    """One more full-width step (the stream's ``step``) under
-    torch.profiler: device busy ms and its idle share of ``ms_step`` (the
-    unprofiled step), kernel launches, host syncs and copies, the
-    heaviest kernels."""
+def profile_train_step(torch, cfg, train_step, data_cfg, params, opt,
+                       step: int, ms_step: float,
+                       host_ops: bool = True) -> dict:
+    """One more full-width step (the pipeline's ``step``; an
+    encoder-decoder's with seeded frames, every other family's tokens
+    only, as the ``Trainer`` feeds them) under torch.profiler: device
+    busy ms and its idle share of ``ms_step`` (the unprofiled step),
+    kernel launches, host syncs and copies, the heaviest kernels and,
+    with ``host_ops``, the heaviest host ops (a CPU trace of every op:
+    without it the trace holds the device's records and the runtime
+    calls only, and takes a fraction of the time to write and read)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import make_batch
 
-    batch = {"tokens": torch.from_numpy(
-        make_batch(tr.data_cfg, step)["tokens"]).to("cuda")}
+    batch = {"tokens": torch.from_numpy(make_batch(data_cfg, step)["tokens"])}
+    if cfg.is_encdec:
+        batch.update(_family_inputs(torch, cfg, data_cfg.batch, step))
+    batch = {k: v.to("cuda") for k, v in batch.items()}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
+                                      else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        params, opt, m = tr.train_step(params, opt, batch)
+        params, opt, m = train_step(params, opt, batch)
         loss = float(m["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    path = ROOT / "build" / "chip_smoke_train_trace.json"
+    del params, opt
+    path = ROOT / "build" / f"chip_smoke_train_{cfg.name}_trace.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
@@ -4146,13 +4312,13 @@ def profile_train_step(torch, tr, params, opt, step: int,
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
     runtime = [e["name"] for e in events if e.get("cat") == "cuda_runtime"]
     stats = dict(wall_ms=wall_ms, busy_ms=sum(by_name.values()) / 1e3,
-                 launches=_launch_calls(events),
+                 launches=_launch_calls(events) or "not measured",
                  kernel_records=sum(e["cat"] == "kernel" for e in dev),
                  syncs=sum("Synchronize" in n for n in runtime),
                  copies=sum("Memcpy" in n for n in runtime))
     stats["idle"] = 1 - stats["busy_ms"] / ms_step
-    print(f"profile train {tr.cfg.name} step {step} (B={tr.tc.global_batch}"
-          f", S={tr.tc.seq_len}): wall {wall_ms:.1f} ms under the profiler, "
+    print(f"profile train {cfg.name} step {step} (B={data_cfg.batch}, "
+          f"S={data_cfg.seq_len}): wall {wall_ms:.1f} ms under the profiler, "
           f"device busy {stats['busy_ms']:.1f} ms (idle {stats['idle']:.1%} "
           f"of the unprofiled {ms_step:.1f} ms/step, "
           f"{1 - stats['busy_ms'] / wall_ms:.1%} of the profiled wall), "
@@ -4161,6 +4327,8 @@ def profile_train_step(torch, tr, params, opt, step: int,
           f"{stats['copies']} copies")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    {us / 1e3:8.2f} ms  {name[:90]}")
+    if not host_ops:
+        return stats
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     for a in host[:8]:
         print(f"    host {a.self_cpu_time_total / 1e3:8.2f} ms  {a.key[:60]} x "
@@ -4168,9 +4336,23 @@ def profile_train_step(torch, tr, params, opt, step: int,
     return stats
 
 
+def _family_inputs(torch, cfg, b: int, step: int) -> dict:
+    """The patch (vision_stub) or frame (encoder-decoder) embeddings of
+    step ``step``'s batch of ``b``, seeded, drawn on the CPU."""
+    out, gen = {}, torch.Generator().manual_seed(1000 + step)
+    if cfg.frontend == "vision_stub":
+        out["patches"] = torch.randn(b, cfg.n_patches, cfg.d_model,
+                                     generator=gen)
+    if cfg.is_encdec:
+        out["frames"] = torch.randn(b, cfg.enc_frames, cfg.d_model,
+                                    generator=gen)
+    return out
+
+
 def _small_runs(torch, cfg, init, devices, n_micro=1, steps=TRAIN_STEPS):
     """``steps`` of ``make_train_step`` from ``init`` (CPU tensors) on each
-    device, on the pipeline's batches: {device: (params, opt, metrics)}."""
+    device, on the pipeline's batches (with seeded patches or frames where
+    the family takes them): {device: (params, opt, metrics)}."""
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.optim.adamw import OptConfig, adamw_init, tree_map
     from repro_torch.runtime.steps import make_train_step
@@ -4184,11 +4366,114 @@ def _small_runs(torch, cfg, init, devices, n_micro=1, steps=TRAIN_STEPS):
         step = make_train_step(cfg, OptConfig(**TRAIN_OPT), n_micro=n_micro)
         ms = []
         for s in range(steps):
-            toks = torch.from_numpy(make_batch(dcfg, s)["tokens"]).to(dev)
-            params, opt, m = step(params, opt, {"tokens": toks})
+            batch = {"tokens": torch.from_numpy(make_batch(dcfg, s)["tokens"]),
+                     **_family_inputs(torch, cfg, dcfg.batch, s)}
+            params, opt, m = step(params, opt,
+                                  {k: v.to(dev) for k, v in batch.items()})
             ms.append({k: float(v) for k, v in m.items()})
         out[dev] = (params, opt, ms)
     return out
+
+
+def _max_leaf_diff_split(torch, cfg, a, b):
+    """(max |diff| over the param leaves but the cancelling ones, max over
+    those): the k biases of attention without RoPE, whose gradient
+    softmax cancels to rounding, which Adam's normalization turns into a
+    step of a fraction of lr either way."""
+    from repro_torch.optim.adamw import tree_leaves_with_path
+    rest, canc = [0.0], [0.0]
+    for (path, x), (_, y) in zip(tree_leaves_with_path(a),
+                                 tree_leaves_with_path(b)):
+        d = float((x.detach().cpu() - y.detach().cpu()).abs().max())
+        (canc if cfg.pos != "rope" and path[-1] == "bk" else rest).append(d)
+    return max(rest), max(canc)
+
+
+def family_train_full(torch, arch: str) -> dict:
+    """(e): ``arch`` at its published widths (depth cut per
+    ``TRAIN_FAMILY_DEPTH``), f32 master params, bf16 compute, TRAIN_FULL's
+    batch for 8 steps: through the ``Trainer`` on tokens alone, or, for
+    the encoder-decoder, ``make_train_step`` on the pipeline's tokens and
+    seeded frames (B, 1500, 384). Every loss finite, the mean of the last
+    three below step 0's, peak allocated <= TRAIN_PEAK_LIMIT_GB."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import OptConfig, adamw_init, tree_leaves
+    from repro_torch.runtime.steps import make_train_step
+    from repro_torch.runtime.trainer import TrainConfig, Trainer
+
+    cfg = get_config(arch)
+    depth = TRAIN_FAMILY_DEPTH.get(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        if cfg.is_encdec:
+            params = lm.init_params(cfg, seed=0, device="cuda",
+                                    dtype=torch.float32)
+            opt = adamw_init(params)
+            step = make_train_step(cfg, OptConfig(**TRAIN_FULL_OPT))
+            dcfg = DataConfig(vocab=cfg.vocab, batch=TRAIN_FULL[
+                "global_batch"], seq_len=TRAIN_FULL["seq_len"], seed=0)
+            log = []
+            for s in range(TRAIN_FULL["steps"]):
+                batch = {"tokens": torch.from_numpy(
+                    make_batch(dcfg, s)["tokens"]),
+                    **_family_inputs(torch, cfg, dcfg.batch, s)}
+                batch = {k: v.to("cuda") for k, v in batch.items()}
+                t1 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                m = {k: float(v) for k, v in m.items()}
+                log.append(dict(m, step=s, wall_s=time.perf_counter() - t1))
+            how = "make_train_step with seeded frames"
+        else:
+            tr = Trainer(cfg, TrainConfig(**TRAIN_FULL, log_every=TRAIN_FULL[
+                "steps"], ckpt_every=0, ckpt_dir=ckdir), opt_cfg=OptConfig(
+                **TRAIN_FULL_OPT), device="cuda")
+            out = tr.run()
+            params, opt, step = out["params"], out["opt"], tr.train_step
+            dcfg, log = tr.data_cfg, tr.metrics_log
+            del out
+            how = "Trainer, tokens only"
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    losses = [m["loss"] for m in log]
+    ms_step = 1e3 * sum(m["wall_s"] for m in log[1:]) / (len(log) - 1)
+    tokens = TRAIN_FULL["global_batch"] * TRAIN_FULL["seq_len"]
+    cut = (f", depth cut to {depth} of {get_config(arch).n_layers} layers"
+           if depth else "")
+    print(f"train (e) {cfg.name} ({cfg.family}; {how}{cut}): "
+          f"{n_params / 1e9:.3f} B params ({16 * n_params / 1e9:.1f} GB of "
+          f"f32 params, grads and moments), batch "
+          f"{TRAIN_FULL['global_batch']} x {TRAIN_FULL['seq_len']}: "
+          f"{ms_step:.1f} ms/step (steps 1-{len(log) - 1}; step 0 "
+          f"{1e3 * log[0]['wall_s']:.1f} ms), {tokens / ms_step * 1e3:.0f} "
+          f"tokens/s, peak allocated {peak_gb:.2f} GB, {run_s:.1f} s "
+          f"(init included); losses {[round(x, 4) for x in losses]}")
+    check(all(np.isfinite(x) for x in losses), f"train (e) {cfg.name}: "
+          f"loss {losses}")
+    check(sum(losses[-3:]) / 3 < losses[0], f"train (e) {cfg.name}: the "
+          f"mean of the last three losses {losses[-3:]} is not below step "
+          f"0's {losses[0]}")
+    check(peak_gb <= TRAIN_PEAK_LIMIT_GB, f"train (e) {cfg.name}: peak "
+          f"allocated {peak_gb:.2f} GB > {TRAIN_PEAK_LIMIT_GB} GB")
+    prof = profile_train_step(torch, cfg, step, dcfg, params, opt, len(log),
+                              ms_step, host_ops=False)
+    del params, opt
+    torch.cuda.empty_cache()
+    return {"ms_step": ms_step, "peak_gb": peak_gb, "run_s": run_s, **prof}
 
 
 def train_phase(torch) -> dict:
@@ -4242,7 +4527,8 @@ def train_phase(torch) -> dict:
               f"{losses[0]}")
         check(peak_gb <= TRAIN_PEAK_LIMIT_GB, f"train (a): peak allocated "
               f"{peak_gb:.2f} GB > {TRAIN_PEAK_LIMIT_GB} GB")
-        prof = profile_train_step(torch, tr, out["params"], out["opt"],
+        prof = profile_train_step(torch, cfg, tr.train_step, tr.data_cfg,
+                                  out.pop("params"), out.pop("opt"),
                                   len(log), ms_step)
         del tr, out
     finally:
@@ -4255,8 +4541,8 @@ def train_phase(torch) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     lr_sum = sum(float(cosine_schedule(OptConfig(**TRAIN_OPT), s))
                  for s in range(1, TRAIN_STEPS + 1))
-    cases = [(a, "float32") for a in (TRAIN_ARCH,) + DENSE_ARCHS] \
-        + [(TRAIN_ARCH, "bfloat16")]
+    cases = [(a, "float32") for a in (TRAIN_ARCH,) + DENSE_ARCHS
+             + TRAIN_FAMILIES] + [(TRAIN_ARCH, "bfloat16")]
     for arch, cd in cases:
         small = dataclasses.replace(get_config(arch).reduced(),
                                     compute_dtype=cd)
@@ -4267,11 +4553,15 @@ def train_phase(torch) -> dict:
         dl = max(abs(a["loss"] - b["loss"]) for a, b in zip(mc, mp))
         dg = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
                  for a, b in zip(mc, mp))
-        dp = _max_leaf_diff(torch, pc, pp)
+        dp, dk = _max_leaf_diff_split(torch, small, pc, pp)
+        canc = (f" (the cancelling k biases {dk:.2e}, held within the "
+                f"summed lr {lr_sum:.2e})" if small.pos != "rope" else "")
         print(f"train (b) {small.name} {cd}: {TRAIN_STEPS} steps card vs "
               f"CPU: loss {[round(m['loss'], 5) for m in mc]}, max |loss "
               f"diff| {dl:.2e}, grad norm rel diff {dg:.2e}, max |param "
-              f"diff| {dp:.2e}")
+              f"diff| {dp:.2e}{canc}")
+        check(dk <= lr_sum, f"train (b) {small.name}: the k biases differ "
+              f"by {dk} > {lr_sum}")
         if cd == "float32":
             for a, b in zip(mc, mp):
                 for k in ("loss", "grad_norm"):
@@ -4338,8 +4628,15 @@ def train_phase(torch) -> dict:
         check(abs(m2[0][k] - m1[0][k]) <= tol,
               f"train (d): {k} {m2[0][k]} vs {m1[0][k]}")
     check(dp <= TRAIN_PARAM_TOL, f"train (d): params differ by {dp}")
+
+    # (e) every non-dense family at its published widths
+    t0 = time.perf_counter()
+    family = {arch: family_train_full(torch, arch)
+              for arch in TRAIN_FAMILY_FULL}
+    print(f"train (e): {', '.join(TRAIN_FAMILY_FULL)} took "
+          f"{time.perf_counter() - t0:.1f} s")
     return {"ms_step": ms_step, "tokens_s": tokens / ms_step * 1e3,
-            "peak_gb": peak_gb, **prof}
+            "peak_gb": peak_gb, "family": family, **prof}
 
 
 # Phases in the order they run, and the earlier phases each one needs.
@@ -4454,6 +4751,10 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
             recurrent_serve_phase(torch, arch)
         print(f"serve: {', '.join(RECURRENT_SERVE)} took "
               f"{time.perf_counter() - t_families:.1f} s of the phase")
+        t_families = time.perf_counter()
+        audio_serve_phase(torch)
+        print(f"serve: {AUDIO_ARCH} took "
+              f"{time.perf_counter() - t_families:.1f} s of the phase")
         lap("serve")
     if "decode" in phases:
         decode, decode_launches = decode_phase(
@@ -4477,6 +4778,10 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
             if get_config(arch).family == "moe":
                 print(f"cross-device {arch}-reduced: smallest router margin "
                       f"{margin:.3g}")
+        t_audio = time.perf_counter()
+        ring_cross_phase(torch, AUDIO_ARCH, reduced=False)
+        print(f"cross-device {AUDIO_ARCH} at full width took "
+              f"{time.perf_counter() - t_audio:.1f} s")
         lap("cross")
     if "kvstate" in phases:
         kvstate_phase(torch)

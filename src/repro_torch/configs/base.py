@@ -1,8 +1,9 @@
 """Model configuration for the port: the fields of ``repro.configs.base``
 that the serving and training slices read (the MoE, vision-stub, local
-attention, SSM and RG-LRU fields included; ``moe_ep``, a sharding hint,
-waits for sharding), with the same names, defaults, ``reduced()`` and
-``n_params()`` so a test can build the same model in both packages."""
+attention, SSM, RG-LRU and encoder-decoder fields included; ``moe_ep``,
+a sharding hint, waits for sharding), with the same names, defaults,
+``reduced()`` and ``n_params()`` so a test can build the same model in
+both packages."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,7 +42,9 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_headdim: int = 64
     ssm_conv: int = 4
+    # encoder-decoder (whisper): n_layers is the decoder's depth
     enc_layers: int = 0
+    enc_frames: int = 0         # encoder input length (stub frame embeddings)
     frontend: str = "none"      # none | audio_stub | vision_stub
     n_patches: int = 0          # vision_stub prefix length
     # coded-memory integration (the paper's technique)
@@ -124,6 +127,7 @@ class ModelConfig:
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_headdim=32 if self.ssm_state else 64,
             enc_layers=min(self.enc_layers, 2),
+            enc_frames=min(self.enc_frames, 32) if self.enc_frames else 0,
             n_patches=min(self.n_patches, 8) if self.n_patches else 0,
         )
 

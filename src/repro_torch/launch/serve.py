@@ -13,10 +13,12 @@ phi-3-vision-4.2b (the ring; zero patch embeddings over each prompt's
 first ``n_patches`` positions, so ``--max-prompt`` must reach 576 at full
 width, 8 reduced), the SSM mamba2-2.7b (the ring holds its conv tails and
 f32 states; a prompt past 128 positions must be a multiple of the
-128-position SSD chunk, so ``--max-prompt`` 64 or 512, say) and the
+128-position SSD chunk, so ``--max-prompt`` 64 or 512, say), the
 hybrid recurrentgemma-9b (RG-LRU states and a local-attention ring, whose
 window must fit the prompt: ``--max-prompt`` >= 2048 at full width, 16
-reduced).
+reduced) and the audio encoder-decoder whisper-tiny (the ring; each
+prompt's prefill encodes zero frame embeddings of 1,500 frames, 32
+reduced, and the ring holds their cross-attention K/V per slot).
 
 Reports steady-state decode throughput (a warm-up request runs first, so
 the timed run excludes first-call set-up and the kernel build),

@@ -4,12 +4,16 @@
       --steps 200 --batch 8 --seq 256 [--reduced] [--device cpu] \
       [--ckpt DIR] [--fail-at 7]
 
-``--arch`` is one of the dense configs: qwen2.5-3b, yi-6b, stablelm-12b,
-granite-20b (the MoE and vision-prefix configs serve but do not train
-yet: they raise ``NotImplementedError``). ``--reduced`` trains the
-CPU-sized variant. Without ``--ckpt`` the run checkpoints into a fresh
-temporary directory; with it, the run resumes from the newest step
-committed there. Deterministic algorithms are on
+``--arch`` is any config but the audio one: the dense qwen2.5-3b, yi-6b,
+stablelm-12b, granite-20b, the MoE olmoe-1b-7b and mixtral-8x7b, the
+vision-prefix phi-3-vision-4.2b (on tokens alone, as JAX's ``Trainer``
+feeds it), the SSM mamba2-2.7b (``--seq`` past 128 a multiple of 128,
+the SSD chunk) and the hybrid recurrentgemma-9b. whisper-tiny raises
+``ValueError``: its batches need frame embeddings, which the data
+pipeline does not make (train it through ``make_train_step``).
+``--reduced`` trains the CPU-sized variant. Without ``--ckpt`` the run
+checkpoints into a fresh temporary directory; with it, the run resumes
+from the newest step committed there. Deterministic algorithms are on
 (``CUBLAS_WORKSPACE_CONFIG=:4096:8`` is set before cuBLAS starts), so a
 run restarted by ``--fail-at`` ends bit-identical to an uninterrupted
 one. ``--mesh-data``/``--mesh-model`` above 1 are not

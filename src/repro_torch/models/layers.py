@@ -1,10 +1,11 @@
 """Transformer layers of the serving and training slices
 (``repro.models.layers`` counterparts): RMS norm and LayerNorm, half-split
 RoPE, GQA attention with optional QKV bias (full-sequence, in query
-chunks, and one-token decode over a ring cache), the SwiGLU MLP, the
-ungated GELU MLP, and the recurrent mixers' short causal conv. Plain
-functions over parameter dicts in the JAX package's ``(d_in, d_out)``
-layout, so ``x @ W`` needs no transpose.
+chunks, and one-token decode over a ring cache; RoPE only where the
+config asks for it), the encoder-decoder's cross-attention, the SwiGLU
+MLP, the ungated GELU MLP, and the recurrent mixers' short causal conv.
+Plain functions over parameter dicts in the JAX package's ``(d_in,
+d_out)`` layout, so ``x @ W`` needs no transpose.
 Everything but ``attention_decode`` (which writes its caches in place)
 is out of place, so autograd can differentiate it."""
 from __future__ import annotations
@@ -166,11 +167,13 @@ def attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                     q_chunk: int = 0) -> torch.Tensor:
     """Full-sequence causal self attention of the training path
     (``repro`` layers.py:177): x (B,T,D) -> (B,T,D) after the output
-    projection; ``q_chunk`` > 0 streams the queries (``mha_chunked``)."""
+    projection, RoPE only where ``cfg.pos`` is "rope"; ``q_chunk`` > 0
+    streams the queries (``mha_chunked``)."""
     b, t, _ = x.shape
     q, k, v = qkv_proj(cfg, p, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.pos == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if q_chunk and q_chunk < t:
         out = mha_chunked(q, k, v, window=window, q_chunk=q_chunk)
     else:
@@ -190,8 +193,9 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     b = x.shape[0]
     c = k_cache.shape[1]
     q, k, v = qkv_proj(cfg, p, x)
-    q = rope(q, pos[:, None], cfg.rope_theta)
-    k = rope(k, pos[:, None], cfg.rope_theta)
+    if cfg.pos == "rope":
+        q = rope(q, pos[:, None], cfg.rope_theta)
+        k = rope(k, pos[:, None], cfg.rope_theta)
     pos = pos.long()
     slot = pos % c
     bidx = torch.arange(b, device=x.device)
@@ -208,6 +212,38 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     out = mha(q, k_cache, v_cache, valid[:, None, None, None, :])
     return (out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"],
             k_cache, v_cache)
+
+
+def cross_kv(cfg: ModelConfig, p: Params, enc: torch.Tensor):
+    """The encoder output enc (B,Te,D) -> the cross-attention's k, v
+    (B,Te,Hkv,dh), each bias added after the reshape to heads."""
+    b, te, _ = enc.shape
+    k = (enc @ p["wk"]).reshape(b, te, cfg.n_kv, cfg.head_dim)
+    v = (enc @ p["wv"]).reshape(b, te, cfg.n_kv, cfg.head_dim)
+    if "bk" in p:
+        k = k + p["bk"].reshape(cfg.n_kv, cfg.head_dim)
+        v = v + p["bv"].reshape(cfg.n_kv, cfg.head_dim)
+    return k, v
+
+
+def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The decoder's queries x (B,T,D) over the encoder's k, v (B,Te,Hkv,
+    dh) from ``cross_kv`` (a prefill's, or a decode cache's): no RoPE, no
+    mask; -> (B,T,D) after the output projection."""
+    b, t, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    if "bq" in p:
+        q = q + p["bq"].reshape(cfg.n_heads, cfg.head_dim)
+    out = mha(q, k, v, None)
+    return out.reshape(b, t, cfg.n_heads * cfg.head_dim) @ p["wo"]
+
+
+def cross_attention_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                          enc: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention over the encoder output (``repro``
+    layers.py:223): x (B,T,D), enc (B,Te,D) -> (B,T,D)."""
+    return cross_attention(cfg, p, x, *cross_kv(cfg, p, enc))
 
 
 # ------------------------------------------------------- causal conv

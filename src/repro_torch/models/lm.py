@@ -1,22 +1,27 @@
 """Language model of the serving and training slices (``repro.models.lm``
-counterpart): the dense decoder family, which training covers, and, for
-serving, the MoE family (``models/moe.py`` in place of the MLP), the
-vision-prefix family (the dense stack, patch embeddings written over the
-prompt's first positions by ``apply_frontend``), the attention-free SSM
-family (mamba2: ``models/ssm.py`` mixers) and the hybrid family
-(recurrentgemma: (rec, rec, local-attn) superblocks of ``models/rglru.py``
-blocks and windowed attention, ``hybrid_layout``); training's
-``forward``/``loss_fn`` over the layer loop with per-layer recompute
-(``backbone``); prompt prefill, the decode step over a ring cache, which
-for ssm and hybrid also holds their O(1) recurrent state
+counterpart), every family of the JAX package: the dense decoder, the
+MoE family (``models/moe.py`` in place of the MLP), the vision-prefix
+family (the dense stack, patch embeddings written over the prompt's
+first positions by ``apply_frontend``), the attention-free SSM family
+(mamba2: ``models/ssm.py`` mixers), the hybrid family (recurrentgemma:
+(rec, rec, local-attn) superblocks of ``models/rglru.py`` blocks and
+windowed attention, ``hybrid_layout``) and the audio encoder-decoder
+(whisper: ``encode`` over stub frame embeddings with sinusoidal
+positions, decoder layers with learned positions and cross-attention).
+Training's ``forward``/``loss_fn`` over the layer loop with per-layer
+recompute (``backbone``, ``encode``); prompt prefill, the decode step
+over a ring cache, which for ssm and hybrid also holds their O(1)
+recurrent state and for audio the cross-attention's K/V
 (``cache_spec``/``decode_step``), and the decode step over the coded KV
 page pool (``decode_step_pooled``).
 
 Params are nested dicts in the JAX package's layout: per-layer leaves
 stacked on axis 0 under ``"blocks"`` (the hybrid family: ``"rec_blocks"``
-over its recurrent layers, ``"attn_blocks"`` over its attention layers),
-matrices ``(d_in, d_out)``, an ``"lm_head"`` ``(d_model, V_pad)`` when
-the head is untied.
+over its recurrent layers, ``"attn_blocks"`` over its attention layers;
+the audio family also ``"enc_blocks"``, ``"enc_final_norm"``), matrices
+``(d_in, d_out)``, an ``"lm_head"`` ``(d_model, V_pad)`` when the head
+is untied, a ``"pos_embed"`` ``(max_seq, d_model)`` table for learned
+positions.
 
 Training keeps master params in ``cfg.param_dtype`` and, as JAX does,
 runs every op on their compute-dtype cast: the embedding, head and final
@@ -53,24 +58,26 @@ from repro_torch.runtime import kvbank as kb
 Params = Dict[str, Any]
 
 
-def check_slice(cfg: ModelConfig, *, training: bool = False) -> None:
-    """Raise ``NotImplementedError`` for a config outside the ported
-    slice: the RoPE decoder (RMSNorm or LayerNorm, SwiGLU or an ungated
-    GELU MLP, a tied or untied head, global or sliding-window attention)
-    of the dense family; for serving also the MoE family, the vision
-    prefix (``vlm`` with ``frontend="vision_stub"``), the SSM family and
-    the hybrid (RG-LRU + local attention) family."""
-    served = {"dense": "none", "moe": "none", "vlm": "vision_stub",
-              "ssm": "none", "hybrid": "none"}
-    if cfg.family not in served or cfg.frontend != served[cfg.family] \
-            or cfg.is_encdec or cfg.pos != "rope":
+# the frontend and positions of each family the port serves and trains
+_FAMILIES = {"dense": ("none", "rope"), "moe": ("none", "rope"),
+             "vlm": ("vision_stub", "rope"), "ssm": ("none", "rope"),
+             "hybrid": ("none", "rope"), "audio": ("audio_stub", "learned")}
+
+
+def check_slice(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config outside the port: each
+    family with its own frontend and positions (the RoPE decoders: dense,
+    MoE, the vision prefix, SSM, hybrid; the audio encoder-decoder with
+    its stub frames and learned decoder positions), as the JAX package's
+    configs combine them. Every such config serves and trains."""
+    want = _FAMILIES.get(cfg.family)
+    if want is None or (cfg.frontend, cfg.pos) != want \
+            or cfg.is_encdec != (cfg.family == "audio"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported (ROADMAP.md, "
-            "queue 1 item 4: the other model families)")
-    if training and cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported "
-            "(ROADMAP.md, queue 1 item 4); the port serves it")
+            f"{cfg.name}: the {cfg.family} family with frontend "
+            f"{cfg.frontend!r}, positions {cfg.pos!r} and "
+            f"{cfg.enc_layers} encoder layers is not a configuration the "
+            "port runs (ROADMAP.md: the JAX package's families only)")
 
 
 def _map(fn: Callable, tree):
@@ -119,11 +126,13 @@ def _cast(tree, dtype):
 # init / load
 # ======================================================================
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
-                dtype: Optional[torch.dtype] = None) -> Params:
+                dtype: Optional[torch.dtype] = None,
+                max_seq: int = 2048) -> Params:
     """Random params in ``dtype`` (serving's default: ``cfg.compute_dtype``;
     training passes ``cfg.param_dtype``) from a seeded ``torch.Generator``
     on ``device`` (the card unless named), drawn in f32 one layer's leaf
-    at a time. The port's own init: the JAX package's ``jax.random`` bits
+    at a time; a learned position table has ``max_seq`` rows (JAX's
+    default). The port's own init: the JAX package's ``jax.random`` bits
     are not reproduced; ``convert.params_from_jax`` carries a JAX tree
     across instead."""
     check_slice(cfg)
@@ -147,6 +156,18 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
             "mlp": ly.mlp_init(cfg, gen, cd, lead)}}
         blocks["attn_blocks"] = _dense_blocks(cfg, gen, cd, device,
                                               (n_attn,))
+    elif cfg.family == "audio":
+        lead = (cfg.n_layers,)
+        dec = _dense_blocks(cfg, gen, cd, device, lead)
+        dec["norm3"] = ly.norm_init(cfg, cd, device, lead)
+        dec["xattn"] = ly.attn_init(cfg, gen, cd, lead)
+        lead = (cfg.enc_layers,)
+        blocks = {"blocks": dec, "enc_blocks": {
+            "norm1": ly.norm_init(cfg, cd, device, lead),
+            "norm2": ly.norm_init(cfg, cd, device, lead),
+            "attn": ly.attn_init(cfg, gen, cd, lead),
+            "mlp": ly.mlp_init(cfg, gen, cd, lead)},
+            "enc_final_norm": ly.norm_init(cfg, cd, device)}
     else:
         blocks = {"blocks": _dense_blocks(cfg, gen, cd, device,
                                           (cfg.n_layers,))}
@@ -155,6 +176,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     if not cfg.tie_embeddings:
         params["lm_head"] = ly.normal_init(
             gen, (cfg.d_model, cfg.vocab_pad), cfg.d_model ** -0.5, cd)
+    if cfg.pos == "learned":
+        params["pos_embed"] = ly.normal_init(gen, (max_seq, cfg.d_model),
+                                             0.02, cd)
     return params
 
 
@@ -199,15 +223,94 @@ def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor):
     return logits.masked_fill(pad, -1e30)      # out of place: autograd
 
 
-def _dense_block(cfg, bp, x, positions, q_chunk):
+def _sinusoid(t: int, d: int, device) -> torch.Tensor:
+    """(t, d) sinusoidal positions, computed in f32 (``repro`` lm.py:158):
+    sines of every position over 10000^(2i/d), then the cosines."""
+    pos = torch.arange(t, device=device, dtype=torch.float32)[:, None]
+    i = torch.arange(d // 2, device=device, dtype=torch.float32)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor, cd,
+           positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings (B, S, D) in ``cd`` (``repro`` lm.py:165), plus,
+    for learned positions, the table's rows at ``positions`` (B, S)
+    (default 0..S-1), clamped to its last row as JAX's gather clamps."""
+    x = embed_lookup(cfg, params["embed"], tokens, cd)
+    if cfg.pos != "learned":
+        return x
+    table = params["pos_embed"]
+    if positions is None:
+        positions = torch.arange(tokens.shape[-1], device=tokens.device)
+    rows = positions.long().clamp(max=table.shape[0] - 1)
+    return x + table[rows].to(cd)
+
+
+def _frames(cfg: ModelConfig, frames: Optional[torch.Tensor]):
+    """An encoder-decoder's frame embeddings, which it cannot run
+    without."""
+    if cfg.is_encdec and frames is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder needs frame "
+                         "embeddings (B, F, d_model): pass frames")
+    return frames
+
+
+def _dense_block(cfg, bp, x, positions, q_chunk, window=None):
     """One pre-norm decoder layer of the training path (``repro`` lm.py:
     193), its weights cast to ``x``'s dtype here, inside the (recomputed)
-    body."""
+    body; ``window`` defaults to the config's sliding window."""
     bp = _cast(bp, x.dtype)
     h = ly.apply_norm(cfg, bp["norm1"], x)
-    x = x + ly.attention_block(cfg, bp["attn"], h, positions,
-                               cfg.sliding_window, q_chunk)
+    x = x + ly.attention_block(
+        cfg, bp["attn"], h, positions,
+        cfg.sliding_window if window is None else window, q_chunk)
     return x + _ffn(cfg, bp, ly.apply_norm(cfg, bp["norm2"], x))
+
+
+def _ssm_block(cfg, bp, x):
+    """One SSM layer of the training path (``repro`` lm.py:211)."""
+    bp = _cast(bp, x.dtype)
+    return x + ssm_mod.ssm_block(cfg, bp["ssm"],
+                                 ly.apply_norm(cfg, bp["norm1"], x))
+
+
+def _rec_block(cfg, rp, x):
+    """One recurrent layer of the hybrid's training path (``repro``
+    lm.py:204)."""
+    rp = _cast(rp, x.dtype)
+    x = x + rg.rglru_block(cfg, rp["rglru"],
+                           ly.apply_norm(cfg, rp["norm1"], x))
+    return x + ly.mlp_block(cfg, rp["mlp"], ly.apply_norm(cfg, rp["norm2"], x))
+
+
+def _cross_tail(cfg, bp, x, xk, xv):
+    """An encoder-decoder layer's second half: cross-attention over the
+    encoder's K/V (``layers.cross_kv``), then the MLP."""
+    x = x + ly.cross_attention(cfg, bp["xattn"],
+                               ly.apply_norm(cfg, bp["norm2"], x), xk, xv)
+    return x + ly.mlp_block(cfg, bp["mlp"], ly.apply_norm(cfg, bp["norm3"], x))
+
+
+def _dec_block(cfg, bp, x, positions, enc, q_chunk):
+    """One decoder layer of the encoder-decoder's training path (``repro``
+    lm.py:275): causal self-attention, cross-attention over ``enc``, the
+    MLP."""
+    bp = _cast(bp, x.dtype)
+    h = ly.apply_norm(cfg, bp["norm1"], x)
+    x = x + ly.attention_block(cfg, bp["attn"], h, positions, 0, q_chunk)
+    return _cross_tail(cfg, bp, x, *ly.cross_kv(cfg, bp["xattn"], enc))
+
+
+def _enc_block(cfg, bp, x):
+    """One encoder layer (``repro`` lm.py:296): bidirectional
+    self-attention (no mask, no RoPE), the MLP."""
+    bp = _cast(bp, x.dtype)
+    b, t, _ = x.shape
+    q, k, v = ly.qkv_proj(cfg, bp["attn"], ly.apply_norm(cfg, bp["norm1"],
+                                                         x))
+    x = x + ly.mha(q, k, v, None).reshape(b, t, -1) @ bp["attn"]["wo"]
+    return x + ly.mlp_block(cfg, bp["mlp"], ly.apply_norm(cfg, bp["norm2"], x))
 
 
 def _ffn(cfg, bp, h):
@@ -240,28 +343,83 @@ def _remat(cfg: ModelConfig, body: Callable, remat: bool) -> Callable:
 
 
 def backbone(cfg: ModelConfig, params: Params, x: torch.Tensor, *,
-             remat: bool = True, q_chunk: int = 0) -> torch.Tensor:
+             remat: bool = True, q_chunk: int = 0,
+             enc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Every layer over x (B,S,D) in the compute dtype, then the final
-    norm (``repro`` lm.py:232, the dense branch). ``params`` are the
-    master params; ``q_chunk`` > 0 streams each layer's queries."""
+    norm (``repro`` lm.py:232), each recomputed unit as JAX's: a layer,
+    or for the hybrid a (rec, rec, attn) superblock and then each
+    remainder recurrent layer. ``params`` are the master params; ``enc``
+    the encoder's output for the audio decoder; ``q_chunk`` > 0 streams
+    each attention layer's queries."""
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    layer = _remat(cfg, lambda xc, bp: _dense_block(cfg, bp, xc, positions,
-                                                    q_chunk), remat)
-    for bp in unstack_layers(params["blocks"]):
-        x = layer(x, bp)
+    if cfg.family == "ssm":
+        layer = _remat(cfg, lambda xc, bp: _ssm_block(cfg, bp, xc), remat)
+        for bp in unstack_layers(params["blocks"]):
+            x = layer(x, bp)
+    elif cfg.family == "hybrid":
+        n_super, n_rem_rec, _ = hybrid_layout(cfg)
+        rec = unstack_layers(params["rec_blocks"])
+        attn = unstack_layers(params["attn_blocks"])
+
+        def superblock(xc, r0, r1, ap):
+            xc = _rec_block(cfg, r1, _rec_block(cfg, r0, xc))
+            return _dense_block(cfg, ap, xc, positions, q_chunk,
+                                cfg.local_window)
+
+        sb = _remat(cfg, superblock, remat)
+        for i in range(n_super):
+            x = sb(x, rec[2 * i], rec[2 * i + 1], attn[i])
+        layer = _remat(cfg, lambda xc, rp: _rec_block(cfg, rp, xc), remat)
+        for rp in rec[2 * n_super:2 * n_super + n_rem_rec]:
+            x = layer(x, rp)
+    elif cfg.family == "audio":
+        layer = _remat(cfg, lambda xc, bp, e: _dec_block(
+            cfg, bp, xc, positions, e, q_chunk), remat)
+        for bp in unstack_layers(params["blocks"]):
+            x = layer(x, bp, enc)
+    else:
+        layer = _remat(cfg, lambda xc, bp: _dense_block(
+            cfg, bp, xc, positions, q_chunk), remat)
+        for bp in unstack_layers(params["blocks"]):
+            x = layer(x, bp)
     return ly.apply_norm(cfg, _cast(params["final_norm"], x.dtype), x)
+
+
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
+           remat: bool = True) -> torch.Tensor:
+    """The whisper encoder over stub frame embeddings (B, F, D) (``repro``
+    lm.py:290): sinusoidal positions added in the compute dtype, each
+    layer's bidirectional self-attention and MLP (recomputed in the
+    backward pass under ``remat``), the encoder's final norm."""
+    cd = getattr(torch, cfg.compute_dtype)
+    x = frames.to(cd) + _sinusoid(frames.shape[1], cfg.d_model,
+                                  frames.device).to(cd)
+    layer = _remat(cfg, lambda xc, bp: _enc_block(cfg, bp, xc), remat)
+    for bp in unstack_layers(params["enc_blocks"]):
+        x = layer(x, bp)
+    return ly.apply_norm(cfg, _cast(params["enc_final_norm"], x.dtype), x)
+
+
+# the layer stacks, cast inside their (recomputed) bodies
+_STACKS = ("blocks", "rec_blocks", "attn_blocks", "enc_blocks")
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, remat: bool = True, q_chunk: int = 0) -> torch.Tensor:
     """Full-sequence logits (B, S, V_pad) f32 (``repro`` lm.py:320), from
     the master params: the embedding (the coded lookup runs on the
-    compute-dtype bits, as JAX casts before it looks up) and head cast
-    once, each layer inside its body."""
+    compute-dtype bits, as JAX casts before it looks up), position table
+    and head cast once, each layer inside its body. The batch's
+    ``patches`` (vision_stub) overwrite the first positions; its
+    ``frames`` (an encoder-decoder's, required there) run the encoder."""
     cd = getattr(torch, cfg.compute_dtype)
-    top = {k: _cast(v, cd) for k, v in params.items() if k != "blocks"}
-    x = embed_lookup(cfg, top["embed"], batch["tokens"], cd)
-    x = backbone(cfg, params, x, remat=remat, q_chunk=q_chunk)
+    top = {k: _cast(v, cd) for k, v in params.items() if k not in _STACKS}
+    x = apply_frontend(cfg, _embed(cfg, top, batch["tokens"], cd),
+                       batch.get("patches"))
+    frames = _frames(cfg, batch.get("frames"))
+    enc = None if frames is None else encode(cfg, params, frames,
+                                             remat=remat)
+    x = backbone(cfg, params, x, remat=remat, q_chunk=q_chunk, enc=enc)
     return _logits(cfg, top, x)
 
 
@@ -291,14 +449,15 @@ def _block_tail(cfg, bp, x, o):
 # ======================================================================
 # serving: prefill, ring decode, pooled decode
 # ======================================================================
-def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, device
-               ) -> Dict[str, Any]:
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, device,
+               enc_frames: int = 0) -> Dict[str, Any]:
     """An empty ring cache (``repro`` lm.py:359): ``pos`` (B,) int32 and,
     by family, ``k``/``v`` (L, B, C, Hkv, dh) in the compute dtype, with
     C = min(seq_len, window) under a sliding (local) window, else seq_len;
     ``ssm``: an ``SSMCache`` over the layers; ``rg``: an ``RGLRUCache``
     over the recurrent layers beside ``k``/``v`` over the attention
-    layers."""
+    layers; for audio also the cross-attention's ``xk``/``xv`` (L, B,
+    enc_frames, Hkv, dh)."""
     cd = getattr(torch, cfg.compute_dtype)
     c: Dict[str, Any] = {"pos": torch.zeros(batch, dtype=torch.int32,
                                             device=device)}
@@ -321,6 +480,10 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, device
         return c
     c["k"], c["v"] = kv(cfg.n_layers, cfg.sliding_window), \
         kv(cfg.n_layers, cfg.sliding_window)
+    if cfg.is_encdec:
+        shape = (cfg.n_layers, batch, enc_frames, cfg.n_kv, cfg.head_dim)
+        c["xk"], c["xv"] = (torch.zeros(shape, dtype=cd, device=device)
+                            for _ in range(2))
     return c
 
 
@@ -389,7 +552,8 @@ def apply_frontend(cfg: ModelConfig, x: torch.Tensor,
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             max_seq: Optional[int] = None,
-            patches: Optional[torch.Tensor] = None
+            patches: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process the prompt (B, S); return (last-token logits (B, V) f32,
     cache) with ``pos`` (B,) = S and the family's leaves (``cache_spec``).
@@ -398,23 +562,32 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     are placed as a ring of capacity ``max(max_seq or S, S)``, cut to the
     window. ``patches`` (B, P, D), for a vision_stub config, overwrite the
     first P positions' embeddings (``apply_frontend``). The SSM mixers
-    and RG-LRU blocks hand on their conv tails and f32 states."""
+    and RG-LRU blocks hand on their conv tails and f32 states. An
+    encoder-decoder encodes ``frames`` (B, F, D), which it requires, and
+    hands on each layer's cross-attention K/V over them (``xk``/``xv``,
+    biases added)."""
     cd = getattr(torch, cfg.compute_dtype)
     b, s = tokens.shape
     cap_full = max(max_seq or s, s)
     positions = torch.arange(s, device=tokens.device)[None, :]
-    x = apply_frontend(cfg, embed_lookup(cfg, params["embed"], tokens, cd),
-                       patches)
+    x = apply_frontend(cfg, _embed(cfg, params, tokens, cd), patches)
+    frames = _frames(cfg, frames)
     cache: Dict[str, Any] = {"pos": torch.full((b,), s, dtype=torch.int32,
                                                device=tokens.device)}
 
-    def attn_layer(bp, x, mask, window):
+    def attn_layer(bp, x, mask, window, enc=None):
         h = ly.apply_norm(cfg, bp["norm1"], x)
         q, k, v = ly.qkv_proj(cfg, bp["attn"], h)
-        q = ly.rope(q, positions, cfg.rope_theta)
-        k = ly.rope(k, positions, cfg.rope_theta)
-        x = _block_tail(cfg, bp, x, ly.mha(q, k, v, mask))
-        return x, _ring(k, cap_full, window), _ring(v, cap_full, window)
+        if cfg.pos == "rope":
+            q = ly.rope(q, positions, cfg.rope_theta)
+            k = ly.rope(k, positions, cfg.rope_theta)
+        o = ly.mha(q, k, v, mask)
+        kv = (_ring(k, cap_full, window), _ring(v, cap_full, window))
+        if enc is None:
+            return (_block_tail(cfg, bp, x, o),) + kv
+        x = x + o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ bp["attn"]["wo"]
+        xkv = ly.cross_kv(cfg, bp["xattn"], enc)
+        return (_cross_tail(cfg, bp, x, *xkv),) + kv + xkv
 
     ks, vs = [], []
     if cfg.family == "ssm":
@@ -445,11 +618,17 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     else:
         window = cfg.sliding_window
         mask = ly.causal_mask(s, s, tokens.device, 0, window)
+        enc = None if frames is None else encode(cfg, params, frames,
+                                                 remat=False)
+        xs = []
         for i in range(cfg.n_layers):
-            x, k, v = attn_layer(layer_params(params["blocks"], i), x, mask,
-                                 window)
+            x, k, v, *xkv = attn_layer(layer_params(params["blocks"], i), x,
+                                       mask, window, enc)
             ks.append(k)
             vs.append(v)
+            xs.append(xkv)
+        if enc is not None:
+            cache["xk"], cache["xv"] = (torch.stack(t) for t in zip(*xs))
     if cfg.family != "ssm":
         new = (b, min(cap_full, window) if window else cap_full, cfg.n_kv,
                cfg.head_dim)
@@ -463,16 +642,20 @@ def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
                 cache: Dict[str, Any]):
     """One decode step over a ring cache (``repro`` lm.py:538): token (B,)
     -> (logits (B, V) f32, cache), the cache's K/V, conv tails and
-    recurrent states updated IN PLACE and its ``pos`` advanced by one."""
+    recurrent states updated IN PLACE and its ``pos`` advanced by one. A
+    learned position past the table reads its last row (JAX's clamp); an
+    encoder-decoder's cross-attention reads the cached ``xk``/``xv``."""
     cd = getattr(torch, cfg.compute_dtype)
     pos = cache["pos"]
-    x = embed_lookup(cfg, params["embed"], token[:, None], cd)
+    x = _embed(cfg, params, token[:, None], cd, positions=pos[:, None])
 
     def attn_layer(bp, x, i, window):
         h = ly.apply_norm(cfg, bp["norm1"], x)
         o, _, _ = ly.attention_decode(cfg, bp["attn"], h, pos,
                                       cache["k"][i], cache["v"][i], window)
         x = x + o
+        if cfg.is_encdec:
+            return _cross_tail(cfg, bp, x, cache["xk"][i], cache["xv"][i])
         return x + _ffn(cfg, bp, ly.apply_norm(cfg, bp["norm2"], x))
 
     if cfg.family == "ssm":

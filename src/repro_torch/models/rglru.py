@@ -13,7 +13,9 @@ weights. Prefill runs the recurrence as a log-step (Hillis-Steele) scan,
 ceil(log2 T) passes of shifted multiply-adds over (a, w): JAX's
 ``lax.associative_scan`` associates in another order, so the results
 agree within float tolerance, not bit for bit. Decode carries
-``RGLRUCache`` (the conv tail and the f32 h) and updates it IN PLACE.
+``RGLRUCache`` (the conv tail and the f32 h) and updates it IN PLACE;
+the full-sequence block is out of place, so autograd can differentiate
+it under per-layer recompute.
 """
 from __future__ import annotations
 

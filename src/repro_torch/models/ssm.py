@@ -1,11 +1,12 @@
 """Mamba2 SSD (state-space duality) block (``repro.models.ssm``
 counterpart, arXiv:2405.21060).
 
-Chunked prefill form: within a chunk the recurrence is materialized as a
-masked (semiseparable) attention-like product; across chunks a short host
-loop carries the (H, N, P) state. Decode carries ``SSMCache`` (the conv
-tail and the f32 (H, P, N) state) and is O(1) per token; ``ssm_decode``
-updates both IN PLACE.
+Chunked form (prefill and training): within a chunk the recurrence is
+materialized as a masked (semiseparable) attention-like product; across
+chunks a short host loop carries the (H, N, P) state. The block is out
+of place, so autograd can differentiate it under per-layer recompute.
+Decode carries ``SSMCache`` (the conv tail and the f32 (H, P, N) state)
+and is O(1) per token; ``ssm_decode`` updates both IN PLACE.
 
 The dtypes follow the JAX package's op by op: the params arrive in the
 compute dtype (``A_log``, ``D`` and ``dt_bias`` too, as JAX casts every
@@ -93,13 +94,18 @@ def _ssd_chunked(u, la, Bm, Cm, chunk: int):
     cum = torch.cumsum(la, dim=2)                           # (B,nc,Q,H)
     total = cum[:, :, -1]                                   # (B,nc,H)
 
-    # intra-chunk: y_i += sum_{j<=i} exp(cum_i - cum_j) (C_i.B_j) u_j;
-    # above the diagonal exp overflows to inf, so select, never multiply
+    # intra-chunk: y_i += sum_{j<=i} exp(cum_i - cum_j) (C_i.B_j) u_j.
+    # Above the diagonal the exponent is >= 0 and exp may overflow: the
+    # exponent is masked to -inf there first, so the decay is 0 (what
+    # JAX's select after the product gives) and no inf reaches the
+    # backward pass, where 0 * inf would make the gradients NaN
     cb = torch.einsum("bcin,bcjn->bcij", Cm, Bm)            # (B,nc,Q,Q)
-    dec = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
     tri = torch.ones(q, q, dtype=torch.bool, device=u.device).tril()
-    w = torch.where(tri[None, None, :, :, None], cb[..., None] * dec,
-                    torch.zeros((), device=u.device))
+    expo = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # (B,nc,Q,Q,H)
+    dec = torch.exp(expo.masked_fill(~tri[None, None, :, :, None],
+                                     float("-inf")))
+    del expo
+    w = cb[..., None] * dec
     del dec
     y = torch.einsum("bcijh,bcjhp->bcihp", w, u)
     del w

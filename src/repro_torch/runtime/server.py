@@ -10,7 +10,12 @@ Models: the dense and MoE decoders, the vision-prefix decoder, whose
 prompts get zero patch embeddings over their first ``n_patches``
 positions at admission (as the JAX ``Server`` gives them), the SSM
 decoder and the RG-LRU + local-attention hybrid, whose ring cache also
-holds each slot's O(1) recurrent state (conv tails and f32 states).
+holds each slot's O(1) recurrent state (conv tails and f32 states), and
+the audio encoder-decoder, whose prompts get zero frame embeddings (1,
+max(enc_frames, 8), d_model) at admission, as the JAX ``Server`` gives
+them; its ring cache holds each slot's cross-attention K/V over those
+frames (``xk``/``xv``, sized to the frame count: JAX's ``Server`` sizes
+them to no frames and fails at its first install).
 
 Storage: when the config declares KV banks (``cfg.kv_banks > 0``), uses
 global attention and has no frontend, decode runs over the coded KV page
@@ -22,9 +27,9 @@ steps.
 ``ServeConfig.coded=False`` serves from the uncoded pool (no parity), and
 ``ServeConfig.telemetry=True`` keeps the device metric planes in the decode
 cache (``serve_snapshot()`` reads them). Otherwise (``kv_banks == 0`` or a
-sliding window, a vision prefix, or the ssm or hybrid family) decode
-runs over a ring cache (``lm.cache_spec``); admission copies every leaf
-of the one-request prefill cache into the slot, in place.
+sliding window, a vision prefix, the ssm, hybrid or audio family)
+decode runs over a ring cache (``lm.cache_spec``); admission copies
+every leaf of the one-request prefill cache into the slot, in place.
 
 Fault tolerance: ``snapshot()`` copies the server state (cache, slot table,
 page accounting) to host numpy arrays and ``restore_snapshot()`` builds
@@ -98,6 +103,8 @@ class Server:
             raise ValueError(f"{cfg.name}: max_prompt {sc.max_prompt} is "
                              f"below its {self.n_patches} patch positions")
         self.cfg, self.sc = cfg, sc
+        # an encoder-decoder's frames at admission: JAX's Server's shape
+        self.n_frames = max(cfg.enc_frames, 8) if cfg.is_encdec else 0
         self.params = lm.cast_params(cfg, params, self.device)
         self.prefill = steps_mod.make_prefill_step(cfg)
         self.queue: List[Request] = []
@@ -133,7 +140,8 @@ class Server:
             self._fuse = sc.coded and sc.recode_budget is None
         else:
             self.decode = steps_mod.make_serve_step(cfg)
-            self.cache = lm.cache_spec(cfg, b, sc.max_seq, self.device)
+            self.cache = lm.cache_spec(cfg, b, sc.max_seq, self.device,
+                                       enc_frames=self.n_frames)
         self.tokens = torch.zeros(b, dtype=torch.int64, device=self.device)
         self.steps_run = 0
 
@@ -152,13 +160,16 @@ class Server:
             pad = self.sc.max_prompt - len(prompt)
             toks = torch.tensor([[0] * pad + prompt], dtype=torch.int64,
                                 device=self.device)
-            patches = None
+            cd = getattr(torch, self.cfg.compute_dtype)
+            patches, extra = None, {}
             if self.n_patches:
-                patches = torch.zeros(
-                    1, self.n_patches, self.cfg.d_model,
-                    dtype=getattr(torch, self.cfg.compute_dtype),
-                    device=self.device)
-            tok, cache1 = self.prefill(self.params, toks, patches)
+                patches = torch.zeros(1, self.n_patches, self.cfg.d_model,
+                                      dtype=cd, device=self.device)
+            if self.n_frames:
+                extra["frames"] = torch.zeros(1, self.n_frames,
+                                              self.cfg.d_model, dtype=cd,
+                                              device=self.device)
+            tok, cache1 = self.prefill(self.params, toks, patches, **extra)
             self._install(i, tok, cache1)
             req.out.append(int(tok[0]))
             self.log.prefill_done(req.rid)
@@ -175,10 +186,11 @@ class Server:
         """Copy every leaf of a 1-batch prefill cache into slot i of the
         ring cache, in place: ``pos`` (B,), and the (layers, B, ...)
         leaves (``k``/``v``, ``ssm.conv``/``ssm.state``, ``rg.conv``/
-        ``rg.h``), each zero-padded to the slot's capacity. The batch axis
-        is always axis 1 of a layer-stacked leaf, also for a stack of one
-        layer (the JAX ``Server`` guesses it from the shapes there, and
-        guesses wrong: its install of slot i >= 1 is dropped)."""
+        ``rg.h``, ``xk``/``xv``), each zero-padded to the slot's
+        capacity. The batch axis is always axis 1 of a layer-stacked
+        leaf, also for a stack of one layer (the JAX ``Server`` guesses
+        it from the shapes there, and guesses wrong: its install of slot
+        i >= 1 is dropped)."""
         _put_slot(self.cache, cache1, i)
         self.tokens[i] = tok[0]
 

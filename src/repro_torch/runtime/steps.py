@@ -23,8 +23,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
     mean), then ``adamw_update``. Params and optimizer state are updated
     IN PLACE and returned; ``metrics`` are 0-d tensors ``loss``,
     ``grad_norm`` (before clipping) and ``lr_step`` (the step count after
-    the update). A family the port does not train raises here."""
-    lm.check_slice(cfg, training=True)
+    the update). Every family trains: the batch holds ``tokens`` and,
+    where the family takes them, ``patches`` (vision_stub) and ``frames``
+    (the encoder-decoder's, required there). A config outside the port
+    raises here."""
+    lm.check_slice(cfg)
 
     def grads_of(leaves, params, batch):
         with torch.enable_grad():
@@ -70,13 +73,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """``prefill_step(params, tokens (B, S), patches=None) -> (next token
-    (B,), cache)``; ``patches`` (B, P, D) for a vision_stub config."""
+    """``prefill_step(params, tokens (B, S), patches=None, frames=None)
+    -> (next token (B,), cache)``; ``patches`` (B, P, D) for a
+    vision_stub config, ``frames`` (B, F, D) for an encoder-decoder."""
 
     @torch.no_grad()
     def prefill_step(params, tokens: torch.Tensor,
-                     patches: Optional[torch.Tensor] = None):
-        logits, cache = lm.prefill(cfg, params, tokens, patches=patches)
+                     patches: Optional[torch.Tensor] = None,
+                     frames: Optional[torch.Tensor] = None):
+        logits, cache = lm.prefill(cfg, params, tokens, patches=patches,
+                                   frames=frames)
         return torch.argmax(logits, -1), cache
 
     return prefill_step

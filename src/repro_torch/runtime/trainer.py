@@ -20,7 +20,11 @@ counterpart).
   * **Fault injection** — ``FaultPlan`` raises synthetic failures at
     chosen steps, once each.
 
-One card and no mesh: a mesh of more than one device raises
+Every family trains on tokens alone, as JAX's ``Trainer`` feeds them
+(a vision-prefix config without patches); the audio encoder-decoder,
+whose forward needs frame embeddings the data pipeline does not make,
+raises ``ValueError`` here (JAX's ``Trainer`` fails on it at its first
+step). One card and no mesh: a mesh of more than one device raises
 ``NotImplementedError`` (sharding is ROADMAP.md queue 1 item 5). JAX's
 ``unroll`` (an XLA scan knob) has no counterpart. ``ckpt_dir=None`` (the
 default) checkpoints into a fresh temporary directory, so a run never
@@ -95,7 +99,12 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, tc: TrainConfig,
                  mesh: Optional[Tuple[int, ...]] = None,
                  opt_cfg: Optional[OptConfig] = None, *, device=None):
-        lm.check_slice(cfg, training=True)
+        lm.check_slice(cfg)
+        if cfg.is_encdec:
+            raise ValueError(
+                f"{cfg.name}: the Trainer feeds tokens only and an "
+                "encoder-decoder needs frames (B, F, d_model) in each batch;"
+                " train it through make_train_step with frames")
         check_mesh(mesh)
         self.cfg, self.tc = cfg, tc
         self.device = resolve_device(device)

@@ -2,8 +2,10 @@
 on the CPU: ``models/moe.py``'s block; the three configs the port now
 serves, reduced: olmoe-1b-7b (MoE, the coded KV page pool), mixtral-8x7b
 (MoE, a sliding window of 16: the ring cache) and phi-3-vision-4.2b (the
-dense stack behind the vision stub: the ring cache); and what the port
-still refuses. JAX params are carried across by
+dense stack behind the vision stub: the ring cache); and training them
+through ``make_train_step``, the ``Trainer`` and the launcher
+(``tests/test_torch_train_families.py`` holds the step against JAX).
+JAX params are carried across by
 ``convert.params_from_jax``; JAX runs its plain paths (the ``reference``
 pool gather).
 
@@ -35,7 +37,7 @@ from repro_torch.launch import serve as tlaunch_serve
 from repro_torch.launch import train as tlaunch_train
 from repro_torch.models import lm as tlm
 from repro_torch.models import moe as tmoe
-from repro_torch.optim.adamw import OptConfig
+from repro_torch.optim.adamw import OptConfig, adamw_init
 from repro_torch.runtime import kvbank as tkb
 from repro_torch.runtime import server as tserver
 from repro_torch.runtime import steps as tsteps
@@ -500,19 +502,32 @@ def test_launch_serve_asks_for_the_patch_positions(capsys):
     assert "--max-prompt >= 8" in capsys.readouterr().err
 
 
-# -------------------------------------------------------------- refusals
+# -------------------------------------------------------------- training
 @pytest.mark.parametrize("name", ["olmoe-1b-7b", "phi-3-vision-4.2b"])
 def test_training_refuses_moe_and_vlm(name, tmp_path):
-    """The MoE and vision-prefix families serve but do not train yet:
-    ``make_train_step``, the ``Trainer`` and the launcher raise, naming
-    ROADMAP."""
+    """The MoE and vision-prefix families train now (the test keeps the
+    name it had while they were refused): ``make_train_step`` takes a
+    step (phi's batch with patch embeddings), the ``Trainer`` and the
+    launcher two steps each on tokens alone, as JAX's ``Trainer`` feeds
+    them; every loss is finite and the launcher's falls from a
+    checkpoint it restores."""
     _, tc = _cfgs(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_train_step(tc, OptConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.Trainer(tc, ttrainer.TrainConfig(steps=1,
-                                                  ckpt_dir=str(tmp_path)),
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlaunch_train.main(["--arch", name, "--reduced", "--device", "cpu",
-                            "--ckpt", str(tmp_path)])
+    gen = torch.Generator().manual_seed(0)
+    tp = tlm.init_params(tc, seed=0, device="cpu", dtype=torch.float32)
+    batch = {"tokens": torch.randint(0, tc.vocab, (2, 16), generator=gen)}
+    if tc.frontend == "vision_stub":
+        batch["patches"] = torch.randn(2, tc.n_patches, tc.d_model,
+                                       generator=gen)
+    _, _, m = tsteps.make_train_step(tc, OptConfig())(
+        tp, adamw_init(tp), batch)
+    assert np.isfinite(float(m["loss"])) and float(m["lr_step"]) == 1
+    tr = ttrainer.Trainer(tc, ttrainer.TrainConfig(
+        steps=2, ckpt_every=0, ckpt_dir=str(tmp_path / "t"), global_batch=2,
+        seq_len=16), device="cpu")
+    assert np.isfinite(tr.run()["final_loss"])
+    out = tlaunch_train.main(["--arch", name, "--reduced", "--device", "cpu",
+                              "--steps", "2", "--batch", "2", "--seq", "16",
+                              "--ckpt", str(tmp_path / "l"),
+                              "--ckpt-every", "1", "--fail-at", "1"])
+    assert np.isfinite(out["final_loss"])
+    assert "restored step 1" in out["events"]

@@ -1,5 +1,5 @@
-"""The MoE, vision-prefix, SSM and hybrid families and the serving report
-on the card against the CPU.
+"""The MoE, vision-prefix, SSM, hybrid and audio families and the serving
+report on the card against the CPU.
 
 Every test here needs a CUDA card; without one it skips (decided inside
 the ``cuda`` fixture, never at import). Run on the card:
@@ -9,14 +9,15 @@ the ``cuda`` fixture, never at import). Run on the card:
 (``--noconftest``: the repo's conftest imports JAX, which the card's
 machine does not have.) Reduced olmoe-1b-7b (the coded pool), mixtral-8x7b
 (the ring, window 16), phi-3-vision-4.2b (the ring, random patches),
-mamba2-2.7b (the ring with SSM states) and recurrentgemma-9b (the ring
-with RG-LRU states, local window 16) at f32 with TF32 off, from one init
-drawn on the CPU: the served tokens are identical; the prefill logits and
-the first decode step's agree within ``TOL``; a MoE block routes the same
+mamba2-2.7b (the ring with SSM states), recurrentgemma-9b (the ring
+with RG-LRU states, local window 16) and whisper-tiny (the ring with the
+cross-attention K/V, seeded random frames) at f32 with TF32 off, from
+one init drawn on the CPU: the served tokens are identical; the prefill
+logits and the first decode step's agree within ``TOL``; a MoE block routes the same
 logits alike on both devices and its output agrees within ``TOL`` of its
 largest magnitude; ``serve_report`` passes its oracle gates on the card
 with the CPU run's planes. The full-width one-layer MoE, SSM and RG-LRU
-checks are ``chip_smoke.py``'s cross phase.
+checks and full-width whisper-tiny are ``chip_smoke.py``'s cross phase.
 """
 import dataclasses
 
@@ -34,7 +35,7 @@ pytestmark = pytest.mark.gpu
 
 TOL = 1e-4
 FAMILIES = ("olmoe-1b-7b", "mixtral-8x7b", "phi-3-vision-4.2b",
-            "mamba2-2.7b", "recurrentgemma-9b")
+            "mamba2-2.7b", "recurrentgemma-9b", "whisper-tiny")
 SC = dict(n_slots=4, max_prompt=16, max_seq=64, max_new_tokens=8)
 
 
@@ -67,6 +68,14 @@ def _patches(cfg, b, device):
                        generator=gen).to(device)
 
 
+def _frames(cfg, b, device):
+    if not cfg.is_encdec:
+        return None
+    gen = torch.Generator().manual_seed(7)
+    return torch.randn(b, cfg.enc_frames, cfg.d_model,
+                       generator=gen).to(device)
+
+
 @pytest.mark.parametrize("name", FAMILIES)
 def test_served_tokens_card_equals_cpu(cuda, name):
     cfg = _cfg(name)
@@ -86,8 +95,9 @@ def test_served_tokens_card_equals_cpu(cuda, name):
 
 @pytest.mark.parametrize("name", FAMILIES)
 def test_prefill_and_first_step_logits_card_equals_cpu(cuda, name):
-    """Prefill (phi-3-vision's with random patches) and one decode step,
-    over the ring or, for olmoe, a coded pool holding the prefilled K/V."""
+    """Prefill (phi-3-vision's with random patches, whisper's with random
+    frames) and one decode step, over the ring or, for olmoe, a coded
+    pool holding the prefilled K/V."""
     cfg = _cfg(name)
     params = lm.init_params(cfg, seed=2, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(3).integers(
@@ -97,7 +107,8 @@ def test_prefill_and_first_step_logits_card_equals_cpu(cuda, name):
         p = lm.cast_params(cfg, params, dev)
         with torch.no_grad():
             lg, cache = lm.prefill(cfg, p, toks.to(dev), max_seq=32,
-                                   patches=_patches(cfg, 2, dev))
+                                   patches=_patches(cfg, 2, dev),
+                                   frames=_frames(cfg, 2, dev))
             tok = torch.argmax(lg, -1)
             if name == "olmoe-1b-7b":
                 kvcfg = kb.KVBankConfig(n_banks=cfg.kv_banks, page=4,

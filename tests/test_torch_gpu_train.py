@@ -16,7 +16,13 @@ Tolerances: the coded lookup's forward and f32 backward card = CPU bit
 for bit; a reduced ``Trainer`` run restored after a fault equals the
 uninterrupted card run bit for bit; 3 f32 steps of ``make_train_step``
 card against CPU (TF32 off): loss and grad norm to ``LOSS_TOL``, params
-to 0.05 x the summed learning rates (see ``tests/test_torch_train.py``).
+to 0.05 x the summed learning rates (see ``tests/test_torch_train.py``);
+one f32 step of each non-dense family (phi-3-vision's batch with patch
+embeddings, whisper's with frames; TF32 off, deterministic algorithms
+not needed): loss and grad norm to ``LOSS_TOL``, both moments within
+1e-4 of each leaf's largest magnitude, each param within 1e-4 of its
+leaf's largest magnitude where the gradient is clear of Adam's eps, else
+within lr (see ``tests/test_torch_train_families.py``).
 """
 import os
 
@@ -29,7 +35,8 @@ from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.models import embedding as emb
 from repro_torch.models import lm
 from repro_torch.optim.adamw import (OptConfig, adamw_init, cosine_schedule,
-                                     tree_leaves, tree_map)
+                                     tree_leaves, tree_leaves_with_path,
+                                     tree_map)
 from repro_torch.runtime import steps
 from repro_torch.runtime.trainer import FaultPlan, TrainConfig, Trainer
 
@@ -129,3 +136,61 @@ def test_train_step_card_equals_cpu(cuda, deterministic, arch, policy,
                      for s in range(1, 4))
     for x, y in zip(tree_leaves(pc), tree_leaves(pp)):
         assert (x.detach().cpu() - y.detach()).abs().max() <= tol
+
+
+FAMILIES = ("olmoe-1b-7b", "mixtral-8x7b", "phi-3-vision-4.2b",
+            "mamba2-2.7b", "recurrentgemma-9b", "whisper-tiny")
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_train_step_card_equals_cpu(cuda, arch):
+    """One f32 step of a non-dense family, card = CPU (the module
+    docstring has the tolerances)."""
+    import dataclasses
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              compute_dtype="float32")
+    init = lm.init_params(cfg, seed=0, device="cpu", dtype=torch.float32,
+                          max_seq=32)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 32), generator=gen)}
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = torch.randn(4, cfg.n_patches, cfg.d_model,
+                                       generator=gen)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(4, cfg.enc_frames, cfg.d_model,
+                                      generator=gen)
+    runs = []
+    try:
+        for dev in (cuda, "cpu"):
+            p = tree_map(lambda a: a.to(dev, copy=True), init)
+            step = steps.make_train_step(cfg, OptConfig(**OPT))
+            p, st, m = step(p, adamw_init(p),
+                            {k: v.to(dev) for k, v in batch.items()})
+            runs.append((p, st, {k: float(v) for k, v in m.items()}))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (pc, sc, mc), (pp, sp, mp) = runs
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(mc[k], mp[k], **LOSS_TOL)
+    b1 = OptConfig().b1
+
+    def named(tree, to_cpu):
+        return {"/".join(k): (t.detach().cpu() if to_cpu else t.detach())
+                .numpy() for k, t in tree_leaves_with_path(tree)}
+
+    card = [named(t, True) for t in (pc, sc.m, sc.v)]
+    cpu = [named(t, False) for t in (pp, sp.m, sp.v)]
+    for name, x in cpu[0].items():
+        for mom in (1, 2):
+            scale = np.abs(cpu[mom][name]).max()
+            if cfg.pos != "rope" and name.endswith("attn/bk"):
+                # softmax cancels this gradient: rounding only
+                scale = np.abs(cpu[mom][name[:-2] + "wk"]).max()
+            err = np.abs(card[mom][name] - cpu[mom][name]).max()
+            assert err <= 1e-4 * scale, (name, mom, err)
+        diff = np.abs(card[0][name] - x)
+        clear = np.abs(cpu[1][name]) / (1 - b1) >= 1e-6
+        assert diff[clear].max(initial=0) <= 1e-4 * np.abs(x).max(), name
+        assert diff.max() <= OPT["lr"], name

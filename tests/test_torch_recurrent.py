@@ -38,7 +38,7 @@ from repro_torch.launch import serve as tlaunch_serve
 from repro_torch.models import lm as tlm
 from repro_torch.models import rglru as trg
 from repro_torch.models import ssm as tssm
-from repro_torch.optim.adamw import OptConfig
+from repro_torch.optim.adamw import OptConfig, adamw_init, tree_leaves
 from repro_torch.runtime import server as tserver
 from repro_torch.runtime import steps as tsteps
 
@@ -405,7 +405,18 @@ def test_launch_serve_asks_for_the_local_window(capsys):
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_training_refuses_ssm_and_hybrid(name):
-    """The two families serve but do not train yet."""
+    """The two families train now (the test keeps the name it had while
+    they were refused): two steps of ``make_train_step`` from the port's
+    init, every loss and param finite and the step count advanced
+    (``tests/test_torch_train_families.py`` holds a step against JAX)."""
     _, tc = _cfgs(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_train_step(tc, OptConfig())
+    tp = tlm.init_params(tc, seed=0, device="cpu", dtype=torch.float32)
+    st = adamw_init(tp)
+    step = tsteps.make_train_step(tc, OptConfig())
+    toks = torch.randint(0, tc.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(0))
+    for _ in range(2):
+        tp, st, m = step(tp, st, {"tokens": toks})
+        assert np.isfinite(float(m["loss"]))
+    assert int(st.step) == 2
+    assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(tp))

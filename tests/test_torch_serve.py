@@ -254,16 +254,27 @@ def test_server_without_device_needs_a_card(params):
 
 
 def test_unported_paths_raise(params):
-    """What the port still leaves out raises: the audio family (MoE, the
-    vision prefix, ssm and hybrid serve now); the pooled step refuses a
-    sliding window (that config takes the ring)."""
+    """The audio family serves now (the test keeps the name it had while
+    it was refused): reduced whisper-tiny's ``Server`` takes the ring, its
+    cross K/V sized to the admission's frames, and serves every request.
+    What the port leaves out raises: a family with another family's
+    positions (this decoder as "audio", with RoPE and no encoder); the
+    pooled step refuses a sliding window (that config takes the ring)."""
     arch, _, tp = params
     _, tc = _cfgs(arch, "bfloat16")
     sc = tserver.ServeConfig(**SC)
-    for family in ("audio",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserver.Server(dataclasses.replace(tc, family=family), sc, tp,
+    wc = tget_config("whisper-tiny").reduced()
+    audio = tserver.Server(wc, sc, tlm.init_params(wc, seed=0, device="cpu"),
                            device="cpu")
+    assert not audio.pooled and audio.cache["xk"].shape[2] == wc.enc_frames
+    reqs = [tserver.Request(rid=i, prompt=[3 + i, 5]) for i in range(3)]
+    for r in reqs:
+        audio.submit(r)
+    audio.run_until_drained()
+    assert all(r.done and len(r.out) == SC["max_new_tokens"] for r in reqs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserver.Server(dataclasses.replace(tc, family="audio"), sc, tp,
+                       device="cpu")
     srv = tserver.Server(tc, sc, tp, device="cpu")
     with pytest.raises(ValueError, match="sliding window"):
         tlm.decode_step_pooled(dataclasses.replace(tc, sliding_window=4),
