@@ -118,11 +118,19 @@ no result line; with no flag it runs every phase:
    on the card and on the CPU: plans, ``gather_kv`` (``gather_pool_cuda``
    on the card) and every leaf equal, before and after appends and
    budgeted recodes;
-7. simulator kernels: ``gather_decode_cuda`` and ``encode_parities_cuda``
-   against their plain versions on the card, bit for bit, at three shapes
-   each (the simulator's; ``bench_kernels``'; one of at least 256 MB), with
-   their time per launch, byte bound, plain time and, where one PyTorch call
-   computes the same function, that call's time;
+7. simulator kernels: ``xor_gather`` through the entry the main path
+   calls, ``gather_plan_cuda`` (fed the controller's plan), and the column
+   entry ``gather_decode_cuda``, at four shapes (the simulator's, its 13
+   points lock-step, ``bench_kernels``' direct reads, one of 163 MB);
+   ``xor_encode`` through the path's ``encode_regions_cuda`` (one region
+   a point written into a copy of the parity state) at the simulator's
+   shape and 13 points, and through ``encode_parities_cuda`` at
+   ``bench_kernels``' shape and two of 671 MB (pairwise and scheme_i
+   members); each against its plain version on the card, bit for bit,
+   with its time per launch, byte bound, plain time and, where one
+   PyTorch call computes the same function, that call's time; and the
+   eager plan bridge (``gather_plan_columns``) the fold removed, timed on
+   the card and on the host clock beside the fused call;
 8. simulate: the coded-memory simulator at the paper figures' geometry (8
    banks x 320 rows, queue depth 10, 8 cores x 96 requests of a seeded
    banded trace, r = 0.05, select period 32) for uncoded, scheme_i,
@@ -233,8 +241,9 @@ no result line; with no flag it runs every phase:
    results and planes card = CPU, dead-bank cycles counted and reads
    served degraded because their bank is down (read class 4); (d) the
    timeline at its CLI defaults, events card = CPU. Outside the counts:
-   (e) a busy B = 1 batched cycle profiled with telemetry off (1,056-1,079
-   launches, as the sweep phase's B = 1 window counts them) and on, and
+   (e) a busy B = 1 batched cycle profiled with telemetry off (1,027-1,050
+   launches over cycles 40..60, as ``OBS_OFF_LAUNCHES`` records them) and
+   on, and
    timed off, on, on, off; (f) both sim kernels bit for bit against
    their plain versions on live telemetry-on states of (b)'s scheme_i
    batch. Counted for ``gather_pool``: (g) ``serve_report`` at its CLI
@@ -2044,10 +2053,11 @@ def _gather_columns(torch, gen, n, n_data, rows, n_par, prows, mix=True):
             torch.where(sib0 < 0, -1, rint(-1, n_data))]
 
 
-def _gather_bytes(torch, cols, banks, pars) -> int:
+def _gather_bytes(torch, cols, banks, pars, operand_bytes: int) -> int:
     """Bytes the gather must move: each needed row once (direct: its bank
-    row; degraded: parity row and live siblings; redirect: parity row),
-    the output and the seven columns."""
+    row; degraded: parity row and live siblings; redirect: parity row) on
+    banks (n, L, W) and parities (n_par, Lp, W), the output, and
+    ``operand_bytes`` of request operands (the columns or the plan)."""
     bank, row, mode, par, prow, sib0, sib1 = (c.long() for c in cols)
     nd, rows, w = banks.shape
     npar, prows = pars.shape[:2]
@@ -2062,14 +2072,58 @@ def _gather_bytes(torch, cols, banks, pars) -> int:
     n_rows = (int(torch.unique(torch.cat(bank_ids)).numel())
               + int(torch.unique(par_ids).numel()))
     row_bytes = w * banks.element_size()
-    return (n_rows + mode.numel()) * row_bytes + 7 * 4 * mode.numel()
+    return (n_rows + mode.numel()) * row_bytes + operand_bytes
+
+
+def _plan_operands(torch, gen, bits, B, nd, rows, npar, prows, w, n, mix,
+                   tables, rs=16):
+    """``gather_plan_cuda``'s operands at one shape: B points' banks (B,
+    nd, rows[, w]) and parities of random lane bits (4-byte rows without a
+    lane axis, as the simulator's state holds them), candidates on random
+    banks and rows, and ``mix``: every mode (-1 .. 6; -1 unserved), random
+    region slots and redirect holders; else every read served direct."""
+    def rint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    lanes = () if w == 1 else (w,)
+    mode = rint(-1, 7, (B, n)) if mix else torch.ones(
+        (B, n), dtype=torch.int32, device="cuda")
+    return [bits(*(B, nd, rows) + lanes), bits(*(B, npar, prows) + lanes),
+            rint(0, nd, (B, n)), rint(0, rows, (B, n)), mode, mode >= 0,
+            rint(-1, prows // rs, (B, rows // rs)),
+            rint(0, npar + 1, (B, nd, rows)), rs, rs, tables.opt_parity,
+            tables.opt_sibs]
+
+
+def time_on_host(torch, fn, n: int) -> float:
+    """Mean wall ms per call of ``fn`` on the host clock, from the first
+    call's start to the card's end of the last: what a host-bound caller
+    pays for it."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
 
 
 def sim_kernel_phase(torch):
+    """Both simulator kernels at every shape, through the entries the main
+    path calls (``gather_plan_cuda``, ``encode_regions_cuda``) and the
+    column entries (``gather_decode_cuda``, ``encode_parities_cuda``),
+    bit for bit against their plain versions, with their times, bounds and
+    yardsticks; the eager plan bridge the fold removed is timed on the
+    card as well."""
+    from repro_torch.core import controller as ctl
     from repro_torch.core.codes import get_tables
     from repro_torch.kernels.xor_encode import kernel as ek
-    from repro_torch.kernels.xor_encode.ref import encode_parities_plain
+    from repro_torch.kernels.xor_encode.ref import (encode_parities_plain,
+                                                    encode_regions_plain)
     from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.kernels.xor_gather import ops as gops
     from repro_torch.kernels.xor_gather.ref import gather_decode_plain
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
@@ -2080,56 +2134,113 @@ def sim_kernel_phase(torch):
                              device="cuda", dtype=i32)
 
     sch = get_tables("scheme_i")
+    tables = ctl.jtables(sch, "cuda")                 # int64, as the path's
     pairs = torch.tensor([[2 * g, 2 * g + 1, -1] for g in range(4)],
                          dtype=i32, device="cuda")
     results = {}
-    # name: (n_data, rows, n_par, prows, W, N, mixed modes, launches timed)
-    # "batch13": the sweep phase's 13 points lock-step, flattened
-    gather_shapes = {"sim": (8, 320, 12, 320, 1, 80, True, 400),
-                     "batch13": (104, 320, 156, 80, 1, 1040, True, 400),
-                     "bench": (8, 256, 4, 256, 256, 64, False, 400),
-                     "large": (8, 8192, 12, 2048, 1024, 16384, True, 40)}
-    for shape, (nd, rows, npar, prows, w, n, mix, reps) in \
+    # name: (B, n_data, rows, n_par, prows, W, N a point, mixed modes,
+    # launches timed); "batch13": the sweep phase's 13 points lock-step
+    gather_shapes = {"sim": (1, 8, 320, 12, 320, 1, 80, True, 400),
+                     "batch13": (13, 8, 320, 12, 80, 1, 80, True, 400),
+                     "bench": (1, 8, 256, 4, 256, 256, 64, False, 400),
+                     "large": (1, 8, 8192, 12, 2048, 1024, 16384, True, 40)}
+    for shape, (B, nd, rows, npar, prows, w, n, mix, reps) in \
             gather_shapes.items():
-        banks, pars = bits(nd, rows, w), bits(npar, prows, w)
-        cols = _gather_columns(torch, gen, n, nd, rows, npar, prows, mix)
-        out = gk.gather_decode_cuda(banks, pars, *cols)
+        args = _plan_operands(torch, gen, bits, B, nd, rows, npar, prows, w,
+                              n, mix, tables)
+        out = gk.gather_plan_cuda(*args)
         torch.cuda.synchronize()
-        ref = gather_decode_plain(banks, pars, *cols)
+        ref = gops.gather_plan_plain(*args)
         check(torch.equal(out, ref),
-              f"xor_gather {shape}: kernel differs from the plain version")
+              f"xor_gather {shape}: plan kernel differs from the plain "
+              "version")
+        cols = gops.gather_plan_columns(*args)
+        banks = args[0].reshape(B * nd, rows, w)
+        pars = args[1].reshape(B * npar, prows, w)
+        col_out = gk.gather_decode_cuda(banks, pars, *cols)
+        check(torch.equal(col_out, gather_decode_plain(banks, pars, *cols))
+              and torch.equal(col_out.view(ref.shape), ref),
+              f"xor_gather {shape}: column kernel differs from the plain "
+              "version")
         err = int((out.long() - ref.long()).abs().max())
-        ms = time_on_card(torch, lambda: gk.gather_decode_cuda(
+        ms = time_on_card(torch, lambda: gk.gather_plan_cuda(*args), reps)
+        col_ms = time_on_card(torch, lambda: gk.gather_decode_cuda(
             banks, pars, *cols), reps)
-        plain_ms = time_on_card(torch, lambda: gather_decode_plain(
-            banks, pars, *cols), max(reps // 10, 5))
-        n_bytes = _gather_bytes(torch, cols, banks, pars)
+        plain_ms = time_on_card(torch, lambda: gops.gather_plan_plain(*args),
+                                max(reps // 10, 5))
+        bridge_ms = time_on_card(torch, lambda: gops.gather_plan_columns(
+            *args), max(reps // 10, 5))
+        host = {"plan kernel": time_on_host(
+                    torch, lambda: gk.gather_plan_cuda(*args), 200),
+                "bridge + column kernel": time_on_host(
+                    torch, lambda: gk.gather_decode_cuda(
+                        banks, pars, *gops.gather_plan_columns(*args)), 50)}
+        mode = cols.mode.long()
+        parity_reads = int(((mode >= 2) & (mode <= 6)).sum())
+        # the candidate, mode and served flag of each request, the slot
+        # entry of each parity read and the holder of each redirect, the
+        # code tables
+        plan_bytes = (13 * B * n + 4 * parity_reads
+                      + 4 * int((mode == 6).sum())
+                      + (tables.opt_parity.numel()
+                         + tables.opt_sibs.numel()) * 8)
+        n_bytes = _gather_bytes(torch, cols, banks, pars, plan_bytes)
         lib_ms = None
         if not mix:        # direct reads only: one index_select of the rows
-            flat = banks.view(nd * rows, w)
-            idx = cols[0].long() * rows + cols[1].long()
-            check(torch.equal(torch.index_select(flat, 0, idx), out),
-                  "xor_gather bench: index_select differs")
+            flat = banks.view(B * nd * rows, w)
+            idx = cols.bank.long() * rows + cols.row.long()
+            check(torch.equal(torch.index_select(flat, 0, idx),
+                              out.view(-1, w)),
+                  f"xor_gather {shape}: index_select differs")
             lib_ms = time_on_card(torch, lambda: torch.index_select(
                 flat, 0, idx), reps)
         results[("xor_gather", shape)] = _kernel_row(
             "xor_gather", shape, ms, plain_ms, n_bytes, lib_ms, err,
-            f"banks ({nd},{rows},{w}) + parities ({npar},{prows},{w}) "
-            f"int32 = {(nd * rows + npar * prows) * w * 4 / 1e6:.1f} MB, "
-            f"N={n}{' mixed modes' if mix else ' direct'}")
-    # name: (n_data, rows, W, members, launches timed)
-    encode_shapes = {"sim": (8, 16, 1, "scheme_i", 400),
-                     "batch13": (104, 16, 1, "scheme_i", 400),
-                     "bench": (8, 512, 256, "pairs", 400),
-                     "large": (8, 8192, 1024, "pairs", 40)}
+            f"B={B}: banks ({nd},{rows},{w}) + parities ({npar},{prows},{w}) "
+            f"int32 a point = {B * (nd * rows + npar * prows) * w * 4 / 1e6:.1f}"
+            f" MB, N={n} a point{' mixed modes' if mix else ' direct'}; "
+            f"column entry {col_ms * 1e3:.2f} us/launch; the eager plan "
+            f"bridge {bridge_ms * 1e3:.2f} us of card time a call; host ms "
+            "a call: " + ", ".join(f"{k} {v:.4f}" for k, v in host.items()))
+        del args, banks, pars, out, ref, col_out
+    # regions: (B, n_data, rows, n_par, prows, launches timed), one
+    # completing encode a point; whole banks: (n_data, rows, W, members,
+    # launches timed)
+    region_shapes = {"sim": (1, 8, 320, 12, 80, 400),
+                     "batch13": (13, 8, 320, 12, 80, 400)}
+    for shape, (B, nd, rows, npar, prows, reps) in region_shapes.items():
+        rs = 16
+        done = torch.tensor([(b, (3 * b + 1) % (rows // rs), b % (prows // rs),
+                              rs) for b in range(B)], dtype=i32,
+                            device="cuda")
+        args = (bits(B, nd, rows), bits(B, npar, prows), tables.par_members,
+                done, rs)
+        out = ek.encode_regions_cuda(*args)
+        torch.cuda.synchronize()
+        ref = encode_regions_plain(*args)
+        check(torch.equal(out, ref),
+              f"xor_encode {shape}: region kernel differs from the plain "
+              "version")
+        err = int((out.long() - ref.long()).abs().max())
+        ms = time_on_card(torch, lambda: ek.encode_regions_cuda(*args), reps)
+        plain_ms = time_on_card(torch, lambda: encode_regions_plain(*args),
+                                max(reps // 10, 5))
+        # the region rows read and the slot rows written, the clone of the
+        # parity state (read and written), the block and the member table
+        n_bytes = (B * (nd + npar) * rs * 4 + 2 * args[1].numel() * 4
+                   + done.numel() * 4 + tables.par_members.numel() * 8)
+        results[("xor_encode", shape)] = _kernel_row(
+            "xor_encode", shape, ms, plain_ms, n_bytes, None, err,
+            f"B={B}: one region of {rs} rows a point from banks ({nd},{rows})"
+            f" into {npar} parities ({prows} rows) of scheme_i, with the "
+            "parity state's clone")
+        del args, out, ref
+    encode_shapes = {"bench": (8, 512, 256, "pairs", 400),
+                     "large": (8, 8192, 1024, "pairs", 40),
+                     "large_scheme_i": (8, 8192, 1024, "scheme_i", 20)}
     for shape, (nd, rows, w, mem, reps) in encode_shapes.items():
         banks = bits(nd, rows, w)
-        members = pairs if mem == "pairs" else torch.from_numpy(
-            sch.par_members).to("cuda")
-        if mem == "scheme_i" and nd > 8:     # each point's own banks
-            pt = torch.arange(nd // 8, device="cuda")[:, None, None] * 8
-            members = torch.where(members >= 0, members + pt,
-                                  -1).flatten(0, 1).int()
+        members = pairs if mem == "pairs" else tables.par_members
         out = ek.encode_parities_cuda(banks, members)
         torch.cuda.synchronize()
         ref = encode_parities_plain(banks, members)
@@ -2141,7 +2252,8 @@ def sim_kernel_phase(torch):
         plain_ms = time_on_card(torch, lambda: encode_parities_plain(
             banks, members), max(reps // 10, 5))
         npar = members.shape[0]
-        n_bytes = (nd + npar) * rows * w * 4 + members.numel() * 4
+        n_bytes = ((nd + npar) * rows * w * 4
+                   + members.numel() * members.element_size())
         lib_ms = None
         if mem == "pairs":       # pairwise members: one strided XOR
             check(torch.equal(banks[0::2] ^ banks[1::2], out),
@@ -2476,75 +2588,90 @@ class CycleSampler:
 def check_live_kernels(torch, sys_, tn, states, label) -> str:
     """Both sim kernels bit for bit against their plain versions on live
     card states of a run (batched states of B points, ``tn`` their batched
-    tunables), at the run's own geometry: ``xor_gather`` on each state's
-    banks and parities viewed (B·n_data, L, 1) and (B·n_par, Lp, 1), with
-    the read plans the controller builds from its queues (``plan_columns``
-    offsets each point's ids) and with seeded columns of every mode at the
-    plans' length; ``xor_encode`` on every region's rows of every point's
-    banks, as a batched region switch encodes them (one call for the
-    batch). Called after the path's launches are read: these launches
-    count nowhere."""
+    tunables), at the run's own geometry: ``xor_gather`` fed each state's
+    read plans as the controller builds them from its queues (the path's
+    entry, ``gather_plan_cuda``) and, through the column entry, seeded
+    columns of every mode at the plans' length on the banks viewed
+    (B·n_data, L, 1); ``xor_encode`` through the path's entry
+    (``encode_regions_cuda``) on every region of every point's banks, one
+    call a region for the batch, each point into a slot of its own at its
+    own region size, and through ``encode_parities_cuda`` on the points'
+    whole banks. Called after the path's launches are read: these
+    launches count nowhere."""
     from repro_torch.core import controller as ctl
     from repro_torch.core.state import active_geometry
     from repro_torch.kernels.xor_encode import kernel as ek
-    from repro_torch.kernels.xor_encode.ops import member_table
-    from repro_torch.kernels.xor_encode.ref import encode_parities_plain
+    from repro_torch.kernels.xor_encode.ref import (encode_parities_plain,
+                                                    encode_regions_plain)
     from repro_torch.kernels.xor_gather import kernel as gk
-    from repro_torch.kernels.xor_gather.ops import plan_columns
+    from repro_torch.kernels.xor_gather import ops as gops
     from repro_torch.kernels.xor_gather.ref import gather_decode_plain
 
     check(len(states) > 0, f"{label}: no live state was sampled")
     p, t, dev = sys_.p, sys_.t, sys_.device
     rs = p.region_size
     rs_a, _ = active_geometry(p, tn)
-    rs_col = torch.as_tensor(rs_a, device=dev).view(-1, 1)
     gen = torch.Generator(device=dev).manual_seed(99)
-    off = torch.arange(rs, device=dev)
     modes = torch.zeros(8, dtype=torch.long, device=dev)      # -1 .. 6
     n_gather = n_encode = 0
     for st in states:
         m = st.mem
         B = m.cycle.shape[0]
-        banks = m.banks_data[..., None].flatten(0, 1)
-        pars = m.parity_data[..., None].flatten(0, 1)
         cb = sys_._bank_ids.expand(B, -1)
         ci = m.rq_row.flatten(1)
         plan = ctl.build_read_patterns(
             p, t, cb, ci, m.rq_age.flatten(1), m.rq_valid.flatten(1),
             sys_._idle_ports(B), m.fresh_loc, m.parity_valid, m.region_slot,
             rs_a)
-        real = list(plan_columns(t, plan, cb, ci, m.region_slot, rs,
-                                 m.fresh_loc, rs_active=rs_a))
+        args = (m.banks_data, m.parity_data, cb, ci, plan.mode, plan.served,
+                m.region_slot, m.fresh_loc, rs_a, rs, t.opt_parity,
+                t.opt_sibs)
+        check(torch.equal(gk.gather_plan_cuda(*args),
+                          gops.gather_plan_plain(*args)),
+              f"{label}: xor_gather (the plan) differs from its plain "
+              f"version on a live state at cycle {m.cycle.tolist()}")
+        real = gops.gather_plan_columns(*args)
+        banks = m.banks_data[..., None].flatten(0, 1)
+        pars = m.parity_data[..., None].flatten(0, 1)
         seeded = _gather_columns(torch, gen, ci.numel(), banks.shape[0],
                                  p.n_rows, pars.shape[0], pars.shape[1])
-        for cols in (real, seeded):
-            got = gk.gather_decode_cuda(banks, pars, *cols)
-            check(torch.equal(got, gather_decode_plain(banks, pars, *cols)),
-                  f"{label}: xor_gather differs from its plain version on a "
-                  f"live state at cycle {m.cycle.tolist()}")
-            n_gather += 1
-        modes += torch.bincount(real[2].long() + 1, minlength=8)
-        pt = torch.arange(B, device=dev)[:, None, None] * p.n_data
-        base = member_table(t.par_members, dev)
-        members = torch.where(base >= 0, base + pt, -1).flatten(0, 1).int()
+        check(torch.equal(gk.gather_decode_cuda(banks, pars, *seeded),
+                          gather_decode_plain(banks, pars, *seeded)),
+              f"{label}: xor_gather (seeded columns) differs from its plain "
+              f"version on a live state at cycle {m.cycle.tolist()}")
+        n_gather += 2
+        modes += torch.bincount(real.mode.long() + 1, minlength=8)
+        rs_pts = (rs_a.tolist() if isinstance(rs_a, torch.Tensor)
+                  else [rs_a] * B)
+        n_slots = m.parity_data.shape[2] // rs
         for region in range(p.n_regions):
-            rows = (region * rs_col + off).clamp(0, p.n_rows - 1)
-            region_rows = m.banks_data.gather(2, rows[:, None].expand(
-                B, p.n_data, rs))[..., None].flatten(0, 1)
-            check(torch.equal(ek.encode_parities_cuda(region_rows, members),
-                              encode_parities_plain(region_rows, members)),
+            done = torch.tensor([(b, region, (region + b) % n_slots,
+                                  rs_pts[b]) for b in range(B)],
+                                dtype=torch.int32, device=dev)
+            enc = (m.banks_data, m.parity_data, t.par_members, done, rs)
+            check(torch.equal(ek.encode_regions_cuda(*enc),
+                              encode_regions_plain(*enc)),
                   f"{label}: xor_encode differs from its plain version on "
                   f"region {region} at cycle {m.cycle.tolist()}")
             n_encode += 1
+        whole = m.banks_data[..., None]
+        check(torch.equal(ek.encode_parities_cuda(whole, t.par_members),
+                          encode_parities_plain(whole, t.par_members)),
+              f"{label}: xor_encode differs from its plain version on the "
+              f"whole banks at cycle {m.cycle.tolist()}")
+        n_encode += 1
     modes = modes.tolist()
     check(sum(modes[1:]) > 0, f"{label}: the sampled read plans serve "
           "nothing")
     return (f"xor_gather and xor_encode bit-exact vs plain on {len(states)} "
             f"live card states ({n_gather} gathers at N={ci.numel()}, banks "
-            f"{tuple(banks.shape)}, parities {tuple(pars.shape)}: real plans "
-            f"with {modes[1] + modes[2]} direct, {sum(modes[3:7])} degraded, "
-            f"{modes[7]} redirected reads, and seeded columns of every mode; "
-            f"{n_encode} region encodes of {tuple(region_rows.shape)})")
+            f"{tuple(m.banks_data.shape)}, parities "
+            f"{tuple(m.parity_data.shape)}: real plans with "
+            f"{modes[1] + modes[2]} direct, {sum(modes[3:7])} degraded, "
+            f"{modes[7]} redirected reads through the plan entry, and seeded "
+            f"columns of every mode through the column entry; {n_encode} "
+            "encodes: every region of every point into its slot, and the "
+            "whole banks)")
 
 
 def stream_phase(torch, sim_single):
@@ -3017,9 +3144,11 @@ OBS_TIMELINE = dict(scheme="scheme_i", trace="banded", alpha=0.25, r=0.05,
                     n_rows=128, length=96, select_period=32)
 OBS_TIMELINE_CHUNK = 32
 OBS_TIMELINE_MAX = 4096
-# (e): launches of a busy B = 1 batched cycle with telemetry off, as the
-# sweep phase's B = 1 profile window has measured them on the H100
-OBS_OFF_LAUNCHES = (1056, 1079)
+# (e): launches of a busy B = 1 batched cycle with telemetry off over
+# cycles 40..60, as measured on the H100 (1,056-1,079 with the eager plan
+# bridge; 28.8 fewer a cycle since the read datapath is one launch fed the
+# plan, scripts/torch_sim_kernels_ab.py)
+OBS_OFF_LAUNCHES = (1027, 1050)
 OBS_SERVE_LAYERS = 2             # (g): reduced qwen2.5-3b's layers
 
 
@@ -3675,8 +3804,12 @@ def sweep_phase(torch, sim_single, looped_rate, looped_busy_ms,
     cpu_side.pause()
     # launches per batched cycle and idle share, B = 1, 8 and (a)'s
     # traced batch, in this call
-    for n in PROFILE_BATCHES:
-        profile_batch(torch, seed_points(n), f"seeds{n}")
+    busy = {n: profile_batch(torch, seed_points(n), f"seeds{n}")
+            for n in PROFILE_BATCHES}
+    print("sweep: launches per busy batched cycle (host launch calls, "
+          "profile windows above): " + ", ".join(
+              f"B={n} {busy[n].get('launches', 'not measured')}"
+              for n in PROFILE_BATCHES))
     profile_batch(torch, batches[1].points, "fig19_traced")
     return launches
 
@@ -3823,13 +3956,14 @@ def paper_phase(torch, sim_results, cpu_side):
 def _recorded_batch(torch, hook, res) -> str:
     """Scheme III's alpha < 1 Fig 18 batch run once more on the card with
     every ``xor_gather`` and ``xor_encode`` launch held against the plain
-    version on that launch's own operands (its degraded reads XOR two
-    siblings), and its results against the phase's. Outside the counts."""
+    version on that launch's own operands, through the entries the path
+    calls (``gather_plan_cuda``: its degraded reads XOR two siblings;
+    ``encode_regions_cuda``), and its results against the phase's. Each
+    hook must see a launch. Outside the counts."""
     from repro_torch.core.controller import MODE_OPT0, MODE_REDIRECT
     from repro_torch.kernels.xor_encode import ops as eops
-    from repro_torch.kernels.xor_encode.ref import encode_parities_plain
+    from repro_torch.kernels.xor_encode.ref import encode_regions_plain
     from repro_torch.kernels.xor_gather import ops as gops
-    from repro_torch.kernels.xor_gather.ref import gather_decode_plain
     from repro_torch.sweep import run_points
 
     batch = next(b for b, _ in hook.final.values()
@@ -3843,30 +3977,32 @@ def _recorded_batch(torch, hook, res) -> str:
                   f"launch {seen[kind]} differs from its plain version")
             seen[kind] += 1
             if kind == "gather":
-                mode, sib0, sib1 = args[4], args[7], args[8]
-                opt = (mode >= MODE_OPT0) & (mode < MODE_REDIRECT)
+                cols = gops.gather_plan_columns(*args)
+                opt = (cols.mode >= MODE_OPT0) & (cols.mode < MODE_REDIRECT)
                 seen["degraded"] += int(opt.sum())
-                seen["two"] += int((opt & (sib0 >= 0) & (sib1 >= 0)).sum())
+                seen["two"] += int((opt & (cols.sib0 >= 0)
+                                    & (cols.sib1 >= 0)).sum())
             return out
         return checked
 
-    saved = gops.gather_decode_cuda, eops.encode_parities_cuda
-    gops.gather_decode_cuda = held("gather", saved[0], gather_decode_plain)
-    eops.encode_parities_cuda = held("encode", saved[1],
-                                     encode_parities_plain)
+    saved = gops.gather_plan_cuda, eops.encode_regions_cuda
+    gops.gather_plan_cuda = held("gather", saved[0], gops.gather_plan_plain)
+    eops.encode_regions_cuda = held("encode", saved[1], encode_regions_plain)
     try:
         got = run_points(batch.points, device="cuda")
     finally:
-        gops.gather_decode_cuda, eops.encode_parities_cuda = saved
+        gops.gather_plan_cuda, eops.encode_regions_cuda = saved
     check(got == [res[i][1] for i in batch.indices],
           f"paper (e): rerun {got} vs the phase's results")
-    check(seen["two"] > 0 and seen["encode"] > 0,
-          f"paper (e): no two-sibling degraded read or no encode: {seen}")
+    check(seen["gather"] > 0 and seen["encode"] > 0,
+          f"paper (e): a hook saw no launch: {seen}")
+    check(seen["two"] > 0,
+          f"paper (e): no two-sibling degraded read: {seen}")
     return (f"fig18 batch scheme_iii alpha {[p.alpha for p in batch.points]}"
             f" rerun, results equal: all {seen['gather']} xor_gather and "
-            f"{seen['encode']} xor_encode launches bit-exact vs plain on "
-            f"their own operands ({seen['degraded']} degraded reads, "
-            f"{seen['two']} of them parity ^ two siblings)")
+            f"{seen['encode']} xor_encode launches of the path's entries "
+            f"bit-exact vs plain on their own operands ({seen['degraded']} "
+            f"degraded reads, {seen['two']} of them parity ^ two siblings)")
 
 
 def faults_phase(torch, cpu_side):
@@ -3974,47 +4110,48 @@ def faults_phase(torch, cpu_side):
 
 def _recorded_fault_batch(torch, hook, res) -> str:
     """Scheme III's batch of the availability gate run once more on the
-    card with every ``xor_gather`` launch held against the plain version on
-    that launch's own operands (reads degraded around the dead bank, parity
-    ^ two siblings), and its results against the gate's. Outside the
-    counts."""
+    card with every ``xor_gather`` launch of the path's entry
+    (``gather_plan_cuda``) held against the plain version on that launch's
+    own operands (reads degraded around the dead bank, parity ^ two
+    siblings), and its results against the gate's. The hook must see a
+    launch. Outside the counts."""
     from repro_torch.core.controller import MODE_OPT0, MODE_REDIRECT
     from repro_torch.kernels.xor_gather import ops as gops
-    from repro_torch.kernels.xor_gather.ref import gather_decode_plain
     from repro_torch.sweep import run_points
 
     batch = next(b for b, _ in hook.final.values()
                  if b.points[0].scheme == "scheme_iii")
     seen = {"gather": 0, "degraded": 0, "two": 0}
-    launch = gops.gather_decode_cuda
+    launch = gops.gather_plan_cuda
 
     def checked(*args):
         out = launch(*args)
-        check(torch.equal(out, gather_decode_plain(*args)), f"faults (c): "
-              f"xor_gather launch {seen['gather']} differs from its plain "
-              "version")
+        check(torch.equal(out, gops.gather_plan_plain(*args)), f"faults "
+              f"(c): xor_gather launch {seen['gather']} differs from its "
+              "plain version")
         seen["gather"] += 1
-        mode, sib0, sib1 = args[4], args[7], args[8]
-        opt = (mode >= MODE_OPT0) & (mode < MODE_REDIRECT)
+        cols = gops.gather_plan_columns(*args)
+        opt = (cols.mode >= MODE_OPT0) & (cols.mode < MODE_REDIRECT)
         seen["degraded"] += int(opt.sum())
-        seen["two"] += int((opt & (sib0 >= 0) & (sib1 >= 0)).sum())
+        seen["two"] += int((opt & (cols.sib0 >= 0) & (cols.sib1 >= 0)).sum())
         return out
 
-    gops.gather_decode_cuda = checked
+    gops.gather_plan_cuda = checked
     try:
         got = run_points(batch.points, device="cuda")
     finally:
-        gops.gather_decode_cuda = launch
+        gops.gather_plan_cuda = launch
     check(got == [res[i] for i in batch.indices],
           f"faults (c): rerun {got} vs the gate's results")
+    check(seen["gather"] > 0, f"faults (c): the hook saw no launch: {seen}")
     fault_degraded = sum(r.fault_degraded_reads for r in got)
     check(fault_degraded > 0 and seen["two"] > 0,
           f"faults (c): no fault-degraded or two-sibling read: {seen}")
     return (f"scheme_iii batch of the gate (dead banks "
             f"{[p.faults for p in batch.points][0]}) rerun, results equal: "
-            f"all {seen['gather']} xor_gather launches bit-exact vs plain on "
-            f"their own operands ({seen['degraded']} degraded reads, "
-            f"{seen['two']} of them parity ^ two siblings); "
+            f"all {seen['gather']} xor_gather launches of the path's entry "
+            f"bit-exact vs plain on their own operands ({seen['degraded']} "
+            f"degraded reads, {seen['two']} of them parity ^ two siblings); "
             f"{fault_degraded} reads served degraded because their bank was "
             "down")
 

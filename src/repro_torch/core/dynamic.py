@@ -29,7 +29,7 @@ import torch
 from repro_torch.core.controller import JTables, col
 from repro_torch.core.state import (INT32_MAX, MemParams, TunableParams,
                                     active_geometry, active_ints)
-from repro_torch.kernels.xor_encode.ops import encode_parities
+from repro_torch.kernels.xor_encode.ops import encode_regions
 
 
 class DynOut(NamedTuple):
@@ -42,28 +42,6 @@ class DynOut(NamedTuple):
     enc_remaining: torch.Tensor
     enc_slot: torch.Tensor
     switches: torch.Tensor
-
-
-def _encode_regions(p: MemParams, t: JTables, banks_data: torch.Tensor,
-                    parity_data: torch.Tensor, done) -> torch.Tensor:
-    """``parity_data`` (B, n_par, Lp) with each completing point's slot rows
-    set to the XOR parities of its region's rows (a new tensor). ``done``
-    lists (point, region, slot, rs_a) host ints; the rows are gathered with
-    the clamped indices of ``repro/core/dynamic.py:63`` and lanes at offsets
-    >= ``rs_a`` write 0. All points' encodes go through one
-    ``encode_parities`` call."""
-    rs = p.region_size
-    dev = banks_data.device
-    off = torch.arange(rs, device=dev)
-    rows = torch.stack([banks_data[b][:, (region * rs_a + off).clamp(
-        0, p.n_rows - 1)] for b, region, _, rs_a in done])  # (C, n_data, rs)
-    vals = encode_parities(rows[..., None], t.par_members)[..., 0]
-    out = parity_data.clone()
-    for k, (b, _, slot, rs_a) in enumerate(done):
-        # dynamic_update_slice clamps the start so the slice fits
-        start = min(max(slot, 0) * rs, parity_data.shape[2] - rs)
-        out[b, :, start:start + rs] = torch.where(off < rs_a, vals[k], 0)
-    return out
 
 
 def priors_layout(p: MemParams, tn, priors):
@@ -151,7 +129,7 @@ def dynamic_step(
     cloned = bool(done)
     if done:
         # completion: write the parity data, validate rows, install mapping
-        parity_data = _encode_regions(p, t, banks_data, parity_data, done)
+        parity_data = encode_regions(p, t, banks_data, parity_data, done)
         parity_valid = parity_valid.clone()
         region_slot = region_slot.clone()
         slot_region = slot_region.clone()

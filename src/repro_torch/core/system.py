@@ -400,16 +400,13 @@ class CodedMemorySystem:
     # ----------------------------------------------------------- read values
     def _read_values(self, m: MemState, plan: ctl.ReadPlan, cb, ci,
                      rs_a) -> torch.Tensor:
-        """The served reads' values, (B, N): the plan's columns through the
-        coded row gather (the CUDA ``xor_gather`` kernel on the card, one
-        launch for the batch), on the banks viewed as (…, L, 1) int32
-        rows."""
-        cols = gather_ops.plan_columns(self.t, plan, cb, ci, m.region_slot,
-                                       self.p.region_size, m.fresh_loc,
-                                       rs_active=rs_a)
-        return gather_ops.gather_decode(m.banks_data[..., None],
-                                        m.parity_data[..., None],
-                                        cols)[:, 0].view(cb.shape)
+        """The served reads' values, (B, N): the plan through the coded
+        row gather on the banks' 4-byte rows (on the card the CUDA
+        ``xor_gather`` kernel, fed the plan: one launch for the batch and
+        no other op but the output's allocation)."""
+        return gather_ops.gather_plan(self.t, plan, cb, ci, m.region_slot,
+                                      self.p.region_size, m.fresh_loc, rs_a,
+                                      m.banks_data, m.parity_data)
 
     # ------------------------------------------------------- write datapath
     def _commit_writes(self, m: MemState, plan: ctl.WritePlan, cb, ci_, ca,

@@ -113,7 +113,7 @@ def test_gather_pool_cuda_rejects_wrong_dtype(cuda):
 # ------------------------------------------------------- simulator kernels
 from repro_torch.kernels.xor_encode import kernel as enc_kernel  # noqa: E402
 from repro_torch.kernels.xor_encode.ref import (  # noqa: E402
-    encode_parities_plain)
+    encode_parities_plain, encode_regions_plain)
 from repro_torch.kernels.xor_gather import kernel as gat_kernel  # noqa: E402
 from repro_torch.kernels.xor_gather.ref import (  # noqa: E402
     gather_decode_plain)
@@ -641,15 +641,16 @@ def test_sim_kernels_on_live_batched_states(cuda, scheme, monkeypatch):
     def record(store, launch):
         def recorded(*args):
             out = launch(*args)
-            store.append(([a.clone() for a in args], out.clone()))
+            store.append(([a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args], out.clone()))
             return out
         return recorded
 
     gathers, encodes = [], []
-    monkeypatch.setattr(g_ops, "gather_decode_cuda",
-                        record(gathers, g_ops.gather_decode_cuda))
-    monkeypatch.setattr(enc_ops, "encode_parities_cuda",
-                        record(encodes, enc_ops.encode_parities_cuda))
+    monkeypatch.setattr(g_ops, "gather_plan_cuda",
+                        record(gathers, g_ops.gather_plan_cuda))
+    monkeypatch.setattr(enc_ops, "encode_regions_cuda",
+                        record(encodes, enc_ops.encode_regions_cuda))
     pts = grid(SweepPoint(scheme=scheme, n_rows=64, n_cores=8, length=32,
                           write_frac=0.1, select_period=4),
                alpha=(0.25, 0.5), r=(0.125, 0.25))
@@ -659,13 +660,14 @@ def test_sim_kernels_on_live_batched_states(cuda, scheme, monkeypatch):
     assert sum(r.switches for r in res) >= 1
     degraded = two_sibling = 0
     for args, out in gathers:
-        assert torch.equal(out, gather_decode_plain(*args))
-        mode, sib0, sib1 = args[4], args[7], args[8]
-        opt = (mode >= MODE_OPT0) & (mode < MODE_REDIRECT)
+        assert torch.equal(out, g_ops.gather_plan_plain(*args))
+        cols = g_ops.gather_plan_columns(*args)
+        opt = (cols.mode >= MODE_OPT0) & (cols.mode < MODE_REDIRECT)
         degraded += int(opt.sum())
-        two_sibling += int((opt & (sib0 >= 0) & (sib1 >= 0)).sum())
+        two_sibling += int((opt & (cols.sib0 >= 0)
+                            & (cols.sib1 >= 0)).sum())
     for args, out in encodes:
-        assert torch.equal(out, encode_parities_plain(*args))
+        assert torch.equal(out, encode_regions_plain(*args))
     assert degraded > 0
     assert (two_sibling > 0) == (scheme == "scheme_iii")
 
@@ -687,7 +689,8 @@ def test_sim_kernels_on_a_faulted_batch(cuda, monkeypatch):
     def record(store, launch):
         def recorded(*args):
             out = launch(*args)
-            store.append(([a.clone() for a in args], out.clone()))
+            store.append(([a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args], out.clone()))
             return out
         return recorded
 
@@ -700,20 +703,21 @@ def test_sim_kernels_on_a_faulted_batch(cuda, monkeypatch):
            for k, sp in enumerate(specs) for a in (0.25, 0.5)]
     assert [len(b) for b in partition(pts)] == [2, 6]
     gathers, encodes = [], []
-    monkeypatch.setattr(g_ops, "gather_decode_cuda",
-                        record(gathers, g_ops.gather_decode_cuda))
-    monkeypatch.setattr(enc_ops, "encode_parities_cuda",
-                        record(encodes, enc_ops.encode_parities_cuda))
+    monkeypatch.setattr(g_ops, "gather_plan_cuda",
+                        record(gathers, g_ops.gather_plan_cuda))
+    monkeypatch.setattr(enc_ops, "encode_regions_cuda",
+                        record(encodes, enc_ops.encode_regions_cuda))
     card, card_st = run_points(pts, device=cuda, return_state=True)
     assert len(gathers) >= 10 and len(encodes) >= 1
     two_sibling = 0
     for args, out in gathers:
-        assert torch.equal(out, gather_decode_plain(*args))
-        mode, sib0, sib1 = args[4], args[7], args[8]
-        opt = (mode >= MODE_OPT0) & (mode < MODE_REDIRECT)
-        two_sibling += int((opt & (sib0 >= 0) & (sib1 >= 0)).sum())
+        assert torch.equal(out, g_ops.gather_plan_plain(*args))
+        cols = g_ops.gather_plan_columns(*args)
+        opt = (cols.mode >= MODE_OPT0) & (cols.mode < MODE_REDIRECT)
+        two_sibling += int((opt & (cols.sib0 >= 0)
+                            & (cols.sib1 >= 0)).sum())
     for args, out in encodes:
-        assert torch.equal(out, encode_parities_plain(*args))
+        assert torch.equal(out, encode_regions_plain(*args))
     assert two_sibling > 0
     assert sum(r.fault_degraded_reads for r in card) > 0
     cpu, cpu_st = run_points(pts, device="cpu", return_state=True)
@@ -725,3 +729,224 @@ def test_sim_kernels_on_a_faulted_batch(cuda, monkeypatch):
         assert (fa is None) == (fb is None)
         assert fa is None or all(torch.equal(x.cpu(), y.cpu())
                                  for x, y in zip(fa, fb))
+
+
+# ------------------------------------------------- the fused sim entries
+def _plan_operands(cuda, seed, B, scheme, n=80, rows=320, rs=16, n_slots=5,
+                   lanes=(), batched=True, traced=False, table=torch.int64):
+    """``gather_plan_cuda``'s operands for B points: every mode (-1 .. 7),
+    served at random, candidate banks and rows past either end, holders
+    past the last parity, slots past the last one (all clamped), random
+    int32 lane bits; the candidates' banks broadcast over points (stride
+    0), as the system's bank-id row is; ``traced``: each point's region
+    size as a (B,) int32 tensor."""
+    from repro_torch.core.codes import get_tables
+
+    t = get_tables(scheme)
+    nd, npar = t.n_data, t.par_members.shape[0]
+    rng = np.random.default_rng(seed)
+    n_regions = rows // (2 if traced else rs)
+
+    def ints(lo, hi, shape, dt=np.int32):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(dt)).to(
+            cuda)
+
+    info = np.iinfo(np.int32)
+    args = [ints(info.min, info.max, (B, nd, rows) + lanes),
+            ints(info.min, info.max, (B, npar, n_slots * rs) + lanes),
+            ints(-2, nd + 2, (1, n)).expand(B, n), ints(-2, rows + 2, (B, n)),
+            ints(-1, 8, (B, n)), ints(0, 2, (B, n), np.bool_),
+            ints(-1, n_slots + 1, (B, n_regions)),
+            ints(0, npar + 3, (B, nd, rows)),
+            ints(1, rs + 1, (B,)) if traced else rs, rs,
+            torch.from_numpy(t.opt_parity).to(cuda, table),
+            torch.from_numpy(t.opt_sibs).to(cuda, table)]
+    if not batched:                       # one point: no leading B
+        args[:9] = [a[0] if isinstance(a, torch.Tensor) else a
+                    for a in args[:9]]
+    return args
+
+
+@pytest.mark.parametrize("lanes", [(), (3,), (256,)])
+@pytest.mark.parametrize("B", [1, 8, 13])
+@pytest.mark.parametrize("scheme", ["scheme_i", "scheme_iii"])
+def test_gather_plan_cuda_equals_plain(cuda, scheme, B, lanes):
+    """The plan-fed gather against ``gather_decode_plain`` of the plan's
+    columns, bit for bit: every mode, clamped out-of-range ids, 4-, 12- and
+    1,024-byte rows, one launch; at B = 1 also the (N,) plan of one point,
+    and at B = 8 each point's own traced region size."""
+    from repro_torch.kernels.xor_gather import ops as g_ops
+
+    cases = [dict()]
+    if B == 1:
+        cases.append(dict(batched=False))
+    if B == 8:
+        cases.append(dict(traced=True, table=torch.int32))
+    for kw in cases:
+        args = _plan_operands(cuda, B * 7 + len(lanes), B, scheme,
+                              lanes=lanes, **kw)
+        before = gat_kernel.launches
+        out = gat_kernel.gather_plan_cuda(*args)
+        torch.cuda.synchronize()
+        assert gat_kernel.launches == before + 1
+        assert out.shape == tuple(args[2].shape) + lanes
+        assert torch.equal(out, g_ops.gather_plan_plain(*args)), kw
+        if B > 1:                             # -1 .. 6 all served
+            cols = g_ops.gather_plan_columns(*args)
+            modes = torch.bincount(cols.mode.long() + 1, minlength=9)
+            assert bool((modes[:8] > 0).all())
+
+
+def test_gather_plan_cuda_empty_plan(cuda):
+    args = _plan_operands(cuda, 0, 3, "scheme_i", n=0)
+    before = gat_kernel.launches
+    out = gat_kernel.gather_plan_cuda(*args)
+    assert out.shape == (3, 0) and gat_kernel.launches == before
+
+
+def _region_operands(cuda, seed, B, scheme, lanes=(), table=torch.int64):
+    """Banks (B, n_data, 320, *lanes) and parities (B, n_par, 80, *lanes)
+    of random bits, and completing encodes of about half the points:
+    regions past the last row, slots past the last one and -1, traced
+    region sizes below the allocation's 16."""
+    from repro_torch.core.codes import get_tables
+
+    t = get_tables(scheme)
+    rng = np.random.default_rng(seed)
+    info = np.iinfo(np.int32)
+    nd, npar = t.n_data, t.par_members.shape[0]
+    banks = torch.from_numpy(rng.integers(
+        info.min, info.max, (B, nd, 320) + lanes, dtype=np.int32)).to(cuda)
+    pars = torch.from_numpy(rng.integers(
+        info.min, info.max, (B, npar, 80) + lanes, dtype=np.int32)).to(cuda)
+    pts = rng.permutation(B)[:max(1, B // 2)]
+    done = [(int(b), int(rng.integers(0, 24)), int(rng.integers(-1, 7)),
+             int(rng.choice([16, 16, 8, 3]))) for b in pts]
+    return (banks, pars, torch.from_numpy(t.par_members).to(cuda, table),
+            torch.tensor(done, dtype=torch.int32, device=cuda), 16)
+
+
+@pytest.mark.parametrize("lanes", [(), (5,)])
+@pytest.mark.parametrize("B", [1, 8, 13])
+@pytest.mark.parametrize("scheme", ["scheme_i", "scheme_iii"])
+def test_encode_regions_cuda_equals_plain(cuda, scheme, B, lanes):
+    """The region encode written into a copy of the parity state against
+    ``encode_regions_plain``, bit for bit, the input state untouched; one
+    launch (int32 member table at B = 8)."""
+    args = _region_operands(cuda, B + len(lanes), B, scheme, lanes,
+                            torch.int32 if B == 8 else torch.int64)
+    before_state = args[1].clone()
+    before = enc_kernel.launches
+    out = enc_kernel.encode_regions_cuda(*args)
+    torch.cuda.synchronize()
+    assert enc_kernel.launches == before + 1
+    assert torch.equal(args[1], before_state)
+    assert torch.equal(out, encode_regions_plain(*args))
+
+
+@pytest.mark.parametrize("B", [1, 8, 13])
+@pytest.mark.parametrize("members", ["scheme_i", "scheme_iii", "pairs",
+                                     "wide"])
+def test_encode_parities_cuda_batched_equals_plain(cuda, members, B):
+    """Banks (B, n_data, L, W) and the one-point member table (int64, as
+    the code tables hold it): each point XORs its own banks, one launch;
+    "wide" has 20 banks, past the registers body's 16."""
+    from repro_torch.core.codes import get_tables
+
+    if members == "pairs":
+        table, nd = np.array([[2 * g, 2 * g + 1, -1] for g in range(4)]), 8
+    elif members == "wide":
+        table, nd = np.array([[k, (k + 7) % 20, 25] for k in range(10)]), 20
+    else:
+        t = get_tables(members)
+        table, nd = t.par_members, t.n_data
+    info = np.iinfo(np.int32)
+    banks = torch.from_numpy(np.random.default_rng(B).integers(
+        info.min, info.max, (B, nd, 48, 3), dtype=np.int32)).to(cuda)
+    m = torch.from_numpy(table.astype(np.int64)).to(cuda)
+    before = enc_kernel.launches
+    out = enc_kernel.encode_parities_cuda(banks, m)
+    torch.cuda.synchronize()
+    assert enc_kernel.launches == before + 1
+    assert torch.equal(out, encode_parities_plain(banks, m))
+
+
+class _AtenOps:
+    """Every ATen op dispatched inside the block, by name."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        ops = self.ops = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                ops.append(str(func))
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_read_values_is_one_launch_and_no_other_op(cuda, B):
+    """A busy read-branch cycle's ``_read_values`` on the card, B points of
+    Fig 18's scheme_i alpha 0.25 (seeds 0..B-1): one ``xor_gather`` launch
+    and no ATen op but its output's allocation; the values equal the plain
+    version's. Then the completion datapath's ``encode_regions`` makes at
+    most the block copy, the clone and the allocation."""
+    from repro_torch.core import controller as ctl
+    from repro_torch.core.state import active_geometry
+    from repro_torch.kernels.xor_encode import ops as enc_ops
+    from repro_torch.kernels.xor_gather import ops as g_ops
+    from repro_torch.sweep import SweepPoint, build_trace, stack_traces
+    from repro_torch.sweep.engine import (mixed_geometry, stack_tunables,
+                                          system_for)
+    from repro_torch.sweep.grid import batch_geometry_alloc
+
+    pts = [SweepPoint(scheme="scheme_i", alpha=0.25, r=0.05, n_rows=320,
+                      n_cores=8, length=96, select_period=32, seed=k)
+           for k in range(B)]
+    sys_ = system_for(pts[0], batch_geometry_alloc(pts), mixed_geometry(pts),
+                      device=cuda)
+    tr = stack_traces([build_trace(p, device=cuda) for p in pts])
+    tn = stack_tunables(pts, sys_.p.queue_depth, cuda)
+    st = sys_.run_chunk_batch(sys_.init_batch(tn), tr, None, 20, tn)
+    m, p, t = st.mem, sys_.p, sys_.t
+    rs_a, _ = active_geometry(p, tn)
+    cb = sys_._bank_ids.expand(B, -1)
+    ci = m.rq_row.flatten(1)
+    plan = ctl.build_read_patterns(
+        p, t, cb, ci, m.rq_age.flatten(1), m.rq_valid.flatten(1),
+        sys_._idle_ports(B), m.fresh_loc, m.parity_valid, m.region_slot,
+        rs_a)
+    assert int(plan.served.sum()) > 0
+    torch.cuda.synchronize()
+    before = gat_kernel.launches
+    with _AtenOps() as seen:
+        vals = sys_._read_values(m, plan, cb, ci, rs_a)
+    torch.cuda.synchronize()
+    assert seen.ops == ["aten.empty.memory_format"]
+    assert gat_kernel.launches == before + 1
+    assert torch.equal(vals, g_ops.gather_plan_plain(
+        m.banks_data, m.parity_data, cb, ci, plan.mode, plan.served,
+        m.region_slot, m.fresh_loc, rs_a, p.region_size, t.opt_parity,
+        t.opt_sibs))
+    done = [(b, b % p.n_regions, b % p.n_slots, p.region_size)
+            for b in range(B)]
+    before = enc_kernel.launches
+    with _AtenOps() as seen:
+        out = enc_ops.encode_regions(p, t, m.banks_data, m.parity_data, done)
+    torch.cuda.synchronize()
+    assert enc_kernel.launches == before + 1
+    allowed = {"aten.lift_fresh.default", "aten._to_copy.default",
+               "aten.clone.default", "aten.empty.memory_format",
+               "aten.empty_strided.default", "aten.copy_.default"}
+    assert set(seen.ops) <= allowed and len(seen.ops) <= 4, seen.ops
+    assert torch.equal(out, encode_regions_plain(
+        m.banks_data, m.parity_data, t.par_members,
+        torch.tensor(done, dtype=torch.int32), p.region_size))

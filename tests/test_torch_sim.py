@@ -410,8 +410,9 @@ def test_mid_run_state_carried_from_jax(per_cycle_systems):
 
 
 def test_read_values_go_through_gather_decode(per_cycle_systems):
-    """The cycle's read datapath is ``xor_gather.ops.gather_decode`` (once
-    per read-branch cycle) on W = 1 int32 rows."""
+    """The cycle's read datapath is ``xor_gather.ops.gather_plan`` (the
+    coded row gather fed the plan; once per read-branch cycle) on the
+    banks' 4-byte rows."""
     _, tsys_ = per_cycle_systems
     trace = _jtrace_to_port(rand_trace(np.random.default_rng(4), 4, 8, 8,
                                        32, write_frac=0.0))

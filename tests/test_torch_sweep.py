@@ -226,8 +226,8 @@ def test_run_points_matches_jax_and_looped(case):
 
 def test_kernel_launches_shared_across_the_batch(monkeypatch):
     """A batched cycle calls each kernel wrapper at most once, whatever B
-    is: one ``gather_decode`` for every point's reads, one
-    ``encode_parities`` for every region encode completing that cycle
+    is: one ``gather_plan`` for every point's reads, one
+    ``encode_regions`` for every region encode completing that cycle
     (also on cycles where some points read and others write)."""
     mixed = []
     do_writes = system.CodedMemorySystem._do_writes

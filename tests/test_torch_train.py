@@ -466,11 +466,15 @@ def test_fault_recovery_is_bit_identical(tmp_path):
     """A run with a fault injected at step 3 and a checkpoint every 2
     steps restores step 2, replays with the prefetcher restarted there,
     and ends with the params and ``OptState`` of an uninterrupted run,
-    bit for bit."""
+    bit for bit. Straggler detection is off (its factor infinite): a step
+    slowed by the host's load would add a ``straggler`` event to the list
+    asserted here; ``test_straggler_detection_with_a_patched_clock`` holds
+    that logic on a patched clock."""
     _, tc = _cfgs("qwen2.5-3b")
     outs = []
     for name, plan in (("a", None), ("b", ttrainer.FaultPlan([3]))):
-        tr = ttrainer.Trainer(tc, _tc(tmp_path / name, ckpt_every=2, keep=2),
+        tr = ttrainer.Trainer(tc, _tc(tmp_path / name, ckpt_every=2, keep=2,
+                                      straggler_factor=float("inf")),
                               opt_cfg=tadamw.OptConfig(**OPT), device="cpu")
         outs.append((tr.run(fault_plan=plan), tr))
     (a, ta), (b, tb) = outs
