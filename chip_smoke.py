@@ -7,9 +7,8 @@
 
 Phases, each of which fails the run (nonzero exit, no result line). With
 ``--only`` (names: kernel, serve, decode, cross, kvstate, simkernel,
-simulate, stream, sweep, paper, faults, obs, train) it runs the build and
-the named phases
-with the phases they need (decode needs serve; stream and paper need
+simulate, stream, sweep, paper, faults, obs, train, mesh) it runs the build
+and the named phases with the phases they need (decode needs serve; stream and paper need
 simulate; sweep needs simulate and stream), and prints no kernel table and
 no result line; with no flag it runs every phase:
 
@@ -46,24 +45,24 @@ no result line; with no flag it runs every phase:
    cache, with the pool runs' tokens. yi-6b (untied head), stablelm-12b
    (coded embedding, untied head, head_dim 160) and granite-20b
    (LayerNorm, GELU MLP, MQA: 48 heads on one kv head) are then served
-   the same way at full width (stablelm at 10 of its 40 layers, granite
-   at 13 of its 52), bf16, params drawn on the card one layer at a
-   time, on 8 requests (one wave of the 8 slots): coded and uncoded
+   the same way at full width (yi at 8 of its 32 layers, stablelm at 10
+   of its 40, granite at 13 of its 52), bf16, params drawn on the card
+   one layer at a time, on 8 requests (one wave of the 8 slots): coded and uncoded
    pool (same checks: identical tokens,
    banks, fresh parity, the gather against its plain version at the
    config's pool shape, degraded reads, launches = steps x layers, finite
    prefill logits), a profiled window, then the ring cache. olmoe-1b-7b
-   (MoE: 16 layers, 64 experts top-8, d_model 2048) is served the same
-   way on 8 requests, with each run's share of MoE assignments dropped in
+   (MoE: 4 of its 16 layers, 64 experts top-8, d_model 2048) is served
+   the same way on 8 requests, with each run's share of MoE assignments dropped in
    a decode step's group of 8 tokens and in a prefill's group of 128;
    then phi-3-vision-4.2b (the vision prefix) from the ring cache, 8
    requests at max_prompt 640 (576 zero patch positions), all finished,
    finite prefill logits, random patches moving them, a profiled window;
    then the recurrent families from the ring cache, which holds each
-   slot's conv tails and f32 states: mamba2-2.7b (64 SSD mixers, d_model
-   2560) on 8 requests of 64-512 random tokens at max_prompt 512 (four
-   SSD chunks of 128), and recurrentgemma-9b (38 layers of (rec, rec,
-   local attention), d_model 4096, window 2048, vocab 256k) on 8 requests
+   slot's conv tails and f32 states: mamba2-2.7b (16 of its 64 SSD
+   mixers, d_model 2560) on 8 requests of 64-512 random tokens at max_prompt 512 (four
+   SSD chunks of 128), and recurrentgemma-9b (9 of its 38 layers of (rec,
+   rec, local attention), d_model 4096, window 2048, vocab 256k) on 8 requests
    of 1,024-2,048 tokens at max_prompt 2048, so decode starts at position
    2048 and writes through the wrapped ring; each with 32 new tokens,
    every request finished, finite prefill logits and states, ms/step,
@@ -282,6 +281,24 @@ no result line; with no flag it runs every phase:
    layers) and recurrentgemma-9b (one superblock, 3 of 38 layers)
    through the ``Trainer``: ms/step, tokens/s, peak allocated (<= 76 GB),
    every loss finite and the mean of the last three below step 0's.
+15. mesh: sharding (``launch.mesh`` -> ``launch.sharding`` -> the pinned
+   ``lm``/``moe`` on DTensors -> the DTensor AdamW). (a) a one-rank NCCL
+   process group (127.0.0.1, a free port) and a (1, 1) ("data",
+   "model") ``DeviceMesh`` on the card: full-width qwen2.5-3b (4 of its
+   36 layers) through the DTensor ``Trainer`` (f32 master, bf16 compute,
+   remat "full", 8 x 256, 4 steps, seed 0) against the plain ``Trainer``
+   from the same seed: each step's loss within 1e-5, every param leaf
+   within 1e-4 (leaf by leaf through the host; bitwise equality
+   printed); a mesh run's step-2 checkpoint finished by the plain
+   ``Trainer`` within the same gate;
+   ms/step of both paths, peak allocated GB, redistributions a step.
+   (b) three of JAX's dry-run cells, each ``launch/dryrun.py`` in a
+   process of its own on a fake process group, started with the phase
+   and run beside (a) off the card: qwen2.5-3b ``train_4k`` and
+   granite-20b ``decode_32k`` on ``pod16x16``, olmoe-1b-7b ``train_4k``
+   on ``pod2x16x16`` with ``--moe-ep``; each must report status ok and
+   per-device argument bytes equal to a count from ``param_spec`` (and
+   ``cache_shardings``, ``batch_spec``); every roofline term printed.
 
 Each kernel's launches are counted from 0 over its own main path (the
 serve runs and the obs phase's serving report for ``gather_pool``, the decode-attention calls for
@@ -323,9 +340,12 @@ CHURN_SEED = 5                   # the placement permutation of every run
 # the other dense configs, served at full width on the coded and the
 # uncoded pool and on the ring cache; the two largest at a quarter of
 # their depth (cut (7), PERF.md section 4: their pools' host copies and
-# per-layer steps kept the script past 950 s on a slow host)
+# per-layer steps kept the script past 950 s on a slow host); yi-6b,
+# olmoe-1b-7b and the recurrent two at a quarter since cut (9), which
+# paid for the mesh phase (the script at 1,129.8 s on a slow host)
 DENSE_ARCHS = ("yi-6b", "stablelm-12b", "granite-20b")
-SERVE_DEPTH = {"stablelm-12b": 10, "granite-20b": 13}
+SERVE_DEPTH = {"stablelm-12b": 10, "granite-20b": 13, "yi-6b": 8,
+               "olmoe-1b-7b": 4, "mamba2-2.7b": 16, "recurrentgemma-9b": 9}
 # the MoE config served at full width on the pool and the ring; the
 # vision-prefix one on the ring (prompts padded past its 576 patches);
 # mixtral-8x7b (93 GB of bf16 params) runs reduced only
@@ -1190,6 +1210,8 @@ def recurrent_serve_phase(torch, arch: str) -> None:
     from repro_torch.runtime.server import Request, ServeConfig, Server
 
     cfg = get_config(arch)
+    if arch in SERVE_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[arch])
     sc_kw, (lo, hi) = RECURRENT_SERVE[arch]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4776,9 +4798,270 @@ def train_phase(torch) -> dict:
             "peak_gb": peak_gb, "family": family, **prof}
 
 
+# ---------------------------------------------------------------- phase 15
+MESH_TRAIN = dict(global_batch=8, seq_len=256)             # (a)
+# qwen2.5-3b at full width and 4 of its 36 layers (cut (8), PERF.md
+# section 4): the step-2 checkpoint of f32 params and moments (37 GB at
+# 36 layers, 12 GB at 9) written and restored kept (a) at 384 s at full
+# depth, 105 s at 9 layers
+MESH_DEPTH = 4
+MESH_STEPS = 4
+MESH_CKPT_AT = 2
+MESH_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=MESH_STEPS)
+# (b): JAX's cells, each in a process of its own on a fake process group
+MESH_CELLS = (("qwen2.5-3b", "train_4k", ()),
+              ("granite-20b", "decode_32k", ()),
+              ("olmoe-1b-7b", "train_4k", ("--multi-pod", "--moe-ep")))
+MESH_DRYRUN_TIMEOUT_S = 420
+
+
+def start_dryruns(out_dir: str) -> list:
+    """(b)'s cells started at once, off the card (no CUDA device is
+    visible to them), each writing its record into ``out_dir``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, flags in MESH_CELLS:
+        log = open(os.path.join(out_dir, f"{arch}_{shape}.log"), "w")
+        procs.append((arch, shape, flags, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, *flags, "--out", out_dir],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))))
+    return procs
+
+
+class _MeshShape:
+    """A mesh's axis names and sizes, for counting without devices."""
+
+    def __init__(self, names, sizes):
+        self.axis_names = tuple(names)
+        self.shape = dict(zip(names, sizes))
+
+
+def _expected_argument_bytes(arch: str, shape_name: str, flags) -> int:
+    """Per-device argument bytes of a dry-run cell from the sharding rules
+    alone: every leaf's local shape under its spec, in its dtype (params
+    and, for a train cell, both f32 moments and the int32 step; the
+    batch, or the token and the cache)."""
+    import math
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import shapes as shp
+    from repro_torch.models import lm
+
+    multi = "--multi-pod" in flags
+    mesh = (_MeshShape(("pod", "data", "model"), (2, 16, 16)) if multi
+            else _MeshShape(("data", "model"), (16, 16)))
+    cfg = dataclasses.replace(get_config(arch), moe_ep="--moe-ep" in flags)
+    shape = shp.SHAPES[shape_name]
+
+    def local(x, spec) -> int:
+        n = math.prod(shd.local_shape(tuple(x.shape), spec, mesh))
+        return n * x.element_size()
+
+    total = 0
+    for name, x in shd.flatten_with_path(lm.abstract_params(
+            cfg, max_seq=shape.seq_len)):
+        b = local(x, shd.param_spec(name, tuple(x.shape), mesh,
+                                    moe_ep=cfg.moe_ep))
+        total += b * (3 if shape.kind == "train" else 1)
+    specs = shp.input_specs(cfg, shape)
+    if shape.kind == "train":
+        total += 4                                  # the step count
+    if shape.kind == "decode":
+        for name, x in shd.flatten_with_path(specs["cache"]):
+            total += local(x, shd.flatten_with_path(shd.cache_shardings(
+                cfg, {name: x}, mesh))[0][1].spec)
+        total += local(specs["token"], shd.batch_spec(mesh,
+                                                      shape.global_batch))
+    else:
+        for _, x in shd.flatten_with_path(specs["batch"]):
+            total += local(x, shd.batch_spec(mesh, x.shape[0])
+                           + (None,) * (x.ndim - 1))
+    return total
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _host_leaves(tree) -> dict:
+    """Every leaf of a param tree (DTensors gathered, one at a time) as a
+    host array, by path."""
+    from repro_torch.optim.adamw import tree_leaves_with_path
+    out = {}
+    for path, x in tree_leaves_with_path(tree):
+        if hasattr(x, "full_tensor"):
+            x = x.full_tensor()
+        out["/".join(path)] = x.detach().cpu()
+    return out
+
+
+def _run_trainer(torch, cfg, tc, mesh=None, laps=None):
+    """A ``Trainer`` run: (losses, host params, wall s of each step after
+    its first, peak allocated GB); its wall seconds, restore or init and
+    checkpoint included, appended to ``laps``."""
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.runtime.trainer import Trainer
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tc, mesh, OptConfig(**MESH_OPT), device="cuda")
+    out = tr.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log = tr.metrics_log
+    walls = [m["wall_s"] for m in log[1:]]
+    params = _host_leaves(out["params"])
+    del tr, out
+    torch.cuda.empty_cache()
+    if laps is not None:
+        laps.append(time.perf_counter() - t0)
+    return [m["loss"] for m in log], params, walls, peak
+
+
+def mesh_phase(torch, dryruns, dry_dir) -> dict:
+    """(a) The DTensor path on the card: a one-rank NCCL process group
+    and a (1, 1) ("data", "model") mesh; full-width qwen2.5-3b through
+    the DTensor ``Trainer`` against the plain one from the same seed,
+    step by step and leaf by leaf, and a checkpoint a mesh run writes at
+    step 2 finished by the plain ``Trainer``. (b) JAX's dry-run cells
+    (started with the phase, off the card): status ok, per-device
+    argument bytes equal to the sharding rules' own count, every
+    roofline term."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch import axes
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime.trainer import TrainConfig
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MESH_DEPTH)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t0 = time.perf_counter()
+    laps = []
+
+    def tc(steps, ckpt_every=0, d=None):
+        return TrainConfig(steps=steps, log_every=MESH_STEPS,
+                           ckpt_every=ckpt_every, ckpt_dir=d or ckdir,
+                           **MESH_TRAIN)
+
+    try:
+        plain_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_plain_")
+        try:
+            p_loss, p_params, p_walls, p_peak = _run_trainer(
+                torch, cfg, tc(MESH_STEPS, d=plain_dir), laps=laps)
+        finally:
+            shutil.rmtree(plain_dir, ignore_errors=True)
+        dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                                f"{_free_port()}", rank=0, world_size=1)
+        try:
+            mesh = make_debug_mesh(1, 1, device="cuda")
+            axes.reset_redistributions()
+            mesh_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_run_")
+            try:
+                m_loss, m_params, m_walls, m_peak = _run_trainer(
+                    torch, cfg, tc(MESH_STEPS, d=mesh_dir), mesh, laps)
+            finally:
+                shutil.rmtree(mesh_dir, ignore_errors=True)
+            redist = axes.REDISTRIBUTIONS["n"]
+            _run_trainer(torch, cfg, tc(MESH_CKPT_AT, MESH_CKPT_AT), mesh,
+                         laps)
+        finally:
+            dist.destroy_process_group()
+        dl = max(abs(a - b) for a, b in zip(m_loss, p_loss))
+        dp = max(float((m_params[k].float() - v.float()).abs().max())
+                 for k, v in p_params.items())
+        same = all(torch.equal(m_params[k], v) for k, v in p_params.items())
+        del m_params
+        r_loss, r_params, _, _ = _run_trainer(torch, cfg, tc(MESH_STEPS),
+                                              laps=laps)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    dr = max(abs(a - b) for a, b in zip(r_loss, p_loss[MESH_CKPT_AT:]))
+    dpr = max(float((r_params[k].float() - v.float()).abs().max())
+              for k, v in p_params.items())
+    del r_params, p_params
+    ms_plain = 1e3 * sum(p_walls) / len(p_walls)
+    ms_mesh = 1e3 * sum(m_walls) / len(m_walls)
+    print(f"mesh (a) {TRAIN_ARCH} full width ({MESH_DEPTH} of its "
+          f"layers) on a one-rank NCCL (1, 1) "
+          f"DeviceMesh, batch {MESH_TRAIN['global_batch']} x "
+          f"{MESH_TRAIN['seq_len']}, {MESH_STEPS} steps: DTensor "
+          f"{ms_mesh:.1f} ms/step vs plain {ms_plain:.1f} ms/step (step 0 "
+          f"of each run excluded), peak allocated {m_peak:.2f} vs "
+          f"{p_peak:.2f} GB, {redist / MESH_STEPS:.1f} redistributions a "
+          f"step; losses {[round(x, 5) for x in m_loss]} vs "
+          f"{[round(x, 5) for x in p_loss]} (max |diff| {dl:.2e}), max "
+          f"|param diff| {dp:.2e}, bitwise {'equal' if same else 'unequal'}")
+    print(f"mesh (a) a mesh run's step-{MESH_CKPT_AT} checkpoint finished by "
+          f"the plain Trainer (steps {MESH_CKPT_AT}-{MESH_STEPS - 1}): losses "
+          f"{[round(x, 5) for x in r_loss]}, max |loss diff| {dr:.2e}, max "
+          f"|param diff| {dpr:.2e}")
+    for what, d_loss, d_param in (("mesh run", dl, dp),
+                                  ("re-meshed run", dr, dpr)):
+        check(d_loss <= 1e-5, f"mesh (a) {what}: losses differ by {d_loss}")
+        check(d_param <= TRAIN_PARAM_TOL, f"mesh (a) {what}: params differ "
+              f"by {d_param}")
+    t_a = time.perf_counter() - t0
+
+    cells = []
+    deadline = time.monotonic() + MESH_DRYRUN_TIMEOUT_S
+    for arch, shape, flags, log, proc in dryruns:
+        try:
+            rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = "killed at the timeout"
+        log.close()
+        tail = Path(log.name).read_text()[-2000:]
+        check(rc == 0, f"mesh (b) {arch} {shape}: dry-run exit {rc}: {tail}")
+        mesh_name = "pod2x16x16" if "--multi-pod" in flags else "pod16x16"
+        rec = json.loads((Path(dry_dir) / f"{arch}_{shape}_{mesh_name}.json")
+                         .read_text())
+        want = _expected_argument_bytes(arch, shape, flags)
+        got = rec["memory"]["argument_bytes"]
+        r = rec["roofline"]
+        print(f"mesh (b) dry-run {arch} {shape} {mesh_name}"
+              f"{' ' + ' '.join(flags) if flags else ''}: status "
+              f"{rec['status']}, traced in {rec['compile_s']} s; per device:"
+              f" arguments {got / 1e9:.3f} GB (the rules' count "
+              f"{want / 1e9:.3f} GB), live peak "
+              f"{rec['memory']['peak_bytes'] / 1e9:.2f} GB of 80 (fits "
+              f"{rec['fits_hbm_80g']}); {r['flops_per_dev']:.4g} FLOP, "
+              f"{r['bytes_per_dev']:.4g} B, {r['coll_bytes_per_dev']:.4g} "
+              f"collective B ({rec['full_pass']['coll_bytes_by_kind']}); "
+              f"t_compute {r['t_compute_s'] * 1e3:.3f} ms, t_memory "
+              f"{r['t_memory_s'] * 1e3:.3f} ms, t_collective "
+              f"{r['t_collective_s'] * 1e3:.3f} ms, dominant "
+              f"{r['dominant']}, bound {r['bound_s'] * 1e3:.3f} ms, model "
+              f"FLOP/dev {r['model_flops_per_dev']:.4g}, useful "
+              f"{r['useful_flops_ratio']:.3f}, roofline fraction "
+              f"{r['roofline_frac']:.4f}; secant = full depth "
+              f"{rec['cost']['flops'] == rec['full_pass']['flops']}")
+        check(rec["status"] == "ok", f"mesh (b) {arch} {shape}: status "
+              f"{rec['status']}")
+        check(got == want, f"mesh (b) {arch} {shape}: argument bytes {got} "
+              f"!= the rules' {want}")
+        cells.append(rec)
+    print(f"mesh: (a) took {t_a:.1f} s (runs: plain, mesh, mesh to the "
+          f"checkpoint, plain restored: "
+          f"{', '.join(f'{x:.1f}' for x in laps)} s); the dry-run cells ran "
+          "beside it")
+    return {"ms_mesh": ms_mesh, "ms_plain": ms_plain, "peak_gb": m_peak,
+            "cells": cells}
+
+
 # Phases in the order they run, and the earlier phases each one needs.
 PHASES = ("kernel", "serve", "decode", "cross", "kvstate", "simkernel",
-          "simulate", "stream", "sweep", "paper", "faults", "obs", "train")
+          "simulate", "stream", "sweep", "paper", "faults", "obs", "train",
+          "mesh")
 NEEDS = {"decode": ("serve",), "stream": ("simulate",),
          "sweep": ("simulate", "stream"), "paper": ("simulate",)}
 
@@ -4952,6 +5235,21 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
     if "train" in phases:
         train_phase(torch)
         lap("train")
+    if "mesh" in phases:
+        import tempfile
+        dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        dryruns = start_dryruns(dry_dir)
+        try:
+            mesh_phase(torch, dryruns, dry_dir)
+        finally:
+            for *_, log, proc in dryruns:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+            import shutil
+            shutil.rmtree(dry_dir, ignore_errors=True)
+        lap("mesh")
     if phases != PHASES:
         print(f"chip_smoke: phases {', '.join(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s (--only: no kernel "

@@ -22,6 +22,13 @@ restores the other's checkpoints::
 
   * **Retention** — the manager keeps the newest ``keep`` steps.
 
+  * **Re-mesh on restore** — DTensor leaves are saved full
+    (``full_tensor()``, a collective every rank joins; rank 0 alone
+    writes), so a checkpoint from any mesh, or from either package, has
+    the one-host layout; ``restore(..., shardings=)`` distributes each
+    full leaf to the target placements, so it restores onto another mesh
+    or onto one device (elastic resume).
+
 A tree is nested dicts, tuples, lists and NamedTuples with tensor, array
 or None leaves; a leaf's path is its keys joined by ``/`` (a NamedTuple's
 field names, a sequence's indices), as JAX names them. ``restore``
@@ -74,6 +81,8 @@ def _to_host(tree: Any) -> List[Tuple[str, np.ndarray, str]]:
     leaves: List[Tuple[str, np.ndarray, str]] = []
 
     def take(path, x):
+        if hasattr(x, "full_tensor"):        # a DTensor: gather it
+            x = x.full_tensor()
         if not isinstance(x, torch.Tensor):
             a = np.array(x)
             leaves.append((path, a, str(a.dtype)))
@@ -109,10 +118,19 @@ def _write(step: int, leaves, directory: str) -> str:
     return final
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a process group, or the one
+    process there is."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(step: int, tree: Any, directory: str) -> str:
     """Blocking save of ``tree`` as step ``step``; returns the committed
     directory."""
-    return _write(step, _to_host(tree), directory)
+    leaves = _to_host(tree)
+    final = os.path.join(directory, f"step_{step:09d}")
+    return _write(step, leaves, directory) if _writer() else final
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -133,11 +151,21 @@ def _tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def restore(directory: str, like: Any = None, step: Optional[int] = None,
-            device=None) -> Any:
+            device=None, shardings: Any = None) -> Any:
     """Step ``step`` (default the latest) restored into the structure of
     ``like``, tensors onto ``device`` when it is given (else each onto
     its ``like`` leaf's device); without ``like``, as nested dicts of
-    tensors on ``device`` (default the CPU)."""
+    tensors on ``device`` (default the CPU). ``shardings``, a tree of
+    ``launch.sharding.NamedSharding`` (or None leaves) like the result,
+    distributes each full leaf to its placements: the re-mesh."""
+    out = _restore(directory, like, step, device)
+    if shardings is None:
+        return out
+    from repro_torch.launch.sharding import distribute
+    return distribute(out, shardings)
+
+
+def _restore(directory, like, step, device):
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -184,6 +212,8 @@ class CheckpointManager:
     def save_async(self, step: int, tree: Any) -> None:
         self.wait()
         leaves = _to_host(tree)          # a consistent host copy, now
+        if not _writer():
+            return
 
         def work():
             try:

@@ -1,9 +1,9 @@
 """Model configuration for the port: the fields of ``repro.configs.base``
 that the serving and training slices read (the MoE, vision-stub, local
-attention, SSM, RG-LRU and encoder-decoder fields included; ``moe_ep``,
-a sharding hint, waits for sharding), with the same names, defaults,
-``reduced()`` and ``n_params()`` so a test can build the same model in
-both packages."""
+attention, SSM, RG-LRU and encoder-decoder fields included, and
+``moe_ep``, the sharding rules' expert-parallel switch), with the same
+names, defaults, ``reduced()`` and ``n_params()`` so a test can build the
+same model in both packages."""
 from __future__ import annotations
 
 import dataclasses
@@ -58,6 +58,7 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     rg_scan_bf16: bool = False  # RG-LRU scan on bf16 (a, w)
+    moe_ep: bool = False        # expert parallelism (experts over `model`)
     # training's per-layer recompute: "full" saves only each layer's
     # input, "dots" also keeps the projection matmuls' outputs
     remat_policy: str = "full"
@@ -77,6 +78,11 @@ class ModelConfig:
     @property
     def is_encdec(self) -> bool:
         return self.enc_layers > 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Supports O(1)-state or windowed decode at 500k context."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
 
     def n_params(self) -> int:
         """The JAX package's analytic parameter count (norms, biases, the
@@ -103,6 +109,14 @@ class ModelConfig:
             return n_attn * (attn + mlp) + (self.n_layers - n_attn) \
                 * (rec + mlp) + emb
         return (self.n_layers + self.enc_layers) * (attn + mlp) + emb
+
+    def n_active_params(self) -> int:
+        """Active (per-token) parameters: the MoE counts top_k experts."""
+        if self.family != "moe":
+            return self.n_params()
+        per = (3 if self.mlp_gated else 2) * self.d_model * self.d_ff
+        return self.n_params() - self.n_layers * (self.n_experts
+                                                  - self.top_k) * per
 
     def reduced(self) -> "ModelConfig":
         """Tiny same-family variant for CPU tests (same cuts as the JAX
@@ -147,3 +161,10 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    if not _REGISTRY:
+        from repro_torch import configs
+        configs.load_all()
+    return dict(_REGISTRY)

@@ -16,8 +16,18 @@ checkpoints into a fresh temporary directory; with it, the run resumes
 from the newest step committed there. Deterministic algorithms are on
 (``CUBLAS_WORKSPACE_CONFIG=:4096:8`` is set before cuBLAS starts), so a
 run restarted by ``--fail-at`` ends bit-identical to an uninterrupted
-one. ``--mesh-data``/``--mesh-model`` above 1 are not
-ported (one device; ROADMAP.md queue 1 item 5).
+one.
+
+``--mesh-data``/``--mesh-model`` above 1 shard the run over a (data,
+model) ``DeviceMesh``, one process per device under ``torchrun`` (it
+reads ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``): each rank trains on
+``cuda:{LOCAL_RANK}`` with NCCL, or on the CPU with gloo under
+``--device cpu``; rank 0 alone prints. Without ``torchrun``, or with a
+world size other than the mesh's, the run raises ``ValueError``::
+
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch qwen2.5-3b --reduced \
+      --device cpu --mesh-data 2 --mesh-model 2 --steps 3
 """
 from __future__ import annotations
 
@@ -62,7 +72,32 @@ def main(argv=None):
         torch.use_deterministic_algorithms(was)
 
 
+def _init_group(args) -> bool:
+    """The process group of a ``torchrun`` launch, for a mesh of more
+    than one device (NCCL on the card, gloo on the CPU); False when the
+    run is plain. A mesh without ``torchrun``'s environment is left to
+    raise in ``launch.mesh``."""
+    if args.mesh_data * args.mesh_model == 1 or "RANK" not in os.environ:
+        return False
+    import torch.distributed as dist
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    if not cpu:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("gloo" if cpu else "nccl")
+    return True
+
+
 def _train(args):
+    group = _init_group(args)
+    try:
+        return _run(args)
+    finally:
+        if group:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run(args):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -75,9 +110,10 @@ def _train(args):
                  device=args.device)
     plan = FaultPlan(args.fail_at) if args.fail_at else None
     out = tr.run(fault_plan=plan)
-    print(f"done: final_loss={out['final_loss']:.4f} "
-          f"stragglers={out['stragglers']} events={out['events']} "
-          f"ckpt={tr.ckpt_dir} ({tr.device})")
+    if tr.rank0:
+        print(f"done: final_loss={out['final_loss']:.4f} "
+              f"stragglers={out['stragglers']} events={out['events']} "
+              f"ckpt={tr.ckpt_dir} ({tr.device})")
     return out
 
 

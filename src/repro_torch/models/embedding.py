@@ -15,6 +15,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.axes import from_local, is_dtensor, sharded
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import as_lanes
 from repro_torch.models.layers import normal_init
@@ -49,7 +50,11 @@ def _plan_use_parity(bank_of: torch.Tensor, nb: int) -> torch.Tensor:
 
 
 def _coded_gather(banks: torch.Tensor, tokens: torch.Tensor,
-                  par: Optional[torch.Tensor]) -> torch.Tensor:
+                  par: Optional[torch.Tensor],
+                  lo: Optional[int] = None) -> torch.Tensor:
+    """The coded gather; with ``lo``, ``banks`` (and ``par``) hold bank
+    rows ``lo`` on (a model rank's shard) and a token whose row lies
+    elsewhere reads -0.0, which leaves the sum over the shards exact."""
     nb = banks.shape[0]
     u = as_lanes(banks)
     if par is None:
@@ -57,9 +62,16 @@ def _coded_gather(banks: torch.Tensor, tokens: torch.Tensor,
     bank_of = tokens % nb
     brow = tokens // nb
     use_par = _plan_use_parity(bank_of, nb)
+    if lo is not None:
+        brow = brow - lo
+        owned = (brow >= 0) & (brow < banks.shape[1])
+        brow = brow.clamp(0, banks.shape[1] - 1)
     direct = u[bank_of, brow]
     degraded = u[bank_of ^ 1, brow] ^ par[bank_of // 2, brow]
-    return torch.where(use_par[..., None], degraded, direct).view(banks.dtype)
+    out = torch.where(use_par[..., None], degraded, direct).view(banks.dtype)
+    if lo is None:
+        return out
+    return out.masked_fill(~owned[..., None], -0.0)
 
 
 class CodedLookup(torch.autograd.Function):
@@ -70,19 +82,25 @@ class CodedLookup(torch.autograd.Function):
     to the tokens or the parity."""
 
     @staticmethod
-    def forward(ctx, banks, tokens, par):
+    def forward(ctx, banks, tokens, par, lo=None):
         ctx.save_for_backward(tokens)
-        ctx.bank_shape, ctx.bank_dtype = banks.shape, banks.dtype
-        return _coded_gather(banks, tokens, par)
+        ctx.bank_shape, ctx.bank_dtype, ctx.lo = banks.shape, banks.dtype, lo
+        return _coded_gather(banks, tokens, par, lo)
 
     @staticmethod
     def backward(ctx, g):
         (tokens,) = ctx.saved_tensors
-        nb = ctx.bank_shape[0]
+        nb, vb = ctx.bank_shape[:2]
         d_banks = g.new_zeros(ctx.bank_shape, dtype=ctx.bank_dtype)
-        d_banks.index_put_((tokens % nb, tokens // nb),
-                           g.to(ctx.bank_dtype), accumulate=True)
-        return d_banks, None, None
+        g = g.to(ctx.bank_dtype)
+        brow = tokens // nb
+        if ctx.lo is not None:     # a shard: the other rows' adds are -0.0
+            brow = brow - ctx.lo
+            owned = (brow >= 0) & (brow < vb)
+            brow = brow.clamp(0, vb - 1)
+            g = g.masked_fill(~owned[..., None], -0.0)
+        d_banks.index_put_((tokens % nb, brow), g, accumulate=True)
+        return d_banks, None, None, None
 
 
 def coded_lookup(banks: torch.Tensor, tokens: torch.Tensor,
@@ -91,14 +109,64 @@ def coded_lookup(banks: torch.Tensor, tokens: torch.Tensor,
     ``banks.dtype``, differentiable in ``banks``. ``par`` is
     ``coded_parity(banks)`` when the caller keeps it; otherwise it is
     computed here."""
-    return CodedLookup.apply(banks, tokens.long(), par)
+    return CodedLookup.apply(banks, tokens.long(), par, None)
 
 
 def embed_lookup(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
                  dtype) -> torch.Tensor:
+    key = "banks" if cfg.coded_embedding else "table"
+    if is_dtensor(p[key]):
+        return _sharded_lookup(cfg, p, key, tokens).to(dtype)
     if cfg.coded_embedding:
         return coded_lookup(p["banks"], tokens, p.get("par")).to(dtype)
     return p["table"][tokens.long()].to(dtype)
+
+
+def _sharded_lookup(cfg: ModelConfig, p: Params, key: str, tokens):
+    """The lookup on a DTensor table whose vocab rows shard over mesh
+    dims (``launch.sharding``: ``model``): each rank gathers the rows it
+    holds from its local shard, -0.0 for the others, and the result is
+    ``Partial`` over those dims, so the ``shard`` pin after the embedding
+    all-reduces it. The table is never all-gathered. ``tokens`` is a
+    DTensor (batch-sharded) or a plain tensor (replicated). The table's
+    local gradient is partial over the mesh dims that shard the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    w = p[key]
+    mesh = w.device_mesh
+    row = 1 if key == "banks" else 0
+    tok_pl = tokens.placements if is_dtensor(tokens) \
+        else (Replicate(),) * mesh.ndim
+    ltok = (tokens.to_local() if is_dtensor(tokens) else tokens).long()
+    out_pl, grad_pl, lo = [], [], 0
+    for dim, (wp, tp) in enumerate(zip(w.placements, tok_pl)):
+        if isinstance(tp, Shard):
+            out_pl.append(Shard(tp.dim))
+        elif isinstance(wp, Shard) and wp.dim == row:
+            out_pl.append(Partial())
+        else:
+            out_pl.append(Replicate())
+        if isinstance(wp, Shard):
+            if wp.dim != row:
+                raise ValueError(f"embedding {key}: placements "
+                                 f"{w.placements} shard a non-vocab dim")
+            grad_pl.append(wp)
+            lo = lo * mesh.size(dim) + mesh.get_local_rank(dim)
+        else:
+            grad_pl.append(Partial() if isinstance(tp, Shard)
+                           else Replicate())
+    local = w.to_local(grad_placements=grad_pl)
+    n_rows = local.shape[row]
+    if key == "banks":
+        par = p.get("par")
+        if par is not None:
+            par = par.to_local()
+        out = CodedLookup.apply(local, ltok, par, lo * n_rows)
+    else:
+        r = ltok - lo * n_rows
+        owned = (r >= 0) & (r < n_rows)
+        out = local[r.clamp(0, n_rows - 1)].masked_fill(~owned[..., None],
+                                                        -0.0)
+    return from_local(out, mesh, out_pl, (*tokens.shape, out.shape[-1]))
 
 
 def full_table(cfg: ModelConfig, p: Params) -> torch.Tensor:
@@ -112,9 +180,14 @@ def full_table(cfg: ModelConfig, p: Params) -> torch.Tensor:
 def tied_logits(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """``x @ full_table(p).T`` (..., T, V_pad) in ``x``'s dtype, computed on
     the bank layout without assembling the logical table: bank ``n``'s
-    product gives the logits of rows ``v = r * NB + n``."""
+    product gives the logits of rows ``v = r * NB + n``. On DTensor banks
+    (bank rows sharded) the logical table's rows are sharded in the same
+    order, so the product through it keeps the logits vocab-sharded."""
     if not cfg.coded_embedding:
         return x @ p["table"].to(x.dtype).T
+    if is_dtensor(p["banks"]) and sharded(p["banks"], 1):
+        # the vocab-sharded logical table
+        return x @ full_table(cfg, p).to(x.dtype).T
     banks = p["banks"].to(x.dtype)
     nb, vb, d = banks.shape
     rows = x.reshape(1, -1, d)                        # each bank read once

@@ -15,6 +15,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.axes import from_local, is_dtensor, redistribute
 from repro_torch.configs.base import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -26,6 +27,8 @@ def normal_init(gen: torch.Generator, shape, scale: float, dtype,
     drawn in f32 one leading index (one layer) at a time: the f32
     temporary is one layer's leaf, never the stacked model's."""
     out = torch.empty((*lead, *shape), dtype=dtype, device=gen.device)
+    if out.is_meta:                   # shapes only (``lm.abstract_params``)
+        return out
     for layer in out.view(-1, *shape):
         layer.copy_(torch.randn(shape, generator=gen, device=gen.device,
                                 dtype=torch.float32).mul_(scale))
@@ -97,9 +100,64 @@ def qkv_proj(cfg: ModelConfig, p: Params, x: torch.Tensor):
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, t, cfg.n_heads, cfg.head_dim),
-            k.reshape(b, t, cfg.n_kv, cfg.head_dim),
-            v.reshape(b, t, cfg.n_kv, cfg.head_dim))
+    return (split_heads(q, cfg.n_heads, cfg.head_dim),
+            split_heads(k, cfg.n_kv, cfg.head_dim),
+            split_heads(v, cfg.n_kv, cfg.head_dim))
+
+
+def split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, T, n * hd) -> (B, T, n, hd). A DTensor whose last dim is
+    sharded over a mesh dim that does not divide ``n`` heads is first
+    gathered on that mesh dim (granite's one kv head on a model axis)."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        last = x.ndim - 1
+        x = redistribute(x, (Replicate() if isinstance(pl, Shard)
+                             and pl.dim == last and n % x.device_mesh.size(m)
+                             else pl for m, pl in enumerate(x.placements)))
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _mha_local(fn, q, k, v, mask, **kw):
+    """``fn`` (``mha``/``mha_chunked``) on DTensor q/k/v, tensor-parallel
+    over heads: q stays sharded on its heads (dim 2) where it is; k/v
+    are gathered over the mesh dims that shard q's heads or their own.
+    Where q's heads are sharded, each local query head ``h`` reads kv
+    head ``h % Hkv`` (the grouping of ``mha``), so the region runs as
+    plain attention with one kv head per query head; where they are not,
+    ``fn`` runs as it does off the mesh. The batch dim keeps its shards
+    throughout; k/v's gradients are partial over the head-sharding mesh
+    dims. A mask is the causal one, shared by every sequence."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    h, hkv = q.shape[2], k.shape[2]
+    q = redistribute(q, (pl if isinstance(pl, Shard) and pl.dim in (0, 2)
+                         else Replicate() for pl in q.placements))
+    kv_pl, grad_pl, lo = [], [], 0
+    for m, pl in enumerate(q.placements):
+        heads = isinstance(pl, Shard) and pl.dim == 2
+        batch = isinstance(pl, Shard) and pl.dim == 0
+        kv_pl.append(Shard(0) if batch else Replicate())
+        grad_pl.append(Shard(0) if batch else
+                       Partial() if heads else Replicate())
+        if heads:
+            lo = lo * mesh.size(m) + mesh.get_local_rank(m)
+
+    def local(t):
+        return redistribute(t, kv_pl).to_local(grad_placements=grad_pl)
+
+    ql = q.to_local()
+    kl, vl = local(k), local(v)
+    if ql.shape[2] != h:
+        idx = (lo * ql.shape[2] + torch.arange(ql.shape[2],
+                                               device=ql.device)) % hkv
+        kl, vl = kl[:, :, idx], vl[:, :, idx]
+    if mask is not None and mask.shape[0] != 1:
+        raise ValueError("attention on a mesh takes a mask shared by every "
+                         f"sequence, not one of shape {tuple(mask.shape)}")
+    out = fn(ql, kl, vl, mask, **kw) if fn is mha else \
+        fn(ql, kl, vl, **kw)
+    return from_local(out, mesh, q.placements, q.shape)
 
 
 def mha(q: torch.Tensor,            # (B, Tq, H, dh)
@@ -108,7 +166,10 @@ def mha(q: torch.Tensor,            # (B, Tq, H, dh)
         mask: Optional[torch.Tensor],  # broadcastable to (B,Hkv,G,Tq,Tk)
         ) -> torch.Tensor:
     """GQA attention with f32 logits and softmax; masked logits are -1e30.
-    Head ``h`` reads kv head ``h % Hkv`` (the JAX package's grouping)."""
+    Head ``h`` reads kv head ``h % Hkv`` (the JAX package's grouping).
+    DTensor operands run tensor-parallel over heads (``_mha_local``)."""
+    if is_dtensor(q):
+        return _mha_local(mha, q, k, v, mask)
     b, tq, h, dh = q.shape
     hkv = k.shape[2]
     qf = q.float().reshape(b, tq, h // hkv, hkv, dh)
@@ -127,6 +188,9 @@ def mha_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, ., q_chunk, Tk) instead of (B, ., Tq, Tk). The same math as
     ``mha`` under ``causal_mask``; JAX's ``unroll`` is an XLA scan knob
     with no meaning here."""
+    if is_dtensor(q):
+        return _mha_local(mha_chunked, q, k, v, None, window=window,
+                          q_chunk=q_chunk)
     b, tq, h, dh = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     if q_chunk <= 0 or q_chunk >= tq:
@@ -196,6 +260,11 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if cfg.pos == "rope":
         q = rope(q, pos[:, None], cfg.rope_theta)
         k = rope(k, pos[:, None], cfg.rope_theta)
+    if is_dtensor(k_cache):
+        out = _decode_attention_sharded(q, k, v, pos, k_cache, v_cache,
+                                        window)
+        return (out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"],
+                k_cache, v_cache)
     pos = pos.long()
     slot = pos % c
     bidx = torch.arange(b, device=x.device)
@@ -214,12 +283,96 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
             k_cache, v_cache)
 
 
+def _decode_attention_sharded(q, k, v, pos, k_cache, v_cache, window):
+    """``attention_decode``'s write and attention on DTensor caches, layer
+    slices (B, C, Hkv, dh) sharded on the batch dim over the batch axes
+    and on their kv heads (dim 2) or cache slots (dim 1, context
+    parallelism) over ``model`` (``launch.sharding.cache_shardings``).
+
+    q/k/v (this token's, after RoPE) are gathered over every mesh dim but
+    the batch's: one token, so the gather is small. Each rank writes the
+    token into the slots and kv heads it holds, IN PLACE in its shard,
+    and attends with the query heads that read its kv heads (head ``h``
+    reads ``h % Hkv``) over its slots; a cache-seq shard combines its
+    partial softmax with the other shards' (a max and two sums
+    all-reduced over those mesh dims, as flash-decoding does). The
+    output is partial over the head-sharding mesh dims (-0.0 in the heads
+    a rank did not compute), replicated over the others."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = k_cache.device_mesh
+    cpl = tuple(k_cache.placements)
+    bpl = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0
+           else Replicate() for pl in cpl]
+
+    def local(t):
+        return redistribute(t, bpl).to_local() if is_dtensor(t) else t
+
+    ql, kl, vl, pl_ = (local(t) for t in (q, k, v, pos))
+    kc, vc = k_cache.to_local(), v_cache.to_local()
+    b, c_loc, hk_loc, dh = kc.shape
+    c, hkv, h = k_cache.shape[1], k_cache.shape[2], q.shape[2]
+    head_lo, seq_lo, seq_dims, head_dims = 0, 0, [], []
+    for m, pl in enumerate(cpl):
+        if isinstance(pl, Shard) and pl.dim == 2:
+            head_lo = head_lo * mesh.size(m) + mesh.get_local_rank(m)
+            head_dims.append(m)
+        elif isinstance(pl, Shard) and pl.dim == 1:
+            seq_lo = seq_lo * mesh.size(m) + mesh.get_local_rank(m)
+            seq_dims.append(m)
+    kv_lo, seq_lo = head_lo * hk_loc, seq_lo * c_loc
+    dev = kc.device
+    posl = pl_.long()
+    slot = posl % c
+    lslot = slot - seq_lo
+    mine = ((lslot >= 0) & (lslot < c_loc))[:, None, None]
+    lslot = lslot.clamp(0, c_loc - 1)
+    bidx = torch.arange(b, device=dev)
+    for cache, new in ((kc, kl), (vc, vl)):
+        cur = cache[bidx, lslot]
+        cache[bidx, lslot] = torch.where(
+            mine, new[:, 0, kv_lo:kv_lo + hk_loc].to(cache.dtype), cur)
+    heads = [j for j in range(h) if kv_lo <= j % hkv < kv_lo + hk_loc]
+    hsel = torch.tensor(heads, device=dev)
+    kvi = torch.tensor([j % hkv - kv_lo for j in heads], device=dev)
+    qf = ql[:, 0, hsel].float()                          # (B, Hs, dh)
+    logits = torch.einsum("bhd,bthd->bht", qf, kc[:, :, kvi].float()) \
+        * (dh ** -0.5)
+    sidx = seq_lo + torch.arange(c_loc, device=dev)[None, :]
+    abs_idx = torch.where(sidx <= slot[:, None],
+                          posl[:, None] - (slot[:, None] - sidx),
+                          posl[:, None] - (slot[:, None] + c - sidx))
+    valid = (abs_idx >= 0) & (abs_idx <= posl[:, None])
+    if window > 0:
+        valid &= abs_idx > posl[:, None] - window
+    logits = logits.masked_fill(~valid[:, None, :], -1e30)
+    vf = vc[:, :, kvi].float()
+    if seq_dims:
+        mx = logits.amax(-1, keepdim=True)
+        for m in seq_dims:
+            mx = funcol.all_reduce(mx, "max", (mesh, m))
+        e = torch.exp(logits - mx)
+        den, num = e.sum(-1), torch.einsum("bht,bthd->bhd", e, vf)
+        for m in seq_dims:
+            den = funcol.all_reduce(den, "sum", (mesh, m))
+            num = funcol.all_reduce(num, "sum", (mesh, m))
+        o = num / den[..., None]
+    else:
+        o = torch.einsum("bht,bthd->bhd", torch.softmax(logits, -1), vf)
+    out = ql.new_full(ql.shape, -0.0)
+    out[:, 0, hsel] = o.to(ql.dtype)
+    opl = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0
+           else Partial() if m in head_dims else Replicate()
+           for m, pl in enumerate(cpl)]
+    return from_local(out, mesh, opl, q.shape)
+
+
 def cross_kv(cfg: ModelConfig, p: Params, enc: torch.Tensor):
     """The encoder output enc (B,Te,D) -> the cross-attention's k, v
     (B,Te,Hkv,dh), each bias added after the reshape to heads."""
     b, te, _ = enc.shape
-    k = (enc @ p["wk"]).reshape(b, te, cfg.n_kv, cfg.head_dim)
-    v = (enc @ p["wv"]).reshape(b, te, cfg.n_kv, cfg.head_dim)
+    k = split_heads(enc @ p["wk"], cfg.n_kv, cfg.head_dim)
+    v = split_heads(enc @ p["wv"], cfg.n_kv, cfg.head_dim)
     if "bk" in p:
         k = k + p["bk"].reshape(cfg.n_kv, cfg.head_dim)
         v = v + p["bv"].reshape(cfg.n_kv, cfg.head_dim)
@@ -232,7 +385,7 @@ def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dh) from ``cross_kv`` (a prefill's, or a decode cache's): no RoPE, no
     mask; -> (B,T,D) after the output projection."""
     b, t, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    q = split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
     if "bq" in p:
         q = q + p["bq"].reshape(cfg.n_heads, cfg.head_dim)
     out = mha(q, k, v, None)

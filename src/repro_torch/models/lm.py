@@ -43,6 +43,8 @@ import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.axes import (from_local, is_dtensor, redistribute, shard,
+                             sharded)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.coded_kv_decode import ops as ckd_ops
 from repro_torch.kernels.common import resolve_device
@@ -137,8 +139,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     across instead."""
     check_slice(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    if device.type == "meta":
+        gen = _MetaGenerator()
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     cd = dtype or getattr(torch, cfg.compute_dtype)
     # the layers are drawn before the embedding (the draw order of the
     # dense family since its first slice)
@@ -182,6 +187,21 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     return params
 
 
+class _MetaGenerator:
+    """What ``init_params`` asks of a generator, on the ``meta`` device
+    (no values are drawn)."""
+    device = torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig, *, max_seq: int = 2048,
+                    dtype: Optional[torch.dtype] = None) -> Params:
+    """The param tree as ``meta`` tensors (shapes and dtypes, nothing
+    allocated; JAX's ``abstract_params``), in ``cfg.param_dtype`` unless
+    ``dtype`` is named."""
+    return init_params(cfg, device="meta", max_seq=max_seq,
+                       dtype=dtype or getattr(torch, cfg.param_dtype))
+
+
 def _dense_blocks(cfg, gen, cd, device, lead) -> Params:
     """Stacked pre-norm attention layers with their MLP or MoE block."""
     blocks = {"norm1": ly.norm_init(cfg, cd, device, lead),
@@ -213,14 +233,18 @@ def cast_params(cfg: ModelConfig, params: Params, device) -> Params:
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor):
     """f32 logits over the padded vocab, through the embedding (tied) or
     ``lm_head``; padding ids masked to -1e30."""
+    # eager DTensor propagates forward only: pin the activations to the
+    # batch so the head's product keeps the vocab sharded (GSPMD gets
+    # there from the logits' pin alone)
+    x = shard(x, "batch", *[None] * (x.ndim - 1))
     if cfg.tie_embeddings:
         logits = tied_logits(cfg, params["embed"], x).float()
     else:
         logits = (x @ params["lm_head"].to(x.dtype)).float()
-    if cfg.vocab_pad == cfg.vocab:
-        return logits
-    pad = torch.arange(cfg.vocab_pad, device=x.device) >= cfg.vocab
-    return logits.masked_fill(pad, -1e30)      # out of place: autograd
+    if cfg.vocab_pad != cfg.vocab:
+        pad = torch.arange(cfg.vocab_pad, device=x.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e30)  # out of place: autograd
+    return shard(logits, "batch", *[None] * (logits.ndim - 2), "vocab")
 
 
 def _sinusoid(t: int, d: int, device) -> torch.Tensor:
@@ -238,13 +262,14 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor, cd,
     for learned positions, the table's rows at ``positions`` (B, S)
     (default 0..S-1), clamped to its last row as JAX's gather clamps."""
     x = embed_lookup(cfg, params["embed"], tokens, cd)
-    if cfg.pos != "learned":
-        return x
-    table = params["pos_embed"]
-    if positions is None:
-        positions = torch.arange(tokens.shape[-1], device=tokens.device)
-    rows = positions.long().clamp(max=table.shape[0] - 1)
-    return x + table[rows].to(cd)
+    if cfg.pos == "learned":
+        table = params["pos_embed"]
+        if positions is None:
+            positions = torch.arange(tokens.shape[-1], device=tokens.device)
+        rows = positions.long().clamp(max=table.shape[0] - 1)
+        x = x + table[rows].to(cd)
+    # a gather leaves its output partial or replicated: pin the batch
+    return shard(x, "batch", None, None)
 
 
 def _frames(cfg: ModelConfig, frames: Optional[torch.Tensor]):
@@ -432,10 +457,50 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     logits = forward(cfg, params, batch, remat=remat, q_chunk=q_chunk)
     lg = logits[:, :-1]
     targets = batch["tokens"][:, 1:].long()
+    if is_dtensor(lg) and sharded(lg, -1):
+        return _sharded_xent(lg, targets)
     bi = torch.arange(lg.shape[0], device=lg.device)[:, None]
     si = torch.arange(lg.shape[1], device=lg.device)[None, :]
     pick = lg[bi, si, targets]
     return (torch.logsumexp(lg, dim=-1) - pick).mean()
+
+
+def _sharded_xent(lg, targets):
+    """``loss_fn``'s cross entropy on vocab-sharded DTensor logits: the
+    logsumexp through a partial max and sum (small all-reduces), and the
+    target's logit gathered on the rank that holds it (``_vocab_pick``);
+    the logits are never gathered."""
+    m = shard(lg.detach().amax(-1, keepdim=True), "batch", None, None)
+    lse = shard((lg - m).exp().sum(-1), "batch", None).log() + m[..., 0]
+    return (lse - shard(_vocab_pick(lg, targets), "batch", None)).mean()
+
+
+def _vocab_pick(lg, targets):
+    """``lg[b, s, targets[b, s]]`` of DTensor logits (B, S, V) sharded on
+    the batch and the vocab: each rank gathers the targets its vocab
+    shard holds (0 elsewhere), partial over the vocab-sharding mesh
+    dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, last = lg.device_mesh, lg.ndim - 1
+    lg = redistribute(lg, (pl if isinstance(pl, Shard) and pl.dim in (0, last)
+                           else Replicate() for pl in lg.placements))
+    want = tuple(lg.placements)
+    tpl = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0
+           else Replicate() for pl in want]
+    if is_dtensor(targets):
+        targets = redistribute(targets, tpl).to_local()
+    local = lg.to_local()
+    lo = 0
+    for m, pl in enumerate(want):
+        if isinstance(pl, Shard) and pl.dim == last:
+            lo = lo * mesh.size(m) + mesh.get_local_rank(m)
+    t = targets - lo * local.shape[-1]
+    owned = (t >= 0) & (t < local.shape[-1])
+    v = local.gather(-1, t.clamp(0, local.shape[-1] - 1)[..., None])[..., 0]
+    out_pl = [Partial() if isinstance(pl, Shard) and pl.dim == last
+              else pl for pl in want]
+    return from_local(v.masked_fill(~owned, 0.0), mesh, out_pl,
+                      lg.shape[:-1])
 
 
 def _block_tail(cfg, bp, x, o):
@@ -553,7 +618,7 @@ def apply_frontend(cfg: ModelConfig, x: torch.Tensor,
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             max_seq: Optional[int] = None,
             patches: Optional[torch.Tensor] = None,
-            frames: Optional[torch.Tensor] = None
+            frames: Optional[torch.Tensor] = None, q_chunk: int = 0
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process the prompt (B, S); return (last-token logits (B, V) f32,
     cache) with ``pos`` (B,) = S and the family's leaves (``cache_spec``).
@@ -565,7 +630,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     and RG-LRU blocks hand on their conv tails and f32 states. An
     encoder-decoder encodes ``frames`` (B, F, D), which it requires, and
     hands on each layer's cross-attention K/V over them (``xk``/``xv``,
-    biases added)."""
+    biases added). ``q_chunk`` > 0 streams each attention layer's
+    queries (``layers.mha_chunked``), as JAX's prefill does."""
     cd = getattr(torch, cfg.compute_dtype)
     b, s = tokens.shape
     cap_full = max(max_seq or s, s)
@@ -581,7 +647,10 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         if cfg.pos == "rope":
             q = ly.rope(q, positions, cfg.rope_theta)
             k = ly.rope(k, positions, cfg.rope_theta)
-        o = ly.mha(q, k, v, mask)
+        if q_chunk and q_chunk < s:
+            o = ly.mha_chunked(q, k, v, window=window, q_chunk=q_chunk)
+        else:
+            o = ly.mha(q, k, v, mask)
         kv = (_ring(k, cap_full, window), _ring(v, cap_full, window))
         if enc is None:
             return (_block_tail(cfg, bp, x, o),) + kv

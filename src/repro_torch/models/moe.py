@@ -25,6 +25,8 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.axes import (fsdp_gather, from_local, is_dtensor,
+                             redistribute, shard)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as ly
 
@@ -99,41 +101,108 @@ def experts(cfg: ModelConfig, p: Params, x: torch.Tensor, r: Routing,
     """The routed tokens through their experts and back: x (B, T, D) and
     its routing -> (B, T, D) in x's dtype."""
     b, t, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
     ng, g = r.idx.shape[:2]
-    xg = x.reshape(ng, g, d)
+    xin, slot, keep = _dispatch(cfg, x.reshape(ng, g, d), r, cap)
+    out = _expert_ffn(cfg, p, xin)
+    return _combine(cfg, out, r, slot, keep, x.dtype).reshape(b, t, d)
+
+
+def _dispatch(cfg, xg, r: Routing, cap: int):
+    """Each kept assignment's token of the groups xg (ng, g, d) gathered
+    into (ng, e, cap, d) expert slots (an empty slot reads a zero row);
+    with each assignment's slot and whether it is kept."""
+    ng, g, d = xg.shape
+    e, k = cfg.n_experts, cfg.top_k
     keep = r.keep.reshape(ng, g * k)
-    a = torch.arange(g * k, device=x.device).expand(ng, -1)
+    a = torch.arange(g * k, device=xg.device).expand(ng, -1)
     # a kept assignment's slot e * cap + pos is its own; a dropped one
     # goes to a sink of its own past the slots, so every index is unique
     slot = torch.where(keep, r.idx.reshape(ng, g * k) * cap
                        + r.pos.reshape(ng, g * k), e * cap + a)
     owner = torch.full((ng, e * cap + g * k), g * k, dtype=torch.long,
-                       device=x.device).scatter(1, slot, a)
+                       device=xg.device).scatter(1, slot, a)
     tok = owner[:, :e * cap] // k                # g: an empty slot
     xpad = torch.cat([xg, xg.new_zeros(ng, 1, d)], 1)
     xin = xpad.gather(1, tok[..., None].expand(-1, -1, d)) \
         .reshape(ng, e, cap, d)
-    up = torch.einsum("necd,edf->necf", xin, p["w_up"])
+    return xin, slot, keep
+
+
+def _expert_ffn(cfg, p, xin):
+    """The expert MLPs over their slots: (ng, e, cap, d) -> (ng, e, cap,
+    d), one batched product per weight."""
+    w = {k: fsdp_gather(v) for k, v in p.items() if k != "router"}
+    up = torch.einsum("necd,edf->necf", xin, w["w_up"])
     if cfg.mlp_gated:
-        h = ly._act(cfg, torch.einsum("necd,edf->necf", xin, p["w_gate"])) \
+        h = ly._act(cfg, torch.einsum("necd,edf->necf", xin, w["w_gate"])) \
             * up
     else:
         h = ly._act(cfg, up)
-    out = torch.einsum("necf,efd->necd", h, p["w_down"]).reshape(
-        ng, e * cap, d)
-    out = torch.cat([out, out.new_zeros(ng, 1, d)], 1)
+    return torch.einsum("necf,efd->necd", h, w["w_down"])
+
+
+def _combine(cfg, out, r: Routing, slot, keep, dtype):
+    """Each token's kept slots of the expert outputs (ng, e, cap, d)
+    summed with its gates in f32, cast once -> (ng, g, d)."""
+    ng, e, cap, d = out.shape
+    g, k = r.idx.shape[1:]
+    out = torch.cat([out.reshape(ng, e * cap, d), out.new_zeros(ng, 1, d)],
+                    1)
     sel = torch.where(keep, slot, e * cap)       # dropped: the zero row
     picked = out.gather(1, sel[..., None].expand(-1, -1, d)) \
         .reshape(ng, g, k, d)
     # JAX casts the gates to the compute dtype before the combine
-    w = r.gates.to(x.dtype).float()
-    y = (picked.float() * w[..., None]).sum(2)
-    return y.to(x.dtype).reshape(b, t, d)
+    w = r.gates.to(dtype).float()
+    return (picked.float() * w[..., None]).sum(2).to(dtype)
+
+
+def _moe_sharded(cfg: ModelConfig, p: Params, x, cap: int):
+    """``moe_block`` on DTensors. The tokens are pinned to the batch's
+    placements and the routing, the dispatch gather and the combine run
+    on each rank's own groups (every op there is per group; the model
+    ranks repeat them), with the router's weight gathered. Only the
+    expert products run as DTensors, on the expert weights' placements;
+    under ``cfg.moe_ep`` the slots are pinned with their expert axis on
+    ``model`` (JAX's pins; the port keeps the group axis on the batch
+    axes, where JAX's pin replicates it), then gathered back to the
+    groups' placements for the combine. Where a group spans the batch
+    shards (a decode step's B tokens in one group) the tokens are
+    gathered first and every rank routes every group."""
+    from torch.distributed.tensor import Partial, Replicate
+    b, t, d = x.shape
+    g, ng, _ = groups(cfg, b * t)
+    x = shard(x, "batch", None, None)
+    mesh, bpl = x.device_mesh, tuple(x.placements)
+    spans = (x.to_local().shape[0] * t) % g != 0
+    if spans:
+        bpl = (Replicate(),) * mesh.ndim
+        x = redistribute(x, bpl)
+    xl = x.to_local(grad_placements=bpl)
+    xg = xl.reshape(-1, g, d)
+    router = p["router"]
+    if is_dtensor(router):
+        gpl = [Partial() if pl != Replicate() else Replicate() for pl in bpl]
+        router = redistribute(router, (Replicate(),) * mesh.ndim).to_local(
+            grad_placements=gpl)
+    r = route(cfg, (xg @ router).float(), cap)
+    xin, slot, keep = _dispatch(cfg, xg, r, cap)
+    xin = from_local(xin, mesh, bpl, (ng,) + tuple(xin.shape[1:]))
+    if cfg.moe_ep:
+        xin = shard(xin, "batch", "experts", None, None)
+    out = _expert_ffn(cfg, p, xin)
+    if cfg.moe_ep:
+        out = shard(out, "batch", "experts", None, None)
+    out = shard(out, "batch", None, None, None)
+    y = _combine(cfg, out.to_local(grad_placements=bpl), r, slot, keep,
+                 x.dtype)
+    y = from_local(y.reshape(xl.shape), mesh, bpl, (b, t, d))
+    return shard(y, "batch", None, None) if spans else y
 
 
 def moe_block(cfg: ModelConfig, p: Params, x: torch.Tensor
               ) -> torch.Tensor:
     """x (B, T, D) -> (B, T, D): JAX's ``moe_block``."""
     _, _, cap = groups(cfg, x.shape[0] * x.shape[1])
+    if is_dtensor(x):
+        return _moe_sharded(cfg, p, x, cap)
     return experts(cfg, p, x, route(cfg, router_logits(cfg, p, x), cap), cap)

@@ -13,6 +13,11 @@ JAX's; only the rounding of ``p - lr * (m_hat / denom + wd * p)``, done as
 Trees are nested dicts of tensors (the model's params); leaves are
 visited in JAX's order (dict keys sorted), so sums over leaves add in the
 same order as JAX's.
+
+Under a mesh the leaves are DTensors, the gradients already at their
+params' placements (``runtime.steps``): each leaf's norm is reduced to
+its full value (the same on every rank) before the global norm, and the
+update runs in place on the local shards.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ import math
 from typing import Any, Callable, List, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.axes import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,14 +99,17 @@ def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32 (a 0-d tensor on
     the leaves' device)."""
     leaves = [leaf.float() for leaf in tree_leaves(tree)]
-    norms = torch._foreach_norm(leaves)
+    norms = [n.full_tensor() if is_dtensor(n) else n
+             for n in torch._foreach_norm(leaves)]
     return torch.stack(norms).square().sum().sqrt()
 
 
 def adamw_init(params: Any) -> OptState:
-    """Zero f32 moments like ``params``, step 0."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    """Zero f32 moments like ``params`` (DTensors at their placements),
+    step 0."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32) \
+        if is_dtensor(p) else torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device)
     return OptState(step=torch.zeros((), dtype=torch.int32),
                     m=tree_map(zeros, params), v=tree_map(zeros, params))
 
@@ -128,6 +138,8 @@ def adamw_update(cfg: OptConfig, grads: Any, state: OptState, params: Any
     leaves = zip(tree_leaves_with_path(params), tree_leaves(grads),
                  tree_leaves(state.m), tree_leaves(state.v))
     for (path, p), g, m, v in leaves:
+        if is_dtensor(p):                  # the local shards, in place
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         g = g.float()                      # no copy for f32 grads
         g.mul_(scale)
         m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)

@@ -8,6 +8,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.axes import gather_dim, is_dtensor, mesh_of
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.optim.adamw import (OptConfig, OptState, adamw_update,
@@ -26,14 +27,29 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
     the update). Every family trains: the batch holds ``tokens`` and,
     where the family takes them, ``patches`` (vision_stub) and ``frames``
     (the encoder-decoder's, required there). A config outside the port
-    raises here."""
+    raises here.
+
+    DTensor params (a ``DeviceMesh``: ``runtime.trainer``) take the same
+    step: the forward runs under the mesh (``axes.use_mesh``: the model's
+    pins redistribute, plain constants count as replicated), each
+    gradient is reduced to its param's placements, the loss comes back
+    full."""
     lm.check_slice(cfg)
 
     def grads_of(leaves, params, batch):
-        with torch.enable_grad():
+        with torch.enable_grad(), mesh_of(leaves[0]):
             loss = lm.loss_fn(cfg, params, batch, remat=remat,
                               q_chunk=q_chunk)
-            return loss.detach(), torch.autograd.grad(loss, leaves)
+            # a leaf no layer reads (an empty stack: a hybrid probe of
+            # two layers has no attention layer) has a zero gradient
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        if is_dtensor(loss):
+            loss = loss.full_tensor()
+            grads = [g if tuple(g.placements) == tuple(p.placements)
+                     else g.redistribute(p.device_mesh, p.placements)
+                     for p, g in zip(leaves, grads)]
+        return loss.detach(), grads
 
     def train_step(params, opt_state: OptState,
                    batch: Dict[str, torch.Tensor]):
@@ -72,18 +88,25 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax over the vocab (B, V) -> (B,); vocab-sharded DTensor
+    logits are gathered on the vocab first (one row a sequence)."""
+    return torch.argmax(gather_dim(logits, -1), -1)
+
+
+def make_prefill_step(cfg: ModelConfig, *, q_chunk: int = 0):
     """``prefill_step(params, tokens (B, S), patches=None, frames=None)
     -> (next token (B,), cache)``; ``patches`` (B, P, D) for a
-    vision_stub config, ``frames`` (B, F, D) for an encoder-decoder."""
+    vision_stub config, ``frames`` (B, F, D) for an encoder-decoder;
+    ``q_chunk`` > 0 streams the attention's queries."""
 
     @torch.no_grad()
     def prefill_step(params, tokens: torch.Tensor,
                      patches: Optional[torch.Tensor] = None,
                      frames: Optional[torch.Tensor] = None):
         logits, cache = lm.prefill(cfg, params, tokens, patches=patches,
-                                   frames=frames)
-        return torch.argmax(logits, -1), cache
+                                   frames=frames, q_chunk=q_chunk)
+        return _greedy(logits), cache
 
     return prefill_step
 
@@ -96,7 +119,7 @@ def make_serve_step(cfg: ModelConfig):
     @torch.no_grad()
     def serve_step(params, token: torch.Tensor, cache):
         logits, cache = lm.decode_step(cfg, params, token, cache)
-        return torch.argmax(logits, -1), cache
+        return _greedy(logits), cache
 
     return serve_step
 

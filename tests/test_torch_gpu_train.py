@@ -194,3 +194,45 @@ def test_family_train_step_card_equals_cpu(cuda, arch):
         clear = np.abs(cpu[1][name]) / (1 - b1) >= 1e-6
         assert diff[clear].max(initial=0) <= 1e-4 * np.abs(x).max(), name
         assert diff.max() <= OPT["lr"], name
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def test_nccl_one_rank_mesh_trainer_equals_plain(cuda, tmp_path):
+    """Reduced qwen2.5-3b, 3 steps, on a one-rank NCCL process group and a
+    (1, 1) ("data", "model") ``DeviceMesh``: the DTensor ``Trainer``'s
+    losses within 1e-5 and params within 1e-4 of the plain ``Trainer``
+    from the same seed (on a one-device mesh every op takes its plain
+    formulation, so they are expected bit for bit)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    cfg = get_config("qwen2.5-3b").reduced()
+
+    def run(mesh, d):
+        tc = TrainConfig(steps=3, log_every=100, ckpt_every=0,
+                         ckpt_dir=str(tmp_path / d), global_batch=4,
+                         seq_len=32)
+        tr = Trainer(cfg, tc, mesh, OptConfig(**OPT), device="cuda")
+        out = tr.run()
+        params = {"/".join(p): (x.full_tensor() if hasattr(x, "full_tensor")
+                                else x).detach().cpu()
+                  for p, x in tree_leaves_with_path(out["params"])}
+        return [m["loss"] for m in tr.metrics_log], params
+
+    plain = run(None, "plain")
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = run(make_debug_mesh(1, 1, device="cuda"), "mesh")
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(mesh[0], plain[0], rtol=0, atol=1e-5)
+    for name, x in plain[1].items():
+        assert float((mesh[1][name].float() - x.float()).abs().max()) \
+            <= 1e-4, name

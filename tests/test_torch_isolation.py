@@ -28,3 +28,7 @@ def test_no_jax_or_repro_import(path):
 
 def test_scan_sees_the_port():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
+    port = ROOT / "src" / "repro_torch"
+    for mod in ("axes.py", "launch/mesh.py", "launch/sharding.py",
+                "launch/shapes.py", "launch/dryrun.py"):
+        assert port / mod in FILES, mod

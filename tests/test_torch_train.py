@@ -515,15 +515,16 @@ def test_straggler_detection_with_a_patched_clock(tmp_path, monkeypatch):
 
 
 def test_trainer_device_mesh_and_default_checkpoint_dir():
-    """The card unless named (raises here), no mesh beyond one device,
-    and a fresh checkpoint directory when none is named."""
+    """The card unless named (raises here), no mesh beyond one device
+    without a process group (no single-device fallback), and a fresh
+    checkpoint directory when none is named."""
     _, tc = _cfgs("yi-6b")
     base = ttrainer.TrainConfig(steps=1)
     assert base.ckpt_dir is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrainer.Trainer(tc, base)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(ValueError, match="process group"):
         ttrainer.Trainer(tc, base, (2, 1), device="cpu")
     a = ttrainer.Trainer(tc, base, (1, 1), device="cpu")
     b = ttrainer.Trainer(tc, base, device="cpu")
@@ -548,6 +549,6 @@ def test_launch_train_reduced_on_the_cpu(tmp_path, capsys):
     assert "restored step 2" in out["events"]
     assert tckpt.latest_step(str(tmp_path)) == 4
     assert "done: final_loss=" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="process group"):
         tlaunch.main(["--arch", "yi-6b", "--reduced", "--device", "cpu",
                       "--mesh-model", "2"])
