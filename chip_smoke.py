@@ -7,7 +7,8 @@
 
 Phases, each of which fails the run (nonzero exit, no result line). With
 ``--only`` (names: kernel, serve, decode, cross, kvstate, simkernel,
-simulate, stream, sweep, paper, faults, obs, train, mesh) it runs the build
+simulate, stream, sweep, paper, faults, obs, analysis, train, mesh) it
+runs the build
 and the named phases with the phases they need (decode needs serve; stream and paper need
 simulate; sweep needs simulate and stream), and prints no kernel table and
 no result line; with no flag it runs every phase:
@@ -179,7 +180,18 @@ no result line; with no flag it runs every phase:
    uninterrupted results. (d) both kernels bit for bit against their
    plain versions on live batched card states of every batch of (a), (b)
    and (c) (every 50th batched cycle of (a) and (b), every 100th of (c)),
-   with the real plans and seeded columns of every mode. Then
+   with the real plans and seeded columns of every mode. (e) the point
+   axis sharded: ``launch.mesh.make_sweep_mesh`` replaced to lay 2 shards
+   on the one card (cuda:0 twice, so each odd batch carries a padding
+   row), paper_fig19's grid with telemetry on through ``run_points(pts,
+   None, True)``: results equal (a)'s unsharded card run and the CPU's
+   unsharded telemetry-on run, every snapshot plane equal the CPU's; its
+   alpha 1 batch (3 points) on its traces' first 48 requests a core
+   through ``stream_replay_points`` at chunk 16 over the 2 shards equals
+   the CPU's unsharded replay windows included,
+   and a pass killed at 2 shards after a checkpoint a chunk resumes at 1
+   shard to the same results (this proves the padding, the split and the
+   exit test on the card, not a speedup across cards). Then
    profiled windows of seed-axis batches of 1 and 8 points and of
    (a)'s traced batch: ms and launches per batched cycle, host syncs,
    copies and the device idle share. The phase's CPU side (the CPU runs
@@ -250,7 +262,11 @@ no result line; with no flag it runs every phase:
    gates hold the code-status table against the oracle's replay after
    every step and the planes against its totals; its planes equal the
    CPU's. Its CPU side runs after the paper phase's in that worker.
-14. train: the training path (``runtime.trainer.Trainer`` ->
+14. analysis: ``python -m repro_torch.analysis --strict`` with the carry
+   layer on the card: the GF(2) certificates, the repo rules, and the
+   carry lint's live cycle, run_chunk_batch and pooled decode step, where
+   a leaf that drifts to another device is a finding.
+15. train: the training path (``runtime.trainer.Trainer`` ->
    ``make_train_step`` -> ``lm.loss_fn`` with the coded embedding's
    backward and per-layer recompute -> the in-place ``adamw_update``) on
    the card. (a) full-width qwen2.5-3b (3.09 B params, f32 master params
@@ -281,7 +297,7 @@ no result line; with no flag it runs every phase:
    layers) and recurrentgemma-9b (one superblock, 3 of 38 layers)
    through the ``Trainer``: ms/step, tokens/s, peak allocated (<= 76 GB),
    every loss finite and the mean of the last three below step 0's.
-15. mesh: sharding (``launch.mesh`` -> ``launch.sharding`` -> the pinned
+16. mesh: sharding (``launch.mesh`` -> ``launch.sharding`` -> the pinned
    ``lm``/``moe`` on DTensors -> the DTensor AdamW). (a) a one-rank NCCL
    process group (127.0.0.1, a free port) and a (1, 1) ("data",
    "model") ``DeviceMesh`` on the card: full-width qwen2.5-3b (4 of its
@@ -302,9 +318,10 @@ no result line; with no flag it runs every phase:
 
 Each kernel's launches are counted from 0 over its own main path (the
 serve runs and the obs phase's serving report for ``gather_pool``, the decode-attention calls for
-``coded_kv_decode``, the simulate runs and the stream, sweep, paper and
-faults and obs phases for the simulator's kernels, whose table entries
-add the six; a line before the table gives the split).
+``coded_kv_decode``, the simulate runs and the stream, sweep (its (e)
+included), paper and faults and obs phases for the simulator's kernels,
+whose table entries add the six; a line before the table gives the
+split).
 The third-to-last line is the card's name and power limit, the
 second-to-last the kernel table as JSON, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -2927,6 +2944,10 @@ CKPT_EVERY = 2                   # (c): chunks between checkpoints
 CKPT_STOP = 400                  # (c): the killed pass stops past this cycle
 LIVE_EVERY = 50                  # (d): batched cycles of (a), (b) between
 STREAM_LIVE_EVERY = 100          # live checks, and of (c)
+SHARDS = 2                       # (e): shards of the point axis, on cuda:0
+SHARD_HEAD = 48                  # (e): requests a core streamed (of 96)
+SHARD_CHUNK = 16                 # (e): the streamed alpha 1 batch's chunk
+SHARD_CKPT_STOP = 30             # (e): the killed 2-shard pass stops past it
 
 
 def fig19_points():
@@ -3042,6 +3063,40 @@ def sweep_cpu_side() -> dict:
                 time.process_time() - t0,
                 (gops.calls - c0[0], eops.calls - c0[1]))
     return out
+
+
+def shard_points():
+    """(e)'s points: paper_fig19's grid with telemetry on."""
+    return [p.replace(telemetry=True) for p in fig19_points()]
+
+
+def shard_stream_batch():
+    """(e)'s streamed batch, (a)'s alpha 1 points (3, traced geometry),
+    and the first ``SHARD_HEAD`` requests a core of their traces (on the
+    CPU, as ``run_batch`` builds them)."""
+    from repro_torch.sweep import build_trace, partition
+
+    b = next(b for b in partition(shard_points()) if len(b) == 3)
+    return b, [type(tr)(*(x[:, :SHARD_HEAD].contiguous() for x in tr))
+               for tr in (build_trace(pt, index=i, device="cpu")
+                          for i, pt in zip(b.indices, b.points))]
+
+
+def sweep_shard_cpu_side() -> dict:
+    """(e)'s unsharded reference on the CPU: ``shard_points`` through
+    ``run_points`` (results, telemetry snapshots) and the streamed batch
+    through ``stream_replay_points``, both with ``shard=False``."""
+    import torch
+
+    from repro_torch.sweep import run_points
+    from repro_torch.traces import stream_replay_points
+
+    torch.set_num_threads(2)
+    res, snaps = run_points(shard_points(), None, False, None, True,
+                            device="cpu")
+    b, srcs = shard_stream_batch()
+    return {"res": res, "snaps": snaps, "stream": stream_replay_points(
+        b.points, srcs, SHARD_CHUNK, None, None, False, device="cpu")}
 
 
 def sweep_looped_cpu_side() -> dict:
@@ -3222,13 +3277,15 @@ def obs_cpu_side() -> dict:
 
 
 CPU_STAGES = {"sweep": sweep_cpu_side, "sweep_l": sweep_looped_cpu_side,
-              "sweep_c": sweep_stream_cpu_side, "paper": paper_cpu_side,
+              "sweep_c": sweep_stream_cpu_side,
+              "sweep_e": sweep_shard_cpu_side, "paper": paper_cpu_side,
               "faults": faults_cpu_side, "obs": obs_cpu_side}
 STAGE_PHASE = {"sweep": "sweep", "sweep_l": "sweep", "sweep_c": "sweep",
-               "paper": "paper", "faults": "faults", "obs": "obs"}
+               "sweep_e": "sweep", "paper": "paper", "faults": "faults",
+               "obs": "obs"}
 # one worker process per lane, each running its stages in order; the lanes
 # run side by side whenever the script lets the CPU side run
-CPU_LANES = (("sweep", "sweep_c"), ("sweep_l",), ("paper", "obs"),
+CPU_LANES = (("sweep", "sweep_c"), ("sweep_l", "sweep_e"), ("paper", "obs"),
              ("faults",))
 
 
@@ -3806,6 +3863,7 @@ def sweep_phase(torch, sim_single, looped_rate, looped_busy_ms,
           f"{CKPT_EVERY} chunks), resumed to the uninterrupted results, "
           "windows included; alpha 0.25 equals the stream phase's cold "
           "head apart from windows")
+    shard_subphase(torch, res, cpu_side)
     launches = {"xor_gather": gk.launches, "xor_encode": ek.launches}
     # main path ends here
     check(all(v > 0 for v in launches.values()),
@@ -3834,6 +3892,97 @@ def sweep_phase(torch, sim_single, looped_rate, looped_busy_ms,
               for n in PROFILE_BATCHES))
     profile_batch(torch, batches[1].points, "fig19_traced")
     return launches
+
+
+@contextlib.contextmanager
+def sweep_mesh(torch, devices):
+    """``repro_torch.launch.mesh.make_sweep_mesh`` giving ``devices``."""
+    from repro_torch.launch import mesh
+
+    saved = mesh.make_sweep_mesh
+    mesh.make_sweep_mesh = lambda n_devices=0, *, device=None: list(devices)
+    try:
+        yield
+    finally:
+        mesh.make_sweep_mesh = saved
+
+
+def shard_subphase(torch, res_a, cpu_side) -> None:
+    """Sweep (e): the point axis over ``SHARDS`` shards, all on cuda:0
+    (one padding row in each odd batch), against (a)'s unsharded card
+    results and the CPU's unsharded runs (``sweep_shard_cpu_side``); the
+    streamed batch killed at 2 shards resumes at 1. Each kernel's
+    launches must equal its wrapper's calls."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.kernels.xor_encode import kernel as ek
+    from repro_torch.kernels.xor_encode import ops as eops
+    from repro_torch.kernels.xor_gather import kernel as gk
+    from repro_torch.kernels.xor_gather import ops as gops
+    from repro_torch.sweep import engine, partition, run_points
+    from repro_torch.traces import stream_replay_points
+
+    pts = shard_points()
+    b, srcs = shard_stream_batch()
+    card = torch.device("cuda", 0)
+    pads = [engine._pad_points(len(x), SHARDS) for x in partition(pts)]
+    g0, e0, gc0, ec0 = gk.launches, ek.launches, gops.calls, eops.calls
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_shard_ckpt_")
+    try:
+        with sweep_mesh(torch, [card] * SHARDS):
+            check(engine.shard_devices(torch.device("cuda"), True)
+                  == [card] * SHARDS, "sweep (e): the mesh is not replaced")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, snaps = run_points(pts, None, True, None, True,
+                                    device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            stream = stream_replay_points(b.points, srcs, SHARD_CHUNK, None,
+                                          None, True, device="cuda")
+            cut = stream_replay_points(b.points, srcs, SHARD_CHUNK, None,
+                                       SHARD_CKPT_STOP, True, ckdir, 1,
+                                       device="cuda")
+            step = latest_step(ckdir)
+        # one card visible: the mesh is one device, the replay unsharded
+        resumed = stream_replay_points(b.points, srcs, SHARD_CHUNK, None,
+                                       None, True, ckdir, 1, True,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        secs_s = time.perf_counter() - t0 - secs
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    calls = (gops.calls - gc0, eops.calls - ec0)
+    launched = (gk.launches - g0, ek.launches - e0)
+    check(launched == calls, f"sweep (e): launches {launched}, wrapper "
+          f"calls {calls} on the card")
+    cpu = cpu_side.receive("sweep_e")
+    check(res == res_a, f"sweep (e): {SHARDS} shards {res} vs (a)'s "
+          f"unsharded {res_a}")
+    check(res == cpu["res"], f"sweep (e): card {res} vs CPU {cpu['res']}")
+    check(all(s_ is not None and _same_planes(s_, w)
+              for s_, w in zip(snaps, cpu["snaps"])),
+          "sweep (e): a telemetry snapshot differs from the CPU's "
+          "unsharded run")
+    check(stream == cpu["stream"], f"sweep (e): streamed over {SHARDS} "
+          f"shards {stream} vs the CPU's unsharded {cpu['stream']}")
+    check(step is not None and cut != stream,
+          f"sweep (e): the killed pass left step {step}")
+    check(resumed == stream, f"sweep (e): resumed at 1 shard {resumed} vs "
+          f"{stream}")
+    print(f"sweep (e) the point axis over {SHARDS} shards on one card "
+          f"(padding rows {pads} by batch): paper_fig19 with telemetry on "
+          f"{secs:.2f} s, results = (a)'s unsharded card run = the CPU's, "
+          f"every plane = the CPU's unsharded run; alpha 1.0 batch "
+          f"{b.indices} on {SHARD_HEAD} requests a core streamed at chunk "
+          f"{SHARD_CHUNK} over {SHARDS} "
+          f"shards = the CPU's unsharded replay (windows "
+          f"{[len(r.window_read_latency) for r in stream]}), killed at "
+          f"cycle {[r.cycles for r in cut]} with step {step} at {SHARDS} "
+          f"shards and resumed at 1 to the same results; the three replays "
+          f"{secs_s:.2f} s; launches {calls}")
 
 
 # --------------------------------------------------------------- phase 11
@@ -4395,6 +4544,20 @@ def obs_phase(torch, cpu_side):
 
 
 # ---------------------------------------------------------------- phase 14
+def analysis_phase(torch) -> None:
+    """The analysis CLI's three layers, ``--strict``, with the carry layer
+    on the card."""
+    from repro_torch.analysis.__main__ import main as analysis_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = analysis_main(["--strict", "--device", "cuda"])
+    out = buf.getvalue().strip()
+    check(rc == 0, f"analysis: --strict exited {rc}:\n{out}")
+    print(f"analysis: {out} (python -m repro_torch.analysis --strict, the "
+          "carry layer on the card)")
+
+
 TRAIN_ARCH = "qwen2.5-3b"
 TRAIN_FULL = dict(steps=8, global_batch=8, seq_len=256)   # (a)
 TRAIN_FULL_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=8)
@@ -5060,8 +5223,8 @@ def mesh_phase(torch, dryruns, dry_dir) -> dict:
 
 # Phases in the order they run, and the earlier phases each one needs.
 PHASES = ("kernel", "serve", "decode", "cross", "kvstate", "simkernel",
-          "simulate", "stream", "sweep", "paper", "faults", "obs", "train",
-          "mesh")
+          "simulate", "stream", "sweep", "paper", "faults", "obs",
+          "analysis", "train", "mesh")
 NEEDS = {"decode": ("serve",), "stream": ("simulate",),
          "sweep": ("simulate", "stream"), "paper": ("simulate",)}
 
@@ -5232,6 +5395,9 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
     if "obs" in phases:
         obs_launches = obs_phase(torch, cpu_side)
         lap("obs")
+    if "analysis" in phases:
+        analysis_phase(torch)
+        lap("analysis")
     if "train" in phases:
         train_phase(torch)
         lap("train")

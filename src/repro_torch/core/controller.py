@@ -190,7 +190,8 @@ def build_read_patterns(
     rs = p.region_size
     rs_a = col(rs if rs_active is None else rs_active)
     order, n_trips = _walk_bounds(cand_age, cand_valid)
-    n_trips = int(n_trips)                     # one host read per walk
+    # analysis: host-sync one read a walk: its trip count bounds the loop
+    n_trips = int(n_trips)
 
     served = torch.zeros((B, n), dtype=torch.bool, device=dev)
     mode = torch.full((B, n), MODE_UNSERVED, dtype=torch.int32, device=dev)
@@ -332,7 +333,8 @@ def build_write_patterns(
     rs = p.region_size
     rs_a = col(rs if rs_active is None else rs_active)
     order, n_trips = _walk_bounds(cand_age, cand_valid)
-    n_trips = int(n_trips)                     # one host read per walk
+    # analysis: host-sync one read a walk: its trip count bounds the loop
+    n_trips = int(n_trips)
 
     served = torch.zeros((B, n), dtype=torch.bool, device=dev)
     mode = torch.full((B, n), WMODE_UNSERVED, dtype=torch.int32, device=dev)

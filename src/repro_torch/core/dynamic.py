@@ -21,7 +21,7 @@ the results are identical.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -108,6 +108,7 @@ def dynamic_step(
     _, nr_a = active_geometry(p, tn)
     dev = region_slot.device
     q = torch.zeros_like(cycle) if quiesce is None else quiesce.int()
+    # analysis: host-sync one read a cycle: each point's encoder and period
     host = torch.stack([cycle, enc_region, enc_remaining, enc_slot, q,
                         tn.select_period, tn.region_size_active]).T.tolist()
     enc = [h[1:4] for h in host]                 # (er, erem, es) per point
@@ -152,6 +153,7 @@ def dynamic_step(
         budget = tn.n_slots_active.clamp(max=p.n_active)[:, None]
         free_mask = (slot_region < 0) & (
             torch.arange(p.n_slots, device=dev) < budget)
+        # analysis: host-sync a selecting cycle's candidates and victims
         rows = torch.cat([
             cand, cand_counts.gather(1, cand).long(), victim,
             evict_counts.gather(1, victim).long(),
@@ -193,7 +195,7 @@ def dynamic_step(
                   parity_data, enc_region, enc_remaining, enc_slot, switches)
 
 
-def _ints(values, device) -> torch.Tensor:
+def _ints(values: List[int], device) -> torch.Tensor:
     """(B,) int32 tensor of host ints on ``device``: a fill when they are
     all equal, else one copy."""
     if all(v == values[0] for v in values):

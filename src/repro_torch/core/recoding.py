@@ -81,6 +81,7 @@ def recode_steps(
     dev = rc_bank.device
     B, cap = rc_valid.shape
     n_recoded = torch.zeros((B,), dtype=torch.int32, device=dev)
+    # analysis: host-sync one read a cycle skips the unit when rings are empty
     if p.recode_budget <= 0 or not bool(rc_valid.any()):
         return RecodeOut(port_busy, fresh_loc, parity_valid, parked_count,
                          rc_valid, banks_data, parity_data, n_recoded)
@@ -172,7 +173,8 @@ def recode_steps(
                         gsink)], 2)
         tf = work & ~pb[needed].any(2)
         any_tf = tf.any(1, True)                            # (B, 1)
-        found = any_tf[:, 0].tolist()      # one host read per trip
+        # analysis: host-sync one read a trip: stop once no point can retire
+        found = any_tf[:, 0].tolist()
         if not any(found):
             rc_valid &= ~moot                # every scan ran to its end
             break

@@ -647,6 +647,7 @@ class CodedMemorySystem:
         any_w = m.wq_valid.flatten(1).any(1)
         wm = torch.where(m.write_mode, wq_occ > tn.wq_lo, wq_occ >= tn.wq_hi)
         serve_writes = (wm | (~any_r & any_w)) & any_w
+        # analysis: host-sync one read a cycle picks the builders that run
         sw = serve_writes.tolist()
         if all(sw):
             m, port_busy, out = self._do_writes(m, rs_a, **fk)
@@ -805,27 +806,67 @@ class CodedMemorySystem:
         apart from the states' own ``cycle``). A point that quiesced before
         the others runs observable no-op cycles. The exit test is one host
         read a cycle. ``on_cycle(before, after, out)`` sees the batched
-        states after every cycle when given."""
-        self.check_trace(trace)
-        tlen = trace.bank.shape[-1]
-        if stream_end is not None:
-            stream_end = torch.as_tensor(stream_end, dtype=torch.int32,
-                                         device=self.device)
-            more = stream_end > tlen
-        for _ in range(n_cycles):
-            quiet = quiescent(st).all()
-            if stream_end is None:
-                stop = bool(quiet)
-            else:
-                stop = any(torch.stack([
-                    ((st.core_ptr >= tlen) & more).any(), quiet]).tolist())
-            if stop:
-                break
-            nxt, out = self.cycle_batch(st, trace, tn, stream_end)
-            if on_cycle is not None:
-                on_cycle(st, nxt, out)
-            st = nxt
-        return st
+        states after every cycle when given. ``run_chunk_shards`` on one
+        shard."""
+        hook = None if on_cycle is None else (
+            lambda before, after, out: on_cycle(before[0], after[0], out[0]))
+        return run_chunk_shards(
+            [self], [st], [trace],
+            None if stream_end is None else [stream_end], n_cycles, [tn],
+            hook)[0]
 
     def summarize(self, st: SimState) -> SimResult:
         return summarize_batch(batch_of_one(st))[0]
+
+
+def run_chunk_shards(systems: List[CodedMemorySystem], sts: List[SimState],
+                     traces: List[Trace], stream_ends, n_cycles: int,
+                     tns: List[TunableParams],
+                     on_cycle: Optional[Callable] = None) -> List[SimState]:
+    """``run_chunk_batch`` of one batch split on its point axis into
+    shards, shard ``k`` on ``systems[k]``'s device (the sweep engine's
+    sharding, ``repro_torch.sweep.engine``): one host loop steps every
+    shard each cycle and takes the exit test over all of them, one host
+    read a cycle, so (a) any starved core of any shard or (b) every point
+    of every shard quiescent ends the call, as the unsharded batch's
+    ``while_loop`` would. ``stream_ends`` is None or one (B_k, n_cores)
+    per shard. ``on_cycle(befores, afters, outs)`` sees the shards' lists
+    after every cycle when given. Returns the shards' states."""
+    for sys_, trace in zip(systems, traces):
+        sys_.check_trace(trace)
+    tlen = traces[0].bank.shape[-1]
+    ses: List = [None] * len(sts)
+    if stream_ends is not None:
+        ses = [torch.as_tensor(se, dtype=torch.int32, device=sys_.device)
+               for se, sys_ in zip(stream_ends, systems)]
+        more = [se > tlen for se in ses]
+    lead = systems[0].device
+    # one shard runs exactly run_chunk_batch's ops (profiles count them)
+    for _ in range(n_cycles):
+        if stream_ends is None:
+            quiet = [quiescent(st).all() for st in sts]
+            # analysis: host-sync the exit test, one read a cycle
+            stop = (bool(quiet[0]) if len(sts) == 1 else all(
+                torch.stack([q.to(lead) for q in quiet]).tolist()))
+        else:
+            flags = []
+            for st, m in zip(sts, more):
+                q = quiescent(st).all()
+                flags.append(torch.stack([((st.core_ptr >= tlen) & m).any(),
+                                          q]))
+            if len(flags) == 1:
+                # analysis: host-sync the exit test, one read a cycle
+                stop = any(flags[0].tolist())
+            else:
+                # analysis: host-sync the exit test, one read a cycle
+                rows = torch.stack([f.to(lead) for f in flags]).tolist()
+                stop = any(r[0] for r in rows) or all(r[1] for r in rows)
+        if stop:
+            break
+        steps = [sys_.cycle_batch(st, trace, tn, se) for sys_, st, trace, tn,
+                 se in zip(systems, sts, traces, tns, ses)]
+        nxts = [nxt for nxt, _ in steps]
+        if on_cycle is not None:
+            on_cycle(sts, nxts, [out for _, out in steps])
+        sts = nxts
+    return sts

@@ -13,12 +13,14 @@ record compares with JAX's cell by cell:
 A mesh's size must equal the process group's world size: a mismatch
 raises ``ValueError`` naming both, and a mesh of more than one device
 with no process group raises too (there is no single-device fallback).
-A mesh lives on ``"cuda"`` unless the caller names ``"cpu"``.
+A mesh lives on ``"cuda"`` unless the caller names ``"cpu"``. The
+sweep's mesh (``make_sweep_mesh``) is the list of devices one process
+lays the point axis over, not a process-group mesh.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -68,12 +70,25 @@ def make_debug_mesh(n_data: int = 1, n_model: int = 1, *, device=None):
     return init_mesh((n_data, n_model), ("data", "model"), device=device)
 
 
-def make_sweep_mesh(n_devices: int = 0, *, device=None):
-    """1-D ``("sweep",)`` mesh over every rank (the sweep's point axis;
-    the port's sweep engine does not shard it yet)."""
-    import torch.distributed as dist
-    n = n_devices or (dist.get_world_size() if dist.is_initialized() else 1)
-    return init_mesh((n,), ("sweep",), device=device)
+def make_sweep_mesh(n_devices: int = 0, *, device=None) -> List:
+    """The devices the sweep engine lays its point axis over (JAX's 1-D
+    ``("sweep",)`` mesh over the local devices): every visible card for a
+    CUDA ``device`` (the default), the CPU alone for ``"cpu"``; with
+    ``n_devices`` the first that many. One process drives them all, so no
+    process group is needed; ``repro_torch.sweep.engine`` splits a batch
+    into one contiguous shard per device."""
+    dev = torch.device(_device_type(device))
+    if dev.type == "cuda":
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        devs = [torch.device(device)]
+    if n_devices:
+        if n_devices > len(devs):
+            raise ValueError(f"a sweep mesh of {n_devices} devices, but "
+                             f"{len(devs)} {dev.type} device(s) are visible")
+        devs = devs[:n_devices]
+    return devs
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:

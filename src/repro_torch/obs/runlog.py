@@ -57,6 +57,7 @@ def device_topology() -> Dict[str, Any]:
     cards' ``name, power.limit`` lines; ``backend`` is ``"cpu"`` (and the
     count 0) where torch sees no CUDA card."""
     import torch
+    # analysis: no-fallback describes the host for a manifest; runs nothing
     if not torch.cuda.is_available():
         return {"backend": "cpu", "n_devices": 0, "device_kinds": [],
                 "cuda": torch.version.cuda, "cards": [],

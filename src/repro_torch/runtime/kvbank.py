@@ -84,13 +84,22 @@ class WriteLanes(NamedTuple):
     phases: Tuple[Lanes, Lanes]
 
 
+def parity_members(n_banks: int):
+    """The pool's parity layout as explicit (members, phys) tables
+    (``repro`` kvbank.py:319): group ``g`` protects data banks (2g, 2g+1)
+    behind its own physical parity port. ``pool_init`` sizes the parity
+    groups from it and ``repro_torch.analysis.schemes`` certifies it."""
+    members = [[2 * g, 2 * g + 1] for g in range(n_banks // 2)]
+    return members, list(range(n_banks // 2))
+
+
 def pool_init(cfg: KVBankConfig, n_layers: int, batch: int, n_kv: int,
               head_dim: int, dtype: torch.dtype, *, device,
               coded: bool = True) -> PooledKV:
     u = lane_dtype(dtype)
     nb, pg = cfg.n_banks, cfg.page
     slots = cfg.pool_pages // nb
-    ng = nb // 2 if coded else 0
+    ng = len(parity_members(nb)[0]) if coded else 0
     shape = (n_layers, nb, slots, pg, n_kv, head_dim)
     pshape = (n_layers, ng, slots, pg, n_kv, head_dim)
     return PooledKV(
@@ -150,11 +159,13 @@ def append_token(cfg: KVBankConfig, st: BankedKVState, k_new: torch.Tensor,
     new_phys = st.next_page + torch.cumsum(n_need, 0, dtype=torch.int32) \
         - n_need
     fill = torch.where(need, new_phys, st.page_table[rows, lp])
+    # analysis: host-sync an append's in-range pages (one sequence's step)
     inb = torch.nonzero(lpage < cfg.max_pages).squeeze(1)
     st.page_table[inb, lpage[inb]] = fill[inb]
     st.next_page += n_need.sum(dtype=torch.int32)
     phys = st.page_table[rows, lp].long()
     bank, slot = phys % nb, (phys // nb).clamp(min=0)
+    # analysis: host-sync an append's live lanes (one sequence's step)
     live = torch.nonzero(active & (slot < st.k_banks.shape[1])).squeeze(1)
     bank, slot, ip = bank[live], slot[live], in_page[live]
     st.k_banks[bank, slot, ip] = ku[live]
@@ -233,6 +244,7 @@ def write_lanes(cfg: KVBankConfig, widx) -> WriteLanes:
     live = bank < cfg.n_banks
     phases = []
     for phase in (0, 1):
+        # analysis: host-sync once a step, so the layers' scatters need none
         rows = torch.nonzero(live & (bank % 2 == phase)).squeeze(1)
         phases.append((rows, bank[rows], slot[rows], in_page[rows]))
     return WriteLanes(tuple(phases))
@@ -385,6 +397,7 @@ def pool_install(cfg: KVBankConfig, pool: PooledKV, slot_i: int,
     t = k_seq.shape[1]
     j = torch.arange(t, device=ku.device)
     phys = pool.page_table[slot_i, j // cfg.page].long()
+    # analysis: host-sync at admission: the prompt's assigned pages
     rows = torch.nonzero(phys >= 0).squeeze(1)
     bank = phys[rows] % cfg.n_banks
     slot = phys[rows] // cfg.n_banks
@@ -394,6 +407,7 @@ def pool_install(cfg: KVBankConfig, pool: PooledKV, slot_i: int,
         dk = pool.k_banks[:, bank, slot, in_page] ^ ku   # (L, n, Hkv, D)
         dv = pool.v_banks[:, bank, slot, in_page] ^ vu
         for phase in (0, 1):
+            # analysis: host-sync at admission: each parity phase's lanes
             sel = torch.nonzero(bank % 2 == phase).squeeze(1)
             g, s, ip = bank[sel] // 2, slot[sel], in_page[sel]
             pool.k_par[:, g, s, ip] = pool.k_par[:, g, s, ip] ^ dk[:, sel]

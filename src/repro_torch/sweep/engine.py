@@ -16,10 +16,22 @@ host reads. This engine instead:
   4. summarizes with a single device-to-host copy per partition.
 
 Per-point results are bit-identical to the looped path and to the JAX
-engine (tests/test_torch_sweep.py). This is one card's path: sharding the
-point axis over several cards waits for ROADMAP queue 1 item 5, so
-``shard=True`` raises where more than one card is visible
-(``check_shard``) and means nothing more than ``False`` on one.
+engine (tests/test_torch_sweep.py).
+
+Sharding the point axis (``shard=True``, JAX's default). Where
+``repro_torch.launch.mesh.make_sweep_mesh`` gives more than one device
+(every visible card), the batch is padded to a multiple of the device
+count with copies of its last point (its initial state, which holds its
+priors and fault schedule, its trace and its tunables: ``_pad_points``,
+``_replicate_tail``), split into contiguous
+shards, one per device (``_maybe_shard``), and run by one host loop that
+steps every shard each cycle and takes the exit test over all of them
+(``core.system.run_chunk_shards``), so cycle counts, ``done_cycle`` and
+quiesced points' no-op cycles equal the unsharded run's. A copy quiesces
+and starves exactly when its original does. Results, telemetry
+snapshots, ``return_state``'s states and what ``on_cycle`` sees are the
+unpadded batch gathered onto the first shard's device. On one device
+``shard=True`` pads and splits nothing: it is the ``False`` run.
 """
 from __future__ import annotations
 
@@ -30,13 +42,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.codes import get_tables
-from repro_torch.core.state import (MemParams, TunableParams,
+from repro_torch.core.state import (MemParams, TunableParams, _map,
                                     batch_tunables, fault_states,
                                     make_params, make_tunables, point_of)
 from repro_torch.core.system import (CodedMemorySystem, SimResult, SimState,
-                                     Trace, summarize_batch)
+                                     Trace, run_chunk_shards, summarize_batch)
 from repro_torch.faults.plan import FaultState, plan_from_spec
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch import mesh
 from repro_torch.obs.planes import Telemetry, TelemetrySnapshot, snapshot
 from repro_torch.sweep import workloads
 from repro_torch.sweep.grid import (GridBatch, SweepPoint,
@@ -46,6 +59,25 @@ from repro_torch.sweep.grid import (GridBatch, SweepPoint,
 # One system per (static signature, geometry allocation, traced, device),
 # so re-running a sweep rebuilds no tables.
 _SYSTEMS: Dict[Tuple, CodedMemorySystem] = {}
+
+
+def params_for(pt: SweepPoint,
+               geometry_alloc: Optional[Tuple[int, int, int]] = None,
+               traced_geometry: bool = False) -> MemParams:
+    """The ``MemParams`` of the system a batch led by ``pt`` runs on, at
+    the ``geometry_alloc`` allocation (default: the point's own)."""
+    rs_alloc, nr_alloc, ns_alloc = (geometry_alloc if geometry_alloc
+                                    is not None else pt.derived_slots())
+    return make_params(get_tables(pt.scheme, n_data=pt.n_data),
+                       n_rows=pt.n_rows, alpha=pt.alpha, r=pt.r,
+                       queue_depth=pt.queue_depth, coalesce=pt.coalesce,
+                       recode_cap=pt.recode_cap, max_syms=pt.max_syms,
+                       encode_rows_per_cycle=pt.encode_rows_per_cycle,
+                       recode_budget=pt.recode_budget,
+                       n_slots_alloc=ns_alloc, region_size_alloc=rs_alloc,
+                       n_regions_alloc=nr_alloc,
+                       traced_geometry=traced_geometry,
+                       telemetry=pt.telemetry, faults=bool(pt.faults))
 
 
 def system_for(pt: SweepPoint,
@@ -62,21 +94,9 @@ def system_for(pt: SweepPoint,
     key = (static_signature(pt), alloc, traced_geometry, str(dev))
     sys_ = _SYSTEMS.get(key)
     if sys_ is None:
-        rs_alloc, nr_alloc, ns_alloc = alloc
-        tables = get_tables(pt.scheme, n_data=pt.n_data)
-        params = make_params(tables, n_rows=pt.n_rows, alpha=pt.alpha, r=pt.r,
-                             queue_depth=pt.queue_depth, coalesce=pt.coalesce,
-                             recode_cap=pt.recode_cap, max_syms=pt.max_syms,
-                             encode_rows_per_cycle=pt.encode_rows_per_cycle,
-                             recode_budget=pt.recode_budget,
-                             n_slots_alloc=ns_alloc,
-                             region_size_alloc=rs_alloc,
-                             n_regions_alloc=nr_alloc,
-                             traced_geometry=traced_geometry,
-                             telemetry=pt.telemetry,
-                             faults=bool(pt.faults))
-        sys_ = CodedMemorySystem(tables, params, n_cores=pt.n_cores,
-                                 device=dev)
+        sys_ = CodedMemorySystem(get_tables(pt.scheme, n_data=pt.n_data),
+                                 params_for(pt, alloc, traced_geometry),
+                                 n_cores=pt.n_cores, device=dev)
         _SYSTEMS[key] = sys_
     return sys_
 
@@ -130,36 +150,87 @@ def mixed_geometry(points: Sequence[SweepPoint]) -> bool:
     return len({pt.derived_slots()[:2] for pt in points}) > 1
 
 
-def check_shard(shard: bool, device: torch.device) -> None:
-    """``shard=True`` asks for JAX's sharding of the point axis over the
-    local devices. On one card that pads and splits nothing; over several
-    it is not ported (ROADMAP queue 1 item 5), so it raises rather than
-    run on one card unasked."""
-    if shard and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "sharding the point axis over several cards is not ported yet; "
-            "pass shard=False to run on one card")
+def shard_devices(device: torch.device, shard: bool) -> List[torch.device]:
+    """The devices a batch's point axis is split over: ``mesh.
+    make_sweep_mesh``'s when ``shard`` and it gives more than one, else
+    ``device`` alone."""
+    devs = mesh.make_sweep_mesh(device=device) if shard else []
+    return list(devs) if len(devs) > 1 else [device]
+
+
+def _pad_points(n_points: int, n_devices: int) -> int:
+    """Rows of padding that bring ``n_points`` to a multiple of the device
+    count (0 when it divides, or on one device)."""
+    return (-n_points) % n_devices if n_devices > 1 else 0
+
+
+def _replicate_tail(tree, pad: int):
+    """Batched ``tree`` (None stays None) with ``pad`` copies of its last
+    point appended on the point axis."""
+    if not pad:
+        return tree
+    return _map(lambda x: torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]),
+                tree)
+
+
+def _maybe_shard(tree, devices: Sequence[torch.device]) -> list:
+    """The (padded) batched ``tree`` as one contiguous shard per device,
+    shard ``k`` on ``devices[k]``; on one device, ``[tree]`` itself."""
+    if len(devices) == 1:
+        return [tree]
+    n = len(devices)
+    return [_map(lambda x, k=k, d=d: x.chunk(n)[k].to(d), tree)
+            for k, d in enumerate(devices)]
+
+
+def _gather(shards: Sequence, n_points: int, device: torch.device):
+    """The shards' trees concatenated on the point axis onto ``device``,
+    the padding rows dropped; one shard is returned as it is."""
+    if len(shards) == 1:
+        return shards[0]
+    first = shards[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([x.to(device) for x in shards])[:n_points]
+    if isinstance(first, tuple):
+        leaves = (_gather([s[i] for s in shards], n_points, device)
+                  for i in range(len(first)))
+        return (type(first)(*leaves) if hasattr(first, "_fields")
+                else tuple(leaves))
+    return first
+
+
+def gathered_hook(on_cycle, n_points: int, device: torch.device):
+    """``run_chunk_shards``' hook calling ``on_cycle(before, after, out)``
+    with the unpadded batch gathered onto ``device`` (None for None)."""
+    if on_cycle is None:
+        return None
+    return lambda befores, afters, outs: on_cycle(
+        *(_gather(x, n_points, device) for x in (befores, afters, outs)))
 
 
 def run_batch(batch: GridBatch, traces: Optional[Sequence[Trace]] = None,
-              *, shard: bool = False,
+              shard: bool = True,
               region_priors: Optional[Sequence] = None,
               collect_telemetry: bool = False,
-              device=None,
+              *, device=None,
               return_state: bool = False,
               on_cycle=None):
     """Evaluate one shape-compatible batch lock-step on ``device`` (the
-    card unless the caller names another): the per-point SimResults; with
-    ``collect_telemetry`` also the points' ``TelemetrySnapshot``s (None
-    for a telemetry-off batch; one more device-to-host copy of the small
-    planes), and with ``return_state`` the final batched ``SimState``
-    last: ``(results[, snapshots][, state])``. ``on_cycle(before, after,
-    out)`` sees the batched states after every cycle when given."""
+    card unless the caller names another), its point axis sharded over
+    ``make_sweep_mesh``'s devices when ``shard`` (see the module
+    docstring): the per-point SimResults; with ``collect_telemetry`` also
+    the points' ``TelemetrySnapshot``s (None for a telemetry-off batch;
+    one more device-to-host copy of the small planes), and with
+    ``return_state`` the final batched ``SimState`` last: ``(results[,
+    snapshots][, state])``. ``on_cycle(before, after, out)`` sees the
+    batched states after every cycle when given."""
     pts = batch.points
-    sys_ = system_for(pts[0], geometry_alloc=batch_geometry_alloc(pts),
-                      traced_geometry=mixed_geometry(pts), device=device)
+    devices = shard_devices(resolve_device(device), shard)
+    systems = [system_for(pts[0], geometry_alloc=batch_geometry_alloc(pts),
+                          traced_geometry=mixed_geometry(pts), device=d)
+               for d in devices]
+    sys_ = systems[0]
     dev = sys_.device
-    check_shard(shard, dev)
     if traces is None:
         traces = [workloads.build_trace(pt, index=i, device=dev)
                   for i, pt in zip(batch.indices, pts)]
@@ -173,8 +244,14 @@ def run_batch(batch: GridBatch, traces: Optional[Sequence[Trace]] = None,
     priors_b = (_stack_priors(region_priors, len(pts))
                 if region_priors is not None else None)
     st_b = sys_.init_batch(tn_b, priors_b, _stack_faults(pts, sys_.p, dev))
-    st = sys_.run_chunk_batch(st_b, trace_b, None, pts[0].resolved_cycles(),
-                              tn_b, on_cycle)
+    shards = _maybe_shard(
+        _replicate_tail((st_b, trace_b, tn_b),
+                        _pad_points(len(pts), len(devices))), devices)
+    sts = run_chunk_shards(systems, [s[0] for s in shards],
+                           [s[1] for s in shards], None,
+                           pts[0].resolved_cycles(), [s[2] for s in shards],
+                           gathered_hook(on_cycle, len(pts), dev))
+    st = _gather(sts, len(pts), dev)
     out = (summarize_batch(st),)
     if collect_telemetry:
         out += (telemetry_snapshots(st),)
@@ -197,10 +274,10 @@ def telemetry_snapshots(st: SimState) -> List[Optional[TelemetrySnapshot]]:
 
 def run_points(points: Sequence[SweepPoint],
                traces: Optional[Sequence[Trace]] = None,
-               *, shard: bool = False,
+               shard: bool = True,
                region_priors: Optional[Sequence] = None,
                collect_telemetry: bool = False,
-               device=None, return_state: bool = False,
+               *, device=None, return_state: bool = False,
                on_cycle=None):
     """Evaluate an arbitrary sweep, one batch per ``partition`` group;
     results align with ``points`` order. ``region_priors`` aligns 1:1 with
@@ -227,8 +304,7 @@ def run_points(points: Sequence[SweepPoint],
                    if region_priors is not None else None)
         hook = None if on_cycle is None else functools.partial(on_cycle,
                                                                batch)
-        res, st = run_batch(batch, btraces, shard=shard,
-                            region_priors=bpriors, device=device,
+        res, st = run_batch(batch, btraces, shard, bpriors, device=device,
                             return_state=True, on_cycle=hook)
         bsnaps = (telemetry_snapshots(st) if collect_telemetry
                   else [None] * len(batch))
@@ -246,14 +322,13 @@ def run_points(points: Sequence[SweepPoint],
 
 def run_sweep(points: Sequence[SweepPoint],
               traces: Optional[Sequence[Trace]] = None,
-              *, shard: bool = False,
+              shard: bool = True,
               region_priors: Optional[Sequence] = None,
-              device=None, on_cycle=None):
+              *, device=None, on_cycle=None):
     """Evaluate a sweep (``run_points``, on the card unless ``device`` names
     another) and wrap it in a ``SweepResultSet`` (results store)."""
     from repro_torch.sweep.results import SweepRecord, SweepResultSet
-    res = run_points(points, traces=traces, shard=shard,
-                     region_priors=region_priors, device=device,
+    res = run_points(points, traces, shard, region_priors, device=device,
                      on_cycle=on_cycle)
     return SweepResultSet([SweepRecord(pt, r) for pt, r in zip(points, res)])
 

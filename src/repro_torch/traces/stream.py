@@ -15,7 +15,8 @@ tail a single-shot run spends up to ``drain_bound``.
 point axis: a shape-compatible batch of points, each with its own trace
 source, replays chunked lock-step (``run_chunk_batch``), each point with
 its own per-core staging windows, optionally checkpointed
-(``repro_torch.checkpoint``) and resumed.
+(``repro_torch.checkpoint``) and resumed, its point axis sharded over the
+visible cards as the sweep engine's is.
 
 Each ``run_chunk`` return is a window boundary: the served-count and
 latency-sum differences between boundaries give the per-window read and
@@ -37,7 +38,9 @@ import torch
 
 from repro_torch.core.state import TunableParams
 from repro_torch.core.system import (CodedMemorySystem, SimResult, SimState,
-                                     drain_bound, quiescent, summarize_batch)
+                                     drain_bound, quiescent,
+                                     run_chunk_shards, summarize_batch)
+from repro_torch.kernels.common import resolve_device
 from repro_torch.obs.planes import HIST_BINS
 from repro_torch.traces.source import as_source, stage_batch
 
@@ -176,11 +179,11 @@ def stream_replay_points(points: Sequence, sources: Sequence,
                          chunk_len: int = DEFAULT_CHUNK_LEN,
                          region_priors: Optional[Sequence] = None,
                          max_cycles: Optional[int] = None,
-                         *, shard: bool = False,
+                         shard: bool = True,
                          checkpoint_dir: Optional[str] = None,
                          checkpoint_every: int = 0,
                          resume: bool = False,
-                         device=None,
+                         *, device=None,
                          on_cycle: Optional[Callable] = None
                          ) -> List[SimResult]:
     """Chunked batched replay: one shape-compatible batch of sweep points,
@@ -193,22 +196,32 @@ def stream_replay_points(points: Sequence, sources: Sequence,
     point's result equals ``repro_torch.sweep.run_points`` on the
     materialized traces, window series aside, and JAX's
     ``stream_replay_points`` windows included. A chunk step leaves its
-    loop when any point starves (its window restages and every point
-    goes on) or every point is quiescent.
+    loop when any point of any shard starves (its window restages and
+    every point goes on) or every point is quiescent.
+
+    With ``shard`` (JAX's default) and more than one device from
+    ``repro_torch.launch.mesh.make_sweep_mesh``, the point axis is padded
+    to a multiple of the device count with copies of the last point (its
+    state, tunables and every chunk's staged buffer and ``stream_end``)
+    and split into one shard per device, as ``run_batch`` does: a copy
+    starves and quiesces exactly when its original does, so windows,
+    restaging and checkpoints equal the unsharded replay's.
 
     With ``checkpoint_dir`` and ``checkpoint_every=N``, the replay carry
     (batched state, stream positions, window series) is checkpointed
     atomically every N chunks (an asynchronous writer; a killed run never
-    leaves a readable half-checkpoint). ``resume=True`` restores the latest
-    committed checkpoint and continues: each point's final result equals
-    the uninterrupted run's, windows included. The caller supplies
-    equivalent ``sources`` again; a lazy source only replays forward to
-    the restored positions. ``shard`` is ``run_batch``'s (one card's
-    path: see ``repro_torch.sweep.engine.check_shard``).
-    ``on_cycle(before, after, out)`` sees the batched states of every
-    cycle of every chunk."""
-    from repro_torch.sweep.engine import (_stack_faults, _stack_priors,
-                                          check_shard, mixed_geometry,
+    leaves a readable half-checkpoint). The saved state is the unpadded
+    batch gathered onto the first shard's device, so a run resumes at any
+    shard count. ``resume=True`` restores the latest committed checkpoint
+    and continues: each point's final result equals the uninterrupted
+    run's, windows included. The caller supplies equivalent ``sources``
+    again; a lazy source only replays forward to the restored positions.
+    ``on_cycle(before, after, out)`` sees the batched (gathered, unpadded)
+    states of every cycle of every chunk."""
+    from repro_torch.sweep.engine import (_gather, _maybe_shard, _pad_points,
+                                          _replicate_tail, _stack_faults,
+                                          _stack_priors, gathered_hook,
+                                          mixed_geometry, shard_devices,
                                           stack_tunables, system_for)
     from repro_torch.sweep.grid import batch_geometry_alloc, static_signature
 
@@ -221,15 +234,19 @@ def stream_replay_points(points: Sequence, sources: Sequence,
             f"{len(sigs)} static signatures; split with "
             "repro_torch.sweep.partition")
     srcs = [as_source(s) for s in sources]
-    system = system_for(points[0], geometry_alloc=batch_geometry_alloc(points),
-                        traced_geometry=mixed_geometry(points), device=device)
+    devices = shard_devices(resolve_device(device), shard)
+    systems = [system_for(points[0],
+                          geometry_alloc=batch_geometry_alloc(points),
+                          traced_geometry=mixed_geometry(points), device=d)
+               for d in devices]
+    system = systems[0]
     dev = system.device
-    check_shard(shard, dev)
     for b, src in enumerate(srcs):
         if src.n_cores is not None and src.n_cores != system.n_cores:
             raise ValueError(f"source for point [{b}] has {src.n_cores} "
                              f"cores, the batch has {system.n_cores}")
     n_pts, nc = len(points), system.n_cores
+    pad = _pad_points(n_pts, len(devices))
     tn_b = stack_tunables(points, system.p.queue_depth, dev)
     pri_b = (_stack_priors(region_priors, n_pts)
              if region_priors is not None else None)
@@ -263,15 +280,21 @@ def stream_replay_points(points: Sequence, sources: Sequence,
                      1).tolist()
     prev = [h[:-1] for h in host]
     prev_cycle = np.array([h[-1] for h in host], np.int64)
+    shards = _maybe_shard(_replicate_tail((st_b, tn_b), pad), devices)
+    sts, tns = [s[0] for s in shards], [s[1] for s in shards]
+    hook = gathered_hook(on_cycle, n_pts, dev)
     while True:
-        trace_b, stream_end_b = stage_batch(srcs, pos, chunk_len, dev)
-        st_b = st_b._replace(core_ptr=torch.zeros_like(st_b.core_ptr))
-        st_b = system.run_chunk_batch(st_b, trace_b, stream_end_b, bound,
-                                      tn_b, on_cycle)
-        host = torch.cat([st_b.core_ptr.long(),
-                          quiescent(st_b).long()[:, None],
-                          st_b.mem.cycle.long()[:, None], _snapshot(st_b)],
-                         1).tolist()
+        staged = _maybe_shard(_replicate_tail(
+            stage_batch(srcs, pos, chunk_len, dev), pad), devices)
+        sts = [st._replace(core_ptr=torch.zeros_like(st.core_ptr))
+               for st in sts]
+        sts = run_chunk_shards(systems, sts, [t for t, _ in staged],
+                               [se for _, se in staged], bound, tns, hook)
+        rows = [torch.cat([st.core_ptr.long(),
+                           quiescent(st).long()[:, None],
+                           st.mem.cycle.long()[:, None], _snapshot(st)], 1)
+                for st in sts]
+        host = _gather(rows, n_pts, dev).tolist()
         moved = np.array([h[:nc] for h in host], np.int64)
         quiet = all(h[nc] for h in host)
         cycles = np.array([h[nc + 1] for h in host], np.int64)
@@ -284,7 +307,8 @@ def stream_replay_points(points: Sequence, sources: Sequence,
         pos += moved
         step += 1
         if ckpt is not None and step % checkpoint_every == 0:
-            ckpt.save_async(step, {"state": st_b, "pos": pos.copy(),
+            ckpt.save_async(step, {"state": _gather(sts, n_pts, dev),
+                                   "pos": pos.copy(),
                                    "wins": _wins_blob(win_r, win_w)})
         if all(src.exhausted(pos[b]) for b, src in enumerate(srcs)) \
                 and quiet:
@@ -298,4 +322,5 @@ def stream_replay_points(points: Sequence, sources: Sequence,
         ckpt.wait()
     return [res._replace(window_read_latency=tuple(win_r[b]),
                          window_write_latency=tuple(win_w[b]))
-            for b, res in enumerate(summarize_batch(st_b))]
+            for b, res in enumerate(summarize_batch(_gather(sts, n_pts,
+                                                            dev)))]

@@ -43,6 +43,24 @@ CPU = "cpu"
 FIVE = ["scheme_i", "scheme_ii", "scheme_iii", "replication_2", "uncoded"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _fast_jax_compiles():
+    """JAX compiles this file's programs at XLA's backend optimization
+    level 0 (``jax_disable_most_optimizations``; the simulator is integer
+    arithmetic, so its results do not depend on it) and torch runs on one
+    intra-op thread: the optimizing compiles took most of the file's
+    worker time, and a worker died in one. The JAX systems are built once
+    a configuration (``_systems``). Both settings are restored after the
+    module's tests."""
+    saved = (jax.config.read("jax_disable_most_optimizations"),
+             torch.get_num_threads())
+    jax.config.update("jax_disable_most_optimizations", True)
+    torch.set_num_threads(1)
+    yield
+    jax.config.update("jax_disable_most_optimizations", saved[0])
+    torch.set_num_threads(saved[1])
+
+
 def _error(fn):
     try:
         fn()

@@ -30,5 +30,8 @@ def test_scan_sees_the_port():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
     port = ROOT / "src" / "repro_torch"
     for mod in ("axes.py", "launch/mesh.py", "launch/sharding.py",
-                "launch/shapes.py", "launch/dryrun.py"):
+                "launch/shapes.py", "launch/dryrun.py", "analysis/__init__.py",
+                "analysis/__main__.py", "analysis/base.py",
+                "analysis/schemes.py", "analysis/rules.py",
+                "analysis/carry.py"):
         assert port / mod in FILES, mod

@@ -110,8 +110,9 @@ def test_stream_replay_points_on_cycle_sees_every_cycle():
                                               device=CPU)
     assert seen == [[c] * len(tpts) for c in range(len(seen))]
     assert len(seen) >= max(r.cycles for r in got)
-    with pytest.raises(TypeError):
-        traces.stream_replay_points(tpts, ttr, 4, None, None, True)
+    # JAX's positional call: shard sixth (one device: the same run)
+    assert traces.stream_replay_points(tpts, ttr, 4, None, None, True,
+                                       device=CPU) == got
 
 
 def test_stream_replay_points_kill_and_resume(tmp_path):

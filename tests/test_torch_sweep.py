@@ -30,6 +30,7 @@ from repro_torch.kernels.xor_encode import ops as enc_ops
 from repro_torch.kernels.xor_encode.ref import encode_parities_plain
 from repro_torch.kernels.xor_gather import ops as g_ops
 from repro_torch.kernels.xor_gather.ref import gather_decode_plain
+from repro_torch.launch import mesh
 from repro_torch.sim import ramulator
 from repro_torch.sweep import engine, workloads
 
@@ -414,18 +415,24 @@ def test_engine_rejects_what_is_not_ported():
 
 
 def test_shard_is_one_cards_path(monkeypatch):
-    """``shard`` is keyword-only; on one device it is the unsharded run,
-    and with more than one card visible ``shard=True`` raises rather than
-    run on one card unasked."""
+    """``shard`` is JAX's positional third argument, default True; on one
+    device it is the unsharded run. The sweep mesh is every visible card
+    for the card and the CPU alone for the CPU (the sharded runs are
+    tests/test_torch_sweep_shard.py's)."""
     pts = [_tpt(JBASE.replace(seed=s)) for s in (0, 1)]
-    assert (engine.run_points(pts, device=CPU, shard=True)
+    assert (engine.run_points(pts, None, True, device=CPU)
+            == engine.run_points(pts, None, False, device=CPU)
             == engine.run_points(pts, device=CPU))
-    with pytest.raises(TypeError):
-        engine.run_points(pts, None, True, device=CPU)
     cuda = torch.device("cuda")
-    engine.check_shard(True, cuda)                # no card visible here
+    assert engine.shard_devices(cuda, False) == [cuda]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="shard=False"):
-        engine.check_shard(True, cuda)
-    engine.check_shard(False, cuda)
-    engine.check_shard(True, torch.device(CPU))
+    assert mesh.make_sweep_mesh(device=cuda) == [torch.device("cuda", 0),
+                                                 torch.device("cuda", 1)]
+    assert engine.shard_devices(cuda, True) == [torch.device("cuda", 0),
+                                                torch.device("cuda", 1)]
+    assert mesh.make_sweep_mesh(1, device=cuda) == [torch.device("cuda", 0)]
+    with pytest.raises(ValueError, match="visible"):
+        mesh.make_sweep_mesh(3, device=cuda)
+    assert mesh.make_sweep_mesh(device=CPU) == [torch.device(CPU)]
+    assert engine.shard_devices(torch.device(CPU), True) == [
+        torch.device(CPU)]
