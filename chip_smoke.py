@@ -140,15 +140,23 @@ no result line; with no flag it runs every phase:
    committed before its cycle; scheme_i at alpha 1 must take fewer cycles
    than uncoded; each kernel's launches must equal its wrapper's calls on
    the card (one region encode per switch, at least one per alpha < 1
-   run). It reports ms per simulated cycle, cycles/s, and a profiled window's
-   kernel launches per cycle and device idle share;
+   run). Outside the timed runs, each card run's final state (every
+   field) and SimResult must equal the golden model's
+   (``repro_torch.oracle`` through ``repro_torch.sim.golden``) over the
+   same cycles, and scheme_i alpha 0.25 is stepped on the card cycle by
+   cycle beside the oracle until the oracle is quiescent, every
+   ``CycleOut`` equal to ``OracleMemorySystem.cycle``'s. It reports ms
+   per simulated cycle, cycles/s, and a profiled window's kernel launches
+   per cycle and device idle share;
 9. stream: streamed trace replay (``repro_torch.traces.stream_replay``,
    which leaves each chunk's loop at quiescence) on the card and the CPU.
    (a) bench_stream's workload (8 cores x 2,048 banded requests, 8 banks x
    512 rows, scheme_i, alpha 0.25, r 0.05, select period 256) on its first
    1,024 requests a core, at chunk 256: every SimResult field (window series included) and final state
    leaf equal, every served read returns the committed value, each
-   kernel's launches equal its wrapper's calls; cycles run against
+   kernel's launches equal its wrapper's calls; every SimResult field
+   but the windows equal the golden model's run over the same requests to
+   quiescence; cycles run against
    ``drain_bound``, ms/cycle, requests/s; then a busy and a drained
    profile window (launches, host syncs and copies per cycle, device idle
    share). (b) the simulate phase's scheme_i alpha 0.25 trace streamed at
@@ -221,7 +229,9 @@ no result line; with no flag it runs every phase:
    serves must return its committed value; each kernel's launches must
    equal its wrapper's calls; and both sim kernels must equal their plain
    versions bit for bit on live card states of every Fig 18 batch
-   (schemes II and III included), as in the sweep phase's (d). Then the
+   (schemes II and III included), as in the sweep phase's (d); each of
+   the 16 points' final card state and result must equal its golden twin
+   at the batch's padded allocation over the batch's cycles. Then the
    Fig 20 harness at its defaults (3 drifts x uncoded + scheme_i alpha
    0.1, 0.25; 8 x 320, 8 cores x 96) and the §III-B scheme table
    (``tab_schemes``: six schemes on a uniform trace, the best case through
@@ -235,7 +245,9 @@ no result line; with no flag it runs every phase:
    (a bank failing at 20 and rebuilding from 120, no plan, a dead bank
    beside a stuttering parity port) equal to the CPU in every field and
    leaf (the fault leaf included), bank 0 rebuilt, every point quiescent;
-   (c) outside the counts, scheme III's batch of (a) rerun with every
+   every point of (a) and (b) equal to its golden twin with its fault
+   plan, state (the fault leaf included) and result; (c) outside the
+   counts, scheme III's batch of (a) rerun with every
    ``xor_gather`` launch held against its plain version on its own
    operands; it must serve reads degraded because their bank is down;
 13. obs: the simulator's telemetry planes (``repro_torch.obs``) on the
@@ -251,7 +263,9 @@ no result line; with no flag it runs every phase:
    from cycle 0) at ``--smoke`` and at full coverage (alpha 1, r 0.125),
    results and planes card = CPU, dead-bank cycles counted and reads
    served degraded because their bank is down (read class 4); (d) the
-   timeline at its CLI defaults, events card = CPU. Outside the counts:
+   timeline at its CLI defaults, events card = CPU. Every point of (a)
+   and (b) equals its golden twin, state, ``OracleTelemetry`` planes and
+   result. Outside the counts:
    (e) a busy B = 1 batched cycle profiled with telemetry off (1,027-1,050
    launches over cycles 40..60, as ``OBS_OFF_LAUNCHES`` records them) and
    on, and
@@ -321,7 +335,11 @@ serve runs and the obs phase's serving report for ``gather_pool``, the decode-at
 ``coded_kv_decode``, the simulate runs and the stream, sweep (its (e)
 included), paper and faults and obs phases for the simulator's kernels,
 whose table entries add the six; a line before the table gives the
-split).
+split). Every phase after the build runs under
+``repro_torch.analysis.guard.recompile_guard(max_compiles=0)`` over all
+its targets: a phase that builds a kernel (runs ``nvcc``) fails the run.
+Before the table, one line a phase gives the points and cycles it held
+against the golden model and the host seconds that took.
 The third-to-last line is the card's name and power limit, the
 second-to-last the kernel table as JSON, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -2368,6 +2386,122 @@ def _same_state(torch, a, b) -> bool:
         for x, y in zip(la, lb))
 
 
+# the golden model (repro_torch.oracle through repro_torch.sim.golden):
+# phase -> points and cycles held against it, host seconds, notes
+ORACLE_TALLY: dict = {}
+
+
+def _tally(phase: str, points: int, cycles: int, secs: float,
+           note: str = "") -> None:
+    t = ORACLE_TALLY.setdefault(phase, {"points": 0, "cycles": 0, "s": 0.0,
+                                        "notes": []})
+    t["points"] += points
+    t["cycles"] += cycles
+    t["s"] += secs
+    if note:
+        t["notes"].append(note)
+
+
+def hold_to_oracle(phase, label, state, res, twin, trace, n_cycles,
+                   fault_plan=None, point: int = 0) -> None:
+    """Point ``point`` of the card's final ``state`` (batched, or one
+    point's) and its ``res`` against ``twin`` run over ``trace`` for the
+    same ``n_cycles`` cycles on the host: every state field (the
+    telemetry planes and the fault leaf included) and every result field
+    equal, or the phase fails naming the fields. Outside every timed
+    window."""
+    from repro_torch.sim import golden
+
+    t0 = time.perf_counter()
+    bad = golden.check_run(state, res, twin, trace, n_cycles, fault_plan,
+                           point)
+    _tally(phase, 1, n_cycles, time.perf_counter() - t0)
+    check(not bad, f"{phase} {label}: the card differs from the golden "
+          f"model (repro_torch.oracle) in {bad}")
+
+
+def hold_batches(phase: str, final: dict) -> int:
+    """Every point of every batch in ``final`` (``FinalStates.final`` /
+    ``SweepHook.final``: each batch's final card state) against its
+    golden twin at the batch's padded allocation, with its fault plan,
+    over the cycles its batch ran. Returns the points held."""
+    from repro_torch.core.system import summarize_batch
+    from repro_torch.sim import golden
+    from repro_torch.sweep.workloads import build_trace
+
+    n = 0
+    for batch, st in final.values():
+        twins = golden.batch_twins(batch.points)
+        results = summarize_batch(st)
+        cycles = int(st.mem.cycle[0])
+        for k, (i, pt) in enumerate(zip(batch.indices, batch.points)):
+            hold_to_oracle(
+                phase, f"point {i} ({pt.scheme} alpha={pt.alpha} r={pt.r}"
+                f"{' faults ' + str(pt.faults) if pt.faults else ''})", st,
+                results[k], twins[k], build_trace(pt, index=i, device="cpu"),
+                cycles, golden.fault_plan_of(pt, twins[k]), point=k)
+            n += 1
+    return n
+
+
+def oracle_lines() -> list:
+    """One line per phase: the points and cycles it held against the
+    golden model and the host seconds that took."""
+    return [f"golden model {phase}: {t['points']} points, {t['cycles']} "
+            f"cycles held against repro_torch.oracle in {t['s']:.2f} s of "
+            f"host time" + "".join(f"; {n}" for n in t["notes"])
+            for phase, t in ORACLE_TALLY.items()]
+
+
+def cycle_out_check(torch, tr_cpu, tr_card) -> str:
+    """``GOLDEN_RUN`` stepped cycle by cycle on the card with its golden
+    twin beside it, until the twin is quiescent: every ``CycleOut``
+    (``r_served``, ``r_bank``, ``r_row``, ``r_value``, ``n_served``)
+    equal to ``OracleMemorySystem.cycle``'s, one host read a cycle, then
+    the final states. Outside every timed window."""
+    import numpy as np
+
+    from repro_torch.core.system import CycleOut, drain_bound
+    from repro_torch.sim import golden
+
+    t0 = time.perf_counter()
+    sys_ = _stream_system("cuda", GOLDEN_RUN[0], SIM_TRACE["n_rows"],
+                          GOLDEN_RUN[1], SIM_KW["r"],
+                          SIM_KW["select_period"], SIM_TRACE["n_cores"])
+    twin = golden.oracle_twin(sys_)
+    st, ost = sys_.init(), twin.init_state()
+    tr_np = golden.host_trace(tr_cpu)
+    n = served = 0
+    bound = drain_bound(*tr_np[0].shape)
+    while not twin.quiescent(ost):
+        check(n < bound, f"simulate cycle by cycle: the golden model did "
+              f"not quiesce in {bound} cycles")
+        st, out = sys_.cycle_fn(st, tr_card)
+        oout = twin.cycle(ost, tr_np)
+        host = torch.cat([x.reshape(-1).to(torch.int32) for x in out]).cpu()
+        got = dict(zip(CycleOut._fields,
+                       host.split([x.numel() for x in out])))
+        bad = [f for f in CycleOut._fields
+               if not np.array_equal(got[f].numpy().reshape(
+                   np.shape(getattr(oout, f))),
+                   np.asarray(getattr(oout, f)).astype(np.int32))]
+        check(not bad, f"simulate {GOLDEN_RUN[0]} alpha={GOLDEN_RUN[1]} "
+              f"cycle {n}: the card's CycleOut differs from the golden "
+              f"model's in {bad}")
+        served += int(oout.n_served)
+        n += 1
+    bad = golden.state_mismatches(st, ost)
+    check(not bad, f"simulate {GOLDEN_RUN[0]} alpha={GOLDEN_RUN[1]} cycle "
+          f"by cycle: the final state differs from the golden model's in "
+          f"{bad}")
+    check(n > 0 and served > 0, f"simulate cycle by cycle: {n} cycles "
+          f"served {served} accesses")
+    note = (f"{GOLDEN_RUN[0]} alpha={GOLDEN_RUN[1]} cycle by cycle: {n} "
+            f"CycleOuts ({served} accesses) equal the oracle's")
+    _tally("simulate", 0, n, time.perf_counter() - t0, note)
+    return note
+
+
 def simulate_phase(torch):
     from repro_torch.kernels.xor_encode import kernel as ek
     from repro_torch.kernels.xor_encode import ops as eops
@@ -2380,7 +2514,7 @@ def simulate_phase(torch):
               for dev in ("cuda", "cpu")}
     n_cycles = ramulator.default_n_cycles(traces["cpu"])
     n_rows = SIM_TRACE["n_rows"]
-    results = {}
+    results, card_runs = {}, {}
     card_s = 0.0
     gk.launches = ek.launches = 0                   # main path starts here
     for scheme, alpha in SIM_RUNS:
@@ -2438,6 +2572,7 @@ def simulate_phase(torch):
                   "not return the committed value")
             extra = f"; all {served} served reads returned committed values"
         results[(scheme, alpha)] = res
+        card_runs[(scheme, alpha)] = (res, st)
         print(f"simulate {name}: {res.cycles} cycles to drain, "
               f"{res.served_reads} reads ({res.degraded_reads} degraded) + "
               f"{res.served_writes} writes ({res.parked_writes} parked), "
@@ -2458,6 +2593,20 @@ def simulate_phase(torch):
     print(f"simulate: {len(SIM_RUNS)} card runs, {total} cycles in "
           f"{card_s:.1f} s = {card_s / total * 1e3:.3f} ms/cycle, "
           f"{total / card_s:.0f} simulated cycles/s; launches {launches}")
+    # the golden model, outside the counts and the timed runs: each card
+    # run's final state and result, then GOLDEN_RUN cycle by cycle
+    from repro_torch.sim import golden
+    t0 = time.perf_counter()
+    for (scheme, alpha), (res, st) in card_runs.items():
+        twin = golden.oracle_twin(_stream_system(
+            "cpu", scheme, n_rows, alpha, SIM_KW["r"],
+            SIM_KW["select_period"], SIM_TRACE["n_cores"]))
+        hold_to_oracle("simulate", f"{scheme} alpha={alpha}", st, res, twin,
+                       traces["cpu"], n_cycles)
+    print(f"simulate: the {len(card_runs)} card runs' final states and "
+          f"results = the golden model's over their {n_cycles} cycles "
+          f"({time.perf_counter() - t0:.2f} s of host time); "
+          f"{cycle_out_check(torch, traces['cpu'], traces['cuda'])}")
     busy_ms = profile_sim(torch, traces["cuda"])
     return launches, results, total / card_s, busy_ms
 
@@ -2859,6 +3008,23 @@ def stream_phase(torch, sim_single):
     # main path ends here
     check(all(v > 0 for v in launches.values()),
           f"stream: a kernel of the path never launched: {launches}")
+    # (a) against the golden model over the same requests, outside the
+    # counts: the oracle has no notion of chunks and stops at quiescence,
+    # as streamed replay's early exit does
+    from repro_torch.sim import golden
+    t0 = time.perf_counter()
+    twin = golden.oracle_twin(systems["cpu"])
+    ost = twin.run(golden.host_trace(tr_cpu), bound,
+                   stop_when_quiescent=True)
+    bad = golden.result_mismatches(res, twin.result(ost))
+    _tally("stream", 1, ost.cycle, time.perf_counter() - t0)
+    check(not bad,
+          f"stream (a): the card's streamed result differs from the golden "
+          f"model's in {bad}: {res} vs {twin.result(ost)}")
+    print(f"stream (a) = the golden model's run over the same {n_req} "
+          f"requests ({ost.cycle} cycles to quiescence) in every field, the "
+          f"windows aside ({ORACLE_TALLY['stream']['s']:.2f} s of host "
+          "time)")
     live = check_live_kernels(
         torch, systems["cuda"], systems["cuda"].batch_tunables(),
         [batch_of_one(st_) for st_ in sampler.states], "stream (a)")
@@ -3006,7 +3172,8 @@ def per_point(final: dict, n: int):
 def quiet_harness():
     """A harness or report run on the worker's CPU side: its printed table
     dropped and its artefacts, with a stub manifest, written to a
-    temporary directory (yielded; the card's runs write ``experiments/``)."""
+    temporary directory (yielded; the card's runs write
+    ``experiments/torch/``)."""
     import shutil
     import tempfile
 
@@ -4110,9 +4277,16 @@ def paper_phase(torch, sim_results, cpu_side):
           "case / uniform cycles: " + ", ".join(
               f"{r['scheme']}: {r['best_case_served']} / "
               f"{r['uniform_cycles']}" for r in tab))
-    # the kernels on live batched card states of every Fig 18 batch;
-    # untimed, so the CPU worker runs its next stage meanwhile
+    # the kernels on live batched card states of every Fig 18 batch and
+    # every point against the golden model; untimed, so the CPU worker
+    # runs its next stage meanwhile
     cpu_side.resume()
+    n = hold_batches("paper", hook.final)
+    t = ORACLE_TALLY["paper"]
+    print(f"paper fig18: all {n} points' final card states (the padded "
+          f"batches at each point's own geometry) and results = the golden "
+          f"model's over their batches' cycles ({t['cycles']} cycles, "
+          f"{t['s']:.2f} s of host time)")
     for batch, _ in hook.final.values():
         _live_batch(torch, batch.points,
                     [s_ for b, s_ in hook.states
@@ -4241,6 +4415,13 @@ def faults_phase(torch, cpu_side):
           and all(r.completed for r in res_b), f"faults (b): {res_b}")
     # untimed from here: the CPU worker runs meanwhile
     cpu_side.resume()
+    n_a = hold_batches("faults", hook.final)
+    n_b = hold_batches("faults", {"b": (batch, st_b)})
+    t = ORACLE_TALLY["faults"]
+    print(f"faults (a) and (b): all {n_a} + {n_b} points' final card "
+          f"states (the fault leaf included) and results = the golden "
+          f"model's with their fault plans ({t['cycles']} cycles, "
+          f"{t['s']:.2f} s of host time)")
     rerun = _recorded_fault_batch(torch, hook, res_a)
     cpu = cpu_side.receive("faults")
     check(smoke == cpu["smoke"], f"faults (a): --smoke card rows {smoke} "
@@ -4367,8 +4548,9 @@ def obs_phase(torch, cpu_side):
     from repro_torch.kernels.xor_gather import ops as gops
     from repro_torch.obs import report
     from repro_torch.sweep import run_points
+    from repro_torch.sweep.workloads import build_trace
 
-    out_dir = ROOT / "experiments" / "obs"
+    out_dir = ROOT / "experiments" / "torch" / "obs"
     hook = SweepHook(-1, LIVE_EVERY)
     gk.launches = ek.launches = 0                   # main path starts here
     c0 = (gops.calls, eops.calls)
@@ -4491,6 +4673,20 @@ def obs_phase(torch, cpu_side):
                   f"{' / '.join(f'{w:.3f}' for w in wall[tele])} ms"
                   for tele in (False, True)))
     cpu_side.resume()                   # untimed: the worker runs
+    from repro_torch.sim import golden
+    pts_a = obs_smoke_points(True)
+    for k, (pt, twin, st_k, r_k) in enumerate(zip(
+            pts_a, golden.point_twins(pts_a), st_on, res_on)):
+        hold_to_oracle("obs", f"(a) point {k} ({pt.scheme} alpha="
+                       f"{pt.alpha})", st_k, r_k, twin,
+                       build_trace(pt, index=k, device="cpu"),
+                       int(st_k.mem.cycle))
+    n_b = hold_batches("obs", hook.final)
+    t = ORACLE_TALLY["obs"]
+    print(f"obs (a) and (b): all {len(pts_a)} + {n_b} telemetry-on points' "
+          f"final card states, every plane included, and results = the "
+          f"golden model's (OracleTelemetry; {t['cycles']} cycles, "
+          f"{t['s']:.2f} s of host time)")
     batch = next(b for b, _ in hook.final.values()
                  if b.points[0].scheme == "scheme_i" and len(b) > 1)
     _live_batch(torch, batch.points,
@@ -5311,6 +5507,12 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
         mark[0] = now
 
     lap("build")
+    # every phase after the build runs under the recompile guard: a phase
+    # that builds a kernel library (an nvcc run) fails the run when the
+    # guard closes, before the kernel table
+    from repro_torch.analysis.guard import GUARDED, recompile_guard
+    guarded = contextlib.ExitStack()
+    guard = guarded.enter_context(recompile_guard(max_compiles=0))
     cpu_side.pause()                    # timed phases: the worker waits
     if "kernel" in phases:
         kern = kernel_phase(torch)
@@ -5416,6 +5618,13 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
             import shutil
             shutil.rmtree(dry_dir, ignore_errors=True)
         lap("mesh")
+    guarded.close()                     # RecompileError on a build
+    print(f"recompile guard: every phase after the build ran under "
+          f"recompile_guard(max_compiles=0) over {', '.join(sorted(GUARDED))}"
+          f": {guard.compiles()} kernel builds; library loads "
+          f"{guard.loads()}")
+    for line in oracle_lines():
+        print(line)
     if phases != PHASES:
         print(f"chip_smoke: phases {', '.join(phases)} passed in "
               f"{time.perf_counter() - t_start:.1f} s (--only: no kernel "

@@ -1,5 +1,6 @@
 """Static invariant verification of the port (``repro.analysis``
-counterpart): three layers, one CLI (``python -m repro_torch.analysis``).
+counterpart): three static layers, one CLI (``python -m
+repro_torch.analysis``), and the runtime recompile guard.
 
 * ``repro_torch.analysis.schemes`` — GF(2) proofs over every scheme of
   ``repro_torch.core.codes`` and the serving pool's pairwise layout
@@ -12,10 +13,10 @@ counterpart): three layers, one CLI (``python -m repro_torch.analysis``).
 * ``repro_torch.analysis.rules`` — AST lint of the port's rules: oracle
   purity, port isolation, static geometry, wide counters, host syncs in
   device code, no silent fallback to a plain version.
-
-JAX's ``guard.py`` (``recompile_guard``) has no counterpart yet: in the
-port it would count CUDA-graph captures, and the port captures none
-before ROADMAP queue 1 item 3's graphs.
+* ``repro_torch.analysis.guard`` — ``recompile_guard``, the runtime
+  complement: a region fails if it built a kernel library (an ``nvcc``
+  run of ``kernels.build``) it did not budget for. CUDA-graph captures
+  join its ``GUARDED`` targets when a later change adds graphs.
 """
 from repro_torch.analysis.base import Finding, format_findings
 

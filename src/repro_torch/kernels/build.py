@@ -6,6 +6,10 @@ Each source becomes its own library under the git-ignored
 ``csrc/`` and of the flags, so an edited source rebuilds and an unchanged
 one is reused. Nothing is built at import: the first call that launches a
 kernel builds it (or ``build(name)`` builds it ahead).
+
+``COMPILES`` counts, per library, the ``build`` calls that ran ``nvcc``
+(the port's compile event) and ``LOADS`` the libraries loaded with
+``ctypes``; ``repro_torch.analysis.guard.recompile_guard`` reads them.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Sequence
@@ -25,6 +30,16 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
+
+# nvcc runs and ctypes loads per library, since the process started
+COMPILES: Dict[str, int] = {}
+LOADS: Dict[str, int] = {}
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(counter: Dict[str, int], name: str) -> None:
+    with _COUNT_LOCK:
+        counter[name] = counter.get(name, 0) + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +84,7 @@ def build(name: str) -> BuildResult:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
+    _count(COMPILES, name)
     proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True,
                           timeout=BUILD_TIMEOUT_S)
@@ -96,4 +112,5 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(str(build(name).path))
+        _count(LOADS, name)
     return _LIBS[name]

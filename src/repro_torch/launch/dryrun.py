@@ -424,7 +424,7 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
-    ap.add_argument("--out", default="experiments/dryrun")
+    ap.add_argument("--out", default="experiments/torch/dryrun")
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--q-chunk", type=int, default=None)

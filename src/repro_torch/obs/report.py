@@ -4,7 +4,7 @@
 ``stall_report`` runs a paper suite (fig18/19/20) with the telemetry
 planes on, checks the planes against the ``SimResult`` aggregates (it
 refuses to render numbers that disagree with the engine), and writes a
-markdown report and its JSON twin into ``experiments/obs/``:
+markdown report and its JSON twin into ``experiments/torch/obs/``:
 
 * a per-point table: stalls by cause, wait cycles by cause, the degraded
   share of reads and the parked share of writes;
@@ -203,7 +203,7 @@ def _write(out_dir, stem, lines, blob):
 
 
 def stall_report(suite_name: str = "paper_fig18", *,
-                 base=None, out_dir: str = "experiments/obs",
+                 base=None, out_dir: str = "experiments/torch/obs",
                  smoke: bool = False, device=None, on_cycle=None,
                  **suite_kw) -> Dict:
     """Run ``suite_name`` with telemetry on and write the attribution
@@ -279,7 +279,7 @@ def stall_report(suite_name: str = "paper_fig18", *,
 
 def availability_report(suite_name: str = "paper_fig18", *,
                         faults=(("bank", 0, 0),), base=None,
-                        out_dir: str = "experiments/obs",
+                        out_dir: str = "experiments/torch/obs",
                         smoke: bool = False, device=None, on_cycle=None,
                         **suite_kw) -> Dict:
     """Run ``suite_name`` with the fault plan ``faults`` on every point
@@ -430,8 +430,8 @@ def serve_setup(*, smoke: bool = False, seed: int = 0, device=None):
     return srv, reqs
 
 
-def serve_report(*, out_dir: str = "experiments/obs", smoke: bool = False,
-                 seed: int = 0, device=None) -> Dict:
+def serve_report(*, out_dir: str = "experiments/torch/obs",
+                 smoke: bool = False, seed: int = 0, device=None) -> Dict:
     """Serve ``serve_setup``'s workload with a placement churn every 2
     steps, hold every plane against the ``repro_torch.oracle.kvpool``
     replay (exact equality: the report refuses to render numbers that
@@ -526,7 +526,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--suite", default="paper_fig18",
                     choices=("paper_fig18", "paper_fig19", "paper_fig20"))
-    ap.add_argument("--out-dir", default="experiments/obs")
+    ap.add_argument("--out-dir", default="experiments/torch/obs")
     ap.add_argument("--smoke", action="store_true",
                     help="trimmed axes and a tiny trace")
     ap.add_argument("--availability", action="store_true",

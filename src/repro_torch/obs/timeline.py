@@ -15,7 +15,7 @@ CLI (on the card unless ``--device`` names another)::
 
     PYTHONPATH=src python -m repro_torch.obs.timeline --device cpu \\
         --scheme scheme_i --alpha 0.25 --r 0.05 --length 96 \\
-        --chunk-len 32 --out experiments/obs/timeline.json
+        --chunk-len 32 --out experiments/torch/obs/timeline.json
 """
 from __future__ import annotations
 
@@ -194,7 +194,7 @@ def main(argv=None) -> int:
     ap.add_argument("--chunk-len", type=int, default=32)
     ap.add_argument("--select-period", type=int, default=32)
     ap.add_argument("--max-cycles", type=int, default=4096)
-    ap.add_argument("--out", default="experiments/obs/timeline.json")
+    ap.add_argument("--out", default="experiments/torch/obs/timeline.json")
     ap.add_argument("--smoke", action="store_true",
                     help="a tiny workload")
     ap.add_argument("--device", default=None,

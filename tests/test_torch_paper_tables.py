@@ -8,12 +8,32 @@ import ast
 import json
 import os
 
+import jax
 import pytest
+import torch
 
 from repro_torch.harness import common
 
 CPU = "cpu"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _fast_jax_compiles():
+    """JAX compiles the harnesses' programs at XLA's backend optimization
+    level 0 (``jax_disable_most_optimizations``; the simulator is integer
+    arithmetic, so the rows do not depend on it) and torch runs on one
+    intra-op thread, as in ``tests/test_torch_faults.py``: a worker of the
+    6-worker run died of a segmentation fault inside XLA's optimizing
+    compile of the scheme table's sweep. Both settings are restored after
+    the module's tests."""
+    saved = (jax.config.read("jax_disable_most_optimizations"),
+             torch.get_num_threads())
+    jax.config.update("jax_disable_most_optimizations", True)
+    torch.set_num_threads(1)
+    yield
+    jax.config.update("jax_disable_most_optimizations", saved[0])
+    torch.set_num_threads(saved[1])
 
 
 def _compare(monkeypatch, tmp_path, capsys, jmod, tmod, name, jkw=None):

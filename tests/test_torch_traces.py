@@ -10,6 +10,7 @@ made with numpy from a seed and handed to both sides."""
 import dataclasses
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,6 +50,24 @@ def _systems(alpha=0.25, r=0.125, **tn_kw):
 
 # one JAX system (one jit cache) for the module
 JSYS, TSYS = _systems()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _fast_jax_compiles():
+    """JAX compiles this file's programs at XLA's backend optimization
+    level 0 (``jax_disable_most_optimizations``; the simulator is integer
+    arithmetic, so its results do not depend on it) and torch runs on one
+    intra-op thread, as in ``tests/test_torch_faults.py``: a worker of the
+    6-worker run died of a segmentation fault inside XLA's optimizing
+    compile of JAX's streamed replay. Both settings are restored after
+    the module's tests."""
+    saved = (jax.config.read("jax_disable_most_optimizations"),
+             torch.get_num_threads())
+    jax.config.update("jax_disable_most_optimizations", True)
+    torch.set_num_threads(1)
+    yield
+    jax.config.update("jax_disable_most_optimizations", saved[0])
+    torch.set_num_threads(saved[1])
 
 
 def _trace(seed, length=TLEN, n_cores=N_CORES):
