@@ -78,20 +78,27 @@ no result line; with no flag it runs every phase:
    cross K/V's size and a profiled window. Every run's peak allocated
    memory must stay within 50 GB;
 4. decode attention: ``coded_kv_decode`` through ``ops.coded_kv_decode``
-   (after ``ops.pack_kv_banks``) at each serving width (K/V of qwen's ring
-   run's layers 0 and 35 and of each other config's layer 0: B=8, T=2048,
+   (after ``ops.pack_kv_banks``) at each served family's attention width
+   (K/V of qwen's ring run's layers 0 and 35 and layer 0 of each other
+   config's ring: the dense three, olmoe-1b-7b, phi-3-vision-4.2b (D =
+   96), recurrentgemma-9b's local attention (D = 256, one kv head; also
+   in f32 lanes) and whisper-tiny's decoder self-attention: B=8, T=2048,
    the config's H/Hkv/D; seq_len mixed with 0, a partial page and 2048),
-   at bench_kernels' shape (f32) and at one of at least 256 MB, ~40% of
-   pages degraded; held against ``coded_kv_decode_plain`` and, at the
-   serving width, against ``mha`` over the ring cache itself, in f32
-   within 1e-5 with TF32 off (a bf16 output must be the kernel's f32
-   result rounded, bit for bit); timed with the L2 flushed,
-   beside its bound from the actual plan and lengths, the plain version's
-   time and SDPA (``enable_gqa``) over the logical cache. Each shape also
-   prints its split kernel (the tensor-core one for bf16, the scalar one
-   for f32) with its registers, spills and shared memory from the build
-   log, its HMMA count from ``cuobjdump -sass`` (a 16-bit kernel with none
-   fails the phase), its blocks per SM and the split count it ran with;
+   at one width that is no whole number of 16-byte vectors (D = 100,
+   bf16, seeded), at bench_kernels' shape (f32) and at one of at least
+   256 MB, ~40% of pages degraded; held against ``coded_kv_decode_plain``
+   and, where the K/V came from a ring, against ``mha`` over the ring
+   cache itself, in f32 within 1e-5 with TF32 off (a 16-bit output must
+   be the kernel's f32 result rounded, bit for bit); timed with the L2
+   flushed, beside its bound from the actual plan and lengths, the plain
+   version's time and SDPA (``enable_gqa``) over the logical cache. Each
+   shape also prints its split kernel (the tensor-core one for 16-bit
+   lanes at its eight widths, the scalar one for f32 lanes at its widths,
+   the general one for every other width) with its registers, spills and
+   shared memory from the build log, its HMMA count from ``cuobjdump
+   -sass`` (a tensor-core kernel with none fails the phase; the general
+   kernel is the only 16-bit path without), its blocks per SM and the
+   split count it ran with;
 5. cross-device: each of the four configs reduced, at f32 (TF32 off) on
    bench_serve's schedule (4 slots, page 4, 16 requests x 16 tokens, a
    placement churn every 2 steps), serves identical tokens on the card
@@ -1043,13 +1050,14 @@ def _ring_run(torch, cfg, params, pool_tokens, n_requests):
     return kv
 
 
-def vlm_serve_phase(torch) -> None:
+def vlm_serve_phase(torch):
     """phi-3-vision-4.2b at full width from the ring cache (the server
     keeps a vision prefix off the pool): 8 requests whose prompts are
     left-padded to 640 positions, the first 576 overwritten by the
     server's zero patch embeddings; every request finishes, the prefill
     logits are finite, a prefill with seeded random patches differs from
-    one with zero patches (the frontend is live); then a profiled window."""
+    one with zero patches (the frontend is live); then a profiled window.
+    Returns the ring's K/V of layer 0 (B, max_seq, Hkv, D)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
     from repro_torch.models import lm
@@ -1123,11 +1131,13 @@ def vlm_serve_phase(torch) -> None:
           f"patches move the prefill logits by up to {moved:.3g} "
           f"(first request: {reqs[0].out[:8]}...)")
     profile_decode(torch, srv, Request)
+    kv = (srv.cache["k"][0].clone(), srv.cache["v"][0].clone())
     del srv, params
     torch.cuda.empty_cache()
+    return kv
 
 
-def audio_serve_phase(torch) -> None:
+def audio_serve_phase(torch):
     """whisper-tiny at full width from the ring cache (an encoder-decoder
     never takes the pool): 8 requests on 8 slots, 32 new tokens each;
     every admission's prefill encodes the server's zero frames (1, 1,500,
@@ -1135,7 +1145,8 @@ def audio_serve_phase(torch) -> None:
     finishes, the prefill logits are finite, seeded random frames move
     them, no pool gather launches; prints ms/step, tok/s, TTFT, the
     cross K/V's MB, peak allocated and the weight floor, then a profiled
-    window."""
+    window. Returns the decoder self-attention ring's K/V of layer 0 (B,
+    max_seq, Hkv, D)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
     from repro_torch.models import lm
@@ -1225,11 +1236,13 @@ def audio_serve_phase(torch) -> None:
           f"{peak_gb:.2f} GB; random frames move the prefill logits by up "
           f"to {moved:.3g} (first request: {reqs[0].out[:8]}...)")
     profile_decode(torch, srv, Request)
+    kv = (srv.cache["k"][0].clone(), srv.cache["v"][0].clone())
     del srv, params
     torch.cuda.empty_cache()
+    return kv
 
 
-def recurrent_serve_phase(torch, arch: str) -> None:
+def recurrent_serve_phase(torch, arch: str):
     """``arch`` (mamba2-2.7b or recurrentgemma-9b) at full width from the
     ring cache, which holds each slot's conv tails and f32 recurrent
     states (and, for the hybrid, its local-attention ring): 8 requests of
@@ -1237,7 +1250,9 @@ def recurrent_serve_phase(torch, arch: str) -> None:
     Every request finishes, the prefill logits are finite, no pool gather
     launches; prints ms/step, tok/s, TTFT, peak allocated and the weight
     floor (param bytes / HBM rate, the param count held against the
-    config's ``n_params``), then a profiled window."""
+    config's ``n_params``), then a profiled window. Returns the local
+    attention ring's K/V of its first attention layer (B, window, Hkv,
+    D), or None for a family without one."""
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
@@ -1324,8 +1339,12 @@ def recurrent_serve_phase(torch, arch: str) -> None:
           f"allocated {peak_gb:.2f} GB{ring} (first request: "
           f"{reqs[0].out[:8]}...)")
     profile_decode(torch, srv, Request)
+    kv = None
+    if "k" in srv.cache:
+        kv = (srv.cache["k"][0].clone(), srv.cache["v"][0].clone())
     del srv, params
     torch.cuda.empty_cache()
+    return kv
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1806,10 +1825,14 @@ def time_cold(torch, fn, n: int, flush) -> float:
 
 
 # the split kernels of csrc/coded_kv_decode.cu, by mangled name: kind
-# ("tc" or "split") and template arguments ((value type code, D, GM) or
-# (GM,) for the f32 kernel)
-_SPLIT_NAME = re.compile(r"kv_decode_(tc|split)_kernelI((?:Li\d+E)+)E")
+# ("tc", "split" or "general") and template arguments ((value type code,
+# D, GM), (GM, NV) for the f32 kernel, (W,) for the general one)
+_SPLIT_NAME = re.compile(
+    r"kv_decode_(tc|split|general)_kernelI((?:Li\d+E)+)E")
 _VT_NAME = {1: "bf16", 2: "f16"}
+# the tensor-core kernel's widths (csrc/coded_kv_decode.cu::tc_width): a
+# 16-bit lane type at any other width runs the general kernel
+TC_WIDTHS = (8, 16, 32, 64, 96, 128, 160, 256)
 
 
 def _split_key(mangled: str):
@@ -1825,6 +1848,8 @@ def _split_label(key) -> str:
     if kind == "tc":
         return (f"kv_decode_tc_kernel<{_VT_NAME[args[0]]}, D={args[1]}, "
                 f"G<={args[2]}>")
+    if kind == "general":
+        return f"kv_decode_general_kernel<{args[0]}-byte vectors, any D>"
     return f"kv_decode_split_kernel<f32, G<={args[0]}, NV={args[1]}>"
 
 
@@ -1879,8 +1904,10 @@ def split_kernel_hmma(lib_path) -> dict:
 def split_key_for(value_dtype: str, d: int, occ):
     """The split-kernel instantiation that ``occ`` (``decode_occupancy``)
     names, as ``_split_key`` reads it from a mangled name."""
-    if occ.tc:
+    if occ.kind == "tc":
         return "tc", ({"bfloat16": 1, "float16": 2}[value_dtype], d, occ.gm)
+    if occ.kind == "general":
+        return "general", (occ.vec,)
     return "split", (occ.gm, occ.nv)
 
 
@@ -1913,14 +1940,17 @@ def _decode_work(up, seq, nb, page, hkv, d, h, lane_bytes, q_bytes):
 
 def decode_phase(torch, serving, built):
     """``coded_kv_decode`` at the serving widths (``serving``: (label, H,
-    {layer: ring K/V}) of each served config's ring run: qwen2.5-3b's
-    layers 0 and 35, the others' layer 0), bench_kernels' shape, and one
-    of at least 256 MB. The main path is ``ops.coded_kv_decode`` after
-    ``ops.pack_kv_banks``; then the kernel is held against its plain
-    version, timed, and put beside its bound and SDPA. ``built`` is the
-    source's build result: each case prints its split kernel's registers,
-    spills and shared memory (ptxas), its HMMA count (SASS; a 16-bit
-    kernel with none fails), its blocks per SM and split count."""
+    {layer: ring K/V}) of each served family's ring run: qwen2.5-3b's
+    layers 0 and 35, the others' layer 0; recurrentgemma-9b's also in f32
+    lanes), at a seeded width that is no whole number of 16-byte vectors,
+    bench_kernels' shape, and one of at least 256 MB. The main path is
+    ``ops.coded_kv_decode`` after ``ops.pack_kv_banks``; then the kernel
+    is held against its plain version (and ``mha`` over the ring where the
+    K/V came from one), timed, and put beside its bound and SDPA.
+    ``built`` is the source's build result: each case prints its split
+    kernel's registers, spills and shared memory (ptxas), its HMMA count
+    (SASS; a tensor-core kernel with none fails), its blocks per SM and
+    split count."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels.coded_kv_decode import kernel as ckd_kernel
@@ -1941,14 +1971,32 @@ def decode_phase(torch, serving, built):
 
     bf16, f32 = torch.bfloat16, torch.float32
     cases = []          # (name, q, k, v, NB, page, plan, seq_len)
+    ring = set()        # the cases whose K/V came from a ring run
+
+    def lengths(b, t):
+        return torch.tensor([t, 0, 37, 1000, 64, 1537, t - 1, 700],
+                            dtype=torch.int32, device="cuda")[:b]
+
     # 1. serving widths: B=8, T=2048, the config's H, Hkv and D, NB=8, P=64
     for label, h, ring_kv in serving:
         for layer, (k, v) in ring_kv.items():
             b, t, _, d = k.shape
-            seq = torch.tensor([t, 0, 37, 1000, 64, 1537, t - 1, 700],
-                               dtype=torch.int32, device="cuda")[:b]
-            cases.append((f"{label}_layer{layer}", normal(b, h, d, dtype=bf16),
-                          k, v, 8, 64, plan(b, t // 64), seq))
+            name = f"{label}_layer{layer}"
+            cases.append((name, normal(b, h, d, dtype=k.dtype), k, v, 8, 64,
+                          plan(b, t // 64), lengths(b, t)))
+            ring.add(name)
+            if label == "serving_recurrentgemma-9b":
+                # f32 lanes at its D = 256, G = 16: the general kernel
+                cases.append((f"{name}_f32", normal(b, h, d, dtype=f32),
+                              k.float(), v.float(), 8, 64,
+                              plan(b, t // 64), lengths(b, t)))
+                ring.add(f"{name}_f32")
+    # a row that is no whole number of 16-byte vectors: D = 100 in bf16
+    # (200 bytes), seeded, B=8, T=2048, H=8, Hkv=2
+    cases.append(("odd_width_d100", normal(8, 8, 100, dtype=bf16),
+                  normal(8, 2048, 2, 100, dtype=bf16),
+                  normal(8, 2048, 2, 100, dtype=bf16), 8, 64, plan(8, 32),
+                  lengths(8, 2048)))
     # 2. bench_kernels' shape (benchmarks/bench_kernels.py:122), f32
     cases.append(("bench", normal(2, 4, 64, dtype=f32),
                   normal(2, 128, 2, 64, dtype=f32),
@@ -1992,10 +2040,14 @@ def decode_phase(torch, serving, built):
         splits = ckd_kernel.decode_splits(b, hkv * groups, up.shape[1],
                                           n_sms, blocks)
         n_hmma = hmma.get(key, 0)
-        check(occ.tc == (vd != f32),
-              f"coded_kv_decode {name}: {vname} lanes run "
+        # 16-bit lanes: the tensor cores at their widths, else the general
+        # kernel; f32 lanes never the tensor cores (TF32)
+        want = ((("tc",) if d in TC_WIDTHS else ("general",)) if vd != f32
+                else ("scalar", "general"))
+        check(occ.kind in want,
+              f"coded_kv_decode {name}: {vname} lanes at D = {d} run "
               f"{_split_label(key)}")
-        check(not occ.tc or n_hmma > 0,
+        check(occ.kind != "tc" or n_hmma > 0,
               f"coded_kv_decode {name}: {_split_label(key)} has no HMMA")
         print(f"kernel coded_kv_decode {name}: split kernel "
               f"{_split_label(key)}: {res.get('registers')} registers, "
@@ -2024,7 +2076,7 @@ def decode_phase(torch, serving, built):
         check(not out[seq == 0].any(),
               f"coded_kv_decode {name}: seq_len 0 did not read zeros")
         extra = ""
-        if "_layer" in name:
+        if name in ring:
             # the coded read gives back the logical cache
             mask = (torch.arange(k.shape[1], device="cuda")[None, :]
                     < seq[:, None])[:, None, None, None, :]
@@ -5526,18 +5578,28 @@ def _main(torch, build, cpu_side, phases, t_start) -> int:
             serving.append((f"serving_{arch}", get_config(arch).n_heads,
                             {0: kv[0]}))
         t_families = time.perf_counter()
-        n, _ = serve_phase(torch, MOE_ARCH, SERVE_RUNS[:2])
+        n, kv = serve_phase(torch, MOE_ARCH, SERVE_RUNS[:2])
         launches += n
-        vlm_serve_phase(torch)
+        # each family's attention shape for the decode phase: layer 0 of
+        # its ring run
+        serving.append((f"serving_{MOE_ARCH}",
+                        get_config(MOE_ARCH).n_heads, {0: kv[0]}))
+        serving.append((f"serving_{VLM_ARCH}", get_config(VLM_ARCH).n_heads,
+                        {0: vlm_serve_phase(torch)}))
         print(f"serve: {MOE_ARCH} and {VLM_ARCH} took "
               f"{time.perf_counter() - t_families:.1f} s of the phase")
         t_families = time.perf_counter()
         for arch in RECURRENT_SERVE:
-            recurrent_serve_phase(torch, arch)
+            ring = recurrent_serve_phase(torch, arch)
+            if ring is not None:        # the hybrid's local attention
+                serving.append((f"serving_{arch}", get_config(arch).n_heads,
+                                {0: ring}))
         print(f"serve: {', '.join(RECURRENT_SERVE)} took "
               f"{time.perf_counter() - t_families:.1f} s of the phase")
         t_families = time.perf_counter()
-        audio_serve_phase(torch)
+        serving.append((f"serving_{AUDIO_ARCH}",
+                        get_config(AUDIO_ARCH).n_heads,
+                        {0: audio_serve_phase(torch)}))
         print(f"serve: {AUDIO_ARCH} took "
               f"{time.perf_counter() - t_families:.1f} s of the phase")
         lap("serve")

@@ -22,18 +22,17 @@
 // (~295). At B=16, T=16384, Hkv=2, D=128 in bf16 with 40% of pages
 // degraded it must move ~290 MB: >= 87 us at 3.35 TB/s.
 //
-// Both kernels are flash-decoding: the pages of each (sequence, kv head)
-// are cut into n_splits ranges, and the query heads of a kv head into
-// head groups of at most GM heads (one group unless G exceeds the kernel's
-// GM); one block of 128 threads takes a (range, head group) (grid
+// The three split kernels are flash-decoding: the pages of each (sequence,
+// kv head) are cut into n_splits ranges, and the query heads of a kv head
+// into head groups of at most GM heads (one group unless G exceeds the
+// kernel's GM); one block of 128 threads takes a (range, head group) (grid
 // (n_splits, groups x Hkv, B)), so a kv head's K/V tiles are read once a
 // group, the later groups mostly from L2. Each block leaves one (m, s,
-// acc) partial per head,
-// and a combine kernel merges the splits (an online merge whose loads of
-// up to 16 splits are in flight together) and divides, weighing a partial
-// with m = -inf by 0. The wrapper picks n_splits so that the blocks fill
-// the card in one wave, from the split kernel's occupancy
-// (coded_kv_decode_occupancy) and the card's SM count.
+// acc) partial per head, and a combine kernel merges the splits (an
+// online merge whose loads of up to 16 splits are in flight together) and
+// divides, weighing a partial with m = -inf by 0. The wrapper picks
+// n_splits so that the blocks fill the card in one wave, from the split
+// kernel's occupancy (coded_kv_decode_occupancy) and the card's SM count.
 //
 // 16-bit lanes (bf16, f16): kv_decode_tc_kernel, on the tensor cores.
 //   Work: each of the block's 4 warps walks its own 8-token tiles of the
@@ -80,13 +79,14 @@
 //   D^-0.5 log2(e) after the product and exponentiated with exp2f; the
 //   split's maximum is written back in natural units (times ln 2), as the
 //   f32 kernel writes it, for the one combine kernel.
-//   Taken: D = 8, 16, 32, 64, 128, 160 or 256 (row 16..512 bytes; D = 8
-//   pads the k dimension with zeros); head groups of up to 16 heads (8 at
-//   D = 160, whose larger ring leaves one block an SM either way). At
-//   D = 160 a row is 20 chunks, not a power of two: the swizzle then flips
-//   only the low two chunk bits, inside aligned groups of 4 chunks, which
-//   still puts the 8 rows an ldmatrix reads in 8 distinct bank groups (the
-//   320-byte row stride moves odd rows by 4 groups).
+//   Taken: D = 8, 16, 32, 64, 96, 128, 160 or 256 (the repo's configs'
+//   head widths and their reduced forms; D = 8 pads the k dimension with
+//   zeros); head groups of up to 16 heads (8 at D = 160, whose larger ring
+//   leaves one block an SM either way). At D = 96 and 160 a row is 12 and
+//   20 chunks, not a power of two: the swizzle then flips only the low two
+//   chunk bits, inside aligned groups of 4 chunks, which still puts the 8
+//   rows an ldmatrix reads in 8 distinct bank groups (the 192- and
+//   320-byte row strides move odd rows by 4 groups).
 //
 // f32 lanes: kv_decode_split_kernel, scalar. Within a block a row of D
 //   lanes is read by L = D*4/(16 NV) threads, NV 16-byte vectors each;
@@ -104,8 +104,26 @@
 //   each) in head groups of up to 2, which keeps q and the accumulators
 //   in registers.
 //
-// q and the output may be f32, bf16 or f16 whatever the lanes are; banks
-// and parity must be 16-byte aligned. Anything else is refused.
+// Every other width, in any lane type: kv_decode_general_kernel, scalar,
+//   D given at run time. A row is read in W-byte vectors, W the largest of
+//   16, 8, 4 and 2 that divides the row's bytes and the banks' alignment
+//   (a 200-byte bf16 row at D = 100: 8 bytes; D = 13: single lanes). The
+//   block walks its tokens in tiles of 32; each tile's K rows are staged
+//   64 lanes at a time into shared memory as f32 (rows at an odd stride),
+//   with q's 64 lanes beside them; lane t of warp w sums token t's score
+//   for heads w, w + 4, ..., and the warp keeps those heads' running max
+//   and sum; then the V rows are staged the same way and each thread
+//   updates its own accumulators (in shared memory, or in the block's
+//   rows of the partials beyond 96 KB). Same head groups (up to 16), same
+//   splits from its own occupancy, same f32 math (expf) and partials as
+//   the f32 kernel. Its bound is the bytes above; it re-reads q and each
+//   staged row from shared memory once per head and per token, so it is
+//   bound by shared-memory loads long before device memory (a simple
+//   kernel: it makes widths work, not fast).
+//
+// q and the output may be f32, bf16 or f16 whatever the lanes are. The
+// tensor-core and scalar kernels need 16-byte aligned banks and parity
+// (refused otherwise); the general kernel only lane-aligned ones.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -172,6 +190,8 @@ struct Args {
   int GB;             // query heads a block takes (its head group)
   float scale;
   int p_shift, nb_shift;  // log2 of P and NB where powers of two, else -1
+  int v_dt;           // the lanes' value type (the general kernel's)
+  int acc_smem;       // general kernel: accumulators in shared memory
 };
 
 constexpr int kWarps = kThreads / 32;
@@ -381,12 +401,19 @@ constexpr size_t tc_smem_bytes() {
 
 // The 16-byte chunk a row's chunk c is stored in: rows of a tile at the
 // same chunk fall in distinct 16-byte bank groups (ldmatrix reads 8 rows).
+// NC = 12 (D = 96) and 20 (D = 160) are 4 mod 8: the row stride moves odd
+// rows by 4 of the 8 bank groups, so flipping the low two chunk bits by
+// r / 2 spreads the 8 rows over 8 groups inside each aligned group of 4
+// chunks (NC = 4 is the same case).
 template <int NC>
 __device__ __forceinline__ int swz(int r, int c) {
   if constexpr (NC % 8 == 0) return c ^ r;                 // 8, 16, 32
-  else if constexpr (NC % 4 == 0) return c ^ ((r >> 1) & 3);  // 4, 20
+  else if constexpr (NC % 8 == 4) return c ^ ((r >> 1) & 3);  // 4, 12, 20
   else if constexpr (NC == 2) return c ^ ((r >> 2) & 1);
-  else return c;
+  else {
+    static_assert(NC == 1, "no swizzle for this row width");
+    return c;
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -880,6 +907,229 @@ kv_decode_tc_kernel(const Args a) {
   }
 }
 
+// ----------------------------------------------- any width, general kernel
+constexpr int kGenTile = 32;     // tokens a tile: one a lane in the softmax
+constexpr int kGenChunk = 64;    // lanes of a row staged at a time
+constexpr int kGenStride = kGenChunk + 1;  // odd: a lane's row, its own bank
+constexpr int kGenHeads = 16;    // most query heads a block takes
+// the accumulators stay in shared memory up to this many bytes, else in
+// the block's own rows of part_acc (device memory)
+constexpr int kGenAccSmem = 96 * 1024;
+
+// Shared memory of the general kernel for a head group of gb heads: the
+// staged chunk (kGenTile rows, f32), q's chunk, p of the tile, the
+// heads' rescale factors, then the accumulators where they fit.
+__host__ __device__ constexpr size_t gen_fixed_floats(int gb) {
+  return (size_t)kGenTile * kGenStride + (size_t)gb * kGenChunk +
+         (size_t)gb * kGenTile + gb;
+}
+
+// W bytes at p as 32-bit words (W = 2: one word, its high half zero)
+template <int W>
+__device__ __forceinline__ void ld_words(const unsigned char* p,
+                                         uint32_t (&w)[(W + 3) / 4]) {
+  if constexpr (W == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (W == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  } else if constexpr (W == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  }
+}
+
+// Any D, any lane type, rows read in W-byte vectors (the largest of 16, 8,
+// 4, 2 that divides the row and the banks' alignment). A block of 128
+// threads takes a (range, head group) as the other split kernels do and
+// walks its tokens in tiles of kGenTile: it stages the tile's K rows
+// (sibling ^ parity on a degraded page, zeros past the end) chunk by
+// chunk into shared memory as f32, with q's chunk beside them; lane t of
+// warp w sums the score of token t for heads w, w + 4, ...; the warp
+// keeps those heads' running max and sum (natural units, expf, as the
+// f32 kernel); then the V rows are staged the same way and each thread
+// updates its own accumulators acc = acc * alpha + sum_t p_t v_t.
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+kv_decode_general_kernel(const Args a) {
+  constexpr int NW = (W + 3) / 4;
+  const float kNegInf = -__int_as_float(0x7f800000);
+  extern __shared__ float gen_smem[];
+  const int split = blockIdx.x, b = blockIdx.z;
+  const HeadGroup hg = head_group(a);
+  const int kh = hg.kh, G = hg.n, GB = a.GB, D = a.D;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lb = a.v_dt == kF32 ? 4 : 2;   // bytes a lane
+  const int LV = W / lb;                   // lanes a vector
+  float* tile = gen_smem;                  // (kGenTile, kGenStride)
+  float* sq = tile + kGenTile * kGenStride;    // (GB, kGenChunk)
+  float* sp = sq + GB * kGenChunk;             // (GB, kGenTile)
+  float* salpha = sp + GB * kGenTile;          // (GB,)
+  const long long base =
+      (((long long)b * a.Hkv + kh) * a.n_splits + split) * (a.H / a.Hkv) +
+      hg.g0;
+  float* acc = a.acc_smem ? salpha + GB : a.part_acc + base * D;  // (G, D)
+  for (int i = threadIdx.x; i < G * D; i += kThreads) acc[i] = 0.f;
+
+  const int slen = a.seq_len[b];
+  const int t0 = split * a.pages_per_split;
+  const int t_end = min(a.n_pages, t0 + a.pages_per_split);
+  const int tok_begin = t0 * a.P;
+  const int tok_end = slen <= 0 ? tok_begin : min(t_end * a.P, slen);
+  const int NG = a.NB / 2;
+  const int32_t* plan = a.use_parity + (long long)b * a.n_pages;
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(a.k_banks);
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(a.v_banks);
+  const unsigned char* kp = reinterpret_cast<const unsigned char*>(a.k_par);
+  const unsigned char* vp = reinterpret_cast<const unsigned char*>(a.v_par);
+
+  // lanes c0 .. c0 + dc - 1 of the rows of tokens tok0 .. tok0 + 31 into
+  // the tile as f32 (dc is a multiple of LV: D and c0 are)
+  auto stage = [&](const unsigned char* banks, const unsigned char* par,
+                   int tok0, int c0, int dc) {
+    const int nv = dc / LV;
+    for (int i = threadIdx.x; i < kGenTile * nv; i += kThreads) {
+      const int r = i / nv, v = i - r * nv;
+      const int tok = tok0 + r;
+      uint32_t w[NW];
+#pragma unroll
+      for (int e = 0; e < NW; ++e) w[e] = 0u;
+      if (tok < tok_end) {
+        const int t = div_by(tok, a.P, a.p_shift), p = tok - t * a.P;
+        const int slot = div_by(t, a.NB, a.nb_shift), bank = t - slot * a.NB;
+        const bool deg = plan[t] != 0;
+        const long long row =
+            ((long long)(b * a.NB + (deg ? bank ^ 1 : bank)) * a.S + slot) *
+                a.P + p;
+        const long long lane0 = (row * a.Hkv + kh) * D + c0 + v * LV;
+        ld_words<W>(banks + lane0 * lb, w);
+        if (deg) {
+          const long long prow =
+              ((long long)(b * NG + (bank >> 1)) * a.S + slot) * a.P + p;
+          uint32_t pw[NW];
+          ld_words<W>(par + ((prow * a.Hkv + kh) * D + c0 + v * LV) * lb,
+                      pw);
+#pragma unroll
+          for (int e = 0; e < NW; ++e) w[e] ^= pw[e];
+        }
+      }
+      float* dst = tile + r * kGenStride + v * LV;
+      if (lb == 4) {
+#pragma unroll
+        for (int e = 0; e < NW; ++e) dst[e] = __uint_as_float(w[e]);
+      } else if constexpr (W == 2) {
+        dst[0] = a.v_dt == kBF16 ? lane_to_f32<kBF16>(w[0])
+                                 : lane_to_f32<kF16>(w[0]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2 * NW; ++e) {
+          if (e >= LV) break;
+          const uint32_t bits = (w[e >> 1] >> (16 * (e & 1))) & 0xffffu;
+          dst[e] = a.v_dt == kBF16 ? lane_to_f32<kBF16>(bits)
+                                   : lane_to_f32<kF16>(bits);
+        }
+      }
+    }
+  };
+
+  float m[kGenHeads / kWarps], l[kGenHeads / kWarps];
+#pragma unroll
+  for (int j = 0; j < kGenHeads / kWarps; ++j) {
+    m[j] = kNegInf;
+    l[j] = 0.f;
+  }
+  const long long q_row = (long long)b * a.H + hg.g0 * a.Hkv + kh;
+  for (int tok0 = tok_begin; tok0 < tok_end; tok0 += kGenTile) {
+    // S = q K^T: lane = token, heads warp, warp + 4, ...
+    float s[kGenHeads / kWarps];
+#pragma unroll
+    for (int j = 0; j < kGenHeads / kWarps; ++j) s[j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kGenChunk) {
+      const int dc = min(kGenChunk, D - c0);
+      __syncthreads();                 // the last chunk's readers are done
+      stage(kb, kp, tok0, c0, dc);
+      for (int i = threadIdx.x; i < G * dc; i += kThreads) {
+        const int g = i / dc, dd = i - g * dc;
+        sq[g * kGenChunk + dd] =
+            load_f32(a.q, (q_row + (long long)g * a.Hkv) * D + c0 + dd,
+                     a.q_dt);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kGenHeads / kWarps; ++j) {
+        const int g = warp + kWarps * j;
+        if (g < G) {
+          const float* qg = sq + g * kGenChunk;
+          const float* kr = tile + lane * kGenStride;
+          // the chunk's sum first, then the running one: the rounding
+          // error grows with 64 + D / 64 terms, not with D
+          float d = 0.f;
+          for (int dd = 0; dd < dc; ++dd) d = fmaf(qg[dd], kr[dd], d);
+          s[j] += d;
+        }
+      }
+    }
+    // the online softmax of each head over the tile's live tokens
+    const bool live = tok0 + lane < tok_end;
+#pragma unroll
+    for (int j = 0; j < kGenHeads / kWarps; ++j) {
+      const int g = warp + kWarps * j;
+      if (g < G) {                     // the same on every lane
+        const float x = live ? s[j] * a.scale : kNegInf;
+        float mt = x;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, off));
+        const float mn = fmaxf(m[j], mt);
+        const float alpha = m[j] == kNegInf ? 0.f : expf(m[j] - mn);
+        const float p = x == kNegInf ? 0.f : expf(x - mn);
+        float ps = p;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          ps += __shfl_xor_sync(kFull, ps, off);
+        l[j] = l[j] * alpha + ps;
+        m[j] = mn;
+        sp[g * kGenTile + lane] = p;
+        if (lane == 0) salpha[g] = alpha;
+      }
+    }
+    // O = O * alpha + P V, chunk by chunk
+    for (int c0 = 0; c0 < D; c0 += kGenChunk) {
+      const int dc = min(kGenChunk, D - c0);
+      __syncthreads();                 // p written; the tile is free
+      stage(vb, vp, tok0, c0, dc);
+      __syncthreads();
+      for (int i = threadIdx.x; i < G * dc; i += kThreads) {
+        const int g = i / dc, dd = i - g * dc;
+        const float* pg = sp + g * kGenTile;
+        float A = acc[g * D + c0 + dd] * salpha[g];
+#pragma unroll 8
+        for (int r = 0; r < kGenTile; ++r)
+          A = fmaf(pg[r], tile[r * kGenStride + dd], A);
+        acc[g * D + c0 + dd] = A;
+      }
+    }
+  }
+
+  // the split's partial per head: m and s from lane 0 of the head's warp,
+  // acc from shared memory (or already in place)
+#pragma unroll
+  for (int j = 0; j < kGenHeads / kWarps; ++j) {
+    const int g = warp + kWarps * j;
+    if (g < G && lane == 0) {
+      a.part_m[base + g] = m[j];
+      a.part_s[base + g] = l[j];
+    }
+  }
+  if (a.acc_smem) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < G * D; i += kThreads)
+      a.part_acc[base * D + i] = acc[i];
+  }
+}
+
 // Merge the splits of each (b, h) and write out[b, h] in the output type:
 // an online merge over chunks of kChunk splits, each chunk's loads issued
 // together (one round trip for up to kChunk splits).
@@ -928,25 +1178,32 @@ kv_decode_combine_kernel(const Args a) {
   }
 }
 
+// The split kernels: the scalar f32 one, the tensor-core one and the
+// general one (info[2] of coded_kv_decode_occupancy).
+enum : int { kScalar = 0, kTensorCore = 1, kGeneral = 2 };
+
 // The split kernel that serves (value type, G, D) as a function pointer,
-// its dynamic shared memory, whether it is the tensor-core kernel and its
-// template arguments GM and NV (NV: the f32 kernel's vectors a thread); the
-// f32 kernel's shared memory depends on D at run time.
+// its dynamic shared memory, which kernel it is and its template arguments
+// GM and NV (NV: the f32 kernel's vectors a thread) or W (the general
+// kernel's vector bytes); the f32 and general kernels' shared memory
+// depends on D at run time.
 struct Split {
   void (*fn)(Args) = nullptr;
   size_t smem = 0;
-  bool tc = false;
+  int kind = kScalar;
   int gm = 0;         // most query heads a block of the kernel takes
   int nv = 0;
   int gb = 0;         // query heads a block takes
   int groups = 0;     // head groups a kv head is cut into
+  int vec = 0;        // general kernel: bytes a vector load
+  bool acc_smem = false;  // general kernel: accumulators in shared memory
 };
 
 template <int GM, int NV>
 Split f32_split_gm(int D) {
   const int n_grp = kThreads / (D / (4 * NV));
   return {kv_decode_split_kernel<GM, NV>,
-          sizeof(float) * (size_t)n_grp * GM * (2 + D), false, GM, NV};
+          sizeof(float) * (size_t)n_grp * GM * (2 + D), kScalar, GM, NV};
 }
 
 Split f32_split(int gb, int D) {
@@ -961,10 +1218,13 @@ Split f32_split(int gb, int D) {
 template <int VT, int D>
 Split tc_split_d(int G) {
   if (G <= 8) return {kv_decode_tc_kernel<VT, D, 8>, tc_smem_bytes<D, 8>(),
-                      true, 8};
-  return {kv_decode_tc_kernel<VT, D, 16>, tc_smem_bytes<D, 16>(), true, 16};
+                      kTensorCore, 8};
+  return {kv_decode_tc_kernel<VT, D, 16>, tc_smem_bytes<D, 16>(),
+          kTensorCore, 16};
 }
 
+// Each width the tensor-core kernel is instantiated for, and only those:
+// no D reaches a kernel built for another width.
 template <int VT>
 Split tc_split(int G, int D) {
   switch (D) {
@@ -972,31 +1232,78 @@ Split tc_split(int G, int D) {
     case 16: return tc_split_d<VT, 16>(G);
     case 32: return tc_split_d<VT, 32>(G);
     case 64: return tc_split_d<VT, 64>(G);
+    case 96: return tc_split_d<VT, 96>(G);
     case 128: return tc_split_d<VT, 128>(G);
     // groups of at most 8 heads at D = 160 (pick_split): one instantiation
     case 160: return {kv_decode_tc_kernel<VT, 160, 8>, tc_smem_bytes<160, 8>(),
-                      true, 8};
-    default: return tc_split_d<VT, 256>(G);
+                      kTensorCore, 8};
+    case 256: return tc_split_d<VT, 256>(G);
+    default: return {};
   }
 }
 
-// The split kernel for G query heads a kv head, cut into the fewest head
-// groups of at most the kernel's GM heads, all of one size but the last.
-// Refuses (fn null) a row of other than 16, 32, ..., 512 bytes or
-// D = 160.
-Split pick_split(int value_dt, int G, int D) {
+// The tensor-core kernel's widths: the repo's configs' head widths and
+// their reduced forms.
+bool tc_width(int D) {
+  switch (D) {
+    case 8: case 16: case 32: case 64: case 96: case 128: case 160: case 256:
+      return true;
+    default:
+      return false;
+  }
+}
+
+// The scalar f32 kernel's widths: a row of 16, 32, ..., 512 bytes (one
+// vector a thread), or D = 160.
+bool f32_width(int D) {
+  const int L = D * 4 / 16;
+  return D == 160 || (D % 4 == 0 && L <= 32 && (L & (L - 1)) == 0);
+}
+
+// The general kernel for gb heads a block at width D, its loads W bytes
+// wide: the largest of 16, 8, 4, 2 that divides the row's bytes and the
+// banks' address bits `align` (W is never below the lane: a tensor's
+// lanes are aligned to their size).
+Split general_split(int value_dt, int gb, int D, uintptr_t align) {
   const int lane_bytes = value_dt == kF32 ? 4 : 2;
-  const int row_bytes = D * lane_bytes;
-  const int L = row_bytes / 16;
-  const bool pow2_row = D > 0 && row_bytes % 16 == 0 && L <= 32 &&
-                        (L & (L - 1)) == 0;
-  if (G < 1 || (!pow2_row && D != 160)) return {};
-  const int gmax = D != 160 ? 16 : value_dt == kF32 ? 2 : 8;
+  const unsigned x = static_cast<unsigned>(D * lane_bytes) |
+                     static_cast<unsigned>(align & 15u) | 16u;
+  const int W = static_cast<int>(x & (~x + 1u));
+  if (W < lane_bytes) return {};
+  Split k;
+  k.fn = W == 16  ? kv_decode_general_kernel<16>
+         : W == 8 ? kv_decode_general_kernel<8>
+         : W == 4 ? kv_decode_general_kernel<4>
+                  : kv_decode_general_kernel<2>;
+  k.kind = kGeneral;
+  k.gm = kGenHeads;
+  k.vec = W;
+  const size_t acc = sizeof(float) * (size_t)gb * D;
+  k.acc_smem = acc <= kGenAccSmem;
+  k.smem = sizeof(float) * gen_fixed_floats(gb) + (k.acc_smem ? acc : 0);
+  return k;
+}
+
+// The split kernel for G query heads a kv head, cut into the fewest head
+// groups of at most the kernel's GM heads, all of one size but the last:
+// 16-bit lanes at a width of tc_width run the tensor-core kernel, f32
+// lanes at a width of f32_width the scalar one, every other D >= 1 the
+// general kernel. `align` is the OR of the banks' addresses (the general
+// kernel's vector width); the other two need 16-byte aligned banks and
+// are refused (fn null) without them, as is G < 1 or D < 1.
+Split pick_split(int value_dt, int G, int D, uintptr_t align) {
+  if (G < 1 || D < 1) return {};
+  const bool tc = value_dt != kF32 && tc_width(D);
+  const bool scalar = value_dt == kF32 && f32_width(D);
+  if ((tc || scalar) && align % 16 != 0) return {};
+  const int gmax = D == 160 && (tc || scalar)
+                       ? (value_dt == kF32 ? 2 : 8) : 16;
   const int n = (G + gmax - 1) / gmax;
   const int gb = (G + n - 1) / n;
-  Split k = value_dt == kBF16  ? tc_split<kBF16>(gb, D)
-            : value_dt == kF16 ? tc_split<kF16>(gb, D)
-                               : f32_split(gb, D);
+  Split k = tc ? (value_dt == kBF16 ? tc_split<kBF16>(gb, D)
+                                    : tc_split<kF16>(gb, D))
+            : scalar ? f32_split(gb, D)
+                     : general_split(value_dt, gb, D, align);
   k.gb = gb;
   k.groups = (G + gb - 1) / gb;
   return k;
@@ -1024,7 +1331,8 @@ bool is_dt(int dt) { return dt == kF32 || dt == kBF16 || dt == kF16; }
 
 // Launches the split and combine kernels on `stream` and returns
 // cudaGetLastError() (0: both launches were accepted; cudaErrorInvalidValue
-// for a shape or type no kernel takes). dtype codes: 0 f32, 1 bf16,
+// for a type or geometry no kernel takes, or banks not 16-byte aligned at
+// a width of the tensor-core or scalar kernel). dtype codes: 0 f32, 1 bf16,
 // 2 f16. The partial buffers hold B*Hkv*n_splits*G floats (m, s) and that
 // times D (acc).
 extern "C" int coded_kv_decode(
@@ -1038,13 +1346,12 @@ extern "C" int coded_kv_decode(
       S <= 0 || P <= 0 || n_pages < 0 || n_pages > NB * S || n_splits <= 0 ||
       Hkv > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Split k = pick_split(value_dt, H / Hkv, D);
-  if (k.fn == nullptr || (long long)Hkv * k.groups > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(k_banks) | reinterpret_cast<uintptr_t>(v_banks) |
       reinterpret_cast<uintptr_t>(k_par) | reinterpret_cast<uintptr_t>(v_par);
-  if (align % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Split k = pick_split(value_dt, H / Hkv, D, align);
+  if (k.fn == nullptr || (long long)Hkv * k.groups > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q;
   a.k_banks = static_cast<const uint4*>(k_banks);
@@ -1059,6 +1366,7 @@ extern "C" int coded_kv_decode(
   a.out = out;
   a.q_dt = q_dt;
   a.out_dt = out_dt;
+  a.v_dt = value_dt;
   a.H = H;
   a.Hkv = Hkv;
   a.D = D;
@@ -1072,6 +1380,7 @@ extern "C" int coded_kv_decode(
   a.scale = scale;
   a.p_shift = log2_or_neg(P);
   a.nb_shift = log2_or_neg(NB);
+  a.acc_smem = k.acc_smem ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = allow_smem(k);
   if (err != 0) return err;
@@ -1082,25 +1391,28 @@ extern "C" int coded_kv_decode(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The split kernel that serves (value_dt, H / Hkv, D), as seven ints in
-// `info`: how many of its blocks fit one SM of the current card, its
-// dynamic shared memory in bytes, whether it is the tensor-core kernel,
-// how many head groups a kv head is cut into (the grid has groups x Hkv
-// rows), the query heads a block takes, and the kernel's template
-// arguments GM and NV (NV 0 for the tensor-core kernel). Returns a CUDA
-// error code (cudaErrorInvalidValue for a shape no kernel takes).
+// The split kernel that serves (value_dt, H / Hkv, D) over 16-byte aligned
+// banks, as eight ints in `info`: how many of its blocks fit one SM of the
+// current card, its dynamic shared memory in bytes, which kernel it is
+// (0 the scalar f32 one, 1 the tensor-core one, 2 the general one), how
+// many head groups a kv head is cut into (the grid has groups x Hkv rows),
+// the query heads a block takes, the kernel's GM, the f32 kernel's NV (0
+// for the others) and the general kernel's vector bytes W (0 for the
+// others). Returns a CUDA error code (cudaErrorInvalidValue for G < 1 or
+// D < 1).
 extern "C" int coded_kv_decode_occupancy(int value_dt, int H, int Hkv, int D,
                                          int* info) {
   if (!is_dt(value_dt) || H <= 0 || Hkv <= 0 || H % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Split k = pick_split(value_dt, H / Hkv, D);
+  const Split k = pick_split(value_dt, H / Hkv, D, 0);
   if (k.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   info[1] = static_cast<int>(k.smem);
-  info[2] = k.tc ? 1 : 0;
+  info[2] = k.kind;
   info[3] = k.groups;
   info[4] = k.gb;
   info[5] = k.gm;
   info[6] = k.nv;
+  info[7] = k.vec;
   const int err = allow_smem(k);
   if (err != 0) return err;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -30,15 +30,20 @@ _LANES_OF = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
              torch.float16: torch.int16}
 
 
+# the split kernels of csrc/coded_kv_decode.cu, by their code there
+KINDS = ("scalar", "tc", "general")
+
+
 class Occupancy(NamedTuple):
     """The split kernel that serves a value type and shape on a card."""
     blocks: int        # its blocks that fit one SM
     smem: int          # its dynamic shared memory, bytes
-    tc: bool           # the tensor-core kernel (else the scalar f32 one)
+    kind: str          # "tc", "scalar" (f32) or "general" (any width)
     groups: int        # head groups a kv head's query heads are cut into
     gb: int            # query heads a block takes
     gm: int            # template argument GM: most heads a block can take
-    nv: int            # template argument NV of the f32 kernel (0 for tc)
+    nv: int            # template argument NV of the f32 kernel (else 0)
+    vec: int           # the general kernel's vector bytes W (else 0)
 
 
 # the Occupancy of (card, value dtype, H, Hkv, D)
@@ -134,11 +139,12 @@ def _decode_lib() -> ctypes.CDLL:
 
 def decode_occupancy(value_dtype: torch.dtype, h: int, hkv: int, d: int,
                      device: torch.device) -> Occupancy:
-    """The split kernel that serves this value type and shape (the
-    tensor-core one for bf16/f16 lanes, the scalar one for f32), as the C
-    dispatch picks it: its blocks per SM of ``device`` (CUDA's occupancy
-    calculator), shared memory, head groups (one block per group) and
-    template arguments."""
+    """The split kernel that serves this value type and shape over
+    16-byte aligned banks, as the C dispatch picks it (the tensor-core one
+    for bf16/f16 lanes at its widths, the scalar one for f32 lanes at its
+    widths, the general one for every other width): its blocks per SM of
+    ``device`` (CUDA's occupancy calculator), shared memory, head groups
+    (one block per group) and template arguments."""
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     key = (idx, value_dtype, h, hkv, d)
@@ -152,8 +158,8 @@ def decode_occupancy(value_dtype: torch.dtype, h: int, hkv: int, d: int,
             raise RuntimeError(
                 "coded_kv_decode occupancy query failed: "
                 + lib.coded_kv_decode_error_string(err).decode())
-        blocks, smem, tc, *rest = info
-        _OCCUPANCY[key] = Occupancy(blocks, smem, bool(tc), *rest)
+        blocks, smem, kind, *rest = info
+        _OCCUPANCY[key] = Occupancy(blocks, smem, KINDS[kind], *rest)
     return _OCCUPANCY[key]
 
 
@@ -181,10 +187,14 @@ def coded_kv_decode_cuda(
     value_dtype: torch.dtype,
 ) -> torch.Tensor:
     """Decode attention over per-sequence coded banks on the card: (B, H,
-    D) in q's dtype, the function of ``ref.coded_kv_decode_plain``. bf16
-    and f16 lanes run the tensor-core split kernel, f32 lanes the scalar
-    one (the source's note says why); both are hand-written. Any number
-    of query heads per kv head: they are cut into head groups."""
+    D) in q's dtype, the function of ``ref.coded_kv_decode_plain``, at any
+    head width D >= 1. bf16 and f16 lanes at D = 8, 16, 32, 64, 96, 128,
+    160 or 256 run the tensor-core split kernel, f32 lanes at a row of 16,
+    32, ..., 512 bytes or D = 160 the scalar one (the source's note says
+    why), every other width in any lane type the general one; all three
+    are hand-written. The first two need 16-byte aligned banks and
+    parity, the general one lane-aligned ones. Any number of query heads
+    per kv head: they are cut into head groups."""
     global decode_launches
     fn = "coded_kv_decode_cuda"
     if value_dtype not in _LANES_OF:
@@ -204,11 +214,6 @@ def coded_kv_decode_cuda(
         raise ValueError(f"{fn}: {nb} banks of {slots} slots, {h} heads on "
                          f"{hkv} kv heads, {n_pages} pages planned (need an "
                          "even NB, H % Hkv == 0, n_pages <= NB*S)")
-    row = d * torch.iinfo(lanes).bits // 8
-    vecs = row // 16
-    if d != 160 and (row % 16 or vecs > 32 or vecs & (vecs - 1)):
-        raise ValueError(f"{fn}: a row of {d} lanes is {row} bytes; the "
-                         "kernel takes 16, 32, ..., 512 bytes, or D = 160")
     bank_shape = (b, nb, slots, page, hkv, d)
     par_shape = (b, nb // 2) + bank_shape[2:]
     check_cuda_operand(fn, "q", q, q.dtype, (b, h, d))
@@ -222,12 +227,14 @@ def coded_kv_decode_cuda(
     operands = (q, k_banks, v_banks, k_par, v_par, use_parity, seq_len)
     if len({t.device for t in operands}) != 1:
         raise ValueError(f"{fn}: operands on different cards")
-    if any(t.data_ptr() % 16 for t in (k_banks, v_banks, k_par, v_par)):
-        raise ValueError(f"{fn}: banks and parity must be 16-byte aligned")
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     occ = decode_occupancy(value_dtype, h, hkv, d, q.device)
+    if occ.kind != "general" and any(
+            t.data_ptr() % 16 for t in (k_banks, v_banks, k_par, v_par)):
+        raise ValueError(f"{fn}: banks and parity must be 16-byte aligned "
+                         f"for the {occ.kind} kernel at D = {d}")
     ns = decode_splits(
         b, hkv * occ.groups, n_pages,
         torch.cuda.get_device_properties(q.device).multi_processor_count,

@@ -114,6 +114,14 @@ CASES = {
     "bf16_d40": ("bfloat16", False, 3, 64, 8, 2, 40, 4, 8, 0),
     "f32_g24": ("float32", False, 3, 64, 24, 1, 16, 4, 8, 0),
     "bf16_g24": ("bfloat16", False, 3, 64, 48, 2, 32, 4, 8, 0),
+    # phi-3-vision-4.2b's kind (MHA, D = 96: a 192-byte row, 12 chunks of
+    # 16 bytes on the card's tensor cores), recurrentgemma-9b's MQA head in
+    # f32 lanes (D = 256, G = 16: a 1,024-byte row), and widths only the
+    # card's general kernel takes: a 400-byte f16 row, a 26-byte bf16 one
+    "bf16_d96_mha": ("bfloat16", False, 3, 64, 4, 4, 96, 4, 8, 0),
+    "f32_d256_g16": ("float32", False, 3, 64, 16, 1, 256, 4, 8, 0),
+    "f16_d200": ("float16", False, 3, 128, 8, 2, 200, 4, 8, 0),
+    "bf16_d13": ("bfloat16", False, 3, 64, 4, 2, 13, 4, 8, 0),
 }
 
 
@@ -138,6 +146,33 @@ def test_coded_kv_decode_matches_jax_ref(case):
         _torch(q), _torch(kb), _torch(vb), _torch(kp), _torch(vp),
         torch.from_numpy(use_par), torch.from_numpy(seq), **kw)
     assert_close(got, want, dtype)
+    assert not got[0].any(), "seq_len 0 must read exact zeros"
+
+
+def test_coded_kv_decode_f16_d200_within_one_ulp_of_f64():
+    """f16 at D = 200, B = 3, T = 64, H = 4 on 2 kv heads: every output
+    within one ulp of the f64 value rounded. Held against f64, not JAX's
+    reference: one output here is -1.62e-4, where JAX's f32 result lies
+    2.1e-7 (two f16 ulps) from the f64 value and the port's rounds to it."""
+    rng, q, k, v = _case(2, 3, 64, 4, 2, 200, "float16")
+    kb, vb, kp, vp, n_pages = jops.pack_kv_banks(k, v, 4, 8)
+    use_par = rng.random((3, n_pages)) < 0.5
+    use_par[1] = True
+    seq = _seq_lens(n_pages * 8, 8)
+    got = tops.coded_kv_decode(
+        _torch(q), _torch(kb), _torch(vb), _torch(kp), _torch(vp),
+        torch.from_numpy(use_par), torch.from_numpy(seq))
+    qf = np.asarray(q, np.float64).reshape(3, 2, 2, 200)
+    kf, vf = np.asarray(k, np.float64), np.asarray(v, np.float64)
+    s = np.einsum("bgkd,btkd->bgkt", qf, kf) * 200 ** -0.5
+    live = np.arange(64)[None, None, None] < seq[:, None, None, None]
+    s = np.where(live, s, -np.inf)
+    with np.errstate(invalid="ignore"):        # seq_len 0: -inf - -inf
+        p = np.where(live, np.exp(s - s.max(-1, keepdims=True)), 0.0)
+    p /= np.maximum(p.sum(-1, keepdims=True), 1e-30)
+    want = np.nan_to_num(np.einsum("bgkt,btkd->bgkd", p, vf)).reshape(
+        3, 4, 200)
+    assert _ulps(got, torch.from_numpy(want).half()).max() <= 1
     assert not got[0].any(), "seq_len 0 must read exact zeros"
 
 

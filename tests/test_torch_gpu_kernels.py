@@ -300,6 +300,36 @@ DECODE_CASES = {
     "f32_g48": ("f32", "f32", 2, 128, 48, 1, 128, 4, 8, 0, .5, False),
     "bf16_g20_two_groups_stale": ("bf16", "bf16", 2, 128, 40, 2, 64, 4, 8,
                                   0, .5, True),
+    # phi-3-vision-4.2b's head: D = 96, a 192-byte row of 12 chunks on the
+    # tensor cores (its own swizzle), MHA (G = 1) and G = 8
+    "bf16_d96_g1": ("bf16", "bf16", 4, 256, 8, 8, 96, 8, 16, 0, .4, False),
+    "bf16_d96_g8": ("bf16", "bf16", 4, 256, 16, 2, 96, 8, 16, 0, .4, False),
+    "f16_d96_g1": ("f16", "f16", 3, 128, 4, 4, 96, 4, 8, 0, .5, False),
+    "f16_d96_g8_f32_q_stale": ("f16", "f32", 2, 128, 16, 2, 96, 4, 8, 0,
+                               .5, True),
+    # the general kernel: recurrentgemma-9b's MQA head in f32 lanes (D =
+    # 256, G = 16, a 1,024-byte row in 16-byte vectors), rows that are no
+    # whole number of 16-byte vectors (D = 100 bf16: 8-byte vectors; D =
+    # 200 f16; D = 13: single lanes; D = 24 and 40, 48 and 80 bytes, once
+    # refused), three head groups and a cut plan
+    "f32_d256_g16": ("f32", "f32", 2, 128, 16, 1, 256, 4, 8, 0, .5, False),
+    "bf16_d100": ("bf16", "bf16", 4, 256, 8, 2, 100, 8, 16, 0, .4, False),
+    "f16_d200": ("f16", "f16", 2, 128, 8, 2, 200, 4, 8, 0, .5, False),
+    "bf16_d13": ("bf16", "bf16", 4, 128, 8, 2, 13, 4, 8, 0, .5, False),
+    "f32_d13_stale": ("f32", "f32", 2, 128, 4, 2, 13, 4, 8, 0, .5, True),
+    "bf16_d24": ("bf16", "bf16", 3, 128, 4, 2, 24, 4, 8, 0, .5, False),
+    "bf16_d40": ("bf16", "bf16", 3, 128, 8, 2, 40, 4, 8, 0, .5, False),
+    "f32_d40": ("f32", "f32", 3, 128, 8, 2, 40, 4, 8, 0, .5, False),
+    "bf16_d100_g48_f32_q_fewer_pages": ("bf16", "f32", 2, 128, 48, 1, 100,
+                                        4, 8, 3, .5, False),
+    # 16 heads x 1,600 lanes of f32 accumulators (100 KB) pass the general
+    # kernel's 96 KB of shared memory for them: they live in the block's
+    # rows of the partials in device memory. Held in f32 (an f32 q): at
+    # this width a bf16 q's output near zero rounds up to 4 ulps from the
+    # f64 value (the plain version's 1), from f32 summation noise of
+    # ~1e-6 against bf16 ulps of ~1e-7 there
+    "bf16_d1600_g16_f32_q_acc_in_device_memory": (
+        "bf16", "f32", 2, 64, 16, 1, 1600, 4, 8, 0, .5, False),
 }
 
 
@@ -351,14 +381,68 @@ def test_coded_kv_decode_cuda_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="pages"):
         fn(q, kb, vb, kp, vp, torch.zeros((2, 17), dtype=torch.int32,
                                           device=cuda), seq, vd)
-    # rows no config gives: 48 bytes, and 80 (D = 40, stablelm reduced
-    # with head_dim 40; only D = 160 is taken outside the powers of two)
-    for d in (24, 40):
-        odd = torch.zeros((2, 4, 2, 8, 2, d), dtype=torch.int16, device=cuda)
-        with pytest.raises(ValueError, match="bytes"):
-            fn(torch.zeros((2, 4, d), dtype=torch.bfloat16, device=cuda),
-               odd, odd, odd[:, :2].contiguous(), odd[:, :2].contiguous(),
-               up, seq, vd)
+    # the tensor-core kernel's widths need 16-byte aligned banks
+    shifted = _shifted(kb)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fn(q, shifted, vb, kp, vp, up, seq, vd)
+
+
+def _shifted(t):
+    """``t``'s values in a contiguous tensor whose data starts one lane
+    past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == t.element_size()
+    return out
+
+
+@pytest.mark.parametrize("value,d", [("bf16", 100), ("f16", 13),
+                                     ("f32", 40)])
+def test_coded_kv_decode_cuda_general_kernel_on_unaligned_banks(cuda, value,
+                                                                d):
+    """Banks that start one lane past a 16-byte boundary: the general
+    kernel takes them with vectors of one lane and equals the plain
+    version (and its own result on aligned banks, bit for bit)."""
+    q, kb, vb, kp, vp, up, seq, vd = _decode_inputs(
+        cuda, 13, value=value, q_dtype=value, b=3, t=128, h=8, hkv=2, d=d,
+        nb=4, page=8)
+    occ = ckd_kernel.decode_occupancy(vd, 8, 2, d, cuda)
+    assert occ.kind == "general"
+    banks = [_shifted(x) for x in (kb, vb, kp, vp)]
+    out = ckd_kernel.coded_kv_decode_cuda(q, *banks, up, seq, vd)
+    aligned = ckd_kernel.coded_kv_decode_cuda(q, kb, vb, kp, vp, up, seq, vd)
+    torch.cuda.synchronize()
+    assert torch.equal(out, aligned)
+    ref = coded_kv_decode_plain(q, kb, vb, kp, vp, up, seq, vd)
+    if vd == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert int(_ulps(out, ref).max()) <= 1
+    assert not out[seq == 0].any(), "seq_len 0 must read exact zeros"
+
+
+@pytest.mark.parametrize("value,d,kind", [
+    ("bf16", 96, "tc"), ("f16", 96, "tc"), ("bf16", 256, "tc"),
+    ("bf16", 100, "general"), ("bf16", 13, "general"), ("f16", 200,
+                                                         "general"),
+    ("f32", 128, "scalar"), ("f32", 160, "scalar"), ("f32", 256, "general"),
+    ("f32", 40, "general"), ("bf16", 1600, "general")])
+def test_coded_kv_decode_dispatch_by_width(cuda, value, d, kind):
+    """Which split kernel takes a width: the tensor-core one at its eight
+    widths in 16-bit lanes, the scalar one at its f32 widths, the general
+    one for the rest (its vectors the widest that divide the row)."""
+    occ = ckd_kernel.decode_occupancy(_FLOAT[value], 16, 1, d, cuda)
+    assert occ.kind == kind and occ.blocks >= 1
+    assert occ.groups * occ.gb >= 16 and occ.gb <= occ.gm
+    if kind == "general":
+        row = d * torch.tensor([], dtype=_FLOAT[value]).element_size()
+        assert occ.vec == min(16, row & -row) and occ.nv == 0
+        # the accumulators in shared memory up to 96 KB, else not
+        acc = 4 * occ.gb * d
+        assert (occ.smem > acc) == (acc <= 96 * 1024)
+    else:
+        assert occ.vec == 0
 
 
 @pytest.mark.parametrize("h,d", [(16, 128), (32, 64)])
