@@ -85,8 +85,9 @@ no result line; with no flag it runs every phase:
    in f32 lanes) and whisper-tiny's decoder self-attention: B=8, T=2048,
    the config's H/Hkv/D; seq_len mixed with 0, a partial page and 2048),
    at one width that is no whole number of 16-byte vectors (D = 100,
-   bf16, seeded), at bench_kernels' shape (f32) and at one of at least
-   256 MB, ~40% of pages degraded; held against ``coded_kv_decode_plain``
+   bf16, seeded), at bench_kernels' shape (f32), at one of at least
+   256 MB and at D = 100 with at least 256 MB (the general kernel, B=16,
+   T=20480), ~40% of pages degraded; held against ``coded_kv_decode_plain``
    and, where the K/V came from a ring, against ``mha`` over the ring
    cache itself, in f32 within 1e-5 with TF32 off (a 16-bit output must
    be the kernel's f32 result rounded, bit for bit); timed with the L2
@@ -98,7 +99,11 @@ no result line; with no flag it runs every phase:
    shared memory from the build log, its HMMA count from ``cuobjdump
    -sass`` (a tensor-core kernel with none fails the phase; the general
    kernel is the only 16-bit path without), its blocks per SM and the
-   split count it ran with;
+   split count it ran with. A split kernel a case reaches that spills
+   fails the phase, and so does a call whose kernels are not the split
+   kernel and the merge kernel (a torch.profiler trace of one call each:
+   two launch calls, and the kernel records, if the trace kept them,
+   those kernels');
 5. cross-device: each of the four configs reduced, at f32 (TF32 off) on
    bench_serve's schedule (4 slots, page 4, 16 requests x 16 tokens, a
    placement churn every 2 steps), serves identical tokens on the card
@@ -1826,7 +1831,8 @@ def time_cold(torch, fn, n: int, flush) -> float:
 
 # the split kernels of csrc/coded_kv_decode.cu, by mangled name: kind
 # ("tc", "split" or "general") and template arguments ((value type code,
-# D, GM), (GM, NV) for the f32 kernel, (W,) for the general one)
+# D, GM, CW), (GM, NV) for the f32 kernel, (lane bytes, W, LT) for the
+# general one)
 _SPLIT_NAME = re.compile(
     r"kv_decode_(tc|split|general)_kernelI((?:Li\d+E)+)E")
 _VT_NAME = {1: "bf16", 2: "f16"}
@@ -1847,9 +1853,10 @@ def _split_label(key) -> str:
     kind, args = key
     if kind == "tc":
         return (f"kv_decode_tc_kernel<{_VT_NAME[args[0]]}, D={args[1]}, "
-                f"G<={args[2]}>")
+                f"G<={args[2]}, {args[3]} warp(s) a chain>")
     if kind == "general":
-        return f"kv_decode_general_kernel<{args[0]}-byte vectors, any D>"
+        return (f"kv_decode_general_kernel<{args[0]}-byte lanes, "
+                f"{args[1]}-byte vectors, <= {args[2]} lanes a thread>")
     return f"kv_decode_split_kernel<f32, G<={args[0]}, NV={args[1]}>"
 
 
@@ -1905,9 +1912,11 @@ def split_key_for(value_dtype: str, d: int, occ):
     """The split-kernel instantiation that ``occ`` (``decode_occupancy``)
     names, as ``_split_key`` reads it from a mangled name."""
     if occ.kind == "tc":
-        return "tc", ({"bfloat16": 1, "float16": 2}[value_dtype], d, occ.gm)
+        return "tc", ({"bfloat16": 1, "float16": 2}[value_dtype], d, occ.gm,
+                      occ.cw)
     if occ.kind == "general":
-        return "general", (occ.vec,)
+        return "general", (4 if value_dtype == "float32" else 2, occ.vec,
+                           occ.lt)
     return "split", (occ.gm, occ.nv)
 
 
@@ -1936,6 +1945,23 @@ def _decode_work(up, seq, nb, page, hkv, d, h, lane_bytes, q_bytes):
     ops = 4 * (h // hkv) * d * hkv * int(np.minimum(
         seq, n_pages * page).clip(min=0).sum())
     return int(n_bytes), ops
+
+
+def _kernels_of_a_call(torch, fn):
+    """One call of ``fn`` under torch.profiler: the host's kernel launch
+    calls and the names of the kernel records (which a trace can drop)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "chip_smoke_decode_call_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return (_launch_calls(events),
+            [e["name"] for e in events if e.get("cat") == "kernel"])
 
 
 def decode_phase(torch, serving, built):
@@ -2008,6 +2034,13 @@ def decode_phase(torch, serving, built):
                   normal(16, 16384, 2, 128, dtype=bf16), 8, 64,
                   plan(16, 256),
                   torch.full((16,), 16384, dtype=torch.int32, device="cuda")))
+    # 4. >= 256 MB at D = 100 (the general kernel): B=16, T=20480, H=16,
+    # Hkv=2, bf16
+    cases.append(("large_d100", normal(16, 16, 100, dtype=bf16),
+                  normal(16, 20480, 2, 100, dtype=bf16),
+                  normal(16, 20480, 2, 100, dtype=bf16), 8, 64,
+                  plan(16, 320),
+                  torch.full((16,), 20480, dtype=torch.int32, device="cuda")))
     packed = [ckd_ops.pack_kv_banks(k, v, nb, page)[:4]
               for _, _, k, v, nb, page, _, _ in cases]
     torch.cuda.synchronize()
@@ -2037,8 +2070,8 @@ def decode_phase(torch, serving, built):
               f"coded_kv_decode {name}: the build log names no "
               f"{_split_label(key)}")
         res = resources[key]
-        splits = ckd_kernel.decode_splits(b, hkv * groups, up.shape[1],
-                                          n_sms, blocks)
+        splits = ckd_kernel.decode_splits(b, hkv * groups * occ.slices,
+                                          up.shape[1], n_sms, blocks)
         n_hmma = hmma.get(key, 0)
         # 16-bit lanes: the tensor cores at their widths, else the general
         # kernel; f32 lanes never the tensor cores (TF32)
@@ -2049,6 +2082,9 @@ def decode_phase(torch, serving, built):
               f"{_split_label(key)}")
         check(occ.kind != "tc" or n_hmma > 0,
               f"coded_kv_decode {name}: {_split_label(key)} has no HMMA")
+        check(res.get("spill_stores") == 0 and res.get("spill_loads") == 0,
+              f"coded_kv_decode {name}: {_split_label(key)} spills "
+              f"{res.get('spill_stores')}/{res.get('spill_loads')} bytes")
         print(f"kernel coded_kv_decode {name}: split kernel "
               f"{_split_label(key)}: {res.get('registers')} registers, "
               f"spill stores/loads {res.get('spill_stores')}/"
@@ -2092,10 +2128,22 @@ def decode_phase(torch, serving, built):
         def run_kernel():
             ckd_kernel.coded_kv_decode_cuda(q, *banks, up32, seq32, vd)
 
-        reps = 20 if name == "large" else 100
+        # the kernels of a call: the split kernel and the merge kernel,
+        # counted as launch calls on the host (a trace can drop a kernel
+        # record, never a launch call), and each kernel recorded one of
+        # those
+        n_launch, kernels = _kernels_of_a_call(torch, run_kernel)
+        check(n_launch == 2 and len(kernels) <= 2
+              and all(re.search(r"kv_decode_(tc|split|general|combine)"
+                                r"_kernel", k) for k in kernels),
+              f"coded_kv_decode {name}: a call made {n_launch} launch calls "
+              f"and {len(kernels)} kernel records {kernels}, not the split "
+              "kernel and the merge")
+        big = name.startswith("large")
+        reps = 20 if big else 100
         ms = time_cold(torch, run_kernel, reps, flush)
         plain_ms = time_on_card(torch, lambda: coded_kv_decode_plain(
-            q, *banks, up32, seq32, vd), 5 if name == "large" else 20)
+            q, *banks, up32, seq32, vd), 5 if big else 20)
         # like for like with the library call: no degraded page, full length
         zero = torch.zeros_like(up32)
         full = torch.full_like(seq32, k.shape[1])

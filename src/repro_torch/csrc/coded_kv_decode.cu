@@ -22,47 +22,63 @@
 // (~295). At B=16, T=16384, Hkv=2, D=128 in bf16 with 40% of pages
 // degraded it must move ~290 MB: >= 87 us at 3.35 TB/s.
 //
-// The three split kernels are flash-decoding: the pages of each (sequence,
-// kv head) are cut into n_splits ranges, and the query heads of a kv head
-// into head groups of at most GM heads (one group unless G exceeds the
-// kernel's GM); one block of 128 threads takes a (range, head group) (grid
-// (n_splits, groups x Hkv, B)), so a kv head's K/V tiles are read once a
-// group, the later groups mostly from L2. Each block leaves one (m, s,
-// acc) partial per head, and a combine kernel merges the splits (an
-// online merge whose loads of up to 16 splits are in flight together) and
-// divides, weighing a partial with m = -inf by 0. The wrapper picks
-// n_splits so that the blocks fill the card in one wave, from the split
-// kernel's occupancy (coded_kv_decode_occupancy) and the card's SM count.
+// Two launches a call. The three split kernels are flash-decoding: the
+// pages of each (sequence, kv head) are cut into n_splits ranges, and the
+// query heads of a kv head into head groups of at most GM heads (one
+// group unless G exceeds the kernel's GM); one block of 128 threads takes
+// a (range, head group) (grid (n_splits, groups x Hkv, B)), so a kv
+// head's K/V tiles are read once a group, the later groups mostly from
+// L2, and leaves one (m, s, acc) partial per head. Then
+// kv_decode_combine_kernel (one block per (head, sequence)) merges them:
+// online over chunks of 16 ranges, a partial with m = -inf weighed by 0,
+// divided by the summed weights. Two designs with fewer launches were
+// measured and not kept: a merge inside the split kernel (the last block
+// of a head group to finish merges the group's ranges, found through an
+// arrival count in a device workspace) saved no time against the second
+// launch, and a split kernel that writes the outputs itself where a call
+// has one range cost 0.3-0.7 us at the shapes with several (its second
+// epilogue slows the kernel even where it is not taken). The wrapper
+// picks n_splits to minimise waves x (pages a range + 1) over
+// 1..n_pages, from the split kernel's occupancy (coded_kv_decode_occupancy)
+// and the card's SM count.
 //
 // 16-bit lanes (bf16, f16): kv_decode_tc_kernel, on the tensor cores.
-//   Work: each of the block's 4 warps walks its own 8-token tiles of the
-//   block's token range (tiles w, w+4, ...), each with its own ring of 3
-//   shared-memory stages filled by cp.async.cg 16-byte copies; a warp asks
-//   for tile j + 2 before it waits for tile j, so three tiles a warp (up to
-//   24 KB at D=128) are in flight while it waits. The block first asks
-//   for q, seq_len and the plan flags of its first pages at once (the
-//   flags as one ballot mask a warp, moved on every 32 pages), then for
-//   its first tiles, and only then stages q through shared memory into
-//   the A fragments. A tile may span pages: each token row's address comes
-//   from its own page (bank, slot, plan bit). A stage holds the tile's K
-//   and V rows and a parity row for each; a direct row's parity is
-//   zero-filled (src-size 0) and a masked token's K, V and parity too, so
-//   the XOR is one branch-free instruction per fragment register and reads
-//   nothing more from device memory. Rows are stored with a 16-byte-chunk
-//   swizzle so that ldmatrix reads no bank twice. TMA is later work: the
-//   rows of one tile come from up to 8 pages, each from its bank or its
-//   sibling and parity.
+//   Work: the block's 4 warps form 4 / CW tile chains of CW warps; each
+//   chain walks its own 8-token tiles of the block's token range (tiles c,
+//   c + chains, ...) with its own ring of 3 shared-memory stages filled by
+//   cp.async.cg 16-byte copies (the chain's warps issue a share each); a
+//   chain asks for tile j + 2 before it waits for tile j, so three tiles
+//   are in flight while it waits. Every warp of a chain computes the whole
+//   S = Q K^T of the tile and O for its D / CW columns, so a chain's warps
+//   keep the same running max and sum and meet at a named barrier twice a
+//   tile. CW = 2 at D = 256 (1 elsewhere): 16 columns' tiles of O a warp
+//   (64 registers, no spill) and a 96 KB ring, so two blocks fit an SM.
+//   The block first asks for q, seq_len and the plan flags of its first
+//   pages at once (the flags as one ballot mask a warp, moved on every 32
+//   pages), then for its first tiles, and only then stages q through
+//   shared memory into the A fragments. A tile may span pages: each token
+//   row's address comes from its own page (bank, slot, plan bit). A stage
+//   holds the tile's K and V rows and a parity row for each: a direct
+//   row's parity is zero-filled (src-size 0) and a masked token's K, V
+//   and parity too, so the XOR is one branch-free instruction per
+//   fragment register and reads nothing more from device memory. (Skipping
+//   the parity copies, reads and XORs of a tile with no degraded row, a
+//   flag per stage, was measured and lost 0.5-4 us at the serving shapes:
+//   the branches broke up the fragment loads' schedule.) Rows are stored
+//   with a 16-byte-chunk swizzle so that ldmatrix reads no bank twice. TMA
+//   is later work: the rows of one tile come from up to 8 pages, each from
+//   its bank or its sibling and parity.
 //   Math (the FlashAttention-2 register pattern): S = Q K^T with
 //   mma.sync.m16n8k16 (query rows in M, the tile's tokens in N, K from
 //   ldmatrix; K ^ parity on the raw fragment registers), one online
 //   softmax per (head, key) in the C fragment (row max: two quad
 //   shuffles; O is rescaled only when some row's max moved), then
 //   O += P V with P's A fragment built in registers from S and V from
-//   ldmatrix.trans (V ^ parity likewise). O stays in f32
-//   accumulators (16 x D a warp). wgmma is the wrong tool here: its 64-row
-//   minimum against G <= 16 query rows would waste 3/4 to 7/8 of it, and
-//   the flops are not the limit anyway; mma.sync is there to replace the
-//   scalar FMAs and shuffles that made the first version issue-bound.
+//   ldmatrix.trans (V ^ parity likewise). O stays in f32 accumulators.
+//   wgmma is the wrong tool here: its 64-row minimum against G <= 16 query
+//   rows would waste 3/4 to 7/8 of it, and the flops are not the limit
+//   anyway; mma.sync is there to replace the scalar FMAs and shuffles that
+//   made the first version issue-bound.
 //   Precision with f32 accumulation and no looser tolerance than the
 //   scalar kernel: K and V are exact in their type, q and p are not. q is
 //   split into hi + lo parts of the lane type (lo = type(q - hi)); for
@@ -78,14 +94,14 @@
 //   same values gives bit-identical f32 results. The scores are scaled by
 //   D^-0.5 log2(e) after the product and exponentiated with exp2f; the
 //   split's maximum is written back in natural units (times ln 2), as the
-//   f32 kernel writes it, for the one combine kernel.
+//   f32 kernels write it, for the one merge.
 //   Taken: D = 8, 16, 32, 64, 96, 128, 160 or 256 (the repo's configs'
 //   head widths and their reduced forms; D = 8 pads the k dimension with
-//   zeros); head groups of up to 16 heads (8 at D = 160, whose larger ring
-//   leaves one block an SM either way). At D = 96 and 160 a row is 12 and
-//   20 chunks, not a power of two: the swizzle then flips only the low two
-//   chunk bits, inside aligned groups of 4 chunks, which still puts the 8
-//   rows an ldmatrix reads in 8 distinct bank groups (the 192- and
+//   zeros); head groups of up to 16 heads, 8 at D = 160 and 256, where 16
+//   heads' O would not fit the registers. At D = 96 and 160 a row is 12
+//   and 20 chunks, not a power of two: the swizzle then flips only the low
+//   two chunk bits, inside aligned groups of 4 chunks, which still puts the
+//   8 rows an ldmatrix reads in 8 distinct bank groups (the 192- and
 //   320-byte row strides move odd rows by 4 groups).
 //
 // f32 lanes: kv_decode_split_kernel, scalar. Within a block a row of D
@@ -107,19 +123,35 @@
 // Every other width, in any lane type: kv_decode_general_kernel, scalar,
 //   D given at run time. A row is read in W-byte vectors, W the largest of
 //   16, 8, 4 and 2 that divides the row's bytes and the banks' alignment
-//   (a 200-byte bf16 row at D = 100: 8 bytes; D = 13: single lanes). The
-//   block walks its tokens in tiles of 32; each tile's K rows are staged
-//   64 lanes at a time into shared memory as f32 (rows at an odd stride),
-//   with q's 64 lanes beside them; lane t of warp w sums token t's score
-//   for heads w, w + 4, ..., and the warp keeps those heads' running max
-//   and sum; then the V rows are staged the same way and each thread
-//   updates its own accumulators (in shared memory, or in the block's
-//   rows of the partials beyond 96 KB). Same head groups (up to 16), same
-//   splits from its own occupancy, same f32 math (expf) and partials as
-//   the f32 kernel. Its bound is the bytes above; it re-reads q and each
-//   staged row from shared memory once per head and per token, so it is
-//   bound by shared-memory loads long before device memory (a simple
-//   kernel: it makes widths work, not fast).
+//   (a 200-byte bf16 row at D = 100: 8 bytes; D = 13: single lanes). Each
+//   thread owns a fixed set of a row's vectors (vectors sub, sub + L, ...
+//   of the L threads of its lane group, L a power of two <= 32) and keeps
+//   q's lanes there for the block's heads, and their running max, sum and
+//   accumulators, in registers; a score is summed over the thread's lanes
+//   and then across the lane group with shuffles. The block's 128 / L lane
+//   groups take the range's tokens in turn. Rows of up to 256 lanes take
+//   the small tiling (at most 8 lanes a thread, head groups of up to 8);
+//   there each thread copies its own vectors of K, V (and, on a degraded
+//   page, of both parities) with cp.async into its own slots of a ring of
+//   4 token stages in shared memory, three tokens ahead of the one it
+//   computes, and reads back only what it copied (no barrier, no row read
+//   once per head). W = 2 (rows that are no whole number of 4 bytes, or
+//   banks aligned to 2 bytes only) loads straight into registers. Wider
+//   rows take the large tiling (at most 64 lanes a thread, one head a
+//   block) and load straight into registers too; a row of more than
+//   2,048 lanes (32 x 64) is cut into column slices of about equal width,
+//   one block each (grid z B x slices): every slice's block sums the whole
+//   row's scores, its own lanes' q from registers and the others' from
+//   device memory, slice by slice in the same order, so that all of them
+//   agree on each score bit for bit, and keeps its own slice's
+//   accumulators (K is read once a slice, mostly from L2). The online softmax runs in log2 units with exp2f, one exp a
+//   head and token (of alpha = exp(m - max) and p = exp(x - max) one is
+//   exp(0)), and the accumulators are multiplied by alpha only on steps
+//   where some head's max moved in the warp (a vote). Same splits from its
+//   own occupancy, f32 partials and the same merge. Its bound is the bytes
+//   above; at one token a lane group a step its work is issue-bound FMAs
+//   and shuffles, far fewer instructions a byte than the shared-memory
+//   staging it replaced.
 //
 // q and the output may be f32, bf16 or f16 whatever the lanes are. The
 // tensor-core and scalar kernels need 16-byte aligned banks and parity
@@ -165,6 +197,11 @@ __device__ __forceinline__ uint4 xor4(uint4 a, uint4 b) {
   return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
 }
 
+// A shared-memory address as the 32-bit operand of cp.async and ldmatrix.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // The four f32 lanes of one 16-byte vector.
 __device__ __forceinline__ void unpack4(uint4 v, float (&out)[4]) {
   out[0] = __uint_as_float(v.x);
@@ -191,7 +228,9 @@ struct Args {
   float scale;
   int p_shift, nb_shift;  // log2 of P and NB where powers of two, else -1
   int v_dt;           // the lanes' value type (the general kernel's)
-  int acc_smem;       // general kernel: accumulators in shared memory
+  int gen_l, gen_nv;  // general kernel: threads a row, vectors a thread
+  int slices;        // general kernel: column slices of a row (grid z is
+                      // B x slices); 1 elsewhere
 };
 
 constexpr int kWarps = kThreads / 32;
@@ -212,6 +251,67 @@ __device__ __forceinline__ HeadGroup head_group(const Args& a) {
   return {kh, g0, min(a.GB, a.H / a.Hkv - g0)};
 }
 
+// Where head g0's partial of range `split` lives (head g0 + g's at
+// part_base + g): m and s at that index, acc at D times it.
+__device__ __forceinline__ long long part_base(const Args& a, int b,
+                                               const HeadGroup& hg,
+                                               int split) {
+  return (((long long)b * a.Hkv + hg.kh) * a.n_splits + split) *
+             (a.H / a.Hkv) + hg.g0;
+}
+
+// ------------------------------------------------------- the split merge
+// The merge kernel, launched after a split kernel with more than one
+// range: block (h, b) merges the n_splits partials of out[b, h] and
+// writes it in the output type, an online merge over chunks of kChunk
+// ranges, each chunk's loads issued together (one round trip for up to
+// kChunk ranges); a partial with m = -inf weighs 0.
+constexpr int kChunk = 16;
+
+__global__ void __launch_bounds__(kThreads)
+kv_decode_combine_kernel(const Args a) {
+  const float kNegInf = -__int_as_float(0x7f800000);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int G = a.H / a.Hkv;
+  const int g = h / a.Hkv, kh = h % a.Hkv;
+  const long long first = ((long long)b * a.Hkv + kh) * a.n_splits * G + g;
+  for (int d = threadIdx.x; d < a.D; d += kThreads) {
+    float M = kNegInf, S = 0.f, A = 0.f;
+    for (int j0 = 0; j0 < a.n_splits; j0 += kChunk) {
+      float mj[kChunk], sj[kChunk], aj[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int j = j0 + u;
+        mj[u] = kNegInf;
+        sj[u] = aj[u] = 0.f;
+        if (j < a.n_splits) {
+          const long long i = first + (long long)j * G;
+          mj[u] = a.part_m[i];
+          sj[u] = a.part_s[i];
+          aj[u] = a.part_acc[i * a.D + d];
+        }
+      }
+      float Mc = M;
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) Mc = fmaxf(Mc, mj[u]);
+      if (Mc == kNegInf) continue;       // no live key so far
+      const float r = M == kNegInf ? 0.f : expf(M - Mc);
+      S *= r;
+      A *= r;
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const float w = mj[u] == kNegInf ? 0.f : expf(mj[u] - Mc);
+        S = fmaf(sj[u], w, S);
+        A = fmaf(aj[u], w, A);
+      }
+      M = Mc;
+    }
+    store_f32(a.out, ((long long)b * a.H + h) * a.D + d, a.out_dt,
+              A / fmaxf(S, 1e-30f));
+  }
+}
+
+// ------------------------------------------------------ f32 lanes, scalar
 // NV: 16-byte vectors a thread takes of each row (thread sub takes
 // vectors sub, sub + L, ...).
 template <int GM, int NV>
@@ -359,10 +459,7 @@ kv_decode_split_kernel(const Args a) {
         sm_acc[(grp * GM + g) * a.D + (sub + L * v) * VEC + e] = acc[g][v][e];
   }
   __syncthreads();
-  // this group's heads' partials: heads g0 .. of the kv head's H / Hkv
-  const long long base =
-      (((long long)b * a.Hkv + kh) * a.n_splits + split) * (a.H / a.Hkv) +
-      hg.g0;
+  const long long base = part_base(a, b, hg, split);
   for (int i = threadIdx.x; i < G * a.D; i += kThreads) {
     const int g = i / a.D, d = i % a.D;
     float M = kNegInf;
@@ -383,20 +480,21 @@ kv_decode_split_kernel(const Args a) {
 }
 
 // ------------------------------------------------- 16-bit lanes, tensor cores
-constexpr int kTile = 8;        // tokens a warp takes at a time
-constexpr int kStages = 3;      // ring stages a warp
+constexpr int kTile = 8;        // tokens a chain takes at a time
+constexpr int kStages = 3;      // ring stages a chain
 
-// Bytes of shared memory: q as f32 (GM rows of D), then each warp's ring
+// Bytes of shared memory: q as f32 (GM rows of D), then each chain's ring
 // of kStages stages, each stage four buffers (K, K parity, V, V parity)
 // of kTile rows of D 2-byte lanes. After the walk the same memory holds
-// the warps' states for the block's merge, then the split merge's.
+// the chains' states for the block's merge.
 template <int D, int GM>
 __host__ __device__ constexpr size_t tc_q_bytes() {
   return sizeof(float) * GM * D;
 }
-template <int D, int GM>
+template <int D, int GM, int CW>
 constexpr size_t tc_smem_bytes() {
-  return tc_q_bytes<D, GM>() + (size_t)kWarps * kStages * 4 * kTile * D * 2;
+  return tc_q_bytes<D, GM>() +
+         (size_t)(kWarps / CW) * kStages * 4 * kTile * D * 2;
 }
 
 // The 16-byte chunk a row's chunk c is stored in: rows of a tile at the
@@ -416,15 +514,20 @@ __device__ __forceinline__ int swz(int r, int c) {
   }
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes from global to shared, or zeros where src_bytes is 0
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// W = 4, 8 or 16 bytes from global to shared (through L1), or zeros where
+// src_bytes is 0
+template <int W>
+__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(src), "n"(W), "r"(src_bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -433,6 +536,17 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The CW warps of tile chain `chain` meet (a named barrier; a warp alone:
+// __syncwarp). Barrier 0 is __syncthreads'.
+template <int CW>
+__device__ __forceinline__ void chain_sync(int chain) {
+  if constexpr (CW == 1)
+    __syncwarp();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(chain + 1), "n"(CW * 32)
+                 : "memory");
 }
 
 // X 8x8 matrices of 16-bit lanes (X = 1, 2, 4), plain or transposed
@@ -567,21 +681,25 @@ __device__ __forceinline__ PlanWindow load_plan(const Args& a, int b,
   return {base, __ballot_sync(kFull, deg)};
 }
 
-// Copies of one tile: chunk e = lane + 32 u of its kTile rows x NC chunks,
-// into each of the stage's four buffers. Every row's page is in `win`.
-template <int D>
+// Copies of one tile: chunk e = ct + 32 CW u of its kTile rows x NC
+// chunks (ct: the thread's index in its chain), into each of the stage's
+// four buffers. Every row's page is in `win`.
+template <int D, int CW>
 __device__ __forceinline__ void issue_tile(const Args& a, int b, int kh,
                                            int tok0, int tok_end,
                                            const PlanWindow& win,
-                                           uint32_t stage, int lane) {
+                                           uint32_t stage, int ct) {
   constexpr int NC = D / 8;              // 16-byte chunks in a row
   constexpr int BUF = kTile * NC * 16;   // bytes of one buffer
-  constexpr int PER = (kTile * NC + 31) / 32;
+  constexpr int N = kTile * NC;          // chunks a buffer
+  constexpr int PER = (N + 32 * CW - 1) / (32 * CW);
   const int NG = a.NB / 2;
 #pragma unroll
   for (int u = 0; u < PER; ++u) {
-    const int e = lane + 32 * u;
-    if (kTile * NC < 32 && e >= kTile * NC) break;
+    const int e = ct + 32 * CW * u;
+    if constexpr (N % (32 * CW) != 0) {
+      if (e >= N) break;
+    }
     const int r = e / NC, c = e % NC;
     const int tok = tok0 + r;
     const uint32_t dst = stage + (r * NC + swz<NC>(r, c)) * 16;
@@ -611,24 +729,29 @@ __device__ __forceinline__ void issue_tile(const Args& a, int b, int kh,
       }
     }
     cp_async16(dst, ks, n_row);
-    cp_async16(dst + BUF, kps, n_par);
     cp_async16(dst + 2 * BUF, vs, n_row);
+    cp_async16(dst + BUF, kps, n_par);
     cp_async16(dst + 3 * BUF, vps, n_par);
   }
 }
 
 // One split of one (sequence, kv head): GM = 8 packs hi(q) and lo(q) of
 // up to 8 heads into one 16-row tile; GM = 16 takes up to 16 heads, one
-// row each, with hi and lo as two products.
-template <int VT, int D, int GM>
+// row each, with hi and lo as two products. CW warps share a tile chain,
+// each with D / CW of O's columns.
+template <int VT, int D, int GM, int CW>
 __global__ void __launch_bounds__(kThreads)
 kv_decode_tc_kernel(const Args a) {
   constexpr int NC = D / 8;              // chunks a row = n8 tiles of O
+  constexpr int NCW = NC / CW;           // O's n8 tiles this warp keeps
   constexpr int KS = (D + 15) / 16;      // k16 steps of q.k
   constexpr int X = NC < 4 ? NC : 4;     // matrices an ldmatrix takes
+  constexpr int XV = NCW < 4 ? NCW : 4;  // ... of V, in this warp's columns
   constexpr int BUF = kTile * NC * 16;
   constexpr int STAGE = 4 * BUF;
+  constexpr int CHAINS = kWarps / CW;
   constexpr bool PACKED = GM == 8;
+  static_assert(NC % CW == 0 && NCW % XV == 0, "columns split unevenly");
   const float kNegInf = -__int_as_float(0x7f800000);
   extern __shared__ __align__(16) unsigned char tc_smem[];
 
@@ -636,6 +759,7 @@ kv_decode_tc_kernel(const Args a) {
   const HeadGroup hg = head_group(a);
   const int kh = hg.kh, G = hg.n;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int chain = warp / CW, part = warp % CW;
   const int gid = lane >> 2, t4 = lane & 3;
 
   // q's lanes, the sequence's length and the first tile's plan window:
@@ -658,27 +782,27 @@ kv_decode_tc_kernel(const Args a) {
   const int t_end = min(a.n_pages, t0 + a.pages_per_split);
   const int tok_begin = t0 * a.P;
   PlanWindow win = load_plan(
-      a, b, div_by(tok_begin + warp * kTile, a.P, a.p_shift), t_end, lane);
+      a, b, div_by(tok_begin + chain * kTile, a.P, a.p_shift), t_end, lane);
   const int tok_end = slen <= 0 ? tok_begin : min(t_end * a.P, slen);
   const int n_tiles = tok_end > tok_begin
                           ? (tok_end - tok_begin + kTile - 1) / kTile : 0;
   const int my_tiles =
-      n_tiles > warp ? (n_tiles - warp + kWarps - 1) / kWarps : 0;
+      n_tiles > chain ? (n_tiles - chain + CHAINS - 1) / CHAINS : 0;
   const uint32_t ring =
-      smem_u32(tc_smem) + tc_q_bytes<D, GM>() + warp * kStages * STAGE;
-  // a warp's j-th tile: its first token, and the copies that ask for it,
+      smem_u32(tc_smem) + tc_q_bytes<D, GM>() + chain * kStages * STAGE;
+  // a chain's j-th tile: its first token, and the copies that ask for it,
   // with the plan window moved on where the tile's last page is past it
-  // (the same decision on every lane)
+  // (the same decision on every lane of the chain)
   auto tile_tok = [&](int j) {
-    return tok_begin + (warp + kWarps * j) * kTile;
+    return tok_begin + (chain + CHAINS * j) * kTile;
   };
   auto issue = [&](int j) {
     const int tok0 = tile_tok(j);
     const int last = div_by(min(tok0 + kTile, tok_end) - 1, a.P, a.p_shift);
     if (last - win.base >= 32)
       win = load_plan(a, b, div_by(tok0, a.P, a.p_shift), t_end, lane);
-    issue_tile<D>(a, b, kh, tok0, tok_end, win,
-                  ring + (j % kStages) * STAGE, lane);
+    issue_tile<D, CW>(a, b, kh, tok0, tok_end, win,
+                      ring + (j % kStages) * STAGE, part * 32 + lane);
   };
 #pragma unroll
   for (int j = 0; j < kStages - 1; ++j) {
@@ -727,24 +851,25 @@ kv_decode_tc_kernel(const Args a) {
   }
   const bool has_lo = __any_sync(kFull, any_lo);
   // ldmatrix row addresses: lane gives row (lane & 7) of matrix lane >> 3
-  const int lrow = lane & 7, lmat = (lane >> 3) % X;
+  const int lrow = lane & 7, lmat = (lane >> 3) % X, lmatv = (lane >> 3) % XV;
 
-  float o[NC][4];
+  float o[NCW][4];
 #pragma unroll
-  for (int n = 0; n < NC; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < NCW; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   // running max (log2 units) and this thread's part of the sum, per row
   // half: PACKED uses half 0 (head gid), else halves 0 and 1 (gid, gid + 8)
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const float scale2 = a.scale * 1.4426950408889634f;
 
   for (int j = 0; j < my_tiles; ++j) {
-    // the stage tile j - 1 used is free: ask for tile j + kStages - 1 there
-    // before waiting for tile j, so that kStages tiles are in flight
-    __syncwarp();
+    // the stage tile j - 1 used is free once every warp of the chain is
+    // done with it: ask for tile j + kStages - 1 there before waiting for
+    // tile j, so that kStages tiles are in flight
+    chain_sync<CW>(chain);
     if (j + kStages - 1 < my_tiles) issue(j + kStages - 1);
     cp_async_commit();
     cp_async_wait<kStages - 1>();
-    __syncwarp();
+    chain_sync<CW>(chain);               // the chain's copies of tile j
     const uint32_t st = ring + (j % kStages) * STAGE;
     const int tok0 = tile_tok(j);
 
@@ -807,23 +932,24 @@ kv_decode_tc_kernel(const Args a) {
     // O *= alpha, unless no row's max moved (alpha 1 is exact)
     if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-      for (int n = 0; n < NC; ++n) {
+      for (int n = 0; n < NCW; ++n) {
         o[n][0] *= alpha[0];
         o[n][1] *= alpha[0];
         o[n][2] *= PACKED ? alpha[0] : alpha[1];
         o[n][3] *= PACKED ? alpha[0] : alpha[1];
       }
     }
-    // O += P V
+    // O += P V over this warp's columns
 #pragma unroll
-    for (int c0 = 0; c0 < NC; c0 += X) {
+    for (int c0 = 0; c0 < NCW; c0 += XV) {
+      const int c = part * NCW + c0;
       const uint32_t addr =
-          st + 2 * BUF + (lrow * NC + swz<NC>(lrow, c0 + lmat)) * 16;
-      uint32_t vf[X], pf[X];
-      ldsm<X, true>(vf, addr);
-      ldsm<X, true>(pf, addr + BUF);
+          st + 2 * BUF + (lrow * NC + swz<NC>(lrow, c + lmatv)) * 16;
+      uint32_t vf[XV], pf[XV];
+      ldsm<XV, true>(vf, addr);
+      ldsm<XV, true>(pf, addr + BUF);
 #pragma unroll
-      for (int i = 0; i < X; ++i) {
+      for (int i = 0; i < XV; ++i) {
         const int n = c0 + i;
         const uint32_t v = vf[i] ^ pf[i];
         if constexpr (PACKED) {
@@ -839,26 +965,28 @@ kv_decode_tc_kernel(const Args a) {
   }
   cp_async_wait<0>();
 
-  // the quad's sums; this warp's state per head into shared memory
+  // the quad's sums; this chain's state per head into shared memory (the
+  // chain's warps hold the same m and l, and their own columns of O)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(kFull, l[r], 1);
     l[r] += __shfl_xor_sync(kFull, l[r], 2);
   }
-  __syncthreads();                       // every warp is done with its ring
-  float* sm_m = reinterpret_cast<float*>(tc_smem);   // (kWarps, GM)
-  float* sm_s = sm_m + kWarps * GM;                  // (kWarps, GM)
-  float* sm_acc = sm_s + kWarps * GM;                // (kWarps, GM, D)
+  __syncthreads();                       // every chain is done with its ring
+  float* sm_m = reinterpret_cast<float*>(tc_smem);   // (CHAINS, GM)
+  float* sm_s = sm_m + CHAINS * GM;                  // (CHAINS, GM)
+  float* sm_acc = sm_s + CHAINS * GM;                // (CHAINS, GM, D)
 #pragma unroll
   for (int r = 0; r < (PACKED ? 1 : 2); ++r) {
     const int g = gid + 8 * r;
-    if (t4 == 0) {
-      sm_m[warp * GM + g] = m[r];
-      sm_s[warp * GM + g] = l[r];
+    if (t4 == 0 && part == 0) {
+      sm_m[chain * GM + g] = m[r];
+      sm_s[chain * GM + g] = l[r];
     }
 #pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      float* dst = sm_acc + (warp * GM + g) * D + 8 * n + 2 * t4;
+    for (int n = 0; n < NCW; ++n) {
+      float* dst =
+          sm_acc + (chain * GM + g) * D + 8 * (part * NCW + n) + 2 * t4;
       if constexpr (PACKED) {
         dst[0] = o[n][0] + o[n][2];
         dst[1] = o[n][1] + o[n][3];
@@ -869,25 +997,22 @@ kv_decode_tc_kernel(const Args a) {
     }
   }
   __syncthreads();
-  // each head's max over the warps, the warps' weights (in place of their
-  // maxima) and the weighted sum; then the accumulators, GM * D / kThreads
-  // columns a thread, unrolled. This group's heads start at g0 of the kv
-  // head's H / Hkv.
-  const long long base =
-      (((long long)b * a.Hkv + kh) * a.n_splits + split) * (a.H / a.Hkv) +
-      hg.g0;
+  // each head's max over the chains, the chains' weights (in place of
+  // their maxima) and the weighted sum; then the accumulators, GM * D /
+  // kThreads columns a thread, unrolled, into this range's partials
+  const long long base = part_base(a, b, hg, split);
   if (threadIdx.x < G) {
     const int g = threadIdx.x;
     float M = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w * GM + g]);
+    for (int c = 0; c < CHAINS; ++c) M = fmaxf(M, sm_m[c * GM + g]);
     float S = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float mw = sm_m[w * GM + g];
-      const float wt = mw == kNegInf ? 0.f : exp2f(mw - M);
-      sm_m[w * GM + g] = wt;
-      S = fmaf(sm_s[w * GM + g], wt, S);
+    for (int c = 0; c < CHAINS; ++c) {
+      const float mc = sm_m[c * GM + g];
+      const float wt = mc == kNegInf ? 0.f : exp2f(mc - M);
+      sm_m[c * GM + g] = wt;
+      S = fmaf(sm_s[c * GM + g], wt, S);
     }
     a.part_m[base + g] = M * 0.6931471805599453f;   // log2 -> natural
     a.part_s[base + g] = S;
@@ -898,33 +1023,34 @@ kv_decode_tc_kernel(const Args a) {
   for (int u = 0; u < PER; ++u) {
     const int i = threadIdx.x + u * kThreads;
     if (i >= G * D) break;
-    const int g = i / D;
+    const int g = i / D, d = i % D;
     float A = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      A = fmaf(sm_acc[(w * GM + g) * D + i % D], sm_m[w * GM + g], A);
-    a.part_acc[(base + g) * D + i % D] = A;
+    for (int c = 0; c < CHAINS; ++c)
+      A = fmaf(sm_acc[(c * GM + g) * D + d], sm_m[c * GM + g], A);
+    a.part_acc[(base + g) * D + d] = A;
   }
 }
 
 // ----------------------------------------------- any width, general kernel
-constexpr int kGenTile = 32;     // tokens a tile: one a lane in the softmax
-constexpr int kGenChunk = 64;    // lanes of a row staged at a time
-constexpr int kGenStride = kGenChunk + 1;  // odd: a lane's row, its own bank
-constexpr int kGenHeads = 16;    // most query heads a block takes
-// the accumulators stay in shared memory up to this many bytes, else in
-// the block's own rows of part_acc (device memory)
-constexpr int kGenAccSmem = 96 * 1024;
+// The register tilings: rows of up to 32 x kGenLanesSmall lanes take at
+// most kGenLanesSmall lanes a thread and head groups of up to 8; rows of
+// up to 32 x kGenLanesLarge lanes at most kGenLanesLarge lanes a thread
+// and one head a block (q and the accumulators: 2 x 64 registers either
+// way).
+constexpr int kGenLanesSmall = 8;
+constexpr int kGenLanesLarge = 64;
+constexpr int kGenStages = 4;    // token stages of a thread's cp.async ring
 
-// Shared memory of the general kernel for a head group of gb heads: the
-// staged chunk (kGenTile rows, f32), q's chunk, p of the tile, the
-// heads' rescale factors, then the accumulators where they fit.
-__host__ __device__ constexpr size_t gen_fixed_floats(int gb) {
-  return (size_t)kGenTile * kGenStride + (size_t)gb * kGenChunk +
-         (size_t)gb * kGenTile + gb;
+__host__ __device__ constexpr int gen_heads(int lt) {
+  return lt <= kGenLanesSmall ? 8 : 1;
+}
+// cp.async (4, 8 or 16 bytes) on the small tiling; else straight loads
+__host__ __device__ constexpr bool gen_async(int w, int lt) {
+  return w >= 4 && lt <= kGenLanesSmall;
 }
 
-// W bytes at p as 32-bit words (W = 2: one word, its high half zero)
+// W bytes as 32-bit words (W = 2: one word, its high half zero)
 template <int W>
 __device__ __forceinline__ void ld_words(const unsigned char* p,
                                          uint32_t (&w)[(W + 3) / 4]) {
@@ -941,37 +1067,80 @@ __device__ __forceinline__ void ld_words(const unsigned char* p,
   }
 }
 
-// Any D, any lane type, rows read in W-byte vectors (the largest of 16, 8,
-// 4, 2 that divides the row and the banks' alignment). A block of 128
-// threads takes a (range, head group) as the other split kernels do and
-// walks its tokens in tiles of kGenTile: it stages the tile's K rows
-// (sibling ^ parity on a degraded page, zeros past the end) chunk by
-// chunk into shared memory as f32, with q's chunk beside them; lane t of
-// warp w sums the score of token t for heads w, w + 4, ...; the warp
-// keeps those heads' running max and sum (natural units, expf, as the
-// f32 kernel); then the V rows are staged the same way and each thread
-// updates its own accumulators acc = acc * alpha + sum_t p_t v_t.
-template <int W>
+// The LV lanes of a vector's words as f32 (LB: the lane's bytes; 16-bit
+// lanes of the value type vt, one branch for the vector)
+template <int LB, int LV, int NW>
+__device__ __forceinline__ void vec_f32(const uint32_t (&w)[NW], int vt,
+                                        float (&x)[LV]) {
+  if constexpr (LB == 4) {
+#pragma unroll
+    for (int e = 0; e < LV; ++e) x[e] = __uint_as_float(w[e]);
+  } else if (vt == kBF16) {
+#pragma unroll
+    for (int e = 0; e < LV; ++e)
+      x[e] = __uint_as_float(e & 1 ? w[e >> 1] & 0xffff0000u : w[e >> 1] << 16);
+  } else {
+#pragma unroll
+    for (int e = 0; e < LV; ++e)
+      x[e] = lane_to_f32<kF16>((w[e >> 1] >> (16 * (e & 1))) & 0xffffu);
+  }
+}
+
+// Any D (up to 32 x LT lanes), any lane type (LB bytes a lane), rows read
+// in W-byte vectors. A block of 128 threads takes a (range, head group)
+// as the other split kernels do. Thread sub of a lane group of L threads
+// owns the row's vectors sub, sub + L, ... (gen_nv of them, at most
+// NVM); it keeps q's lanes there for the block's heads, and each head's
+// running max, sum and accumulators, in registers. The lane groups take
+// the range's tokens in turn; a token's score is the thread's sum over
+// its lanes, then over the lane group by shuffles; the online softmax
+// runs in natural units with expf, as the f32 kernel's.
+template <int LB, int W, int LT>
 __global__ void __launch_bounds__(kThreads)
 kv_decode_general_kernel(const Args a) {
-  constexpr int NW = (W + 3) / 4;
+  constexpr int LV = W / LB;             // lanes a vector
+  constexpr int NVM = LT / LV;           // most vectors a thread owns
+  constexpr int NW = (W + 3) / 4;        // 32-bit words a vector
+  constexpr int GM = gen_heads(LT);
+  constexpr bool ASYNC = gen_async(W, LT);
   const float kNegInf = -__int_as_float(0x7f800000);
-  extern __shared__ float gen_smem[];
-  const int split = blockIdx.x, b = blockIdx.z;
+  extern __shared__ __align__(16) unsigned char gen_smem[];
+  const int split = blockIdx.x, b = blockIdx.z / a.slices;
+  const int cs = blockIdx.z - b * a.slices;   // this block's column slice
   const HeadGroup hg = head_group(a);
-  const int kh = hg.kh, G = hg.n, GB = a.GB, D = a.D;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int lb = a.v_dt == kF32 ? 4 : 2;   // bytes a lane
-  const int LV = W / lb;                   // lanes a vector
-  float* tile = gen_smem;                  // (kGenTile, kGenStride)
-  float* sq = tile + kGenTile * kGenStride;    // (GB, kGenChunk)
-  float* sp = sq + GB * kGenChunk;             // (GB, kGenTile)
-  float* salpha = sp + GB * kGenTile;          // (GB,)
-  const long long base =
-      (((long long)b * a.Hkv + kh) * a.n_splits + split) * (a.H / a.Hkv) +
-      hg.g0;
-  float* acc = a.acc_smem ? salpha + GB : a.part_acc + base * D;  // (G, D)
-  for (int i = threadIdx.x; i < G * D; i += kThreads) acc[i] = 0.f;
+  const int kh = hg.kh, G = hg.n, D = a.D;
+  const int L = a.gen_l, nv = a.gen_nv;
+  const int VR = D / LV;                 // vectors a row
+  const int VS = L * nv;                 // vectors a column slice
+  const int sub = threadIdx.x & (L - 1), grp = threadIdx.x / L;
+  const int n_grp = kThreads / L;
+  const int own = cs * VS + sub;         // this thread's first vector
+
+  float qv[GM][NVM][LV];
+  long long q_row[GM];                   // q's row of each head
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    q_row[g] = ((long long)b * a.H + (hg.g0 + g) * a.Hkv + kh) * D;
+#pragma unroll
+    for (int v = 0; v < NVM; ++v) {
+      const int vec = own + L * v;
+#pragma unroll
+      for (int e = 0; e < LV; ++e)
+        qv[g][v][e] = g < G && v < nv && vec < VR
+                          ? load_f32(a.q, q_row[g] + vec * LV + e, a.q_dt)
+                          : 0.f;
+    }
+  }
+  float m[GM], s[GM], acc[GM][NVM][LV];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    m[g] = kNegInf;
+    s[g] = 0.f;
+#pragma unroll
+    for (int v = 0; v < NVM; ++v)
+#pragma unroll
+      for (int e = 0; e < LV; ++e) acc[g][v][e] = 0.f;
+  }
 
   const int slen = a.seq_len[b];
   const int t0 = split * a.pages_per_split;
@@ -984,197 +1153,246 @@ kv_decode_general_kernel(const Args a) {
   const unsigned char* vb = reinterpret_cast<const unsigned char*>(a.v_banks);
   const unsigned char* kp = reinterpret_cast<const unsigned char*>(a.k_par);
   const unsigned char* vp = reinterpret_cast<const unsigned char*>(a.v_par);
+  // lane group grp takes tokens tok_begin + grp + n_grp * i; a warp runs
+  // as many steps as its first lane group, so every lane takes part in
+  // every shuffle
+  const int n_tok = tok_end - tok_begin;
+  const int grp0 = (threadIdx.x & ~31) / L;
+  const float scale2 = a.scale * 1.4426950408889634f;   // log2 units
+  const int steps = n_tok > grp0 ? (n_tok - grp0 + n_grp - 1) / n_grp : 0;
 
-  // lanes c0 .. c0 + dc - 1 of the rows of tokens tok0 .. tok0 + 31 into
-  // the tile as f32 (dc is a multiple of LV: D and c0 are)
-  auto stage = [&](const unsigned char* banks, const unsigned char* par,
-                   int tok0, int c0, int dc) {
-    const int nv = dc / LV;
-    for (int i = threadIdx.x; i < kGenTile * nv; i += kThreads) {
-      const int r = i / nv, v = i - r * nv;
-      const int tok = tok0 + r;
-      uint32_t w[NW];
+  // token i of this lane group: whether it is live, whether its page is
+  // degraded, and the byte offsets of its row (sibling's on a degraded
+  // page) and of its parity row
+  struct Tok {
+    bool live, deg;
+    long long off, poff;
+  };
+  auto token = [&](int i) {
+    Tok t{false, false, 0, 0};
+    const int tok = tok_begin + grp + n_grp * i;
+    if (i < steps && tok < tok_end) {
+      const int pg = div_by(tok, a.P, a.p_shift), p = tok - pg * a.P;
+      const int slot = div_by(pg, a.NB, a.nb_shift), bank = pg - slot * a.NB;
+      t.live = true;
+      t.deg = __ldg(plan + pg) != 0;
+      const long long row =
+          ((long long)(b * a.NB + (t.deg ? bank ^ 1 : bank)) * a.S + slot) *
+              a.P + p;
+      const long long prow =
+          ((long long)(b * NG + (bank >> 1)) * a.S + slot) * a.P + p;
+      t.off = (row * a.Hkv + kh) * D * LB;
+      t.poff = (prow * a.Hkv + kh) * D * LB;
+    }
+    return t;
+  };
+  // this thread's slot of stage st, buffer buf (K, K parity, V, V parity),
+  // vector v: a warp's 32 slots are consecutive W-byte words
+  const uint32_t ring = smem_u32(gen_smem);
+  auto slot = [&](int st, int buf, int v) -> uint32_t {
+    return ring + ((((st * 4 + buf) * NVM + v) * kThreads) + threadIdx.x) * W;
+  };
+  // vector vi of a row (and its parity on a degraded page) as words
+  auto vec_words = [&](const unsigned char* banks, const unsigned char* par,
+                       const Tok& t, int vi, uint32_t (&w)[NW]) {
 #pragma unroll
-      for (int e = 0; e < NW; ++e) w[e] = 0u;
-      if (tok < tok_end) {
-        const int t = div_by(tok, a.P, a.p_shift), p = tok - t * a.P;
-        const int slot = div_by(t, a.NB, a.nb_shift), bank = t - slot * a.NB;
-        const bool deg = plan[t] != 0;
-        const long long row =
-            ((long long)(b * a.NB + (deg ? bank ^ 1 : bank)) * a.S + slot) *
-                a.P + p;
-        const long long lane0 = (row * a.Hkv + kh) * D + c0 + v * LV;
-        ld_words<W>(banks + lane0 * lb, w);
-        if (deg) {
-          const long long prow =
-              ((long long)(b * NG + (bank >> 1)) * a.S + slot) * a.P + p;
-          uint32_t pw[NW];
-          ld_words<W>(par + ((prow * a.Hkv + kh) * D + c0 + v * LV) * lb,
-                      pw);
+    for (int e = 0; e < NW; ++e) w[e] = 0u;
+    if (t.live && vi < VR) {
+      const long long step = (long long)vi * W;
+      ld_words<W>(banks + t.off + step, w);
+      if (t.deg) {
+        uint32_t pw[NW];
+        ld_words<W>(par + t.poff + step, pw);
 #pragma unroll
-          for (int e = 0; e < NW; ++e) w[e] ^= pw[e];
-        }
+        for (int e = 0; e < NW; ++e) w[e] ^= pw[e];
       }
-      float* dst = tile + r * kGenStride + v * LV;
-      if (lb == 4) {
+    }
+  };
+  auto ring_words = [&](int st, int buf, bool deg, int v,
+                        uint32_t (&w)[NW]) {
+    ld_words<W>(gen_smem + (slot(st, buf, v) - ring), w);
+    if (deg) {
+      uint32_t pw[NW];
+      ld_words<W>(gen_smem + (slot(st, buf + 1, v) - ring), pw);
 #pragma unroll
-        for (int e = 0; e < NW; ++e) dst[e] = __uint_as_float(w[e]);
-      } else if constexpr (W == 2) {
-        dst[0] = a.v_dt == kBF16 ? lane_to_f32<kBF16>(w[0])
-                                 : lane_to_f32<kF16>(w[0]);
-      } else {
+      for (int e = 0; e < NW; ++e) w[e] ^= pw[e];
+    }
+  };
+  // asks for token i's vectors in stage i % kGenStages: K and V, and both
+  // parities on a degraded page (zeros past the row and the range)
+  auto fetch = [&](int i, uint32_t& degs) {
+    const Tok t = token(i);
+    const int st = i % kGenStages;
+    degs = (degs & ~(1u << st)) | (t.deg ? 1u << st : 0u);
 #pragma unroll
-        for (int e = 0; e < 2 * NW; ++e) {
-          if (e >= LV) break;
-          const uint32_t bits = (w[e >> 1] >> (16 * (e & 1))) & 0xffffu;
-          dst[e] = a.v_dt == kBF16 ? lane_to_f32<kBF16>(bits)
-                                   : lane_to_f32<kF16>(bits);
-        }
+    for (int v = 0; v < NVM; ++v) {
+      if (v >= nv) break;
+      const bool in = t.live && own + L * v < VR;
+      const long long step = in ? (long long)(own + L * v) * W : 0;
+      const int n = in ? W : 0;
+      cp_async_ca<W>(slot(st, 0, v), kb + t.off + step, n);
+      cp_async_ca<W>(slot(st, 2, v), vb + t.off + step, n);
+      if (t.deg) {
+        cp_async_ca<W>(slot(st, 1, v), kp + t.poff + step, n);
+        cp_async_ca<W>(slot(st, 3, v), vp + t.poff + step, n);
       }
     }
   };
 
-  float m[kGenHeads / kWarps], l[kGenHeads / kWarps];
+  uint32_t degs = 0;        // bit st: stage st's token is degraded
+  if constexpr (ASYNC) {
 #pragma unroll
-  for (int j = 0; j < kGenHeads / kWarps; ++j) {
-    m[j] = kNegInf;
-    l[j] = 0.f;
+    for (int i = 0; i < kGenStages - 1; ++i) {
+      fetch(i, degs);
+      cp_async_commit();
+    }
   }
-  const long long q_row = (long long)b * a.H + hg.g0 * a.Hkv + kh;
-  for (int tok0 = tok_begin; tok0 < tok_end; tok0 += kGenTile) {
-    // S = q K^T: lane = token, heads warp, warp + 4, ...
-    float s[kGenHeads / kWarps];
+  for (int i = 0; i < steps; ++i) {
+    Tok t{tok_begin + grp + n_grp * i < tok_end, false, 0, 0};
+    if constexpr (!ASYNC) t = token(i);
+    const int st = i % kGenStages;
+    const bool deg = (degs >> st) & 1u;
+    if constexpr (ASYNC) {
+      // the stage step i - 1 used is this thread's own and read: refill it
+      fetch(i + kGenStages - 1, degs);
+      cp_async_commit();
+      cp_async_wait<kGenStages - 1>();
+    }
+    float sc[GM];
 #pragma unroll
-    for (int j = 0; j < kGenHeads / kWarps; ++j) s[j] = 0.f;
-    for (int c0 = 0; c0 < D; c0 += kGenChunk) {
-      const int dc = min(kGenChunk, D - c0);
-      __syncthreads();                 // the last chunk's readers are done
-      stage(kb, kp, tok0, c0, dc);
-      for (int i = threadIdx.x; i < G * dc; i += kThreads) {
-        const int g = i / dc, dd = i - g * dc;
-        sq[g * kGenChunk + dd] =
-            load_f32(a.q, (q_row + (long long)g * a.Hkv) * D + c0 + dd,
-                     a.q_dt);
-      }
-      __syncthreads();
+    for (int g = 0; g < GM; ++g) sc[g] = 0.f;
+    // the score over the whole row, slice by slice in one order in every
+    // block of the row's slices (another slice's q from device memory),
+    // so that they agree on each score bit for bit
+    for (int oc = 0; oc < (LT == kGenLanesLarge ? a.slices : 1); ++oc) {
+      if (oc != cs) {
+        if constexpr (LT == kGenLanesLarge) {
+#pragma unroll 1
+          for (int v = 0; v < NVM; ++v) {
+            const int vi = oc * VS + sub + L * v;
+            if (v >= nv || vi >= VR) break;
+            uint32_t w[NW];
+            vec_words(kb, kp, t, vi, w);
+            float k[LV];
+            vec_f32<LB, LV, NW>(w, a.v_dt, k);
 #pragma unroll
-      for (int j = 0; j < kGenHeads / kWarps; ++j) {
-        const int g = warp + kWarps * j;
-        if (g < G) {
-          const float* qg = sq + g * kGenChunk;
-          const float* kr = tile + lane * kGenStride;
-          // the chunk's sum first, then the running one: the rounding
-          // error grows with 64 + D / 64 terms, not with D
-          float d = 0.f;
-          for (int dd = 0; dd < dc; ++dd) d = fmaf(qg[dd], kr[dd], d);
-          s[j] += d;
+            for (int e = 0; e < LV; ++e)
+#pragma unroll
+              for (int g = 0; g < GM; ++g)
+                sc[g] = fmaf(g < G ? load_f32(a.q, q_row[g] + vi * LV + e,
+                                              a.q_dt)
+                                   : 0.f,
+                             k[e], sc[g]);
+          }
         }
+        continue;
+      }
+#pragma unroll
+      for (int v = 0; v < NVM; ++v) {
+        if (v >= nv) break;
+        uint32_t w[NW];
+        if constexpr (ASYNC) ring_words(st, 0, deg, v, w);
+        else vec_words(kb, kp, t, own + L * v, w);
+        float k[LV];
+        vec_f32<LB, LV, NW>(w, a.v_dt, k);
+#pragma unroll
+        for (int e = 0; e < LV; ++e)
+#pragma unroll
+          for (int g = 0; g < GM; ++g)
+            sc[g] = fmaf(qv[g][v][e], k[e], sc[g]);
       }
     }
-    // the online softmax of each head over the tile's live tokens
-    const bool live = tok0 + lane < tok_end;
+    for (int off = L >> 1; off > 0; off >>= 1) {
 #pragma unroll
-    for (int j = 0; j < kGenHeads / kWarps; ++j) {
-      const int g = warp + kWarps * j;
-      if (g < G) {                     // the same on every lane
-        const float x = live ? s[j] * a.scale : kNegInf;
-        float mt = x;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, off));
-        const float mn = fmaxf(m[j], mt);
-        const float alpha = m[j] == kNegInf ? 0.f : expf(m[j] - mn);
-        const float p = x == kNegInf ? 0.f : expf(x - mn);
-        float ps = p;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          ps += __shfl_xor_sync(kFull, ps, off);
-        l[j] = l[j] * alpha + ps;
-        m[j] = mn;
-        sp[g * kGenTile + lane] = p;
-        if (lane == 0) salpha[g] = alpha;
-      }
+      for (int g = 0; g < GM; ++g)
+        sc[g] += __shfl_xor_sync(kFull, sc[g], off);
     }
-    // O = O * alpha + P V, chunk by chunk
-    for (int c0 = 0; c0 < D; c0 += kGenChunk) {
-      const int dc = min(kGenChunk, D - c0);
-      __syncthreads();                 // p written; the tile is free
-      stage(vb, vp, tok0, c0, dc);
-      __syncthreads();
-      for (int i = threadIdx.x; i < G * dc; i += kThreads) {
-        const int g = i / dc, dd = i - g * dc;
-        const float* pg = sp + g * kGenTile;
-        float A = acc[g * D + c0 + dd] * salpha[g];
-#pragma unroll 8
-        for (int r = 0; r < kGenTile; ++r)
-          A = fmaf(pg[r], tile[r * kGenStride + dd], A);
-        acc[g * D + c0 + dd] = A;
+    // alpha = exp(m - max), p = exp(x - max): one of the two is exp(0)
+    // = 1, the other exp(-|x - m|) (0 while m is -inf). A masked token
+    // (every lane takes part in the vote below) weighs 0 and rescales
+    // nothing: its K and V read as zeros.
+    float alpha[GM], pr[GM];
+    bool moved = false;
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      const float x = sc[g] * scale2;
+      const bool up = t.live && x > m[g];
+      const float e = exp2f(-fabsf(x - m[g]));
+      alpha[g] = up ? e : 1.f;
+      pr[g] = !t.live ? 0.f : up ? 1.f : e;
+      if (t.live) {
+        s[g] = s[g] * alpha[g] + pr[g];
+        m[g] = up ? x : m[g];
+      }
+      moved |= alpha[g] != 1.f;
+    }
+    // acc = acc alpha + p v, the product by alpha only where some head's
+    // max moved in the warp (alpha 1 is exact)
+    moved = __any_sync(kFull, moved);
+#pragma unroll
+    for (int v = 0; v < NVM; ++v) {
+      if (v >= nv) break;
+      uint32_t w[NW];
+      if constexpr (ASYNC) ring_words(st, 2, deg, v, w);
+      else vec_words(vb, vp, t, own + L * v, w);
+      float x[LV];
+      vec_f32<LB, LV, NW>(w, a.v_dt, x);
+      if (moved) {
+#pragma unroll
+        for (int e = 0; e < LV; ++e)
+#pragma unroll
+          for (int g = 0; g < GM; ++g)
+            acc[g][v][e] = fmaf(acc[g][v][e], alpha[g], pr[g] * x[e]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < LV; ++e)
+#pragma unroll
+          for (int g = 0; g < GM; ++g)
+            acc[g][v][e] = fmaf(pr[g], x[e], acc[g][v][e]);
       }
     }
   }
+  if constexpr (ASYNC) cp_async_wait<0>();
 
-  // the split's partial per head: m and s from lane 0 of the head's warp,
-  // acc from shared memory (or already in place)
+  // merge the lane groups' states into this range's partial per head,
+  // in the slice's DS columns from column c0
+  __syncthreads();                       // the ring is read: reuse it
+  const int c0 = cs * VS * LV, DS = min(D - c0, VS * LV);
+  float* sm_m = reinterpret_cast<float*>(gen_smem);   // (n_grp, GM)
+  float* sm_s = sm_m + n_grp * GM;                    // (n_grp, GM)
+  float* sm_acc = sm_s + n_grp * GM;                  // (n_grp, GM, DS)
 #pragma unroll
-  for (int j = 0; j < kGenHeads / kWarps; ++j) {
-    const int g = warp + kWarps * j;
-    if (g < G && lane == 0) {
-      a.part_m[base + g] = m[j];
-      a.part_s[base + g] = l[j];
+  for (int g = 0; g < GM; ++g) {
+    if (sub == 0) {
+      sm_m[grp * GM + g] = m[g];
+      sm_s[grp * GM + g] = s[g];
+    }
+#pragma unroll
+    for (int v = 0; v < NVM; ++v) {
+      if (v >= nv || own + L * v >= VR) break;
+#pragma unroll
+      for (int e = 0; e < LV; ++e)
+        sm_acc[(grp * GM + g) * DS + (sub + L * v) * LV + e] = acc[g][v][e];
     }
   }
-  if (a.acc_smem) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < G * D; i += kThreads)
-      a.part_acc[base * D + i] = acc[i];
-  }
-}
-
-// Merge the splits of each (b, h) and write out[b, h] in the output type:
-// an online merge over chunks of kChunk splits, each chunk's loads issued
-// together (one round trip for up to kChunk splits).
-constexpr int kChunk = 16;
-
-__global__ void __launch_bounds__(kThreads)
-kv_decode_combine_kernel(const Args a) {
-  const float kNegInf = -__int_as_float(0x7f800000);
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int G = a.H / a.Hkv;
-  const int g = h / a.Hkv, kh = h % a.Hkv;
-  const long long first = ((long long)b * a.Hkv + kh) * a.n_splits * G + g;
-  for (int d = threadIdx.x; d < a.D; d += kThreads) {
-    float M = kNegInf, S = 0.f, A = 0.f;
-    for (int j0 = 0; j0 < a.n_splits; j0 += kChunk) {
-      float mj[kChunk], sj[kChunk], aj[kChunk];
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const int j = j0 + u;
-        mj[u] = kNegInf;
-        sj[u] = aj[u] = 0.f;
-        if (j < a.n_splits) {
-          const long long i = first + (long long)j * G;
-          mj[u] = a.part_m[i];
-          sj[u] = a.part_s[i];
-          aj[u] = a.part_acc[i * a.D + d];
-        }
-      }
-      float Mc = M;
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) Mc = fmaxf(Mc, mj[u]);
-      if (Mc == kNegInf) continue;       // no live key so far
-      const float r = M == kNegInf ? 0.f : expf(M - Mc);
-      S *= r;
-      A *= r;
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        const float w = mj[u] == kNegInf ? 0.f : expf(mj[u] - Mc);
-        S = fmaf(sj[u], w, S);
-        A = fmaf(aj[u], w, A);
-      }
-      M = Mc;
+  __syncthreads();
+  const long long base = part_base(a, b, hg, split);
+  for (int i = threadIdx.x; i < G * DS; i += kThreads) {
+    const int g = i / DS, dl = i - g * DS, d = c0 + dl;
+    float M = kNegInf;
+    for (int j = 0; j < n_grp; ++j) M = fmaxf(M, sm_m[j * GM + g]);
+    float S = 0.f, A = 0.f;
+    for (int j = 0; j < n_grp; ++j) {
+      const float mj = sm_m[j * GM + g];
+      const float w = mj == kNegInf ? 0.f : exp2f(mj - M);
+      S = fmaf(sm_s[j * GM + g], w, S);
+      A = fmaf(sm_acc[(j * GM + g) * DS + dl], w, A);
     }
-    store_f32(a.out, ((long long)b * a.H + h) * a.D + d, a.out_dt,
-              A / fmaxf(S, 1e-30f));
+    a.part_acc[(base + g) * D + d] = A;
+    if (d == 0) {
+      a.part_m[base + g] = M * 0.6931471805599453f;     // log2 -> natural
+      a.part_s[base + g] = S;
+    }
   }
 }
 
@@ -1183,27 +1401,34 @@ kv_decode_combine_kernel(const Args a) {
 enum : int { kScalar = 0, kTensorCore = 1, kGeneral = 2 };
 
 // The split kernel that serves (value type, G, D) as a function pointer,
-// its dynamic shared memory, which kernel it is and its template arguments
-// GM and NV (NV: the f32 kernel's vectors a thread) or W (the general
-// kernel's vector bytes); the f32 and general kernels' shared memory
-// depends on D at run time.
+// its dynamic shared memory, which kernel it is and its template
+// arguments; the f32 and general kernels' shared memory depends on D at
+// run time.
 struct Split {
   void (*fn)(Args) = nullptr;
   size_t smem = 0;
   int kind = kScalar;
   int gm = 0;         // most query heads a block of the kernel takes
-  int nv = 0;
+  int nv = 0;         // f32 kernel: NV; general: vectors a thread owns
   int gb = 0;         // query heads a block takes
   int groups = 0;     // head groups a kv head is cut into
   int vec = 0;        // general kernel: bytes a vector load
-  bool acc_smem = false;  // general kernel: accumulators in shared memory
+  int cw = 0;         // tensor-core kernel: warps a tile chain
+  int lt = 0;         // general kernel: most lanes a thread owns
+  int l = 0;          // general kernel: threads a row
+  int slices = 1;     // general kernel: column slices of a row
 };
 
 template <int GM, int NV>
 Split f32_split_gm(int D) {
   const int n_grp = kThreads / (D / (4 * NV));
-  return {kv_decode_split_kernel<GM, NV>,
-          sizeof(float) * (size_t)n_grp * GM * (2 + D), kScalar, GM, NV};
+  Split k;
+  k.fn = kv_decode_split_kernel<GM, NV>;
+  k.smem = sizeof(float) * (size_t)n_grp * GM * (2 + D);
+  k.kind = kScalar;
+  k.gm = GM;
+  k.nv = NV;
+  return k;
 }
 
 Split f32_split(int gb, int D) {
@@ -1215,29 +1440,38 @@ Split f32_split(int gb, int D) {
   return f32_split_gm<16, 1>(D);
 }
 
+template <int VT, int D, int GM, int CW>
+Split tc_make() {
+  Split k;
+  k.fn = kv_decode_tc_kernel<VT, D, GM, CW>;
+  k.smem = tc_smem_bytes<D, GM, CW>();
+  k.kind = kTensorCore;
+  k.gm = GM;
+  k.cw = CW;
+  return k;
+}
+
 template <int VT, int D>
-Split tc_split_d(int G) {
-  if (G <= 8) return {kv_decode_tc_kernel<VT, D, 8>, tc_smem_bytes<D, 8>(),
-                      kTensorCore, 8};
-  return {kv_decode_tc_kernel<VT, D, 16>, tc_smem_bytes<D, 16>(),
-          kTensorCore, 16};
+Split tc_split_d(int gb) {
+  if (gb <= 8) return tc_make<VT, D, 8, 1>();
+  return tc_make<VT, D, 16, 1>();
 }
 
 // Each width the tensor-core kernel is instantiated for, and only those:
 // no D reaches a kernel built for another width.
 template <int VT>
-Split tc_split(int G, int D) {
+Split tc_split(int gb, int D) {
   switch (D) {
-    case 8: return tc_split_d<VT, 8>(G);
-    case 16: return tc_split_d<VT, 16>(G);
-    case 32: return tc_split_d<VT, 32>(G);
-    case 64: return tc_split_d<VT, 64>(G);
-    case 96: return tc_split_d<VT, 96>(G);
-    case 128: return tc_split_d<VT, 128>(G);
-    // groups of at most 8 heads at D = 160 (pick_split): one instantiation
-    case 160: return {kv_decode_tc_kernel<VT, 160, 8>, tc_smem_bytes<160, 8>(),
-                      kTensorCore, 8};
-    case 256: return tc_split_d<VT, 256>(G);
+    case 8: return tc_split_d<VT, 8>(gb);
+    case 16: return tc_split_d<VT, 16>(gb);
+    case 32: return tc_split_d<VT, 32>(gb);
+    case 64: return tc_split_d<VT, 64>(gb);
+    case 96: return tc_split_d<VT, 96>(gb);
+    case 128: return tc_split_d<VT, 128>(gb);
+    // groups of at most 8 heads at D = 160 and 256 (tc_heads): one
+    // instantiation each; two warps a tile chain at 256
+    case 160: return tc_make<VT, 160, 8, 1>();
+    case 256: return tc_make<VT, 256, 8, 2>();
     default: return {};
   }
 }
@@ -1253,6 +1487,10 @@ bool tc_width(int D) {
   }
 }
 
+// Most heads a tensor-core block takes at width D: 16 heads' O fits the
+// registers up to D = 128.
+int tc_heads(int D) { return D >= 160 ? 8 : 16; }
+
 // The scalar f32 kernel's widths: a row of 16, 32, ..., 512 bytes (one
 // vector a thread), or D = 160.
 bool f32_width(int D) {
@@ -1260,27 +1498,52 @@ bool f32_width(int D) {
   return D == 160 || (D % 4 == 0 && L <= 32 && (L & (L - 1)) == 0);
 }
 
-// The general kernel for gb heads a block at width D, its loads W bytes
-// wide: the largest of 16, 8, 4, 2 that divides the row's bytes and the
-// banks' address bits `align` (W is never below the lane: a tensor's
-// lanes are aligned to their size).
-Split general_split(int value_dt, int gb, int D, uintptr_t align) {
-  const int lane_bytes = value_dt == kF32 ? 4 : 2;
-  const unsigned x = static_cast<unsigned>(D * lane_bytes) |
+template <int LB, int W>
+Split gen_make(int lt) {
+  Split k;
+  k.fn = lt == kGenLanesSmall ? kv_decode_general_kernel<LB, W, kGenLanesSmall>
+                              : kv_decode_general_kernel<LB, W, kGenLanesLarge>;
+  return k;
+}
+
+// The general kernel at width D, its loads W bytes wide: the largest of
+// 16, 8, 4, 2 that divides the row's bytes and the banks' address bits
+// `align` (W is never below the lane: a tensor's lanes are aligned to
+// their size); the small register tiling where a row is at most 32 x 8
+// lanes, else the large one, whose blocks take a row wider than 32 x 64
+// lanes in column slices of about equal width (each sums the whole row's
+// scores and keeps its slice's accumulators).
+Split general_split(int value_dt, int D, uintptr_t align) {
+  const int lb = value_dt == kF32 ? 4 : 2;
+  const unsigned x = static_cast<unsigned>(D * lb) |
                      static_cast<unsigned>(align & 15u) | 16u;
   const int W = static_cast<int>(x & (~x + 1u));
-  if (W < lane_bytes) return {};
-  Split k;
-  k.fn = W == 16  ? kv_decode_general_kernel<16>
-         : W == 8 ? kv_decode_general_kernel<8>
-         : W == 4 ? kv_decode_general_kernel<4>
-                  : kv_decode_general_kernel<2>;
+  if (W < lb) return {};
+  const int lv = W / lb, vr = D / lv;
+  const int lt =
+      vr <= 32 * (kGenLanesSmall / lv) ? kGenLanesSmall : kGenLanesLarge;
+  const int nvm = lt / lv;
+  const int slices = (vr + 32 * nvm - 1) / (32 * nvm);
+  const int per = (vr + slices - 1) / slices;   // vectors a slice
+  int L = 1;
+  while (L * nvm < per) L <<= 1;
+  Split k = lb == 4 ? (W == 16  ? gen_make<4, 16>(lt)
+                       : W == 8 ? gen_make<4, 8>(lt) : gen_make<4, 4>(lt))
+                    : (W == 16  ? gen_make<2, 16>(lt)
+                       : W == 8 ? gen_make<2, 8>(lt)
+                       : W == 4 ? gen_make<2, 4>(lt) : gen_make<2, 2>(lt));
   k.kind = kGeneral;
-  k.gm = kGenHeads;
+  k.gm = gen_heads(lt);
   k.vec = W;
-  const size_t acc = sizeof(float) * (size_t)gb * D;
-  k.acc_smem = acc <= kGenAccSmem;
-  k.smem = sizeof(float) * gen_fixed_floats(gb) + (k.acc_smem ? acc : 0);
+  k.lt = lt;
+  k.l = L;
+  k.nv = (per + L - 1) / L;
+  k.slices = slices;
+  const size_t ring = gen_async(W, lt)
+                          ? (size_t)kGenStages * 4 * lt * lb * kThreads : 0;
+  const int ds = D < L * k.nv * lv ? D : L * k.nv * lv;  // columns a slice
+  const size_t merge = sizeof(float) * (size_t)(kThreads / L) * k.gm * (2 + ds);
+  k.smem = ring > merge ? ring : merge;
   return k;
 }
 
@@ -1296,14 +1559,18 @@ Split pick_split(int value_dt, int G, int D, uintptr_t align) {
   const bool tc = value_dt != kF32 && tc_width(D);
   const bool scalar = value_dt == kF32 && f32_width(D);
   if ((tc || scalar) && align % 16 != 0) return {};
-  const int gmax = D == 160 && (tc || scalar)
-                       ? (value_dt == kF32 ? 2 : 8) : 16;
+  Split gen;
+  if (!tc && !scalar) {
+    gen = general_split(value_dt, D, align);
+    if (gen.fn == nullptr) return {};
+  }
+  const int gmax = tc ? tc_heads(D)
+                   : scalar ? (D == 160 ? 2 : 16) : gen.gm;
   const int n = (G + gmax - 1) / gmax;
   const int gb = (G + n - 1) / n;
   Split k = tc ? (value_dt == kBF16 ? tc_split<kBF16>(gb, D)
                                     : tc_split<kF16>(gb, D))
-            : scalar ? f32_split(gb, D)
-                     : general_split(value_dt, gb, D, align);
+            : scalar ? f32_split(gb, D) : gen;
   k.gb = gb;
   k.groups = (G + gb - 1) / gb;
   return k;
@@ -1329,7 +1596,7 @@ bool is_dt(int dt) { return dt == kF32 || dt == kBF16 || dt == kF16; }
 
 }  // namespace
 
-// Launches the split and combine kernels on `stream` and returns
+// Launches the split and merge kernels on `stream` and returns
 // cudaGetLastError() (0: both launches were accepted; cudaErrorInvalidValue
 // for a type or geometry no kernel takes, or banks not 16-byte aligned at
 // a width of the tensor-core or scalar kernel). dtype codes: 0 f32, 1 bf16,
@@ -1339,18 +1606,20 @@ extern "C" int coded_kv_decode(
     const void* q, int q_dt, const void* k_banks, const void* v_banks,
     const void* k_par, const void* v_par, const void* use_parity,
     const void* seq_len, void* part_m, void* part_s, void* part_acc,
-    void* out, int out_dt, int value_dt, int B, int H, int Hkv, int D, int NB,
-    int S, int P, int n_pages, int n_splits, float scale, void* stream) {
+    void* out, int out_dt, int value_dt, int B, int H, int Hkv, int D,
+    int NB, int S, int P, int n_pages, int n_splits, float scale,
+    void* stream) {
   if (!is_dt(q_dt) || !is_dt(out_dt) || !is_dt(value_dt) || B <= 0 ||
       H <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || NB <= 0 || NB % 2 ||
       S <= 0 || P <= 0 || n_pages < 0 || n_pages > NB * S || n_splits <= 0 ||
-      Hkv > 65535 || B > 65535)
+      n_splits > 65535 || Hkv > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(k_banks) | reinterpret_cast<uintptr_t>(v_banks) |
       reinterpret_cast<uintptr_t>(k_par) | reinterpret_cast<uintptr_t>(v_par);
   const Split k = pick_split(value_dt, H / Hkv, D, align);
-  if (k.fn == nullptr || (long long)Hkv * k.groups > 65535)
+  if (k.fn == nullptr || (long long)Hkv * k.groups > 65535 ||
+      (long long)B * k.slices > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q;
@@ -1380,11 +1649,16 @@ extern "C" int coded_kv_decode(
   a.scale = scale;
   a.p_shift = log2_or_neg(P);
   a.nb_shift = log2_or_neg(NB);
-  a.acc_smem = k.acc_smem ? 1 : 0;
+  a.gen_l = k.l;
+  a.gen_nv = k.nv;
+  a.slices = k.slices;
+  if (part_m == nullptr || part_s == nullptr || part_acc == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = allow_smem(k);
   if (err != 0) return err;
-  k.fn<<<dim3(n_splits, Hkv * k.groups, B), kThreads, k.smem, s>>>(a);
+  k.fn<<<dim3(n_splits, Hkv * k.groups, B * k.slices), kThreads, k.smem,
+         s>>>(a);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   kv_decode_combine_kernel<<<dim3(H, B), kThreads, 0, s>>>(a);
@@ -1392,13 +1666,17 @@ extern "C" int coded_kv_decode(
 }
 
 // The split kernel that serves (value_dt, H / Hkv, D) over 16-byte aligned
-// banks, as eight ints in `info`: how many of its blocks fit one SM of the
+// banks, as eleven ints in `info`: how many of its blocks fit one SM of the
 // current card, its dynamic shared memory in bytes, which kernel it is
 // (0 the scalar f32 one, 1 the tensor-core one, 2 the general one), how
 // many head groups a kv head is cut into (the grid has groups x Hkv rows),
-// the query heads a block takes, the kernel's GM, the f32 kernel's NV (0
-// for the others) and the general kernel's vector bytes W (0 for the
-// others). Returns a CUDA error code (cudaErrorInvalidValue for G < 1 or
+// the query heads a block takes, the kernel's GM, the f32 kernel's NV or
+// the general kernel's vectors a thread (0 for the tensor-core one), the
+// general kernel's vector bytes W, the tensor-core kernel's warps a tile
+// chain CW and the general kernel's most lanes a thread LT (0 where they
+// do not apply), and the column slices a row is cut into (1 but for the
+// general kernel's rows wider than 32 x 64 lanes; the grid's z is B x
+// slices). Returns a CUDA error code (cudaErrorInvalidValue for G < 1 or
 // D < 1).
 extern "C" int coded_kv_decode_occupancy(int value_dt, int H, int Hkv, int D,
                                          int* info) {
@@ -1413,6 +1691,9 @@ extern "C" int coded_kv_decode_occupancy(int value_dt, int H, int Hkv, int D,
   info[5] = k.gm;
   info[6] = k.nv;
   info[7] = k.vec;
+  info[8] = k.cw;
+  info[9] = k.lt;
+  info[10] = k.slices;
   const int err = allow_smem(k);
   if (err != 0) return err;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(

@@ -42,8 +42,13 @@ class Occupancy(NamedTuple):
     groups: int        # head groups a kv head's query heads are cut into
     gb: int            # query heads a block takes
     gm: int            # template argument GM: most heads a block can take
-    nv: int            # template argument NV of the f32 kernel (else 0)
+    nv: int            # the f32 kernel's NV; the general one's vectors a
+                       # thread (else 0)
     vec: int           # the general kernel's vector bytes W (else 0)
+    cw: int            # the tensor-core kernel's warps a tile chain (else 0)
+    lt: int            # the general kernel's most lanes a thread (else 0)
+    slices: int        # column slices a row is cut into (1 but for the
+                       # general kernel past 2,048 lanes a row)
 
 
 # the Occupancy of (card, value dtype, H, Hkv, D)
@@ -144,7 +149,7 @@ def decode_occupancy(value_dtype: torch.dtype, h: int, hkv: int, d: int,
     for bf16/f16 lanes at its widths, the scalar one for f32 lanes at its
     widths, the general one for every other width): its blocks per SM of
     ``device`` (CUDA's occupancy calculator), shared memory, head groups
-    (one block per group) and template arguments."""
+    (one block per group), column slices and template arguments."""
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     key = (idx, value_dtype, h, hkv, d)
@@ -165,15 +170,27 @@ def decode_occupancy(value_dtype: torch.dtype, h: int, hkv: int, d: int,
 
 def decode_splits(b: int, rows: int, n_pages: int, n_sms: int,
                   blocks_per_sm: int) -> int:
-    """Page ranges per (sequence, grid row): as many as fit one wave of
-    ``n_sms * blocks_per_sm`` blocks (at least one), at least one page
-    each, no empty range. ``rows`` is Hkv times the head groups."""
+    """Page ranges per (sequence, grid row), chosen by the makespan: the
+    count ``ns`` in 1..n_pages whose grid of ``b * rows * ns`` blocks takes
+    the least waves x (pages a range + 1), a wave being ``n_sms *
+    blocks_per_sm`` blocks (occupancy 0 counts as 1) and a block's fixed
+    cost (its prologue, its partial and the merge's read of it) weighing
+    as one page; ties go to the fewest ranges. Only counts that leave no
+    range empty are taken (each range has ceil(n_pages / ns) pages, the
+    last one what is left). ``rows`` is Hkv times the head groups times
+    the column slices."""
     if n_pages == 0:
         return 1
-    wave = n_sms * max(blocks_per_sm, 1)
-    ns = min(n_pages, max(1, wave // max(b * rows, 1)))
-    per = -(-n_pages // ns)
-    return -(-n_pages // per)
+    slots = n_sms * max(blocks_per_sm, 1)
+    best = None
+    for ns in range(1, n_pages + 1):
+        per = -(-n_pages // ns)
+        if -(-n_pages // per) != ns:           # a range would be empty
+            continue
+        cost = -(-(b * rows * ns) // slots) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, ns)
+    return best[1]
 
 
 def coded_kv_decode_cuda(
@@ -191,10 +208,11 @@ def coded_kv_decode_cuda(
     head width D >= 1. bf16 and f16 lanes at D = 8, 16, 32, 64, 96, 128,
     160 or 256 run the tensor-core split kernel, f32 lanes at a row of 16,
     32, ..., 512 bytes or D = 160 the scalar one (the source's note says
-    why), every other width in any lane type the general one; all three
-    are hand-written. The first two need 16-byte aligned banks and
-    parity, the general one lane-aligned ones. Any number of query heads
-    per kv head: they are cut into head groups."""
+    why), every other width in any lane type the general one; all are
+    hand-written, and a merge kernel after the split kernel merges its
+    page ranges (``decode_splits``). The first two need 16-byte aligned
+    banks and parity, the general one lane-aligned ones. Any number of
+    query heads per kv head: they are cut into head groups."""
     global decode_launches
     fn = "coded_kv_decode_cuda"
     if value_dtype not in _LANES_OF:
@@ -235,10 +253,9 @@ def coded_kv_decode_cuda(
             t.data_ptr() % 16 for t in (k_banks, v_banks, k_par, v_par)):
         raise ValueError(f"{fn}: banks and parity must be 16-byte aligned "
                          f"for the {occ.kind} kernel at D = {d}")
-    ns = decode_splits(
-        b, hkv * occ.groups, n_pages,
-        torch.cuda.get_device_properties(q.device).multi_processor_count,
-        occ.blocks)
+    rows = hkv * occ.groups * occ.slices
+    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    ns = decode_splits(b, rows, n_pages, n_sms, occ.blocks)
     g = h // hkv
     f32 = dict(dtype=torch.float32, device=q.device)
     part_m = torch.empty((b, hkv, ns, g), **f32)

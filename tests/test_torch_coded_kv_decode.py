@@ -122,6 +122,14 @@ CASES = {
     "f32_d256_g16": ("float32", False, 3, 64, 16, 1, 256, 4, 8, 0),
     "f16_d200": ("float16", False, 3, 128, 8, 2, 200, 4, 8, 0),
     "bf16_d13": ("bfloat16", False, 3, 64, 4, 2, 13, 4, 8, 0),
+    # reduced forms of the shapes the card's kernels were redesigned for:
+    # recurrentgemma-9b's D = 256 at G = 16 (two head groups of 8), MHA at
+    # phi-3-vision's D = 96, granite-20b's G = 48 at D = 128, and D = 100
+    # (the general kernel's small register tiling)
+    "bf16_d256_g16": ("bfloat16", False, 3, 64, 16, 1, 256, 4, 8, 0),
+    "bf16_d96_g1": ("bfloat16", False, 3, 128, 2, 2, 96, 4, 8, 0),
+    "bf16_d128_g48": ("bfloat16", False, 3, 64, 48, 1, 128, 4, 8, 0),
+    "bf16_d100": ("bfloat16", False, 3, 128, 8, 2, 100, 8, 8, 0),
 }
 
 
@@ -353,7 +361,7 @@ def test_tensor_core_precision_plan_meets_the_tolerances(case):
                            got32.to(q.dtype).view(torch.int16))
 
 
-# b, hkv, n_pages, SMs, blocks per SM -> splits
+# b, rows (Hkv x head groups), n_pages, SMs, blocks per SM -> splits
 SPLITS = {
     "serving_width": ((8, 2, 32, 132, 2), 16),
     "large": ((16, 2, 256, 132, 2), 8),
@@ -365,17 +373,65 @@ SPLITS = {
     "unknown_occupancy_counts_as_one": ((1, 1, 500, 132, 0), 125),
     # granite-20b's serving width: Hkv 1 x 3 head groups of 16 heads
     "head_groups": ((8, 3, 32, 132, 2), 11),
+    # phi-3-vision-4.2b (MHA, 32 kv heads, 3 blocks an SM): 256 rows on
+    # 396 slots take 3 ranges in 2 waves (cost 24), not 1 range in one
+    # wave with 35% of the slots empty (33) nor 32 one-page ranges (42)
+    "phi_mha": ((8, 32, 32, 132, 3), 3),
+    # recurrentgemma-9b: one kv head in two head groups of 8 at D = 256,
+    # two blocks an SM; its f32 lanes on the general kernel likewise
+    "recurrentgemma_two_groups": ((8, 2, 32, 132, 2), 16),
+    "recurrentgemma_one_row": ((8, 1, 32, 132, 2), 32),
+    # olmoe-1b-7b (MHA, 16 kv heads)
+    "olmoe_mha": ((8, 16, 32, 132, 2), 2),
 }
+
+
+def _cost(b, rows, n_pages, sms, per_sm, ns):
+    """waves x (pages a range + 1) of ``ns`` ranges, None where one would
+    be empty."""
+    per = -(-n_pages // ns)
+    if -(-n_pages // per) != ns:
+        return None
+    return -(-(b * rows * ns) // (sms * max(per_sm, 1))) * (per + 1)
+
+
+def _check_splits(b, rows, n_pages, sms, per_sm, ns):
+    if n_pages == 0:
+        assert ns == 1
+        return
+    per = -(-n_pages // ns)
+    assert 1 <= ns <= n_pages
+    assert (ns - 1) * per < n_pages <= ns * per         # no empty range
+    costs = {k: _cost(b, rows, n_pages, sms, per_sm, k)
+             for k in range(1, n_pages + 1)}
+    best = min(c for c in costs.values() if c is not None)
+    assert costs[ns] == best                            # the least makespan
+    assert all(costs[k] is None or costs[k] > best for k in range(1, ns))
 
 
 @pytest.mark.parametrize("case", sorted(SPLITS))
 def test_decode_splits_fill_one_wave(case):
-    """Page ranges per (sequence, grid row): one wave of SMs x blocks per
-    SM over B x Hkv x head groups, at least one page each, none empty."""
-    (b, hkv, n_pages, sms, per_sm), want = SPLITS[case]
-    ns = decode_splits(b, hkv, n_pages, sms, per_sm)
+    """Page ranges per (sequence, grid row), by the makespan: the least
+    waves x (pages a range + 1) over 1..n_pages, a wave being SMs x blocks
+    per SM, the fewest ranges on a tie, at least one page each, none
+    empty."""
+    (b, rows, n_pages, sms, per_sm), want = SPLITS[case]
+    ns = decode_splits(b, rows, n_pages, sms, per_sm)
     assert ns == want
-    if n_pages:
-        per = -(-n_pages // ns)
-        assert (ns - 1) * per < n_pages <= ns * per     # no empty range
-        assert ns * b * hkv <= max(sms * max(per_sm, 1), b * hkv)
+    _check_splits(b, rows, n_pages, sms, per_sm, ns)
+
+
+from hypothesis import given, settings, strategies as st  # noqa: E402
+
+
+@settings(max_examples=300, deadline=None)
+@given(b=st.integers(1, 64), rows=st.integers(1, 64),
+       n_pages=st.integers(0, 300), sms=st.integers(1, 132),
+       per_sm=st.integers(0, 8))
+def test_decode_splits_least_makespan_property(b, rows, n_pages, sms,
+                                               per_sm):
+    """For any grid and card: the chosen count has the least waves x
+    (pages a range + 1) of every count in 1..n_pages that leaves no range
+    empty, no fewer ranges reach it, and no range is empty."""
+    ns = decode_splits(b, rows, n_pages, sms, per_sm)
+    _check_splits(b, rows, n_pages, sms, per_sm, ns)

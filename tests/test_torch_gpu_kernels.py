@@ -8,6 +8,8 @@ Every test here needs an NVIDIA card with ``nvcc``; without one it skips
 (``--noconftest``: the repo's conftest imports JAX, which the card's
 machine does not have; nothing here needs it.)
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -322,14 +324,37 @@ DECODE_CASES = {
     "f32_d40": ("f32", "f32", 3, 128, 8, 2, 40, 4, 8, 0, .5, False),
     "bf16_d100_g48_f32_q_fewer_pages": ("bf16", "f32", 2, 128, 48, 1, 100,
                                         4, 8, 3, .5, False),
-    # 16 heads x 1,600 lanes of f32 accumulators (100 KB) pass the general
-    # kernel's 96 KB of shared memory for them: they live in the block's
-    # rows of the partials in device memory. Held in f32 (an f32 q): at
-    # this width a bf16 q's output near zero rounds up to 4 ulps from the
-    # f64 value (the plain version's 1), from f32 summation noise of
+    # 16 heads x 1,600 lanes: the general kernel's large register tiling
+    # (one head a block, up to 64 lanes a thread). Held in f32 (an f32 q):
+    # at this width a bf16 q's output near zero rounds up to 4 ulps from
+    # the f64 value (the plain version's 1), from f32 summation noise of
     # ~1e-6 against bf16 ulps of ~1e-7 there
     "bf16_d1600_g16_f32_q_acc_in_device_memory": (
         "bf16", "f32", 2, 64, 16, 1, 1600, 4, 8, 0, .5, False),
+    # recurrentgemma-9b's local attention (D = 256, 16 heads on one kv
+    # head): two head groups of 8, two warps a tile chain; 12 heads as two
+    # groups of 6; an f32 q on f16 lanes over stale parity
+    "bf16_d256_g16_two_groups": ("bf16", "bf16", 4, 256, 16, 1, 256, 8, 16,
+                                 0, .4, False),
+    "bf16_d256_g12_two_groups": ("bf16", "bf16", 2, 128, 12, 1, 256, 4, 8,
+                                 0, .5, False),
+    "f16_d256_g16_f32_q_stale": ("f16", "f32", 2, 128, 16, 1, 256, 4, 8, 0,
+                                 .5, True),
+    # hundreds of page ranges, merged by the merge kernel in chunks of 16:
+    # the tensor-core, scalar and general kernels
+    "bf16_d128_many_splits": ("bf16", "bf16", 3, 4096, 8, 1, 128, 8, 8, 0,
+                              .4, False),
+    "f32_d64_many_splits": ("f32", "f32", 3, 2048, 4, 1, 64, 8, 8, 0, .4,
+                            False),
+    "bf16_d100_many_splits": ("bf16", "bf16", 3, 2048, 8, 1, 100, 8, 8, 0,
+                              .4, False),
+    # rows wider than 2,048 lanes: the general kernel's column slices (2 at
+    # D = 2,304 bf16, 3 at D = 4,100 f32), each slice's block summing the
+    # whole row's scores; an f32 q as at D = 1,600
+    "bf16_d2304_f32_q_column_slices": ("bf16", "f32", 2, 64, 4, 1, 2304, 4,
+                                       8, 0, .5, False),
+    "f32_d4100_column_slices": ("f32", "f32", 2, 64, 4, 2, 4100, 4, 8, 0,
+                                .5, False),
 }
 
 
@@ -397,52 +422,93 @@ def _shifted(t):
     return out
 
 
-@pytest.mark.parametrize("value,d", [("bf16", 100), ("f16", 13),
-                                     ("f32", 40)])
+@pytest.mark.parametrize("value,q_dtype,d", [
+    ("bf16", "bf16", 100), ("f16", "f16", 13), ("f32", "f32", 40),
+    ("f16", "f16", 200), ("bf16", "f32", 1600), ("bf16", "f32", 2304)])
 def test_coded_kv_decode_cuda_general_kernel_on_unaligned_banks(cuda, value,
-                                                                d):
+                                                                q_dtype, d):
     """Banks that start one lane past a 16-byte boundary: the general
-    kernel takes them with vectors of one lane and equals the plain
-    version (and its own result on aligned banks, bit for bit)."""
+    kernel takes them with vectors of one lane (loaded straight into
+    registers; D = 1,600 on the large register tiling and D = 2,304 in
+    two column slices of it, with an f32 q as in ``DECODE_CASES``). Its
+    result equals its own on aligned banks bit for bit where the vector
+    width is the same there (D = 13: single lanes either way); otherwise
+    the f32 results agree within rtol = atol = 1e-5 (wider vectors share
+    a row's lanes out to the threads in another order, so the sums run in
+    another order). The f32 result (an f32 q of the same values) is
+    within rtol = atol = 1e-5 of the plain version's, and a 16-bit output
+    is that result rounded, bit for bit, and within one ulp of the f64
+    value. A 16-bit output is not held to one ulp of the plain version's
+    own: near zero that one rounds two ulps from the f64 value at f16
+    D = 200 on these inputs (seed 13)."""
     q, kb, vb, kp, vp, up, seq, vd = _decode_inputs(
-        cuda, 13, value=value, q_dtype=value, b=3, t=128, h=8, hkv=2, d=d,
+        cuda, 13, value=value, q_dtype=q_dtype, b=3, t=128, h=8, hkv=2, d=d,
         nb=4, page=8)
     occ = ckd_kernel.decode_occupancy(vd, 8, 2, d, cuda)
     assert occ.kind == "general"
+    assert occ.slices == (2 if d == 2304 else 1)
     banks = [_shifted(x) for x in (kb, vb, kp, vp)]
+    q32 = q.float()
     out = ckd_kernel.coded_kv_decode_cuda(q, *banks, up, seq, vd)
     aligned = ckd_kernel.coded_kv_decode_cuda(q, kb, vb, kp, vp, up, seq, vd)
+    out32 = ckd_kernel.coded_kv_decode_cuda(q32, *banks, up, seq, vd)
+    aligned32 = ckd_kernel.coded_kv_decode_cuda(q32, kb, vb, kp, vp, up, seq,
+                                                vd)
     torch.cuda.synchronize()
-    assert torch.equal(out, aligned)
-    ref = coded_kv_decode_plain(q, kb, vb, kp, vp, up, seq, vd)
-    if vd == torch.float32:
-        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
-    else:
-        assert int(_ulps(out, ref).max()) <= 1
+    if occ.vec == kb.element_size():
+        assert torch.equal(out, aligned)
+        assert torch.equal(out32, aligned32)
+    torch.testing.assert_close(out32, aligned32, rtol=1e-5, atol=1e-5)
+    ref32 = coded_kv_decode_plain(q32, kb, vb, kp, vp, up, seq, vd)
+    torch.testing.assert_close(out32, ref32, rtol=1e-5, atol=1e-5)
+    if q.dtype != torch.float32:
+        assert torch.equal(out, out32.to(q.dtype))
+        want = _decode_f64(q, kb, vb, kp, vp, up, seq, vd).to(q.dtype)
+        assert int(_ulps(out, want).max()) <= 1
     assert not out[seq == 0].any(), "seq_len 0 must read exact zeros"
 
 
-@pytest.mark.parametrize("value,d,kind", [
-    ("bf16", 96, "tc"), ("f16", 96, "tc"), ("bf16", 256, "tc"),
-    ("bf16", 100, "general"), ("bf16", 13, "general"), ("f16", 200,
-                                                         "general"),
-    ("f32", 128, "scalar"), ("f32", 160, "scalar"), ("f32", 256, "general"),
-    ("f32", 40, "general"), ("bf16", 1600, "general")])
-def test_coded_kv_decode_dispatch_by_width(cuda, value, d, kind):
-    """Which split kernel takes a width: the tensor-core one at its eight
-    widths in 16-bit lanes, the scalar one at its f32 widths, the general
-    one for the rest (its vectors the widest that divide the row)."""
-    occ = ckd_kernel.decode_occupancy(_FLOAT[value], 16, 1, d, cuda)
+@pytest.mark.parametrize("value,d,kind,h", [
+    ("bf16", 96, "tc", 16), ("f16", 96, "tc", 16), ("bf16", 256, "tc", 16),
+    ("bf16", 256, "tc", 1), ("bf16", 256, "tc", 8), ("f16", 256, "tc", 12),
+    ("bf16", 256, "tc", 48), ("bf16", 128, "tc", 48),
+    ("bf16", 100, "general", 16), ("bf16", 13, "general", 16),
+    ("f16", 200, "general", 16), ("f32", 128, "scalar", 16),
+    ("f32", 160, "scalar", 16), ("f32", 256, "general", 16),
+    ("f32", 40, "general", 16), ("bf16", 1600, "general", 16),
+    ("bf16", 2304, "general", 16), ("f32", 4100, "general", 2)])
+def test_coded_kv_decode_dispatch_by_width(cuda, value, d, kind, h):
+    """Which split kernel takes a width and how it cuts h query heads on
+    one kv head: the tensor-core one at its eight widths in 16-bit lanes
+    (head groups of up to 16, 8 at D = 160 and 256, where two warps share
+    a tile chain and two blocks fit an SM), the scalar one at its f32
+    widths, the general one for the rest (its vectors the widest that
+    divide the row; 8 lanes a thread and 8 heads a block up to 256 lanes,
+    64 and one head beyond, in column slices of at most 32 x 64 lanes past
+    2,048)."""
+    occ = ckd_kernel.decode_occupancy(_FLOAT[value], h, 1, d, cuda)
     assert occ.kind == kind and occ.blocks >= 1
-    assert occ.groups * occ.gb >= 16 and occ.gb <= occ.gm
+    assert occ.gb <= occ.gm and occ.groups == -(-h // occ.gm)
+    assert occ.groups * occ.gb >= h > (occ.groups - 1) * occ.gb
+    if kind == "tc":
+        assert occ.gm == (8 if d >= 160 else 16 if h > 8 else 8)
+        assert occ.cw == (2 if d == 256 else 1)
+        if d == 256:
+            assert occ.blocks >= 2
+    else:
+        assert occ.cw == 0
     if kind == "general":
         row = d * torch.tensor([], dtype=_FLOAT[value]).element_size()
-        assert occ.vec == min(16, row & -row) and occ.nv == 0
-        # the accumulators in shared memory up to 96 KB, else not
-        acc = 4 * occ.gb * d
-        assert (occ.smem > acc) == (acc <= 96 * 1024)
+        assert occ.vec == min(16, row & -row)
+        assert occ.lt == (8 if d <= 256 else 64)
+        assert occ.gm == (8 if d <= 256 else 1)
+        lanes = occ.vec // torch.tensor([], dtype=_FLOAT[value]) \
+            .element_size()
+        assert occ.slices == -(-d // 2048)
+        assert occ.slices * 32 * occ.nv * lanes >= d
+        assert occ.nv * lanes <= occ.lt
     else:
-        assert occ.vec == 0
+        assert occ.vec == 0 and occ.lt == 0 and occ.slices == 1
 
 
 @pytest.mark.parametrize("h,d", [(16, 128), (32, 64)])
@@ -505,6 +571,54 @@ def test_coded_kv_decode_cuda_f16_g12_within_one_ulp_of_f64(cuda):
     want = _decode_f64(q, kb, vb, kp, vp, up, seq, vd)
     assert int(_ulps(out, want.to(torch.float16)).max()) <= 1
     assert not out[seq == 0].any(), "seq_len 0 must read exact zeros"
+
+
+@pytest.mark.parametrize("case", ["bf16_serving_g8", "bf16_d96_g1",
+                                  "bf16_d256_g16_two_groups",
+                                  "bf16_d128_many_splits",
+                                  "f32_d64_many_splits", "f32_d256_g16",
+                                  "bf16_d100_many_splits",
+                                  "bf16_d2304_f32_q_column_slices"])
+def test_coded_kv_decode_cuda_kernels_of_a_call(cuda, case, tmp_path):
+    """A call launches the split kernel and the merge kernel after it, and
+    nothing else: in a torch.profiler trace of the second of two calls,
+    two launch calls on the host and at most two kernel records (a trace
+    can drop one), each of them one of those kernels; the two calls agree
+    bit for bit."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+
+    value, qd, b, t, h, hkv, d, nb, page, cut, p_deg, stale = \
+        DECODE_CASES[case]
+    q, kb, vb, kp, vp, up, seq, vd = _decode_inputs(
+        cuda, 11, value=value, q_dtype=qd, b=b, t=t, h=h, hkv=hkv, d=d,
+        nb=nb, page=page, cut=cut, p_deg=p_deg, stale=stale)
+    occ = ckd_kernel.decode_occupancy(vd, h, hkv, d, cuda)
+    ns = ckd_kernel.decode_splits(
+        b, hkv * occ.groups * occ.slices, up.shape[1],
+        torch.cuda.get_device_properties(cuda).multi_processor_count,
+        occ.blocks)
+    if "many_splits" in case:
+        assert ns > 1
+    first = ckd_kernel.coded_kv_decode_cuda(q, kb, vb, kp, vp, up, seq, vd)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = ckd_kernel.coded_kv_decode_cuda(q, kb, vb, kp, vp, up, seq,
+                                                vd)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    launches = [e["name"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "LaunchKernel" in e.get("name", "")]
+    assert len(launches) == 2, launches
+    assert len(kernels) <= 2, kernels
+    assert all(re.search(r"kv_decode_(tc|split|general|combine)_kernel", k)
+               for k in kernels), kernels
+    assert torch.equal(again, first)
 
 
 def test_coded_kv_decode_cuda_empty_batch_and_plan(cuda):

@@ -16,8 +16,10 @@ import importlib
 import json
 import os
 
+import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core.system import SimResult as JSimResult
 from repro.sim import ramulator as jram
@@ -38,6 +40,23 @@ SMALL = dict(scheme="scheme_i", n_rows=64, length=32, n_cores=4, n_banks=8,
              alpha=0.25, r=0.125, select_period=16)
 SPEC = dict(n_cores=4, length=32, n_banks=8, n_rows=64, write_frac=0.3,
             seed=1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _fast_jax_compiles():
+    """JAX compiles this module's programs at XLA's backend optimization
+    level 0 (``jax_disable_most_optimizations``; the simulator is integer
+    arithmetic, so the rows do not depend on it) and torch runs on one
+    intra-op thread, as in ``tests/test_torch_paper_tables.py``: a worker
+    of the 6-worker run died inside the Fig 18 case's JAX compiles. Both
+    settings are restored after the module's tests."""
+    saved = (jax.config.read("jax_disable_most_optimizations"),
+             torch.get_num_threads())
+    jax.config.update("jax_disable_most_optimizations", True)
+    torch.set_num_threads(1)
+    yield
+    jax.config.update("jax_disable_most_optimizations", saved[0])
+    torch.set_num_threads(saved[1])
 
 
 def _sweep_points():
